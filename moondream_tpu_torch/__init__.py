@@ -1,0 +1,20 @@
+"""moondream_tpu_torch: the PyTorch + CUDA port of moondream_tpu for one
+NVIDIA H100, beside the JAX package it is tested against.
+
+This slice runs the caption path: host overlap crops, the ViT, stitch and
+projection, the [BOS, image] prefill, the prompt prefill, greedy or top-p
+decode and streaming detokenisation. Attention runs in two hand-written
+CUDA kernels (`csrc/`) on the card and in their plain PyTorch versions on
+the CPU. The package never imports jax.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # keep `import moondream_tpu_torch` light; the model pulls in torch
+    if name in ("MoondreamModel", "EncodedImage"):
+        from .models import moondream
+
+        return getattr(moondream, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

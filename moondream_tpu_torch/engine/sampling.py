@@ -1,0 +1,39 @@
+"""Greedy and temperature + nucleus (top-p) sampling on the device
+(moondream_tpu/engine/sampling.py).
+
+Sort descending, keep tokens while the probability mass BEFORE each token is
+<= top_p, renormalise, draw in sorted space and map back through the sort
+order. Draws come from an explicit `torch.Generator`; no host sync.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def apply_top_p_mask(probs_desc: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Filter an already-descending-sorted probability vector."""
+    csum = torch.cumsum(probs_desc, dim=-1)
+    keep = (csum - probs_desc) <= top_p
+    filtered = torch.where(keep, probs_desc, torch.zeros_like(probs_desc))
+    return filtered / filtered.sum(dim=-1, keepdim=True)
+
+
+def sample_token(
+    logits: torch.Tensor,
+    generator: torch.Generator,
+    temperature: float,
+    top_p: float,
+) -> torch.Tensor:
+    """One token id (0-d int64 tensor on logits' device) from (V,) logits.
+    temperature <= 0 is argmax (first maximum on ties)."""
+    logits = logits.float()
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
+    probs_desc, order = torch.sort(probs, dim=-1, descending=True)
+    filtered = apply_top_p_mask(probs_desc, top_p)
+    cdf = torch.cumsum(filtered, dim=-1)
+    u = torch.rand((1,), generator=generator, device=logits.device) * cdf[-1]
+    idx = torch.searchsorted(cdf, u).clamp_(max=cdf.shape[0] - 1)
+    return order[idx[0]]

@@ -1,0 +1,96 @@
+"""Where the time of the 2B caption path goes on one CUDA card.
+
+    python3 -m moondream_tpu_torch.profile_caption [--tokens 64] [--top 12]
+
+Builds MOONDREAM_2B with seeded random weights on the card and runs the path
+once to warm it. Then it profiles, with torch.profiler, one `encode_image` of
+a seeded 756x1008 image (13 crops) and one greedy `caption` of up to
+`--tokens` tokens from that encoding. For each it prints the wall time (host
+clock, after synchronising; the profiler adds host time), the device's busy
+time (the union of its kernel and copy intervals), the idle share
+1 - busy / wall, and the device kernels that took the most time, with their
+launch counts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from .config import MOONDREAM_2B
+from .models.moondream import MoondreamModel
+from .tokenizer import ByteTokenizer
+
+
+def _busy_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def report(label: str, fn, top: int) -> None:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, per_kernel = [], defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        spans.append((s, t))
+        per_kernel[e.name][0] += t - s
+        per_kernel[e.name][1] += 1
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device events")
+    busy_ms = _busy_us(spans) / 1e3
+    print(f"== {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}, device launches {len(spans)}")
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    for name, (us, n) in ranked[:top]:
+        print(f"  {us / 1e3:9.2f} ms  n={n:6d}  {name[:100]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_caption: needs a CUDA card")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip())
+
+    model = MoondreamModel(
+        MOONDREAM_2B, tokenizer=ByteTokenizer(), dtype=torch.bfloat16, seed=0,
+        device="cuda",
+    )
+    img = np.random.default_rng(0).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
+    greedy = {"temperature": 0.0, "max_tokens": args.tokens}
+    enc = model.encode_image(img)
+    model.caption(enc, "normal", settings=greedy)  # warm
+
+    report("encode_image", lambda: model.encode_image(img), args.top)
+    report(f"caption (greedy, <= {args.tokens} tokens)",
+           lambda: model.caption(enc, "normal", settings=greedy), args.top)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,201 @@
+"""Attention of the port against the JAX package's Pallas kernels.
+
+On the CPU: the plain versions of kernel A (`flash_attention_plain`) and
+kernel B (`decode_attention_cached_plain`) against `flash_attention` and
+`decode_attention_cached` run with interpret=True, on the cases of
+tests/test_attention_kernel.py, fp32 inputs, atol 2e-5 (the same fp32 math
+summed in another order).
+
+Tests marked `cuda` hold the CUDA kernels against the plain versions on the
+card and skip without one. jax is imported inside the CPU tests only, so on
+a machine without jax the card tests run with
+`python -m pytest --noconftest -m cuda tests/test_torch_attention.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from moondream_tpu_torch.ops.attention import (
+    decode_attention_cached,
+    decode_attention_cached_plain,
+    flash_attention,
+    flash_attention_plain,
+)
+
+ATOL = 2e-5
+
+
+def _qkv(seed, b, h, tq, tk, d, scale=0.3):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: (rng.standard_normal(s) * scale).astype(np.float32)
+    return f(b, h, tq, d), f(b, h, tk, d), f(b, h, tk, d)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+# (seed, b, h, tq, tk, d, pos, prefix): tests/test_attention_kernel.py:30-126
+FLASH_CASES = {
+    "vit": (0, 2, 4, 729, 729, 72, 0, 729),
+    "image_prefill": (1, 1, 2, 730, 768, 64, 0, 730),
+    "prompt_after_image": (2, 1, 2, 16, 1024, 64, 730, 730),
+    "prefix_inside_span": (3, 1, 3, 128, 128, 32, 5, 12),
+    "pure_causal": (4, 1, 2, 256, 256, 64, 0, 0),
+    "kvtiled_2048": (5, 1, 2, 2048, 2048, 64, 0, 730),
+    "tiny_vit": (6, 3, 2, 768, 768, 16, 0, 729),  # tiny_test_config ViT
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_plain_matches_pallas(case):
+    import jax.numpy as jnp
+
+    from moondream_tpu.ops.attention import flash_attention as jax_flash
+
+    seed, b, h, tq, tk, d, pos, prefix = FLASH_CASES[case]
+    q, k, v = _qkv(seed, b, h, tq, tk, d)
+    want = np.asarray(
+        jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos, prefix,
+                  interpret=True)
+    )
+    got = flash_attention(*_t(q, k, v), pos, prefix).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def _cache(seed, L, b, h, t, d, pos, garbage_from):
+    rng = np.random.default_rng(seed)
+    k = (rng.standard_normal((L, b, h, t, d)) * 0.3).astype(np.float32)
+    v = (rng.standard_normal((L, b, h, t, d)) * 0.3).astype(np.float32)
+    k[:, :, :, garbage_from:] = 1e4
+    v[:, :, :, garbage_from:] = -1e4
+    return k, v
+
+
+# (tq, layer, pos, prefix, kv_bound)
+DECODE_CASES = [
+    (1, 1, 97, 0, None),
+    (1, 2, 735, 730, 1024),
+    (8, 1, 730, 730, 768),
+    (8, 2, 40, 100, 256),
+]
+
+
+@pytest.mark.parametrize("tq,layer,pos,prefix,kv_bound", DECODE_CASES)
+def test_decode_plain_matches_pallas(tq, layer, pos, prefix, kv_bound):
+    """Plain-layout (L, B, H, T, D) cache, layer > 0, a garbage tail past
+    the span (+-1e4), optionally bounded reads."""
+    import jax.numpy as jnp
+
+    from moondream_tpu.ops.attention import decode_attention_cached as jax_dec
+
+    L, b, h, t, d = 3, 1, 4, 1024, 64
+    k, v = _cache(11, L, b, h, t, d, pos, max(pos + tq, prefix))
+    q = (np.random.default_rng(12).standard_normal((b, h, tq, d)) * 0.3).astype(
+        np.float32
+    )
+    want = np.asarray(
+        jax_dec(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), layer, pos,
+                prefix, kv_bound=kv_bound, interpret=True)
+    )
+    got = decode_attention_cached(*_t(q, k, v), layer, pos, prefix, kv_bound)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_decode_plain_ignores_garbage_tail():
+    L, b, h, t, d, pos, tq = 2, 1, 4, 512, 64, 200, 8
+    dirty = _cache(13, L, b, h, t, d, pos, pos + tq)
+    clean = _cache(13, L, b, h, t, d, pos, t)
+    q = torch.from_numpy(
+        (np.random.default_rng(14).standard_normal((b, h, tq, d)) * 0.3).astype(np.float32)
+    )
+    got = decode_attention_cached(q, *_t(*dirty), 1, pos, 0)
+    want = decode_attention_cached(q, *_t(*clean), 1, pos, 0)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# ------------------------------------------------------------ on the card
+# bf16 inputs; the plain version runs in fp32 on the same values. Errors
+# count relative to the largest |plain| value: rounding the output to bf16
+# alone costs up to 2^-8 (3.9e-3) of it, so 1e-2. chip_smoke.py prints the
+# plain version's own error in bf16 beside each kernel's at the main path's
+# shapes.
+CUDA_REL_TOL = 1e-2
+
+
+def _rel_err(got, want):
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bf16(cuda, *arrays):
+    return [torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain(cuda, case):
+    seed, b, h, tq, tk, d, pos, prefix = FLASH_CASES[case]
+    q, k, v = _bf16(cuda, *_qkv(seed, b, h, tq, tk, d, scale=0.5))
+    got = flash_attention(q, k, v, pos, prefix)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), pos, prefix)
+    assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views(cuda):
+    """q/k/v as head views of one fused (B, T, 3*H*D) projection."""
+    b, t, h, d = 2, 200, 3, 72
+    qkv = torch.randn(b, t, 3 * h * d, device=cuda, dtype=torch.bfloat16)
+    q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, -1))
+    got = flash_attention(q, k, v, 0, 190)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), 0, 190)
+    assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("tq,layer,pos,prefix,kv_bound", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, tq, layer, pos, prefix, kv_bound, d):
+    L, b, h, t = 3, 1, 4, 1024
+    k, v = _bf16(cuda, *_cache(11, L, b, h, t, d, pos, max(pos + tq, prefix)))
+    (q,) = _bf16(cuda, (np.random.default_rng(12).standard_normal((b, h, tq, d)) * 0.5).astype(np.float32))
+    got = decode_attention_cached(q, k, v, layer, pos, prefix, kv_bound)
+    want = decode_attention_cached_plain(
+        q.float(), k.float(), v.float(), layer, pos, prefix, kv_bound
+    )
+    assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,layer,pos,prefix,kv_bound", DECODE_CASES)
+def test_decode_kernel_keeps_the_diagonal(cuda, tq, layer, pos, prefix, kv_bound):
+    """Row i's query is the key at pos + i, scaled so that column carries
+    most of the row's weight: dropping it, or letting in the garbage column
+    after it, moves the output by about max|plain|."""
+    L, b, h, t, d = 3, 1, 4, 1024, 64
+    k, v = _bf16(cuda, *_cache(11, L, b, h, t, d, pos, max(pos + tq, prefix)))
+    q = (k[layer, :, :, pos:pos + tq] * 10).contiguous()
+    got = decode_attention_cached(q, k, v, layer, pos, prefix, kv_bound)
+    want = decode_attention_cached_plain(
+        q.float(), k.float(), v.float(), layer, pos, prefix, kv_bound
+    )
+    assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_fp32(cuda):
+    x = torch.zeros(1, 1, 4, 64, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(x, x, x, 0, 0)
+    cache = torch.zeros(1, 1, 1, 128, 64, device=cuda)
+    with pytest.raises(ValueError):
+        decode_attention_cached(x[:, :, :1], cache, cache, 0, 0, 0)

@@ -1,0 +1,45 @@
+"""The port runs where neither jax nor the JAX package can be imported: in a
+fresh interpreter with `sys.modules["jax"]` and `sys.modules["moondream_tpu"]`
+set to None, import every module of moondream_tpu_torch and run a tiny
+greedy caption on the CPU."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["moondream_tpu"] = None  # and so does the JAX package
+import importlib, pkgutil
+import numpy as np
+import torch
+import moondream_tpu_torch
+for m in pkgutil.walk_packages(moondream_tpu_torch.__path__, "moondream_tpu_torch."):
+    importlib.import_module(m.name)
+from moondream_tpu_torch.config import tiny_test_config
+from moondream_tpu_torch.models.moondream import MoondreamModel
+model = MoondreamModel(tiny_test_config(), dtype=torch.float32, seed=1)
+img = np.random.default_rng(0).integers(0, 255, (300, 500, 3), dtype=np.uint8)
+out = model.caption(img, settings={"temperature": 0, "max_tokens": 4})
+assert isinstance(out["caption"], str)
+assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
+loaded = [n for n, m in sys.modules.items()
+          if m is not None and n.startswith(("jax", "moondream_tpu"))
+          and not n.startswith("moondream_tpu_torch")]
+assert not loaded, loaded
+print("OK", out["caption"])
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
