@@ -3,16 +3,20 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no result line):
-  1. build: nvcc-build both attention kernels from moondream_tpu_torch/csrc
-     and g++-build the native crop library, into moondream_tpu_torch/_build;
+  1. build: nvcc-build the attention kernels (A, and B with its int8 entry)
+     and the W4A16 kernel from moondream_tpu_torch/csrc and g++-build the
+     native crop library, all at once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
-     on the same bf16 inputs, TF32 off) at the main path's shapes, with
-     median times of both;
+     on the same inputs, TF32 off) at the main paths' shapes, with median
+     times of both;
   3. a small reference: the tiny config in bf16 on the card and in bf16 on
      the CPU (plain versions), each against fp32 on the CPU, same weights;
-  4. the main path at MOONDREAM_2B widths with seeded random weights:
-     encode_image and caption, with exact kernel launch counts, repeated
-     greedy ids, streamed == plain, one sampled caption, and timings.
+     dense, then with int4 text blocks and an int8 KV cache;
+  4. the main paths at MOONDREAM_2B widths and depth with seeded random
+     weights: the bf16 model, then the same weights with int4 text blocks
+     and an int8 KV cache. Each: encode_image and caption, with exact
+     kernel launch counts, repeated greedy ids, streamed == plain, one
+     sampled caption, and timings.
 
 Prints the card's name and power limit first, a kernels JSON line second to
 last, and {"ok": true, "device": {...}} last.
@@ -20,6 +24,7 @@ last, and {"ok": true, "device": {...}} last.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -33,8 +38,19 @@ if not torch.cuda.is_available():
 
 from moondream_tpu_torch.config import MOONDREAM_2B, tiny_test_config  # noqa: E402
 from moondream_tpu_torch.kernels import attention as K  # noqa: E402
-from moondream_tpu_torch.kernels.build import build_seconds  # noqa: E402
+from moondream_tpu_torch.kernels import quant as KQ  # noqa: E402
+from moondream_tpu_torch.kernels.build import (  # noqa: E402
+    LAUNCHES,
+    build_parallel,
+    build_seconds,
+    reset_launch_counts,
+)
 from moondream_tpu_torch.models.moondream import MoondreamModel  # noqa: E402
+from moondream_tpu_torch.models.text import (  # noqa: E402
+    dequantize_kv,
+    quantize_kv,
+    quantize_text_params,
+)
 from moondream_tpu_torch.ops.attention import (  # noqa: E402
     decode_attention_cached,
     decode_attention_cached_plain,
@@ -42,6 +58,11 @@ from moondream_tpu_torch.ops.attention import (  # noqa: E402
     flash_attention_plain,
 )
 from moondream_tpu_torch.ops.image_crops import load_native  # noqa: E402
+from moondream_tpu_torch.ops.quant import (  # noqa: E402
+    quantize_weight_torch,
+    quantized_matmul,
+    quantized_matmul_plain,
+)
 from moondream_tpu_torch.tokenizer import ByteTokenizer  # noqa: E402
 from moondream_tpu_torch.utils.streaming import stream_text  # noqa: E402
 from moondream_tpu_torch.weights import build_params, init_params  # noqa: E402
@@ -88,8 +109,31 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: `reps` calls captured in one CUDA graph and
+    replayed between two events, so the host's cost of issuing each launch
+    (Python, checks, the launch itself) is left out, unlike median_ms."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def phase_build() -> None:
-    K.build_all()
+    build_parallel([*K.LOADERS, *KQ.LOADERS, load_native])
     if load_native() is None:
         raise RuntimeError("native crop library did not build")
     print("build seconds:", {k: round(v, 2) for k, v in build_seconds.items()})
@@ -98,13 +142,13 @@ def phase_build() -> None:
 def phase_kernels(gen: torch.Generator) -> dict:
     """Kernel vs plain at the main path's shapes; returns per-kernel summary."""
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEV, dtype=BF16)
-    summary = {K.FLASH: {"err": 0.0}, K.DECODE: {"err": 0.0}}
+    summary = {K.FLASH: {"err": 0.0}, K.DECODE: {"err": 0.0}, KQ.W4A16: {"err": 0.0}}
 
     def check(name, label, run, plain, args):
-        """run(): the kernel on the bf16 tensors `args`; plain(*args): the
-        plain version, fed them in fp32 and as they are."""
+        """run(): the kernel on the tensors `args`; plain(*args): the plain
+        version, fed them with bf16 ones in fp32 and as they are."""
         got = run().float()
-        f32 = lambda: plain(*(a.float() for a in args))
+        f32 = lambda: plain(*(a.float() if a.dtype == BF16 else a for a in args))
         want = f32()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
@@ -114,9 +158,11 @@ def phase_kernels(gen: torch.Generator) -> dict:
                 f"{name} {label}: max_abs_err {err} > {KERNEL_REL_TOL} * {scale}"
             )
         ms, plain_ms = median_ms(run), median_ms(f32)
+        dev_ms, dev_plain_ms = graph_ms(run), graph_ms(f32)
         print(f"{name} {label}: max_abs_err {err:.3e} = {err / scale:.2e} of "
               f"max|plain| {scale:.3f} (tol {KERNEL_REL_TOL}, bf16 plain "
-              f"{floor / scale:.2e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+              f"{floor / scale:.2e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "
+              f"device only: kernel {dev_ms:.4f} ms plain {dev_plain_ms:.4f} ms")
         s = summary[name]
         s["err"] = max(s["err"], err)
         s.setdefault("ms", ms)  # the first case is the headline shape
@@ -161,15 +207,63 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: decode_attention_cached(q, kc, vc, 13, pos, 730, 1536),
                   lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, pos, 730, 1536),
                   (q, kc, vc))
+
+    # Kernel B's int8 entry, the same cases on an int8 (24, 1, 32, 2048, 64)
+    # cache quantized by the port (a scale per token and head pair), with
+    # random codes and scales x1000 in every slot past the span; the
+    # diagonal query is the dequantized key at pos + i.
+    for tq, pos in ((1, 735), (8, 730)):
+        codes, scales = [], []
+        for _ in range(2):
+            c, sc = quantize_kv(torch.randn(24, 32, 2048, 64, generator=gen, device=DEV), 2)
+            c, sc = c.view(24, 1, 32, 2048, 64), sc.view(24, 1, 16, 2048)
+            tail = c[..., pos + tq:, :]
+            tail.copy_(torch.randint(-127, 128, tail.shape, generator=gen, device=DEV))
+            sc[..., pos + tq:] *= 1000
+            codes.append(c)
+            scales.append(sc)
+        (kc, vc), (ks, vs) = codes, scales
+        diag = dequantize_kv(kc[13, :, :, pos:pos + tq], ks[13, :, :, pos:pos + tq], BF16)
+        for kind, q in (("random q", randn(1, 32, tq, 64)), ("diagonal q", diag)):
+            check(K.DECODE,
+                  f"int8 stacked L24 layer13 tq{tq} pos{pos} bound1536 garbage tail, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, 13, pos, 730, 1536, ks, vs),
+                  lambda q: decode_attention_cached_plain(q, kc, vc, 13, pos, 730, 1536, ks, vs),
+                  (q,))
+    del codes, scales, kc, vc, ks, vs
+
+    # W4A16 on weights quantized on the card: decode (M 1) and the 8-row
+    # prompt span at the 2B text blocks' (K, N), then M 1 on layer 13 of a
+    # stacked (24, 2048, 6144) qkv weight, read as a view.
+    fp32 = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    for k, n, what in ((2048, 6144, "qkv"), (2048, 2048, "proj"),
+                       (2048, 8192, "fc1"), (8192, 2048, "fc2")):
+        qw = quantize_weight_torch(fp32(k, n) * k ** -0.5)
+        for m in (1, 8):
+            x = randn(m, k)
+            check(KQ.W4A16, f"{what} M{m} K{k} N{n}",
+                  lambda: quantized_matmul(x, qw),
+                  lambda x: quantized_matmul_plain(x, qw), (x,))
+    stacked = quantize_weight_torch(fp32(24, 2048, 6144) * 2048 ** -0.5)
+    qw = {name: t[13] for name, t in stacked.items()}
+    x = randn(1, 2048)
+    check(KQ.W4A16, "qkv M1 K2048 N6144, layer 13 of a stacked (24, 1024, 6144) view",
+          lambda: quantized_matmul(x, qw),
+          lambda x: quantized_matmul_plain(x, qw), (x,))
     torch.cuda.synchronize()
     return summary
 
 
-def phase_small_reference(img: np.ndarray) -> None:
+def phase_small_reference(img: np.ndarray, quantized: bool = False) -> None:
     """Tiny config on one set of bf16-valued weights: bf16 on the card (the
     kernels) and bf16 on the CPU (the plain versions), each against fp32 on
-    the CPU, as a fraction of the fp32 run's largest magnitude."""
+    the CPU, as a fraction of the fp32 run's largest magnitude. With
+    `quantized`, every run quantizes the text blocks to int4 from those
+    weights (the same codes on both devices, checked) and keeps an int8 KV
+    cache, whose snapshot is compared dequantized."""
     cfg = tiny_test_config()
+    if quantized:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
     state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
     state = {n: t.to(BF16).float() for n, t in state.items()}
     tmpl = list(cfg.tokenizer.templates["caption"]["normal"])
@@ -177,20 +271,31 @@ def phase_small_reference(img: np.ndarray) -> None:
     def run(device, dtype) -> dict:
         params = build_params(cfg, device, dtype)
         params.load_state_dict(state)
+        if quantized:
+            quantize_text_params(params["text"])
         m = MoondreamModel(cfg, params, ByteTokenizer(), dtype, device=device)
         enc = m.encode_image(img)
         logits = m._prefill_prompt(m.load_encoded_image(enc), tmpl, enc.pos, 0.0, 0.0)[0]
-        return {"k": enc.k, "v": enc.v, "logits": logits}
+        if not quantized:
+            return {"k": enc.k, "v": enc.v, "logits": logits}
+        return {"k": dequantize_kv(enc.k, enc.ks, torch.float32),
+                "v": dequantize_kv(enc.v, enc.vs, torch.float32), "logits": logits,
+                "codes": torch.cat([b.mlp.fc1.packed.flatten().cpu()
+                                    for b in params["text"].blocks])}
 
     ref = run("cpu", torch.float32)
+    codes = ref.pop("codes", None)
 
     def rel(out) -> dict:
+        if codes is not None and not torch.equal(out.pop("codes"), codes):
+            raise AssertionError("int4 codes differ from the fp32 CPU run's")
         return {n: ((out[n].float().cpu() - ref[n]).abs().max()
                     / ref[n].abs().max()).item() for n in ref}
 
     card, cpu = rel(run(DEV, BF16)), rel(run("cpu", BF16))
     r5 = lambda d: {n: round(e, 5) for n, e in d.items()}
-    print("small reference (tiny config, vs fp32 on the cpu), rel max err: "
+    what = "int4 text blocks + int8 KV cache" if quantized else "bf16"
+    print(f"small reference (tiny config, {what}, vs fp32 on the cpu), rel max err: "
           f"card bf16 {r5(card)}, cpu bf16 {r5(cpu)}, tol {SMALL_REF_FACTOR} x cpu bf16")
     if not all(card[n] <= SMALL_REF_FACTOR * cpu[n] for n in ref):
         raise AssertionError(f"tiny-config reference mismatch: {card} vs {cpu}")
@@ -201,25 +306,49 @@ def sync_ms(t0: float) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B) -> dict:
-    t0 = time.perf_counter()
-    model = MoondreamModel(cfg, tokenizer=ByteTokenizer(), dtype=BF16, seed=SEED, device=DEV)
-    print(f"2B random init on the card: {sync_ms(t0):.1f} ms")
-    greedy = {"temperature": 0.0, "max_tokens": 64}
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_main_path(img: np.ndarray, power: str, quantized: bool = False,
+                    cfg=MOONDREAM_2B) -> dict:
+    """The 2B caption path through the entry points. `quantized`: the same
+    seeded weights with the text blocks quantized to int4 on the card and
+    an int8 KV cache."""
     L_txt, L_vit = cfg.text.n_layers, cfg.vision.enc_n_layers
+    t0 = time.perf_counter()
+    if quantized:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
+        lins = lambda: [lin for b in params["text"].blocks
+                        for lin in (b.qkv, b.proj, b.mlp.fc1, b.mlp.fc2)]
+        dense_bytes = _nbytes(*(lin.w for lin in lins()))
+        quantize_text_params(params["text"])
+        packed_bytes = _nbytes(*(t for lin in lins() for t in (lin.packed, lin.scale, lin.zero)))
+        model = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+        print(f"2B random init + int4 text blocks on the card: {sync_ms(t0):.1f} ms")
+    else:
+        model = MoondreamModel(cfg, tokenizer=ByteTokenizer(), dtype=BF16, seed=SEED, device=DEV)
+        print(f"2B random init on the card: {sync_ms(t0):.1f} ms")
+    label = "int4 + kv_int8" if quantized else "bf16"
+    greedy = {"temperature": 0.0, "max_tokens": 64}
 
     # The counted run: one encode and one caption through the entry points.
-    K.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     enc = model.encode_image(img)
     cold_encode_ms = sync_ms(t0)
     text = model.caption(enc, "normal", settings=greedy)["caption"]
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = dict(LAUNCHES)
     snap = (L_txt, 1, cfg.text.n_kv_heads, 730, cfg.text.head_dim)
     if enc.pos != 730 or tuple(enc.k.shape) != snap:
         raise AssertionError(f"snapshot shape {tuple(enc.k.shape)}")
-    if not (torch.isfinite(enc.k).all() and torch.isfinite(enc.v).all()):
+    kv_dtype = torch.int8 if quantized else BF16
+    if enc.k.dtype != kv_dtype or (enc.ks is not None) != quantized:
+        raise AssertionError(f"snapshot dtype {enc.k.dtype}, scales {enc.ks is not None}")
+    values = (enc.k, enc.v) if not quantized else (enc.ks, enc.vs)
+    if not all(torch.isfinite(t).all() for t in values):
         raise AssertionError("non-finite KV snapshot")
 
     # Timed runs of the phases, twice: greedy ids must repeat exactly.
@@ -247,9 +376,14 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B) -> dict:
         raise AssertionError("token id out of range")
     if "".join(stream_text(ids, model._decode_tokens)) != text:
         raise AssertionError("entry-point caption differs from the timed run")
-    # one decode step per emitted token, each through every text layer
-    want = {K.FLASH: L_vit + L_txt, K.DECODE: L_txt * (1 + len(ids))}
-    print("main path launches:", launches, "expected:", want, "tokens:", len(ids))
+    # one decode step per emitted token, each through every text layer; the
+    # 730-row image prefill's linears take the dense route (M >= 512)
+    steps = L_txt * (1 + len(ids))
+    want = {K.FLASH: L_vit + L_txt, K.DECODE: 0, K.DECODE_INT8: 0, KQ.W4A16: 0}
+    want[K.DECODE_INT8 if quantized else K.DECODE] = steps
+    if quantized:
+        want[KQ.W4A16] = 4 * steps
+    print(f"main path ({label}) launches:", launches, "expected:", want, "tokens:", len(ids))
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if model.caption(enc, "normal", settings=greedy)["caption"] != text:
@@ -263,10 +397,15 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B) -> dict:
 
     prefill_ms = min(r[1] for r in runs)
     tok_s = max(r[2] for r in runs)
-    print(f"2B caption path on {power}: encode {encode_ms:.1f} ms "
+    print(f"2B caption path ({label}) on {power}: encode {encode_ms:.1f} ms "
           f"(cold {cold_encode_ms:.1f} ms), prompt prefill {prefill_ms:.2f} ms, "
           f"decode {tok_s:.1f} tok/s over {len(runs[0][0])} tokens "
           "(greedy, batch 1, 13 crops)")
+    if quantized:
+        kv = model.load_encoded_image(enc)
+        print(f"bytes: text block linears int4 {packed_bytes} (packed + scale/zero) "
+              f"vs bf16 {dense_bytes}; KV cache int8 {_nbytes(kv.k, kv.v, kv.ks, kv.vs)} "
+              f"(codes + scales) vs bf16 {2 * _nbytes(kv.k) * 2}")
     return launches
 
 
@@ -282,13 +421,19 @@ def main() -> None:
     phase_build()
     summary = phase_kernels(gen)
     phase_small_reference(img)
-    launches = phase_main_path(img, power)
+    phase_small_reference(img, quantized=True)
+    runs = [phase_main_path(img, power), phase_main_path(img, power, quantized=True)]
+    launches = {name: sum(r[name] for r in runs) for name in runs[0]}
+    launches[K.DECODE] += launches.pop(K.DECODE_INT8)
 
     sources = {
         K.FLASH: ("moondream_tpu_torch/csrc/flash_attn_fwd.cu",
                   "moondream_tpu/ops/attention.py:47; moondream_tpu/ops/attention.py:110"),
         K.DECODE: ("moondream_tpu_torch/csrc/decode_attn_stacked.cu",
-                   "moondream_tpu/ops/attention.py:931; moondream_tpu/ops/attention.py:631"),
+                   "moondream_tpu/ops/attention.py:931; moondream_tpu/ops/attention.py:631; "
+                   "moondream_tpu/ops/attention.py:631 (int8 branch)"),
+        KQ.W4A16: ("moondream_tpu_torch/csrc/w4a16_matmul.cu",
+                   "moondream_tpu/ops/quant.py:147; moondream_tpu/ops/quant.py:116"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -3,8 +3,8 @@ that the caption path reads, with the same names, defaults and published
 sizes (tests/test_torch_host.py holds the two side by side).
 
 The port keeps its own copy so that neither it nor `chip_smoke.py` imports
-anything of the JAX package. Region heads, grouped int4 weights and the
-TPU's runtime switches are not part of this slice.
+anything of the JAX package. Region heads, `group_size` and the TPU's
+runtime switches (`xla_attn`) are not ported yet; `kv_int8` is.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ class TextConfig:
     n_heads: int = 32
     n_kv_heads: int = 32
     prefix_attn: int = 730
+    # int8 KV cache: codes plus fp32 per-token scales (models/text.py)
+    kv_int8: bool = False
 
     @property
     def head_dim(self) -> int:

@@ -3,35 +3,30 @@
 Each wrapper checks device, dtype, shape, strides and alignment, allocates
 the output, launches on `torch.cuda.current_stream()` without
 synchronising, raises when the C entry point reports a CUDA error, and
-adds one to its entry in `LAUNCHES` for each launch. They take CUDA bf16
-tensors only; the plain versions live beside their dispatch in
-`moondream_tpu_torch.ops.attention`.
+adds one to its entry in `build.LAUNCHES` for each launch. They take CUDA
+bf16 queries (and bf16 or int8 caches) only; the plain versions live
+beside their dispatch in `moondream_tpu_torch.ops.attention`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Optional
 
 import torch
 
-from .build import load_cuda_library
+from .build import LAUNCHES, load_cuda_library
 
 FLASH = "flash_attn_fwd"
 DECODE = "decode_attn_stacked"
-
-# Kernel launches since the last reset_launch_counts().
-LAUNCHES: Dict[str, int] = {FLASH: 0, DECODE: 0}
+# kernel B's int8-cache entry point, counted apart from its bf16 one
+DECODE_INT8 = "decode_attn_stacked_int8"
+LAUNCHES.update({FLASH: 0, DECODE: 0, DECODE_INT8: 0})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _flash_lib() -> ctypes.CDLL:
@@ -49,13 +44,15 @@ def _decode_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.restype = _I
         fn.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 6 + [_I, _I, _F, _P]
+        fn8 = lib.decode_attn_stacked_int8
+        fn8.restype = _I
+        fn8.argtypes = [_P] * 6 + [_I] * 9 + [_L] * 6 + [_I, _I, _F, _P]
     return lib
 
 
-def build_all() -> None:
-    """Compile and load both kernels now (otherwise done at first launch)."""
-    _flash_lib()
-    _decode_lib()
+# Compile and load the kernels now (otherwise done at first launch), e.g.
+# through build.build_parallel.
+LOADERS = (_flash_lib, _decode_lib)
 
 
 def _check_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -123,35 +120,66 @@ def decode_attn_stacked(
     pos: int,
     prefix: int,
     tk: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention of q (B, H, Tq <= 16, D) over layer `layer` of the stacked
-    (L, B, H, T, D) caches, reading at most the first `tk` slots."""
-    _check_bf16_cuda(DECODE, q, k_cache, v_cache)
+    (L, B, H, T, D) caches, reading at most the first `tk` slots. With
+    k_scale/v_scale (L, B, H/g, T) fp32, the caches hold int8 codes and
+    head h reads scale row h // g."""
+    int8 = k_scale is not None
+    name = DECODE_INT8 if int8 else DECODE
+    _check_bf16_cuda(name, q)
     b, h, tq, d = q.shape
     n_layers, cb, ch, t_max, cd = k_cache.shape
     if (cb, ch, cd) != (b, h, d) or v_cache.shape != k_cache.shape:
         raise ValueError(
-            f"{DECODE}: q {q.shape} does not match cache {k_cache.shape}"
+            f"{name}: q {q.shape} does not match cache {k_cache.shape}"
         )
-    if not 1 <= tq <= 16 or d % 8 or d > 64:
+    cache_dtype = torch.int8 if int8 else torch.bfloat16
+    row = 16 if int8 else 8  # elements per 16-byte load
+    if not 1 <= tq <= 16 or d % row or d > 64:
         raise ValueError(
-            f"{DECODE}: need 1 <= Tq <= 16 and head_dim <= 64, a multiple of 8"
+            f"{name}: need 1 <= Tq <= 16 and head_dim <= 64, a multiple of {row}"
         )
     if not (0 <= layer < n_layers and 0 < tk <= t_max and pos >= 0):
-        raise ValueError(f"{DECODE}: layer {layer}, tk {tk}, pos {pos}")
+        raise ValueError(f"{name}: layer {layer}, tk {tk}, pos {pos}")
     for c in (k_cache, v_cache):
+        if c.device != q.device or c.dtype != cache_dtype:
+            raise ValueError(f"{name}: caches must be {cache_dtype} on {q.device}")
         if not c.is_contiguous() or c.data_ptr() % 16:
-            raise ValueError(f"{DECODE}: caches must be contiguous")
+            raise ValueError(f"{name}: caches must be contiguous and 16-byte aligned")
     if q.stride(3) != 1:
-        raise ValueError(f"{DECODE}: q head_dim must be contiguous")
+        raise ValueError(f"{name}: q head_dim must be contiguous")
+    if int8:
+        if v_scale is None or v_scale.shape != k_scale.shape:
+            raise ValueError(f"{name}: k_scale and v_scale must match")
+        hg = k_scale.shape[2] if k_scale.dim() == 4 else 0
+        if hg == 0 or h % hg or k_scale.shape != (n_layers, b, hg, t_max):
+            raise ValueError(
+                f"{name}: scales {tuple(k_scale.shape)} do not fit cache "
+                f"{tuple(k_cache.shape)}"
+            )
+        for s in (k_scale, v_scale):
+            if (s.device != q.device or s.dtype != torch.float32
+                    or not s.is_contiguous()):
+                raise ValueError(f"{name}: scales must be contiguous fp32 on {q.device}")
     out = _head_major_out(b, h, tq, d, q)
-    rc = _decode_lib().decode_attn_stacked_bf16(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        n_layers, b, h, t_max, d, tq, int(layer), int(tk),
-        *q.stride()[:3], *out.stride()[:3],
-        int(pos), int(prefix), float(d) ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(DECODE, rc)
-    LAUNCHES[DECODE] += 1
+    lib = _decode_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = (*q.stride()[:3], *out.stride()[:3], int(pos), int(prefix),
+            float(d) ** -0.5, stream)
+    if int8:
+        rc = lib.decode_attn_stacked_int8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+            n_layers, b, h, t_max, d, tq, int(layer), int(tk), h // hg, *tail,
+        )
+    else:
+        rc = lib.decode_attn_stacked_bf16(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            n_layers, b, h, t_max, d, tq, int(layer), int(tk), *tail,
+        )
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
     return out

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with nvcc at first use and load them with
 ctypes (a shared library with a plain C interface; no PyTorch headers, so
-a build takes seconds).
+a build takes seconds), and count the kernels' launches.
 
 Libraries go to `moondream_tpu_torch/_build/`, named by a hash of their
 sources and flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing is compiled when this module is imported.
+never loaded. Nothing is compiled when this module is imported;
+`build_parallel` starts one compiler per library at once.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -29,10 +31,19 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # seconds spent compiling each library in this process (0.0 when it was
 # already built on disk)
 build_seconds: Dict[str, float] = {}
+# Kernel launches since the last reset_launch_counts(), by kernel name. Each
+# wrapper registers its names at import and adds one where it launches.
+LAUNCHES: Dict[str, int] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -84,8 +95,11 @@ def compile_library(
 
 
 def load_cuda_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """nvcc-build `csrc/<sources>` for sm_90a (once) and dlopen it."""
+    """nvcc-build `csrc/<sources>` for sm_90a (once) and dlopen it. Builds
+    of different libraries may run at once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             paths = [CSRC_DIR / s for s in sources]
@@ -94,3 +108,11 @@ def load_cuda_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
             )
             _libs[name] = lib
         return lib
+
+
+def build_parallel(loaders: Sequence[Callable[[], object]]) -> None:
+    """Call every loader at once, each in its own thread (one compiler
+    process each), and raise the first failure."""
+    with ThreadPoolExecutor(max_workers=max(1, len(loaders))) as pool:
+        for future in [pool.submit(fn) for fn in loaders]:
+            future.result()

@@ -37,18 +37,25 @@ PROMPT_PAD = 8
 
 @dataclass(frozen=True)
 class EncodedImage:
-    """KV snapshot after prefilling [BOS, image]: k/v (L, 1, H_kv, pos, Dh)."""
+    """KV snapshot after prefilling [BOS, image]: k/v (L, 1, H_kv, pos, Dh).
+    With config.text.kv_int8, k/v hold int8 codes and ks/vs the fp32
+    scales (L, 1, H_kv/g, pos) (models.text.KVCache)."""
 
     pos: int
     k: torch.Tensor
     v: torch.Tensor
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
 
 
 def _snap_enc(kv: KVCache, pos: int) -> EncodedImage:
+    cut = lambda a: None if a is None else a[..., :pos].clone()
     return EncodedImage(
         pos=pos,
         k=kv.k[:, :, :, :pos].clone(),
         v=kv.v[:, :, :, :pos].clone(),
+        ks=cut(kv.ks),
+        vs=cut(kv.vs),
     )
 
 
@@ -73,9 +80,12 @@ class MoondreamModel:
         seed: int = 0,
         device="cpu",
     ):
-        """`params`: from `weights.params_from_jax` or `weights.init_params`;
-        None draws random weights on `device` from `seed`. On a CUDA device
-        the attention kernels take bf16 only."""
+        """`params`: from `weights.params_from_jax`, `weights.load_params`
+        or `weights.init_params` (int4 text blocks: `load_params(...,
+        runtime_int4=True)`, or `models.text.quantize_text_params` on
+        dense ones); None draws random weights on `device` from `seed`. An
+        int8 KV cache comes from config.text.kv_int8. On a CUDA device the
+        kernels take bf16 activations only."""
         self.config = config
         self.dtype = dtype
         self.device = torch.device(device)
@@ -161,6 +171,9 @@ class MoondreamModel:
         kv = KVCache.create(self.config.text, 1, self.dtype, self.device)
         kv.k[:, :, :, : encoded.pos] = encoded.k
         kv.v[:, :, :, : encoded.pos] = encoded.v
+        if kv.ks is not None:
+            kv.ks[..., : encoded.pos] = encoded.ks
+            kv.vs[..., : encoded.pos] = encoded.vs
         return kv
 
     # ------------------------------------------------------------ prefill

@@ -6,7 +6,12 @@ RoPE, and attention bidirectional over the first `prefix_len` positions
 (730 after an image) and causal after.
 
 The KV cache is the plain (L, B, H_kv, T, D) layout only; the JAX package's
-head-paired layout exists for TPU lanes and is not ported.
+head-paired layout exists for TPU lanes and is not ported, but its int8
+scale granularity is: one scale per token per cache row, and a cache row
+of the JAX package holds `kv_scale_group` adjacent heads.
+
+With int4 runtime weights (`quantize_text_params`), each block's qkv, proj,
+fc1 and fc2 are `Int4Linear`s; wte, lm_head, norms and biases stay dense.
 """
 
 from __future__ import annotations
@@ -20,32 +25,105 @@ from torch import nn
 from ..config import TextConfig
 from ..ops.attention import decode_attention_cached, flash_attention
 from ..ops.layers import MLP, LayerNorm, Linear
+from ..ops.quant import quantize_weight_torch, quantized_matmul
 from ..ops.rope import apply_rotary_emb, precompute_freqs_cis
 
 # Spans up to this many query rows go to the stacked-cache decode kernel.
 DECODE_SPAN_MAX = 16
 
 
+def kv_scale_group(config: TextConfig) -> int:
+    """How many adjacent KV heads share one int8 scale per token: the JAX
+    package's `kv_pair_factor` (moondream_tpu/models/text.py:41-55), whose
+    cache row holds that many heads side by side. 2 for the 2B, 0.5B and
+    tiny configs."""
+    if config.n_kv_heads != config.n_heads:
+        return 1
+    if config.n_kv_heads % 2 or config.head_dim * 2 > 128:
+        return 1
+    return 2
+
+
 @dataclass
 class KVCache:
-    """Stacked caches, each (L, B, H_kv, T, D). Updated in place."""
+    """Stacked caches, each (L, B, H_kv, T, D). Updated in place.
+
+    With config.kv_int8, `k`/`v` hold int8 codes and `ks`/`vs` fp32 scales
+    (L, B, H_kv/g, T), g = kv_scale_group(config): x ~ code * scale, with
+    head h on scale row h // g."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
 
     @classmethod
     def create(
         cls, config: TextConfig, batch: int = 1, dtype=torch.bfloat16,
         device=None, slots: Optional[int] = None,
     ) -> "KVCache":
-        shape = (
-            config.n_layers, batch, config.n_kv_heads,
-            slots if slots is not None else config.max_context, config.head_dim,
-        )
+        t = slots if slots is not None else config.max_context
+        shape = (config.n_layers, batch, config.n_kv_heads, t, config.head_dim)
+        if config.kv_int8:
+            sshape = (*shape[:2], config.n_kv_heads // kv_scale_group(config), t)
+            return cls(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                ks=torch.zeros(sshape, dtype=torch.float32, device=device),
+                vs=torch.zeros(sshape, dtype=torch.float32, device=device),
+            )
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
         )
+
+
+def quantize_kv(x: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per token and group of g adjacent heads: x (B, H, T, D)
+    -> codes int8 (B, H, T, D) and scale fp32 (B, H/g, T); x ~ codes *
+    scale. The amax runs over the g * D values of one JAX cache row
+    (moondream_tpu/models/text.py:132-139 on `pair_kv` rows)."""
+    b, h, t, d = x.shape
+    xg = x.float().reshape(b, h // g, g, t, d)
+    amax = xg.abs().amax(dim=(2, 4))
+    scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
+    codes = torch.round(xg / scale[:, :, None, :, None]).clamp(-127, 127)
+    return codes.reshape(b, h, t, d).to(torch.int8), scale
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """codes (..., H, T, D) * scale (..., H/g, T) in `dtype` directly: the
+    scale is cast before the product (moondream_tpu/models/text.py:142-145)."""
+    g = codes.shape[-3] // scale.shape[-2]
+    s = scale.to(dtype).repeat_interleave(g, dim=-2)
+    return codes.to(dtype) * s[..., None]
+
+
+class Int4Linear(nn.Module):
+    """The JAX package's `_q_lin` (moondream_tpu/models/text.py:178-199):
+    y = quantized_matmul(x, W) rounded to x.dtype, then + b in fp32 and
+    rounded again (bias outside the product, in that order). `packed` (K/2,
+    N) uint8 and `scale`/`zero` (K/group, N) fp32 are buffers that must stay
+    fp32: do not cast the module with `.to(dtype)`."""
+
+    def __init__(self, packed: torch.Tensor, scale: torch.Tensor,
+                 zero: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.register_buffer("packed", packed)
+        self.register_buffer("scale", scale)
+        self.register_buffer("zero", zero)
+        self.b = nn.Parameter(b, requires_grad=False)
+
+    @classmethod
+    def from_linear(cls, lin: Linear) -> "Int4Linear":
+        qw = quantize_weight_torch(lin.w)
+        return cls(qw["packed"], qw["scale"], qw["zero"], lin.b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        qw = {"packed": self.packed, "scale": self.scale, "zero": self.zero}
+        y = quantized_matmul(x.reshape(-1, x.shape[-1]), qw).reshape(*lead, -1)
+        return (y.float() + self.b.float()).to(x.dtype)
 
 
 class TextBlock(nn.Module):
@@ -76,6 +154,19 @@ class TextModel(nn.Module):
             precompute_freqs_cis(config.rope_dim, config.max_context, device=device),
             persistent=False,
         )
+
+
+@torch.no_grad()
+def quantize_text_params(model: TextModel) -> TextModel:
+    """Convert the blocks' qkv, proj, fc1 and fc2 to int4 in place, on their
+    device, with the JAX package's group choice and packing
+    (moondream_tpu/models/text.py:202-232); returns the model."""
+    for blk in model.blocks:
+        blk.qkv = Int4Linear.from_linear(blk.qkv)
+        blk.proj = Int4Linear.from_linear(blk.proj)
+        blk.mlp.fc1 = Int4Linear.from_linear(blk.mlp.fc1)
+        blk.mlp.fc2 = Int4Linear.from_linear(blk.mlp.fc2)
+    return model
 
 
 def text_encoder(input_ids: torch.Tensor, model: TextModel) -> torch.Tensor:
@@ -123,16 +214,33 @@ def attn_with_cache(
 
     # In-place cache write at [layer, :, :, pos:pos+T] (the JAX package
     # returns an updated copy through dynamic_update_slice instead).
-    kv.k[layer, :, :, pos : pos + q_len] = k
-    kv.v[layer, :, :, pos : pos + q_len] = v
+    span = slice(pos, pos + q_len)
+    int8 = kv.ks is not None
+    if int8:
+        g = kv.k.shape[2] // kv.ks.shape[2]
+        kc, ksc = quantize_kv(k, g)
+        vc, vsc = quantize_kv(v, g)
+        kv.k[layer, :, :, span] = kc
+        kv.v[layer, :, :, span] = vc
+        kv.ks[layer, :, :, span] = ksc
+        kv.vs[layer, :, :, span] = vsc
+    else:
+        kv.k[layer, :, :, span] = k
+        kv.v[layer, :, :, span] = v
 
     mha = config.n_kv_heads == config.n_heads
     if q_len <= DECODE_SPAN_MAX and mha:
-        out = decode_attention_cached(q, kv.k, kv.v, layer, pos, prefix_len, kv_bound)
+        out = decode_attention_cached(
+            q, kv.k, kv.v, layer, pos, prefix_len, kv_bound, kv.ks, kv.vs
+        )
     else:
         tk = kv.k.shape[3] if kv_bound is None else kv_bound
         k_l = kv.k[layer, :, :, :tk]
         v_l = kv.v[layer, :, :, :tk]
+        if int8:
+            # moondream_tpu/models/text.py:390-406: dequantize the span
+            k_l = dequantize_kv(k_l, kv.ks[layer, :, :, :tk], q.dtype)
+            v_l = dequantize_kv(v_l, kv.vs[layer, :, :, :tk], q.dtype)
         if not mha:
             rep = config.n_heads // config.n_kv_heads
             k_l = k_l.repeat_interleave(rep, dim=1)

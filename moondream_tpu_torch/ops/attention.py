@@ -68,29 +68,51 @@ def read_bound(t_max: int, kv_bound: Optional[int]) -> int:
 def decode_attention_cached_plain(
     q, k_cache, v_cache, layer: int, pos: int, prefix: int,
     kv_bound: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of kernel B: q (B, H, Tq, D) over layer `layer` of the
-    stacked (L, B, H, T, D) caches."""
+    stacked (L, B, H, T, D) caches. With k_scale/v_scale (L, B, H/g, T), the
+    caches hold int8 codes (x ~ code * scale) and head h reads scale row
+    h // g; the scales fold into the scores and the softmax weights as in
+    `_decode_kernel_paired`'s int8 branch (moondream_tpu/ops/attention.py:
+    677-692, 756-767)."""
     tk = read_bound(k_cache.shape[3], kv_bound)
     k = k_cache[layer, :, :, :tk]
     v = v_cache[layer, :, :, :tk]
     mask = unified_mask(q.shape[2], tk, pos, prefix, q.device)
-    return _masked_softmax_pv(q, k, v, mask)
+    if k_scale is None:
+        return _masked_softmax_pv(q, k, v, mask)
+    g = q.shape[1] // k_scale.shape[2]
+    ks = k_scale[layer, :, :, None, :tk].repeat_interleave(g, dim=1)
+    vs = v_scale[layer, :, :, None, :tk].repeat_interleave(g, dim=1)
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = (s * (ks * scale)).masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True)
+    pv = (p * vs).to(q.dtype).float()  # the weights meet the codes in q.dtype
+    return (torch.matmul(pv, v.float()) / denom).to(q.dtype)
 
 
 def decode_attention_cached(
     q, k_cache, v_cache, layer: int, pos: int, prefix: int,
     kv_bound: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention for one token or a span of <= 16 rows (row i at pos + i)
-    over one layer of the whole stacked cache; the layer is addressed by
-    index, never sliced or copied. Counterpart of `decode_attention_cached`
-    of the JAX package on its plain (unpaired, MHA) layout."""
+    over one layer of the whole stacked cache, bf16 or int8 codes with
+    scales; the layer is addressed by index, never sliced or copied.
+    Counterpart of `decode_attention_cached` of the JAX package on its plain
+    (unpaired, MHA) layout."""
     if q.device.type == "cpu":
         return decode_attention_cached_plain(
-            q, k_cache, v_cache, layer, pos, prefix, kv_bound
+            q, k_cache, v_cache, layer, pos, prefix, kv_bound, k_scale, v_scale
         )
     from ..kernels.attention import decode_attn_stacked
 
     tk = read_bound(k_cache.shape[3], kv_bound)
-    return decode_attn_stacked(q, k_cache, v_cache, layer, pos, prefix, tk)
+    return decode_attn_stacked(
+        q, k_cache, v_cache, layer, pos, prefix, tk, k_scale, v_scale
+    )

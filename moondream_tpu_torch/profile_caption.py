@@ -1,8 +1,10 @@
 """Where the time of the 2B caption path goes on one CUDA card.
 
     python3 -m moondream_tpu_torch.profile_caption [--tokens 64] [--top 12]
+        [--int4] [--kv-int8]
 
-Builds MOONDREAM_2B with seeded random weights on the card and runs the path
+Builds MOONDREAM_2B with seeded random weights on the card (with --int4, the
+text blocks quantized to int4; with --kv-int8, an int8 KV cache) and runs the path
 once to warm it. Then it profiles, with torch.profiler, one `encode_image` of
 a seeded 756x1008 image (13 crops) and one greedy `caption` of up to
 `--tokens` tokens from that encoding. For each it prints the wall time (host
@@ -15,6 +17,7 @@ launch counts.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 from collections import defaultdict
@@ -26,7 +29,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from .config import MOONDREAM_2B
 from .models.moondream import MoondreamModel
+from .models.text import quantize_text_params
 from .tokenizer import ByteTokenizer
+from .weights import init_params
 
 
 def _busy_us(intervals) -> float:
@@ -70,6 +75,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tokens", type=int, default=64)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--int4", action="store_true", help="int4 text block weights")
+    ap.add_argument("--kv-int8", action="store_true", help="int8 KV cache")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_caption: needs a CUDA card")
@@ -78,8 +85,14 @@ def main() -> None:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip())
 
+    cfg = MOONDREAM_2B
+    if args.kv_int8:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    if args.int4:
+        quantize_text_params(params["text"])
     model = MoondreamModel(
-        MOONDREAM_2B, tokenizer=ByteTokenizer(), dtype=torch.bfloat16, seed=0,
+        cfg, params, tokenizer=ByteTokenizer(), dtype=torch.bfloat16, seed=0,
         device="cuda",
     )
     img = np.random.default_rng(0).integers(0, 256, (756, 1008, 3), dtype=np.uint8)

@@ -1,21 +1,30 @@
 """Parameters of the port: `params_from_jax` maps the JAX package's parameter
-pytree onto the port's modules, and `init_params` makes seeded random
-weights of any configuration directly on the device.
+pytree (dense, or with int4 text blocks) onto the port's modules,
+`load_params` reads a safetensors or torch checkpoint, and `init_params`
+makes seeded random weights of any configuration directly on the device.
 
 The port's parameters are an `nn.ModuleDict` with "vision"
 (`models.vision.VisionModel`) and "text" (`models.text.TextModel`).
 Linear weights keep the JAX (in, out) layout; the JAX package stacks block
 weights on a leading layer axis, which maps to one module per block here.
+
+The checkpoint loader is the JAX package's (moondream_tpu/weights.py:45-346)
+for vision and text: both naming schemes, `model.`/`._orig_mod` prefixes,
+and the reference's int4 group-128 checkpoints, dequantized at load time.
+Region weights are not read (the region heads are not ported yet).
 """
 
 from __future__ import annotations
+
+import re
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from .config import MoondreamConfig
-from .models.text import TextModel
+from .models.text import Int4Linear, TextModel, quantize_text_params
 from .models.vision import VisionModel
 from .ops.layers import MLP, LayerNorm, Linear
 
@@ -77,13 +86,28 @@ def _put_mlp(m: MLP, tree: dict, layer=None) -> None:
     _put_linear(m.fc2, tree["fc2"], layer)
 
 
+def _int4_linear(qw: dict, bias, layer: int, device, dtype) -> Int4Linear:
+    """Layer `layer` of a stacked JAX int4 tree {packed, scale, zero}, the
+    packed bytes carried over as they are."""
+    part = lambda name, dt: torch.from_numpy(
+        np.array(np.asarray(qw[name])[layer], dtype=dt)
+    ).to(device)
+    b = torch.from_numpy(np.array(np.asarray(bias)[layer], dtype=np.float32))
+    return Int4Linear(
+        part("packed", np.uint8), part("scale", np.float32),
+        part("zero", np.float32), b.to(device, dtype),
+    )
+
+
 @torch.no_grad()
 def params_from_jax(
     tree: dict, config: MoondreamConfig, device=None, dtype=torch.float32
 ) -> nn.ModuleDict:
     """The JAX pytree {"vision": init_vision_params(...), "text":
-    init_text_params(...)} (leaves as numpy or jax arrays, dense weights)
-    as the port's modules."""
+    init_text_params(...)} (leaves as numpy or jax arrays) as the port's
+    modules. A text tree from the JAX `quantize_text_params` (stacked
+    `blocks_q` {packed, scale, zero}, biases in `blocks`) gives int4
+    blocks with the same codes."""
     params = build_params(config, device, dtype)
     vt, vis = tree["vision"], params["vision"]
     _put_linear(vis.patch_emb, vt["patch_emb"])
@@ -100,12 +124,207 @@ def params_from_jax(
 
     tt, txt = tree["text"], params["text"]
     _put(txt.wte, tt["wte"])
+    bq = tt.get("blocks_q")
     for i, blk in enumerate(txt.blocks):
         b = tt["blocks"]
         _put_ln(blk.ln, b["ln"], i)
-        _put_linear(blk.qkv, b["attn"]["qkv"], i)
-        _put_linear(blk.proj, b["attn"]["proj"], i)
-        _put_mlp(blk.mlp, b["mlp"], i)
+        if bq is None:
+            _put_linear(blk.qkv, b["attn"]["qkv"], i)
+            _put_linear(blk.proj, b["attn"]["proj"], i)
+            _put_mlp(blk.mlp, b["mlp"], i)
+            continue
+        q = lambda mod, name: _int4_linear(
+            bq[mod][name], b[mod][name]["b"], i, device, dtype
+        )
+        blk.qkv, blk.proj = q("attn", "qkv"), q("attn", "proj")
+        blk.mlp.fc1, blk.mlp.fc2 = q("mlp", "fc1"), q("mlp", "fc2")
     _put_ln(txt.post_ln, tt["post_ln"])
     _put_linear(txt.lm_head, tt["lm_head"])
+    return params
+
+
+# ------------------------------------------------------------- checkpoints
+
+
+def dequantize_int4(
+    packed: np.ndarray, scale: np.ndarray, zero_point: np.ndarray, out_shape
+) -> np.ndarray:
+    """Unpack the reference's int4 group-128 checkpoint format: packed
+    (N/256, 128) uint8, high nibbles the first half of each 256-element
+    strip, low nibbles the second; scale/zero_point (N/128, 1). Returns
+    fp32 (moondream_tpu/weights.py:45-59). Not the runtime packing of
+    `ops.quant`."""
+    step = packed.shape[0]
+    w = np.empty((2 * step, packed.shape[1]), dtype=np.float32)
+    w[:step] = (packed >> 4).astype(np.float32)
+    w[step:] = (packed & 0x0F).astype(np.float32)
+    w = (w - zero_point.astype(np.float32)) * scale.astype(np.float32)
+    return w.reshape(out_shape)
+
+
+_LEGACY_VISION = "vision_encoder.encoder.model.visual"
+
+
+def _legacy_to_new(key: str) -> Optional[str]:
+    """A legacy checkpoint key in new-scheme naming, or None
+    (moondream_tpu/weights.py:65-109)."""
+    k = key
+    if k.startswith(_LEGACY_VISION):
+        k = k[len(_LEGACY_VISION) + 1 :]
+        if k.startswith("patch_embed.linear."):
+            return "vision.patch_emb." + k.split(".")[-1]
+        if k == "pos_embed":
+            return "vision.pos_emb"
+        if k.startswith("norm."):
+            return "vision.post_ln." + k.split(".")[-1]
+        m = re.match(r"blocks\.(\d+)\.(.*)", k)
+        if m:
+            rest = m.group(2).replace("norm1.", "ln1.").replace("norm2.", "ln2.")
+            return f"vision.blocks.{m.group(1)}.{rest}"
+        return None
+    if key.startswith("vision_encoder.projection.mlp."):
+        return "vision.proj_mlp." + key[len("vision_encoder.projection.mlp.") :]
+    if key == "text_model.transformer.embd.wte.weight":
+        return "text.wte"
+    if key.startswith("text_model.lm_head.ln."):
+        return "text.post_ln." + key.split(".")[-1]
+    if key.startswith("text_model.lm_head.linear."):
+        return "text.lm_head." + key.split(".")[-1]
+    m = re.match(r"text_model\.transformer\.h\.(\d+)\.(.*)", key)
+    if m:
+        rest = (
+            m.group(2).replace("mixer.Wqkv", "attn.qkv")
+            .replace("mixer.out_proj", "attn.proj")
+            .replace("mixer", "attn")
+        )
+        return f"text.blocks.{m.group(1)}.{rest}"
+    if key.startswith("region_model."):
+        rest = key[len("region_model.") :]
+        rest = rest.replace("coordinate_encoder", "coord_encoder").replace(
+            "coordinate_decoder", "coord_decoder"
+        ).replace("coordinate_features", "coord_features")
+        return "region." + rest
+    return None
+
+
+def _normalize_keys(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Strip model./._orig_mod and map legacy names to the new scheme."""
+    any_new = any(
+        k.replace("model.", "", 1).startswith(("vision.blocks", "text.blocks"))
+        for k in flat
+    )
+    out = {}
+    for k, v in flat.items():
+        k = k.replace("._orig_mod", "")
+        if k.startswith("model."):
+            k = k[len("model.") :]
+        if not any_new:
+            k = _legacy_to_new(k)
+            if k is None:
+                continue
+        out[k] = v
+    return out
+
+
+def _dequantize_flat(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Replace {base}.weight.packed/scale/zero_point triples with a dense
+    {base}.weight, its shape (bias length, rest) taken from the bias."""
+    suffixes = (".weight.packed", ".weight.scale", ".weight.zero_point")
+    bases = sorted(k[: -len(suffixes[0])] for k in flat if k.endswith(suffixes[0]))
+    if not bases:
+        return flat
+    out = {k: v for k, v in flat.items() if not k.endswith(suffixes)}
+    for base in bases:
+        packed = flat[base + suffixes[0]]
+        bias = flat.get(base + ".bias")
+        if bias is None:
+            raise ValueError(f"cannot infer dense shape for {base}")
+        out_features = bias.shape[0]
+        out[base + ".weight"] = dequantize_int4(
+            packed, flat[base + suffixes[1]], flat[base + suffixes[2]],
+            (out_features, packed.size * 2 // out_features),
+        )
+    return out
+
+
+def _to_numpy(t) -> np.ndarray:
+    """torch tensor (bf16 through fp32) or array -> numpy."""
+    if isinstance(t, np.ndarray):
+        return t
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def load_flat(path: str) -> Dict[str, np.ndarray]:
+    """Every tensor of a .safetensors or torch .pt/.bin checkpoint as numpy."""
+    if path.endswith(".safetensors"):
+        # imported here: the card's machine need not have safetensors
+        from safetensors.torch import load_file
+
+        state = load_file(path)
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: _to_numpy(v) for k, v in state.items()}
+
+
+def _put_ckpt_linear(lin: Linear, flat: dict, base: str) -> None:
+    _put(lin.w, np.asarray(flat[base + ".weight"]).T)  # torch (out, in)
+    _put(lin.b, flat[base + ".bias"])
+
+
+def _put_ckpt_ln(ln: LayerNorm, flat: dict, base: str) -> None:
+    _put(ln.weight, flat[base + ".weight"])
+    _put(ln.bias, flat[base + ".bias"])
+
+
+@torch.no_grad()
+def params_from_flat(
+    flat: Dict[str, np.ndarray], config: MoondreamConfig, device=None,
+    dtype=torch.bfloat16,
+) -> nn.ModuleDict:
+    """The port's modules from a flat name -> array dict in either naming
+    scheme, int4 checkpoint tensors dequantized."""
+    flat = _dequantize_flat(_normalize_keys(dict(flat)))
+    params = build_params(config, device, dtype)
+    vis, txt = params["vision"], params["text"]
+    _put_ckpt_linear(vis.patch_emb, flat, "vision.patch_emb")
+    _put(vis.pos_emb, flat["vision.pos_emb"])
+    for i, blk in enumerate(vis.blocks):
+        p = f"vision.blocks.{i}"
+        _put_ckpt_ln(blk.ln1, flat, f"{p}.ln1")
+        _put_ckpt_linear(blk.qkv, flat, f"{p}.attn.qkv")
+        _put_ckpt_linear(blk.proj, flat, f"{p}.attn.proj")
+        _put_ckpt_ln(blk.ln2, flat, f"{p}.ln2")
+        _put_ckpt_linear(blk.mlp.fc1, flat, f"{p}.mlp.fc1")
+        _put_ckpt_linear(blk.mlp.fc2, flat, f"{p}.mlp.fc2")
+    _put_ckpt_ln(vis.post_ln, flat, "vision.post_ln")
+    _put_ckpt_linear(vis.proj_mlp.fc1, flat, "vision.proj_mlp.fc1")
+    _put_ckpt_linear(vis.proj_mlp.fc2, flat, "vision.proj_mlp.fc2")
+
+    _put(txt.wte, flat["text.wte"])
+    for i, blk in enumerate(txt.blocks):
+        p = f"text.blocks.{i}"
+        _put_ckpt_ln(blk.ln, flat, f"{p}.ln")
+        _put_ckpt_linear(blk.qkv, flat, f"{p}.attn.qkv")
+        _put_ckpt_linear(blk.proj, flat, f"{p}.attn.proj")
+        _put_ckpt_linear(blk.mlp.fc1, flat, f"{p}.mlp.fc1")
+        _put_ckpt_linear(blk.mlp.fc2, flat, f"{p}.mlp.fc2")
+    _put_ckpt_ln(txt.post_ln, flat, "text.post_ln")
+    _put_ckpt_linear(txt.lm_head, flat, "text.lm_head")
+    return params
+
+
+def load_params(
+    path: str, config: MoondreamConfig, dtype=torch.bfloat16,
+    runtime_int4: bool = False, device=None,
+) -> nn.ModuleDict:
+    """Load a checkpoint into the port's vision and text modules, in
+    `dtype` on `device`. runtime_int4=True then quantizes the text blocks'
+    qkv, proj, fc1 and fc2 from those `dtype` weights into the runtime int4
+    format (`models.text.quantize_text_params`), as the JAX package's
+    `load_params(..., runtime_int4=True)` does; an int4 checkpoint goes
+    through the load-time dequant first."""
+    params = params_from_flat(load_flat(path), config, device, dtype)
+    if runtime_int4:
+        quantize_text_params(params["text"])
     return params

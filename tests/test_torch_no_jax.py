@@ -1,7 +1,8 @@
 """The port runs where neither jax nor the JAX package can be imported: in a
 fresh interpreter with `sys.modules["jax"]` and `sys.modules["moondream_tpu"]`
 set to None, import every module of moondream_tpu_torch and run a tiny
-greedy caption on the CPU."""
+greedy caption on the CPU, dense and with int4 text blocks and an int8 KV
+cache."""
 
 import os
 import subprocess
@@ -25,6 +26,18 @@ model = MoondreamModel(tiny_test_config(), dtype=torch.float32, seed=1)
 img = np.random.default_rng(0).integers(0, 255, (300, 500, 3), dtype=np.uint8)
 out = model.caption(img, settings={"temperature": 0, "max_tokens": 4})
 assert isinstance(out["caption"], str)
+import dataclasses
+from moondream_tpu_torch.models.text import quantize_text_params
+from moondream_tpu_torch.weights import init_params
+cfg = tiny_test_config()
+cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
+params = init_params(cfg, torch.Generator().manual_seed(1), "cpu", torch.float32)
+quantize_text_params(params["text"])
+qmodel = MoondreamModel(cfg, params=params, dtype=torch.float32)
+enc = qmodel.encode_image(img)
+assert enc.k.dtype == torch.int8 and enc.ks is not None
+qout = qmodel.caption(enc, settings={"temperature": 0, "max_tokens": 4})
+assert isinstance(qout["caption"], str)
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))
