@@ -1,22 +1,27 @@
-"""Drive the PyTorch port's caption path once on one CUDA card.
+"""Drive the PyTorch port's caption and serving paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no result line):
-  1. build: nvcc-build the attention kernels (A, and B with its int8 entry)
-     and the W4A16 kernel from moondream_tpu_torch/csrc and g++-build the
-     native crop library, all at once, into moondream_tpu_torch/_build;
+  1. build: nvcc-build the attention kernels (A, and the decode kernel with
+     its B and C entries, bf16 and int8) and the W4A16 kernel from
+     moondream_tpu_torch/csrc and g++-build the native crop library, all at
+     once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
      on the same inputs, TF32 off) at the main paths' shapes, with median
      times of both;
-  3. a small reference: the tiny config in bf16 on the card and in bf16 on
-     the CPU (plain versions), each against fp32 on the CPU, same weights;
-     dense, then with int4 text blocks and an int8 KV cache;
+  3. small references: the tiny config in bf16 on the card and in bf16 on
+     the CPU (plain versions), each against fp32 on the CPU, same weights:
+     the caption path dense, then with int4 text blocks and an int8 KV
+     cache; one serving-pool decode step, plain and prefix-shared;
   4. the main paths at MOONDREAM_2B widths and depth with seeded random
      weights: the bf16 model, then the same weights with int4 text blocks
      and an int8 KV cache. Each: encode_image and caption, with exact
      kernel launch counts, repeated greedy ids, streamed == plain, one
-     sampled caption, and timings.
+     sampled caption, and timings; then the continuous-batching pools on
+     that model (bf16: plain, and prefix-shared with pipeline depth 2;
+     int4 + kv_int8: prefix-shared), 8 requests each, with exact launch
+     counts, no host sync inside a chunk, repeated ids and timings.
 
 Prints the card's name and power limit first, a kernels JSON line second to
 last, and {"ok": true, "device": {...}} last.
@@ -37,6 +42,7 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
 
 from moondream_tpu_torch.config import MOONDREAM_2B, tiny_test_config  # noqa: E402
+from moondream_tpu_torch.engine.serving import ragged_decode_step  # noqa: E402
 from moondream_tpu_torch.kernels import attention as K  # noqa: E402
 from moondream_tpu_torch.kernels import quant as KQ  # noqa: E402
 from moondream_tpu_torch.kernels.build import (  # noqa: E402
@@ -46,7 +52,9 @@ from moondream_tpu_torch.kernels.build import (  # noqa: E402
     reset_launch_counts,
 )
 from moondream_tpu_torch.models.moondream import MoondreamModel  # noqa: E402
+from moondream_tpu_torch.models.serve import ContinuousBatchingEngine  # noqa: E402
 from moondream_tpu_torch.models.text import (  # noqa: E402
+    KVCache,
     dequantize_kv,
     quantize_kv,
     quantize_text_params,
@@ -54,6 +62,7 @@ from moondream_tpu_torch.models.text import (  # noqa: E402
 from moondream_tpu_torch.ops.attention import (  # noqa: E402
     decode_attention_cached,
     decode_attention_cached_plain,
+    decode_attention_ragged_plain,
     flash_attention,
     flash_attention_plain,
 )
@@ -142,13 +151,15 @@ def phase_build() -> None:
 def phase_kernels(gen: torch.Generator) -> dict:
     """Kernel vs plain at the main path's shapes; returns per-kernel summary."""
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEV, dtype=BF16)
-    summary = {K.FLASH: {"err": 0.0}, K.DECODE: {"err": 0.0}, KQ.W4A16: {"err": 0.0}}
+    summary = {name: {"err": 0.0} for name in (K.FLASH, K.DECODE, K.RAGGED, KQ.W4A16)}
 
     def check(name, label, run, plain, args):
         """run(): the kernel on the tensors `args`; plain(*args): the plain
-        version, fed them with bf16 ones in fp32 and as they are."""
+        version, fed them with bf16 ones in fp32 (converted once, outside
+        the timed call) and as they are."""
         got = run().float()
-        f32 = lambda: plain(*(a.float() if a.dtype == BF16 else a for a in args))
+        fargs = [a.float() if a.dtype == BF16 else a for a in args]
+        f32 = lambda: plain(*fargs)
         want = f32()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
@@ -167,6 +178,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
         s["err"] = max(s["err"], err)
         s.setdefault("ms", ms)  # the first case is the headline shape
         s.setdefault("plain_ms", plain_ms)
+        del fargs
 
     # ViT: 13 crops x 16 heads, 768 tokens (729 real), head_dim 72, as head
     # views of the fused QKV projection.
@@ -231,6 +243,95 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda q: decode_attention_cached_plain(q, kc, vc, 13, pos, 730, 1536, ks, vs),
                   (q,))
     del codes, scales, kc, vc, ks, vs
+
+    # Kernel C on a 2B serving pool: a bf16 (24, 8, 32, 1024, 64) cache,
+    # layer 13, one position per slot (slot 4 idle at 0), x1000 garbage
+    # past each slot's span; the diagonal query is each slot's own key.
+    slots, layer = 8, 13
+    for tq, pos in ((1, [735, 736, 800, 1000, 0, 760, 900, 1022]),
+                    (4, [735, 736, 800, 1000, 0, 760, 900, 1020])):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+        kc, vc = randn(24, slots, 32, 1024, 64), randn(24, slots, 32, 1024, 64)
+        for b, p in enumerate(pos):
+            kc[:, b, :, p + tq:] *= 1000
+            vc[:, b, :, p + tq:] *= 1000
+        diag = torch.stack([kc[layer, b, :, p:p + tq] for b, p in enumerate(pos)])
+        for kind, q in (("random q", randn(slots, 32, tq, 64)), ("diagonal q", diag)):
+            check(K.RAGGED, f"ragged pool 24x8x32x1024 d64 layer13 tq{tq} garbage tails, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, layer, pos_t, 0),
+                  lambda q, k, v: decode_attention_ragged_plain(q, k, v, layer, pos_t, 0),
+                  (q, kc, vc))
+    del kc, vc, diag
+
+    # Prefix-shared: suffix (24, 8, 32, 384, 64), prefix pool (24, 4, 32,
+    # 768, 64) with prefix_len 730, entries shared by several slots; x1000
+    # garbage past each suffix span and in the prefix padding 730-767. The
+    # diagonal query's first row is prefix entry pids[b]'s key at column
+    # 100: reading another entry moves the output by ~max|plain|.
+    pids = torch.tensor([0, 0, 1, 2, 3, 1, 2, 0], dtype=torch.int32, device=DEV)
+    for tq, pos in ((1, [735, 730, 800, 1100, 0, 760, 900, 1113]),
+                    (4, [735, 730, 800, 1100, 0, 760, 900, 1110])):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+        kc, vc = randn(24, slots, 32, 384, 64), randn(24, slots, 32, 384, 64)
+        for b, p in enumerate(pos):
+            kc[:, b, :, max(p + tq - 730, 0):] *= 1000
+            vc[:, b, :, max(p + tq - 730, 0):] *= 1000
+        pk, pv = randn(24, 4, 32, 768, 64), randn(24, 4, 32, 768, 64)
+        pk[..., 730:, :] *= 1000
+        pv[..., 730:, :] *= 1000
+        diag = randn(slots, 32, tq, 64)
+        diag[:, :, 0] = pk[layer, pids.long(), :, 100]
+        for kind, q in (("random q", randn(slots, 32, tq, 64)), ("prefix-diagonal q", diag)):
+            check(K.RAGGED, f"prefix-shared 24x8x32x384 + 24x4x32x768 prefix730 tq{tq}, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, layer, pos_t, 0, None,
+                                                  pref_k=pk, pref_v=pv, pids=pids, prefix_len=730),
+                  lambda q, k, v, pk, pv: decode_attention_ragged_plain(
+                      q, k, v, layer, pos_t, 0, None, pref_k=pk, pref_v=pv, pids=pids,
+                      prefix_len=730),
+                  (q, kc, vc, pk, pv))
+    del kc, vc, pk, pv, diag
+
+    # Kernel C's int8 entry: both pools again on int8 caches quantized by
+    # the port, random codes with scales x1000 in every garbage slot.
+    def int8_cache(shape, ends):
+        c, sc = quantize_kv(torch.randn(shape[0] * shape[1], *shape[2:], generator=gen,
+                                        device=DEV), 2)
+        c, sc = c.view(shape), sc.view(shape[0], shape[1], shape[2] // 2, shape[3])
+        for b, e in enumerate(ends):
+            tail = c[:, b, :, e:]
+            tail.copy_(torch.randint(-127, 128, tail.shape, generator=gen, device=DEV))
+            sc[:, b, :, e:] *= 1000
+        return c, sc
+
+    for tq, pos in ((1, [735, 736, 800, 1000, 0, 760, 900, 1022]),
+                    (4, [735, 736, 800, 1000, 0, 760, 900, 1020])):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+        ends = [p + tq for p in pos]
+        (kc, ks), (vc, vs) = (int8_cache((24, slots, 32, 1024, 64), ends) for _ in range(2))
+        diag = torch.stack([dequantize_kv(kc[layer, b, :, p:p + tq], ks[layer, b, :, p:p + tq], BF16)
+                            for b, p in enumerate(pos)])
+        for kind, q in (("random q", randn(slots, 32, tq, 64)), ("diagonal q", diag)):
+            check(K.RAGGED, f"int8 ragged pool 24x8x32x1024 layer13 tq{tq} garbage tails, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, layer, pos_t, 0, None, ks, vs),
+                  lambda q: decode_attention_ragged_plain(q, kc, vc, layer, pos_t, 0, None, ks, vs),
+                  (q,))
+    del kc, vc, ks, vs, diag
+    for tq, pos in ((1, [735, 730, 800, 1100, 0, 760, 900, 1113]),
+                    (4, [735, 730, 800, 1100, 0, 760, 900, 1110])):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+        ends = [max(p + tq - 730, 0) for p in pos]
+        (kc, ks), (vc, vs) = (int8_cache((24, slots, 32, 384, 64), ends) for _ in range(2))
+        (pkc, pks), (pvc, pvs) = (int8_cache((24, 4, 32, 768, 64), [730] * 4) for _ in range(2))
+        diag = randn(slots, 32, tq, 64)
+        diag[:, :, 0] = dequantize_kv(pkc[layer, pids.long(), :, 100:101],
+                                      pks[layer, pids.long(), :, 100:101], BF16)[:, :, 0]
+        args = (layer, pos_t, 0, None, ks, vs, pkc, pvc, pks, pvs, pids, 730)
+        for kind, q in (("random q", randn(slots, 32, tq, 64)), ("prefix-diagonal q", diag)):
+            check(K.RAGGED, f"int8 prefix-shared 24x8x32x384 + 24x4x32x768 prefix730 tq{tq}, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, *args),
+                  lambda q: decode_attention_ragged_plain(q, kc, vc, *args),
+                  (q,))
+    del kc, vc, ks, vs, pkc, pvc, pks, pvs, diag, args
 
     # W4A16 on weights quantized on the card: decode (M 1) and the 8-row
     # prompt span at the 2B text blocks' (K, N), then M 1 on layer 13 of a
@@ -301,6 +402,47 @@ def phase_small_reference(img: np.ndarray, quantized: bool = False) -> None:
         raise AssertionError(f"tiny-config reference mismatch: {card} vs {cpu}")
 
 
+def phase_serving_reference() -> None:
+    """One serving-pool decode step (`ragged_decode_step`) of the tiny config
+    over 4 slots at distinct positions, on seeded caches: plain, then with a
+    shared prefix segment. The logits of bf16 on the card (kernel C) and of
+    bf16 on the CPU (its plain version) are each held against fp32 on the
+    CPU, same weights and caches, as phase_small_reference holds them."""
+    cfg = tiny_test_config()
+    state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
+    state = {n: t.to(BF16).float() for n, t in state.items()}
+    gen = torch.Generator().manual_seed(SEED + 1)
+    tc = cfg.text
+    cache = lambda n, t: [torch.randn(tc.n_layers, n, tc.n_heads, t, tc.head_dim,
+                                      generator=gen).to(BF16).float() for _ in range(2)]
+    tokens = torch.tensor([5, 300, 17, 400], dtype=torch.int32)
+    cases = {
+        "plain": (cache(4, 1024), None, [0, 731, 850, 1000], None, 0),
+        "prefix-shared": (cache(4, 384), cache(2, 768), [731, 760, 900, 1020], [1, 0, 1, 0], 730),
+    }
+    for label, (kv, pref, pos, pids, prefix_len) in cases.items():
+        def run(device, dtype) -> torch.Tensor:
+            params = build_params(cfg, device, dtype)
+            params.load_state_dict(state)
+            to = lambda ts: KVCache(*(t.to(device, dtype) for t in ts))
+            return ragged_decode_step(
+                params["text"], to(kv), tokens.to(device),
+                torch.tensor(pos, dtype=torch.int32, device=device), None,
+                None if pref is None else to(pref),
+                None if pids is None else torch.tensor(pids, dtype=torch.int32, device=device),
+                prefix_len,
+            ).float().cpu()
+
+        ref = run("cpu", torch.float32)
+        rel = lambda x: ((x - ref).abs().max() / ref.abs().max()).item()
+        card_err, cpu_err = rel(run(DEV, BF16)), rel(run("cpu", BF16))
+        print(f"serving reference (tiny config, one {label} pool step, slots at {pos}), "
+              f"logits rel max err vs fp32 on the cpu: card bf16 {card_err:.5f}, "
+              f"cpu bf16 {cpu_err:.5f}, tol {SMALL_REF_FACTOR} x cpu bf16")
+        if not card_err <= SMALL_REF_FACTOR * cpu_err:
+            raise AssertionError(f"{label} pool step: {card_err} vs cpu bf16 {cpu_err}")
+
+
 def sync_ms(t0: float) -> float:
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
@@ -361,7 +503,7 @@ def phase_main_path(img: np.ndarray, power: str, quantized: bool = False,
         kv = model.load_encoded_image(enc)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, _, first, pos = model._prefill_prompt(kv, tmpl, enc.pos, 0.0, 0.0)
+        logits, _, first, pos, _ = model._prefill_prompt(kv, tmpl, enc.pos, 0.0, 0.0)
         prefill_ms = sync_ms(t0)
         if logits.shape != (cfg.text.vocab_size,) or not torch.isfinite(logits).all():
             raise AssertionError("bad prompt logits")
@@ -379,7 +521,8 @@ def phase_main_path(img: np.ndarray, power: str, quantized: bool = False,
     # one decode step per emitted token, each through every text layer; the
     # 730-row image prefill's linears take the dense route (M >= 512)
     steps = L_txt * (1 + len(ids))
-    want = {K.FLASH: L_vit + L_txt, K.DECODE: 0, K.DECODE_INT8: 0, KQ.W4A16: 0}
+    want = {name: 0 for name in LAUNCHES}
+    want[K.FLASH] = L_vit + L_txt
     want[K.DECODE_INT8 if quantized else K.DECODE] = steps
     if quantized:
         want[KQ.W4A16] = 4 * steps
@@ -406,6 +549,148 @@ def phase_main_path(img: np.ndarray, power: str, quantized: bool = False,
         print(f"bytes: text block linears int4 {packed_bytes} (packed + scale/zero) "
               f"vs bf16 {dense_bytes}; KV cache int8 {_nbytes(kv.k, kv.v, kv.ks, kv.vs)} "
               f"(codes + scales) vs bf16 {2 * _nbytes(kv.k) * 2}")
+    return launches, model
+
+
+class IdTokenizer(ByteTokenizer):
+    """ByteTokenizer whose decode renders every id as `<id>`: a pool's
+    result strings then carry the exact ids."""
+
+    def decode(self, ids):
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def _ids(text: str) -> list:
+    return [int(t) for t in text[1:-1].split("><")] if text else []
+
+
+POOL_QUESTION = "What is it?"  # 15 prompt tokens: a span for kernel B
+# (image, question) of the 8 requests: captions and queries over 3 images
+POOL_REQUESTS = [(0, None), (1, None), (2, POOL_QUESTION), (0, POOL_QUESTION),
+                 (1, None), (2, None), (0, None), (1, POOL_QUESTION)]
+POOL_TOKENS = 48
+
+
+def _pool_run(model, images, kind: dict, sync_check: bool = False) -> dict:
+    """Encode the images, then serve POOL_REQUESTS through one pool: four
+    admitted at once, the other four one per step, then drain. Returns the
+    results with counts and timings. With `sync_check`, one chunk is
+    dispatched under torch.cuda.set_sync_debug_mode("error") right after
+    the first four admissions."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encs = [model.encode_image(im) for im in images]
+    encode_ms = sync_ms(t0)
+    eng = ContinuousBatchingEngine(model, n_slots=8, slot_len=1024, chunk=8,
+                                   eos_id=-1, **kind)
+    chunks, step_ms, admit_ms = [0], [], []
+    dispatch = eng._dispatch_chunk
+
+    def counted_dispatch():
+        chunks[0] += 1
+        dispatch()
+
+    eng._dispatch_chunk = counted_dispatch
+
+    def submit(i):
+        img, question = POOL_REQUESTS[i]
+        t0 = time.perf_counter()
+        rid = eng.submit(encs[img], question=question, max_tokens=POOL_TOKENS)
+        admit_ms.append(sync_ms(t0))
+        return rid
+
+    def step():
+        t0 = time.perf_counter()
+        eng.step()
+        step_ms.append(sync_ms(t0))
+
+    rids = [submit(i) for i in range(4)]
+    if sync_check:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._dispatch_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for i in range(4, len(POOL_REQUESTS)):
+        step()
+        rids.append(submit(i))
+    entries = len(eng._pref_pid_of) if eng.prefix_share else None
+    while any(s.active for s in eng.slots) or eng._inflight:
+        step()
+    out = [_ids(eng.results[r]) for r in rids]
+    if [len(ids) for ids in out] != [POOL_TOKENS] * len(rids):
+        raise AssertionError(f"pool token counts {[len(ids) for ids in out]}")
+    if eng.prefix_share and any(eng._pref_refs):
+        raise AssertionError(f"prefix refcounts not released: {eng._pref_refs}")
+    nbytes = lambda kv: _nbytes(*(t for t in (kv.k, kv.v, kv.ks, kv.vs) if t is not None))
+    slots_bytes = nbytes(eng.kv)
+    pref_bytes = nbytes(eng.kv_pref) if eng.prefix_share else 0
+    return {"out": out, "chunks": chunks[0], "entries": entries, "encode_ms": encode_ms,
+            "step_ms": step_ms, "admit_ms": admit_ms, "encs": encs,
+            "cache_bytes": slots_bytes + pref_bytes,
+            "plain_bytes": slots_bytes * eng.slot_len // eng.kv.k.shape[3]}
+
+
+def phase_pool(model, images, power: str, label: str, quantized: bool,
+               **kind) -> dict:
+    """One 2B continuous-batching pool (n_slots 8, slot_len 1024, chunk 8,
+    greedy, eos -1 so every request decodes POOL_TOKENS tokens) driven
+    through the engine's entry points. The counted run checks exact launch
+    counts and one prefix entry per image, and is timed; a second run
+    checks no host sync inside a chunk and identical ids."""
+    cfg = model.config
+    L_txt, L_vit = cfg.text.n_layers, cfg.vision.enc_n_layers
+    model.tokenizer = IdTokenizer()
+    reset_launch_counts()
+    run = _pool_run(model, images, kind)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    n_req, n_img = len(POOL_REQUESTS), len(images)
+    want = {name: 0 for name in LAUNCHES}
+    want[K.FLASH] = n_img * (L_vit + L_txt)  # each encode: ViT + image prefill
+    want[K.DECODE_INT8 if quantized else K.DECODE] = n_req * L_txt  # prompts
+    want[K.RAGGED_INT8 if quantized else K.RAGGED] = L_txt * 8 * run["chunks"]
+    if quantized:
+        want[KQ.W4A16] = 4 * L_txt * (n_req + 8 * run["chunks"])
+    print(f"pool {label} launches:", launches, "expected:", want, "chunks:", run["chunks"])
+    if launches != want:
+        raise AssertionError(f"pool {label} launch counts {launches} != {want}")
+    if kind.get("prefix_share") and run["entries"] != n_img:
+        raise AssertionError(f"{run['entries']} prefix entries for {n_img} images")
+
+    again = _pool_run(model, images, kind, sync_check=True)
+    if again["out"] != run["out"]:
+        raise AssertionError(f"pool {label}: ids differ between two runs")
+    # timings from the counted run: the checked run's extra chunk delays
+    # every later read-back by one chunk, as pipeline depth 2 would
+    tokens = n_req * POOL_TOKENS
+    decode_s = sum(run["step_ms"]) / 1e3
+    print(f"2B pool {label} on {power}: {tokens / decode_s:.1f} tok/s decode "
+          f"({tokens} tokens in {run['chunks']} chunks of 8 steps x 8 slots, "
+          f"{sum(run['step_ms']) / run['chunks']:.2f} ms per chunk, token read-back "
+          f"included), admission {statistics.median(run['admit_ms']):.2f} ms median "
+          f"(prompt prefill + slot write), encode of {n_img} images "
+          f"{run['encode_ms']:.1f} ms; KV cache bytes {run['cache_bytes']} "
+          f"(a plain pool of these slots: {run['plain_bytes']})")
+
+    # agreement with batch-1 decoding of the same prompts (printed only:
+    # cuBLAS reduces in another order at M = 1 than at M = 8)
+    tmpl = cfg.tokenizer.templates
+    agree = []
+    for (img, question), pool_ids in zip(POOL_REQUESTS, again["out"]):
+        enc = again["encs"][img]
+        prompt = (list(tmpl["caption"]["normal"]) if question is None else
+                  list(tmpl["query"]["prefix"]) + model._encode_text(question)
+                  + list(tmpl["query"]["suffix"]))
+        _, _, first, pos, kv = model._prefill_prompt(
+            model.load_encoded_image(enc, slots=1024), prompt, enc.pos, 0.0, 0.0)
+        ids = model._generate_answer_tokens(
+            kv, first, pos, {"temperature": 0.0, "max_tokens": POOL_TOKENS}, eos_id=-1)
+        n = next((i for i, (a, b) in enumerate(zip(pool_ids, ids)) if a != b),
+                 min(len(pool_ids), len(ids)))
+        agree.append(n)
+    print(f"pool {label} vs batch-1 greedy: matching prefix (tokens of {POOL_TOKENS}) "
+          f"per request {agree}")
     return launches
 
 
@@ -422,9 +707,25 @@ def main() -> None:
     summary = phase_kernels(gen)
     phase_small_reference(img)
     phase_small_reference(img, quantized=True)
-    runs = [phase_main_path(img, power), phase_main_path(img, power, quantized=True)]
+    phase_serving_reference()
+    rng = np.random.default_rng(SEED + 2)
+    images = [rng.integers(0, 256, shape, dtype=np.uint8)
+              for shape in ((756, 1008, 3), (378, 378, 3), (600, 800, 3))]
+    runs = []
+    launches, model = phase_main_path(img, power)
+    runs += [launches,
+             phase_pool(model, images, power, "bf16 plain", False),
+             phase_pool(model, images, power, "bf16 prefix-shared depth 2", False,
+                        prefix_share=True, prefix_entries=4, pipeline_depth=2)]
+    del model
+    launches, model = phase_main_path(img, power, quantized=True)
+    runs += [launches,
+             phase_pool(model, images, power, "int4 + kv_int8 prefix-shared", True,
+                        prefix_share=True, prefix_entries=4)]
+    del model
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     launches[K.DECODE] += launches.pop(K.DECODE_INT8)
+    launches[K.RAGGED] += launches.pop(K.RAGGED_INT8)
 
     sources = {
         K.FLASH: ("moondream_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -432,6 +733,9 @@ def main() -> None:
         K.DECODE: ("moondream_tpu_torch/csrc/decode_attn_stacked.cu",
                    "moondream_tpu/ops/attention.py:931; moondream_tpu/ops/attention.py:631; "
                    "moondream_tpu/ops/attention.py:631 (int8 branch)"),
+        K.RAGGED: ("moondream_tpu_torch/csrc/decode_attn_stacked.cu",
+                   "moondream_tpu/ops/attention.py:963; moondream_tpu/ops/attention.py:631 "
+                   "(ragged and prefix-shared branches, bf16 and int8)"),
         KQ.W4A16: ("moondream_tpu_torch/csrc/w4a16_matmul.cu",
                    "moondream_tpu/ops/quant.py:147; moondream_tpu/ops/quant.py:116"),
     }

@@ -1,4 +1,6 @@
-"""ctypes bindings of the two attention kernels in `csrc/`.
+"""ctypes bindings of the attention kernels in `csrc/`: A (flash), and B
+(one position for the batch) and C (per-row positions, optionally over a
+shared prefix segment), two families of entry points of one decode kernel.
 
 Each wrapper checks device, dtype, shape, strides and alignment, allocates
 the output, launches on `torch.cuda.current_stream()` without
@@ -21,7 +23,10 @@ FLASH = "flash_attn_fwd"
 DECODE = "decode_attn_stacked"
 # kernel B's int8-cache entry point, counted apart from its bf16 one
 DECODE_INT8 = "decode_attn_stacked_int8"
-LAUNCHES.update({FLASH: 0, DECODE: 0, DECODE_INT8: 0})
+# kernel C, the serving pool's ragged decode, bf16 and int8 entry points
+RAGGED = "decode_attn_ragged"
+RAGGED_INT8 = "decode_attn_ragged_int8"
+LAUNCHES.update({FLASH: 0, DECODE: 0, DECODE_INT8: 0, RAGGED: 0, RAGGED_INT8: 0})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +52,12 @@ def _decode_lib() -> ctypes.CDLL:
         fn8 = lib.decode_attn_stacked_int8
         fn8.restype = _I
         fn8.argtypes = [_P] * 6 + [_I] * 9 + [_L] * 6 + [_I, _I, _F, _P]
+        fnr = lib.decode_attn_ragged_bf16
+        fnr.restype = _I
+        fnr.argtypes = [_P] * 8 + [_I] * 11 + [_L] * 6 + [_I, _I, _F, _P]
+        fnr8 = lib.decode_attn_ragged_int8
+        fnr8.restype = _I
+        fnr8.argtypes = [_P] * 12 + [_I] * 12 + [_L] * 6 + [_I, _I, _F, _P]
     return lib
 
 
@@ -112,6 +123,58 @@ def flash_attn_fwd(
     return out
 
 
+def _check_decode(name, q, k_cache, v_cache, k_scale, v_scale, batch) -> int:
+    """Check q (S, H, Tq, D) against stacked (L, batch, H, T, D) caches (S
+    == batch for the slot's own cache, P for a prefix segment) and their
+    scales; returns the number of scale rows H/g (0 for bf16)."""
+    _check_bf16_cuda(name, q)
+    _, h, tq, d = q.shape
+    n_layers, cb, ch, t_max, cd = k_cache.shape
+    if (cb, ch, cd) != (batch, h, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)} does not match cache {tuple(k_cache.shape)}"
+        )
+    int8 = k_scale is not None
+    cache_dtype = torch.int8 if int8 else torch.bfloat16
+    row = 16 if int8 else 8  # elements per 16-byte load
+    if not 1 <= tq <= 16 or d % row or d > 64:
+        raise ValueError(
+            f"{name}: need 1 <= Tq <= 16 and head_dim <= 64, a multiple of {row}"
+        )
+    for c in (k_cache, v_cache):
+        if c.device != q.device or c.dtype != cache_dtype:
+            raise ValueError(f"{name}: caches must be {cache_dtype} on {q.device}")
+        if not c.is_contiguous() or c.data_ptr() % 16:
+            raise ValueError(f"{name}: caches must be contiguous and 16-byte aligned")
+    if q.stride(3) != 1:
+        raise ValueError(f"{name}: q head_dim must be contiguous")
+    if not int8:
+        return 0
+    if v_scale is None or v_scale.shape != k_scale.shape:
+        raise ValueError(f"{name}: k_scale and v_scale must match")
+    hg = k_scale.shape[2] if k_scale.dim() == 4 else 0
+    if hg == 0 or h % hg or k_scale.shape != (n_layers, batch, hg, t_max):
+        raise ValueError(
+            f"{name}: scales {tuple(k_scale.shape)} do not fit cache "
+            f"{tuple(k_cache.shape)}"
+        )
+    for s in (k_scale, v_scale):
+        if s.device != q.device or s.dtype != torch.float32 or not s.is_contiguous():
+            raise ValueError(f"{name}: scales must be contiguous fp32 on {q.device}")
+    return hg
+
+
+def _check_index(name: str, t: torch.Tensor, n: int, like: torch.Tensor) -> None:
+    """A per-slot int32 vector on the device (positions, prefix ids), read
+    by the kernel; its values are never read on the host."""
+    if (t.device != like.device or t.dtype != torch.int32 or t.shape != (n,)
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{name}: positions and prefix ids must be contiguous int32 ({n},) "
+            f"on {like.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
 def decode_attn_stacked(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -129,41 +192,11 @@ def decode_attn_stacked(
     head h reads scale row h // g."""
     int8 = k_scale is not None
     name = DECODE_INT8 if int8 else DECODE
-    _check_bf16_cuda(name, q)
     b, h, tq, d = q.shape
-    n_layers, cb, ch, t_max, cd = k_cache.shape
-    if (cb, ch, cd) != (b, h, d) or v_cache.shape != k_cache.shape:
-        raise ValueError(
-            f"{name}: q {q.shape} does not match cache {k_cache.shape}"
-        )
-    cache_dtype = torch.int8 if int8 else torch.bfloat16
-    row = 16 if int8 else 8  # elements per 16-byte load
-    if not 1 <= tq <= 16 or d % row or d > 64:
-        raise ValueError(
-            f"{name}: need 1 <= Tq <= 16 and head_dim <= 64, a multiple of {row}"
-        )
+    n_layers, _, _, t_max, _ = k_cache.shape
+    hg = _check_decode(name, q, k_cache, v_cache, k_scale, v_scale, b)
     if not (0 <= layer < n_layers and 0 < tk <= t_max and pos >= 0):
         raise ValueError(f"{name}: layer {layer}, tk {tk}, pos {pos}")
-    for c in (k_cache, v_cache):
-        if c.device != q.device or c.dtype != cache_dtype:
-            raise ValueError(f"{name}: caches must be {cache_dtype} on {q.device}")
-        if not c.is_contiguous() or c.data_ptr() % 16:
-            raise ValueError(f"{name}: caches must be contiguous and 16-byte aligned")
-    if q.stride(3) != 1:
-        raise ValueError(f"{name}: q head_dim must be contiguous")
-    if int8:
-        if v_scale is None or v_scale.shape != k_scale.shape:
-            raise ValueError(f"{name}: k_scale and v_scale must match")
-        hg = k_scale.shape[2] if k_scale.dim() == 4 else 0
-        if hg == 0 or h % hg or k_scale.shape != (n_layers, b, hg, t_max):
-            raise ValueError(
-                f"{name}: scales {tuple(k_scale.shape)} do not fit cache "
-                f"{tuple(k_cache.shape)}"
-            )
-        for s in (k_scale, v_scale):
-            if (s.device != q.device or s.dtype != torch.float32
-                    or not s.is_contiguous()):
-                raise ValueError(f"{name}: scales must be contiguous fp32 on {q.device}")
     out = _head_major_out(b, h, tq, d, q)
     lib = _decode_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -179,6 +212,80 @@ def decode_attn_stacked(
         rc = lib.decode_attn_stacked_bf16(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
             n_layers, b, h, t_max, d, tq, int(layer), int(tk), *tail,
+        )
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
+def decode_attn_ragged(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer: int,
+    pos: torch.Tensor,
+    prefix: int,
+    tk: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    pref_k: Optional[torch.Tensor] = None,
+    pref_v: Optional[torch.Tensor] = None,
+    pref_ks: Optional[torch.Tensor] = None,
+    pref_vs: Optional[torch.Tensor] = None,
+    pids: Optional[torch.Tensor] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Kernel C: slot b of q (S, H, Tq <= 16, D) at positions pos[b] + i over
+    layer `layer` of the stacked (L, S, H, T, D) caches, reading at most the
+    first `tk` slots, and with `pref_k`/`pref_v` (L, P, H, Tp, D) and `pids`
+    over prefix entry pids[b] too (see ops.attention.
+    decode_attention_ragged_plain). `pos` and `pids` are int32 (S,) device
+    tensors that the kernel reads; nothing is synchronised. int8 caches take
+    fp32 scales (L, S or P, H/g, T) as kernel B's do."""
+    int8 = k_scale is not None
+    name = RAGGED_INT8 if int8 else RAGGED
+    s_, h, tq, d = q.shape
+    n_layers, _, _, t_max, _ = k_cache.shape
+    hg = _check_decode(name, q, k_cache, v_cache, k_scale, v_scale, s_)
+    if not (0 <= layer < n_layers and 0 < tk <= t_max):
+        raise ValueError(f"{name}: layer {layer}, tk {tk}")
+    _check_index(name, pos, s_, q)
+    shared = pref_k is not None
+    n_pref = tp = 0
+    if shared:
+        if pids is None or (pref_ks is None) != (not int8) or prefix_len <= 0:
+            raise ValueError(
+                f"{name}: a prefix segment needs pids, prefix_len > 0 and "
+                "scales exactly when the cache has them"
+            )
+        if pref_k.shape[0] != n_layers:
+            raise ValueError(f"{name}: prefix {tuple(pref_k.shape)} has other layers")
+        n_pref, tp = pref_k.shape[1], pref_k.shape[3]
+        phg = _check_decode(name, q, pref_k, pref_v, pref_ks, pref_vs, n_pref)
+        if phg != hg:
+            raise ValueError(f"{name}: prefix scales do not match the cache's")
+        _check_index(name, pids, s_, q)
+    elif pids is not None or pref_v is not None:
+        raise ValueError(f"{name}: pids and pref_v need pref_k")
+    out = _head_major_out(s_, h, tq, d, q)
+    lib = _decode_lib()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    tail = (*q.stride()[:3], *out.stride()[:3], int(prefix), int(prefix_len),
+            float(d) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if int8:
+        rc = lib.decode_attn_ragged_int8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), ptr(pref_k), ptr(pref_v),
+            ptr(pref_ks), ptr(pref_vs), out.data_ptr(), pos.data_ptr(), ptr(pids),
+            n_layers, s_, h, t_max, d, tq, int(layer), int(tk), h // hg,
+            n_pref, tp, tp, *tail,
+        )
+    else:
+        rc = lib.decode_attn_ragged_bf16(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(pref_k),
+            ptr(pref_v), out.data_ptr(), pos.data_ptr(), ptr(pids),
+            n_layers, s_, h, t_max, d, tq, int(layer), int(tk), n_pref, tp, tp,
+            *tail,
         )
     _raise_on(name, rc)
     LAUNCHES[name] += 1

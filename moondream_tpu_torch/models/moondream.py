@@ -1,14 +1,17 @@
-"""MoondreamModel, caption path (the main-path subset of
-moondream_tpu/models/moondream.py).
+"""MoondreamModel, caption path and what the serving pool needs of the
+model (the main-path subset of moondream_tpu/models/moondream.py).
 
 encode_image: host overlap crops -> ViT over a bucketed crop batch ->
 stitch + projection -> [BOS, image] prefill -> KV snapshot. caption: the
 template prompt prefill over the restored snapshot, then greedy or top-p
-decode, plain or streamed.
+decode, plain or streamed. `models.serve.ContinuousBatchingEngine` prefills
+its requests through load_encoded_image (on recycled buffers) and
+_prefill_prompt.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Literal, Optional, Tuple
 
@@ -46,6 +49,9 @@ class EncodedImage:
     v: torch.Tensor
     ks: Optional[torch.Tensor] = None
     vs: Optional[torch.Tensor] = None
+
+    def as_cache(self) -> KVCache:
+        return KVCache(k=self.k, v=self.v, ks=self.ks, vs=self.vs)
 
 
 def _snap_enc(kv: KVCache, pos: int) -> EncodedImage:
@@ -94,6 +100,14 @@ class MoondreamModel:
             params = init_params(config, self.generator, self.device, dtype)
         self.params = params
         self.tokenizer = tokenizer if tokenizer is not None else load_tokenizer()
+        # Recycled single-row KV buffers, by slot count (the JAX package's
+        # pool, moondream_tpu/models/moondream.py:151-159): the serving pool
+        # returns each prefilled request's buffer once its slot write is
+        # done, so the next load_encoded_image costs only the snapshot
+        # copy. Stale slots past a snapshot are overwritten before they are
+        # attended. Servers recycle from other threads: hence the lock.
+        self._kv_pool: Dict[int, List[KVCache]] = {}
+        self._kv_pool_lock = threading.Lock()
 
     @property
     def vision(self):
@@ -102,6 +116,9 @@ class MoondreamModel:
     @property
     def text(self):
         return self.params["text"]
+
+    def _encode_text(self, text: str) -> List[int]:
+        return self.tokenizer.encode(text)
 
     def _decode_tokens(self, ids) -> str:
         return self.tokenizer.decode([int(i) for i in ids])
@@ -166,23 +183,47 @@ class MoondreamModel:
         )
         return _snap_enc(kv, seq)
 
-    def load_encoded_image(self, encoded: EncodedImage) -> KVCache:
-        """A fresh working cache holding the snapshot."""
-        kv = KVCache.create(self.config.text, 1, self.dtype, self.device)
-        kv.k[:, :, :, : encoded.pos] = encoded.k
-        kv.v[:, :, :, : encoded.pos] = encoded.v
+    def _take_kv_buffer(self, slots: Optional[int] = None) -> KVCache:
+        slots = slots or self.config.text.max_context
+        with self._kv_pool_lock:
+            pool = self._kv_pool.get(slots)
+            if pool:
+                return pool.pop()
+        return KVCache.create(self.config.text, 1, self.dtype, self.device, slots)
+
+    def _recycle_kv(self, kv: Optional[KVCache]) -> None:
+        """Return a single-row buffer to the pool (at most two kept per
+        size); the caller must not use it afterwards."""
+        if kv is None:
+            return
+        with self._kv_pool_lock:
+            pool = self._kv_pool.setdefault(int(kv.k.shape[3]), [])
+            if len(pool) < 2:
+                pool.append(kv)
+
+    def load_encoded_image(
+        self, encoded: EncodedImage, slots: Optional[int] = None
+    ) -> KVCache:
+        """A working cache holding the snapshot, on a recycled buffer when
+        the pool has one. `slots` bounds its token capacity (default
+        max_context): serving pools pass their slot_len."""
+        kv = self._take_kv_buffer(slots)
+        n = encoded.k.shape[3]  # the whole snapshot, as the JAX package writes it
+        kv.k[:, :, :, :n] = encoded.k
+        kv.v[:, :, :, :n] = encoded.v
         if kv.ks is not None:
-            kv.ks[..., : encoded.pos] = encoded.ks
-            kv.vs[..., : encoded.pos] = encoded.vs
+            kv.ks[..., :n] = encoded.ks
+            kv.vs[..., :n] = encoded.vs
         return kv
 
     # ------------------------------------------------------------ prefill
     def _prefill_prompt(
         self, kv: KVCache, prompt_tokens: List[int], pos: int,
         temperature: float, top_p: float, prefix_len: Optional[int] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
-        """Embed and prefill a prompt, sample the first token. Returns
-        (logits, hidden, next_token (0-d device tensor), new_pos)."""
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int, KVCache]:
+        """Embed and prefill a prompt into `kv` (in place), sample the first
+        token. Returns (logits, hidden, next_token (0-d device tensor),
+        new_pos, kv), as the JAX package does."""
         ids = list(prompt_tokens)
         length = len(ids)
         pad = max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
@@ -195,7 +236,7 @@ class MoondreamModel:
             kv_bound=self._kv_bound(pos + pad),
         )
         next_token = sample_token(logits, self.generator, temperature, top_p)
-        return logits, hidden, next_token, pos + length
+        return logits, hidden, next_token, pos + length, kv
 
     # --------------------------------------------------------- generation
     def _settings(self, settings) -> Tuple[int, float, float]:
@@ -262,7 +303,7 @@ class MoondreamModel:
         enc = self.encode_image(image, settings)
         _, temperature, top_p = self._settings(settings)
         kv = self.load_encoded_image(enc)
-        _, _, next_token, pos = self._prefill_prompt(
+        _, _, next_token, pos, kv = self._prefill_prompt(
             kv, list(templates[length]), enc.pos, temperature, top_p
         )
         if not stream:

@@ -78,6 +78,23 @@ class KVCache:
         )
 
 
+def slice_cache_span(kv: KVCache, span: int) -> KVCache:
+    """Views of [0, span) of the time axis of every cache tensor
+    (moondream_tpu/models/text.py:148-156)."""
+    return slice_cache_span_from(kv, 0, span)
+
+
+def slice_cache_span_from(kv: KVCache, start: int, span: int) -> KVCache:
+    """Views of [start, start + span) of the time axis of every cache tensor
+    (moondream_tpu/models/text.py:159-170): the prompt SUFFIX of a
+    prefilled buffer under prefix-shared serving. A span that runs past the
+    buffer's end keeps what is there, as the JAX package's slot write
+    (dynamic_update_slice) then writes only that."""
+    sl = lambda a: None if a is None else a[..., start:start + span, :]
+    sls = lambda a: None if a is None else a[..., start:start + span]
+    return KVCache(k=sl(kv.k), v=sl(kv.v), ks=sls(kv.ks), vs=sls(kv.vs))
+
+
 def quantize_kv(x: torch.Tensor, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per token and group of g adjacent heads: x (B, H, T, D)
     -> codes int8 (B, H, T, D) and scale fp32 (B, H/g, T); x ~ codes *

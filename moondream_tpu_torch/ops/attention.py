@@ -65,27 +65,16 @@ def read_bound(t_max: int, kv_bound: Optional[int]) -> int:
     return min(_ceil_to(tk, 128), t_max)
 
 
-def decode_attention_cached_plain(
-    q, k_cache, v_cache, layer: int, pos: int, prefix: int,
-    kv_bound: Optional[int] = None,
-    k_scale: Optional[torch.Tensor] = None,
-    v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain version of kernel B: q (B, H, Tq, D) over layer `layer` of the
-    stacked (L, B, H, T, D) caches. With k_scale/v_scale (L, B, H/g, T), the
-    caches hold int8 codes (x ~ code * scale) and head h reads scale row
-    h // g; the scales fold into the scores and the softmax weights as in
-    `_decode_kernel_paired`'s int8 branch (moondream_tpu/ops/attention.py:
-    677-692, 756-767)."""
-    tk = read_bound(k_cache.shape[3], kv_bound)
-    k = k_cache[layer, :, :, :tk]
-    v = v_cache[layer, :, :, :tk]
-    mask = unified_mask(q.shape[2], tk, pos, prefix, q.device)
-    if k_scale is None:
+def _cache_softmax_pv(q, k, v, mask, ks=None, vs=None) -> torch.Tensor:
+    """Masked attention of q over cache rows k/v (mask broadcasts to the
+    scores). Without scales: `_masked_softmax_pv`. With ks/vs broadcasting
+    to the scores, k/v hold int8 codes (x ~ code * scale): the k-scale
+    folds into the scores and the v-scale into the unnormalised weights,
+    which meet the codes in q.dtype, and the division comes after PV, as in
+    `_decode_kernel_paired`'s int8 branches (moondream_tpu/ops/attention.py:
+    677-692, 739-767)."""
+    if ks is None:
         return _masked_softmax_pv(q, k, v, mask)
-    g = q.shape[1] // k_scale.shape[2]
-    ks = k_scale[layer, :, :, None, :tk].repeat_interleave(g, dim=1)
-    vs = v_scale[layer, :, :, None, :tk].repeat_interleave(g, dim=1)
     scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     s = (s * (ks * scale)).masked_fill(~mask, NEG_INF)
@@ -95,24 +84,124 @@ def decode_attention_cached_plain(
     return (torch.matmul(pv, v.float()) / denom).to(q.dtype)
 
 
-def decode_attention_cached(
+def _scale_rows(scale, layer: int, h: int, t: int, rows=slice(None)):
+    """Layer `layer` of (L, B, H/g, T) scales (batch entries `rows`) as
+    (B, H, 1, t): head h reads scale row h // g."""
+    s = scale[layer, rows, :, None, :t]
+    return s.repeat_interleave(h // scale.shape[2], dim=1)
+
+
+def decode_attention_cached_plain(
     q, k_cache, v_cache, layer: int, pos: int, prefix: int,
     kv_bound: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Attention for one token or a span of <= 16 rows (row i at pos + i)
-    over one layer of the whole stacked cache, bf16 or int8 codes with
-    scales; the layer is addressed by index, never sliced or copied.
-    Counterpart of `decode_attention_cached` of the JAX package on its plain
-    (unpaired, MHA) layout."""
+    """Plain version of kernel B: q (B, H, Tq, D) over layer `layer` of the
+    stacked (L, B, H, T, D) caches, every batch row at `pos`: kernel C's
+    plain version with one position for all rows. With k_scale/v_scale
+    (L, B, H/g, T), the caches hold int8 codes (x ~ code * scale) and head
+    h reads scale row h // g."""
+    rows = torch.full((q.shape[0],), pos, device=q.device)
+    return decode_attention_ragged_plain(
+        q, k_cache, v_cache, layer, rows, prefix, kv_bound, k_scale, v_scale
+    )
+
+
+def decode_attention_ragged_plain(
+    q, k_cache, v_cache, layer: int, pos: torch.Tensor, prefix: int,
+    kv_bound: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    pref_k: Optional[torch.Tensor] = None,
+    pref_v: Optional[torch.Tensor] = None,
+    pref_ks: Optional[torch.Tensor] = None,
+    pref_vs: Optional[torch.Tensor] = None,
+    pids: Optional[torch.Tensor] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Plain version of kernel C: row b of q (S, H, Tq, D) sits at positions
+    pos[b] + i over layer `layer` of the stacked (L, S, H, T, D) caches.
+
+    Without a prefix segment, query row i of slot b attends column c iff
+    c <= pos[b] + i OR (pos[b] + i < prefix AND c < prefix), as
+    `_decode_kernel_stacked_ragged` computes it (moondream_tpu/ops/
+    attention.py:963-1036). With `pref_k`/`pref_v` (L, P, H, Tp, D) the
+    caches are SUFFIX segments whose column j sits at position
+    prefix_len + j, and slot b also reads prefix entry pids[b]: prefix
+    column c attends iff c <= pos[b] + i AND c < prefix_len, suffix column
+    j iff prefix_len + j <= pos[b] + i, under one max and one denominator
+    (`prefix` does not apply). int8 caches take scales (L, S or P, H/g, T)
+    as in kernel B."""
+    h, tq = q.shape[1], q.shape[2]
+    tk = read_bound(k_cache.shape[3], kv_bound)
+    k = k_cache[layer, :, :, :tk]
+    v = v_cache[layer, :, :, :tk]
+    qpos = (pos.long()[:, None] + torch.arange(tq, device=q.device))[:, None, :, None]
+    cols = torch.arange(tk, device=q.device)
+    int8 = k_scale is not None
+    ks = _scale_rows(k_scale, layer, h, tk) if int8 else None
+    vs = _scale_rows(v_scale, layer, h, tk) if int8 else None
+    if pref_k is None:
+        mask = (cols <= qpos) | ((qpos < prefix) & (cols < prefix))
+        return _cache_softmax_pv(q, k, v, mask, ks, vs)
+    tp = pref_k.shape[3]
+    colsp = torch.arange(tp, device=q.device)
+    pids = pids.long()
+    k = torch.cat([pref_k[layer][pids], k], dim=2)
+    v = torch.cat([pref_v[layer][pids], v], dim=2)
+    mask = torch.cat(
+        [(colsp <= qpos) & (colsp < prefix_len), prefix_len + cols <= qpos], dim=-1
+    )
+    if int8:
+        ks = torch.cat([_scale_rows(pref_ks, layer, h, tp, pids), ks], dim=-1)
+        vs = torch.cat([_scale_rows(pref_vs, layer, h, tp, pids), vs], dim=-1)
+    return _cache_softmax_pv(q, k, v, mask, ks, vs)
+
+
+def decode_attention_cached(
+    q, k_cache, v_cache, layer: int, pos, prefix: int,
+    kv_bound: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    pref_k: Optional[torch.Tensor] = None,
+    pref_v: Optional[torch.Tensor] = None,
+    pref_ks: Optional[torch.Tensor] = None,
+    pref_vs: Optional[torch.Tensor] = None,
+    pids: Optional[torch.Tensor] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Attention for one token or a span of <= 16 rows over one layer of the
+    whole stacked cache, bf16 or int8 codes with scales; the layer is
+    addressed by index, never sliced or copied. Counterpart of
+    `decode_attention_cached` of the JAX package on its plain (unpaired,
+    MHA) layout.
+
+    An int `pos` places row i of every batch entry at pos + i (kernel B). A
+    1-D `pos` tensor (S,) gives each slot its own position, as in the
+    serving pool (kernel C), optionally over a shared prefix segment
+    (`pref_k`, ..., `pids`, `prefix_len`; see decode_attention_ragged_plain).
+    Positions and prefix ids stay on the device: nothing is read back."""
+    ragged = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    if not ragged and pref_k is not None:
+        raise ValueError("a shared prefix segment needs per-row positions")
     if q.device.type == "cpu":
+        if ragged:
+            return decode_attention_ragged_plain(
+                q, k_cache, v_cache, layer, pos, prefix, kv_bound, k_scale,
+                v_scale, pref_k, pref_v, pref_ks, pref_vs, pids, prefix_len,
+            )
         return decode_attention_cached_plain(
             q, k_cache, v_cache, layer, pos, prefix, kv_bound, k_scale, v_scale
         )
-    from ..kernels.attention import decode_attn_stacked
+    from ..kernels.attention import decode_attn_ragged, decode_attn_stacked
 
     tk = read_bound(k_cache.shape[3], kv_bound)
+    if ragged:
+        return decode_attn_ragged(
+            q, k_cache, v_cache, layer, pos, prefix, tk, k_scale, v_scale,
+            pref_k, pref_v, pref_ks, pref_vs, pids, prefix_len,
+        )
     return decode_attn_stacked(
         q, k_cache, v_cache, layer, pos, prefix, tk, k_scale, v_scale
     )

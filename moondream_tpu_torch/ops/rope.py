@@ -35,15 +35,18 @@ def apply_rotary_emb(
     rot_dim: int = 32,
 ) -> torch.Tensor:
     """Rotate the leading `rot_dim` channels of each head.
-    x: (B, H, T, head_dim); position_ids: (T,). Returns a new contiguous
-    tensor of x's shape and dtype."""
+    x: (B, H, T, head_dim); position_ids: (T,) shared across the batch, or
+    (B, T) per row (the serving pool's ragged decode). Returns a new
+    contiguous tensor of x's shape and dtype."""
     if rot_dim != freqs_cis.shape[-2] * 2:
         raise ValueError(f"rot_dim {rot_dim} does not match the table")
     x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
     half = rot_dim // 2
     xr = x_rot[..., :half].float()
     xi = x_rot[..., half:].float()
-    cos = freqs_cis[position_ids, :, 0]  # (T, half), broadcast over B, H
+    if position_ids.dim() == 2:
+        position_ids = position_ids[:, None]  # (B, 1, T): broadcast over H
+    cos = freqs_cis[position_ids, :, 0]  # (..., T, half)
     sin = freqs_cis[position_ids, :, 1]
     out_r = xr * cos - xi * sin
     out_i = xr * sin + xi * cos

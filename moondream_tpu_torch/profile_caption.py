@@ -1,7 +1,8 @@
-"""Where the time of the 2B caption path goes on one CUDA card.
+"""Where the time of the 2B caption path, or of one serving-pool chunk, goes
+on one CUDA card.
 
     python3 -m moondream_tpu_torch.profile_caption [--tokens 64] [--top 12]
-        [--int4] [--kv-int8]
+        [--int4] [--kv-int8] [--pool plain|shared]
 
 Builds MOONDREAM_2B with seeded random weights on the card (with --int4, the
 text blocks quantized to int4; with --kv-int8, an int8 KV cache) and runs the path
@@ -12,6 +13,11 @@ clock, after synchronising; the profiler adds host time), the device's busy
 time (the union of its kernel and copy intervals), the idle share
 1 - busy / wall, and the device kernels that took the most time, with their
 launch counts.
+
+With --pool, it profiles instead one `step()` (one 8-step chunk, token
+read-back included) of a ContinuousBatchingEngine with 8 slots of 1024,
+every slot decoding a caption of that image (eos off), plain or
+prefix-shared (4 prefix entries), after a warm-up drain of the same pool.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .config import MOONDREAM_2B
 from .models.moondream import MoondreamModel
+from .models.serve import ContinuousBatchingEngine
 from .models.text import quantize_text_params
 from .tokenizer import ByteTokenizer
 from .weights import init_params
@@ -77,6 +84,8 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--int4", action="store_true", help="int4 text block weights")
     ap.add_argument("--kv-int8", action="store_true", help="int8 KV cache")
+    ap.add_argument("--pool", choices=("plain", "shared"),
+                    help="profile one chunk of an 8-slot serving pool instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_caption: needs a CUDA card")
@@ -98,6 +107,19 @@ def main() -> None:
     img = np.random.default_rng(0).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
     greedy = {"temperature": 0.0, "max_tokens": args.tokens}
     enc = model.encode_image(img)
+    if args.pool:
+        shared = args.pool == "shared"
+        eng = ContinuousBatchingEngine(
+            model, n_slots=8, slot_len=1024, chunk=8, eos_id=-1,
+            prefix_share=shared, prefix_entries=4 if shared else None,
+        )
+        for max_tokens in (8, 32):  # a warm-up chunk, then the profiled pool
+            for _ in range(8):
+                eng.submit(enc, max_tokens=max_tokens)
+            eng.step()
+        report(f"pool chunk ({args.pool}, 8 slots x 8 steps)", eng.step, args.top)
+        eng.drain()
+        return
     model.caption(enc, "normal", settings=greedy)  # warm
 
     report("encode_image", lambda: model.encode_image(img), args.top)

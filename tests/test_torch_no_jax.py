@@ -2,7 +2,7 @@
 fresh interpreter with `sys.modules["jax"]` and `sys.modules["moondream_tpu"]`
 set to None, import every module of moondream_tpu_torch and run a tiny
 greedy caption on the CPU, dense and with int4 text blocks and an int8 KV
-cache."""
+cache, and serve two requests on one image through a prefix-shared pool."""
 
 import os
 import subprocess
@@ -26,6 +26,12 @@ model = MoondreamModel(tiny_test_config(), dtype=torch.float32, seed=1)
 img = np.random.default_rng(0).integers(0, 255, (300, 500, 3), dtype=np.uint8)
 out = model.caption(img, settings={"temperature": 0, "max_tokens": 4})
 assert isinstance(out["caption"], str)
+from moondream_tpu_torch.models.serve import ContinuousBatchingEngine
+eng = ContinuousBatchingEngine(model, n_slots=2, slot_len=1024, chunk=4, prefix_share=True)
+enc = model.encode_image(img)
+rids = [eng.submit(enc, max_tokens=4), eng.submit(enc, question="what?", max_tokens=4)]
+served = eng.drain()
+assert sorted(served) == rids and eng._pref_refs == [0, 0] and len(eng._pref_pid_of) == 1
 import dataclasses
 from moondream_tpu_torch.models.text import quantize_text_params
 from moondream_tpu_torch.weights import init_params
