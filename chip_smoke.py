@@ -1,27 +1,34 @@
-"""Drive the PyTorch port's caption and serving paths once on one CUDA card.
+"""Drive the PyTorch port's caption, query, lockstep-batch and serving paths
+once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. build: nvcc-build the attention kernels (A, and the decode kernel with
-     its B and C entries, bf16 and int8) and the W4A16 kernel from
+     its B, B-GQA and C entries, bf16 and int8) and the W4A16 kernel from
      moondream_tpu_torch/csrc and g++-build the native crop library, all at
      once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
      on the same inputs, TF32 off) at the main paths' shapes, with median
-     times of both;
+     times of both; at each kernel's headline shape also its bound (bytes
+     or operations over the H100's peak rates) and the time of one PyTorch
+     call computing the same function (SDPA; the int4-pack matmul);
   3. small references: the tiny config in bf16 on the card and in bf16 on
      the CPU (plain versions), each against fp32 on the CPU, same weights:
      the caption path dense, then with int4 text blocks and an int8 KV
-     cache; one serving-pool decode step, plain and prefix-shared;
+     cache, then with one KV head (GQA) and a plain or int8 cache; the
+     lockstep batches' encode_images, batched prompt prefill (spans of 8
+     and 16) and one decode step over 3 images, MHA and GQA; one
+     serving-pool decode step, plain and prefix-shared;
   4. the main paths at MOONDREAM_2B widths and depth with seeded random
-     weights: the bf16 model, then the same weights with int4 text blocks
-     and an int8 KV cache. Each: encode_image and caption, with exact
-     kernel launch counts, repeated greedy ids, streamed == plain, one
-     sampled caption, and timings; then the continuous-batching pools on
-     that model (bf16: plain, and prefix-shared with pipeline depth 2;
-     int4 + kv_int8: prefix-shared), 8 requests each, with exact launch
-     counts, no host sync inside a chunk, repeated ids and timings.
+     weights, each with exact kernel launch counts (reset just before the
+     path, read just after): the bf16 model (caption, query, lockstep
+     caption_batch / query_batch over 8 images, three continuous-batching
+     pools), the same weights with int4 text blocks and an int8 KV cache
+     (caption, query, a prefix-shared pool), and the 2B with 8 KV heads
+     (GQA), bf16 (caption, query, lockstep batches) then kv_int8 (caption,
+     query). Captions check repeated greedy ids, streamed == plain and one
+     sampled caption; pools check no host sync inside a chunk.
 
 Prints the card's name and power limit first, a kernels JSON line second to
 last, and {"ok": true, "device": {...}} last.
@@ -42,6 +49,13 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
 
 from moondream_tpu_torch.config import MOONDREAM_2B, tiny_test_config  # noqa: E402
+from moondream_tpu_torch.engine.batched import (  # noqa: E402
+    batched_steps,
+    decode_step_batched,
+    generate_text_batched,
+    sample_tokens_batched,
+)
+from moondream_tpu_torch.engine.generate import decode_step  # noqa: E402
 from moondream_tpu_torch.engine.serving import ragged_decode_step  # noqa: E402
 from moondream_tpu_torch.kernels import attention as K  # noqa: E402
 from moondream_tpu_torch.kernels import quant as KQ  # noqa: E402
@@ -58,19 +72,24 @@ from moondream_tpu_torch.models.text import (  # noqa: E402
     dequantize_kv,
     quantize_kv,
     quantize_text_params,
+    text_encoder,
 )
 from moondream_tpu_torch.ops.attention import (  # noqa: E402
+    decode_attention,
     decode_attention_cached,
     decode_attention_cached_plain,
+    decode_attention_plain,
     decode_attention_ragged_plain,
     flash_attention,
     flash_attention_plain,
+    unified_mask,
 )
 from moondream_tpu_torch.ops.image_crops import load_native  # noqa: E402
 from moondream_tpu_torch.ops.quant import (  # noqa: E402
     quantize_weight_torch,
     quantized_matmul,
     quantized_matmul_plain,
+    unpack_codes,
 )
 from moondream_tpu_torch.tokenizer import ByteTokenizer  # noqa: E402
 from moondream_tpu_torch.utils.streaming import stream_text  # noqa: E402
@@ -92,6 +111,18 @@ KERNEL_REL_TOL = 1e-2
 # result about as much as bf16 does; a wrong mask moves it far more.
 SMALL_REF_FACTOR = 2.0
 SEED = 0
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense): HBM bytes/s
+# and bf16 tensor-core FLOP/s. A kernel's bound is the larger of the bytes
+# its function must move (each input read once, each output written once)
+# over the first and its operations over the second, both counted from
+# this run's inputs at the kernel's headline shape.
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOP_S = 989e12
+# The 2B with 8 KV heads for its 32 query heads (GQA, rep 4): the published
+# widths otherwise.
+MOONDREAM_2B_GQA = dataclasses.replace(
+    MOONDREAM_2B, text=dataclasses.replace(MOONDREAM_2B.text, n_kv_heads=8)
+)
 
 
 def card() -> str:
@@ -148,15 +179,69 @@ def phase_build() -> None:
     print("build seconds:", {k: round(v, 2) for k, v in build_seconds.items()})
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work that moves `nbytes` and
+    does `flops` bf16 operations, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOP_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def attn_work(q, k, v, attended: int) -> tuple:
+    """(bytes, flops) of attention: q, k, v read once and the output (q's
+    shape, bf16) written once; QK^T and PV over the `attended` (query row,
+    key column) pairs of every batch row and query head."""
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() * 2
+    return nbytes, 4 * q.shape[1] * q.shape[-1] * attended
+
+
+def sdpa(q, k, v, mask, gqa=False):
+    """One PyTorch call computing the attention function of kernels A, B,
+    B-GQA and C on the same inputs (timed as a yardstick only; the port
+    never calls it): SDPA with the unified mask as a boolean tensor."""
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=gqa)
+
+
+def int4pack_mm(x, qw):
+    """One PyTorch call computing the W4A16 product on the same codes:
+    `torch._weight_int4pack_mm` (tinygemm: w = (code - 8) * scale + zero')
+    after a one-time repack at the first call, with zero' = zero + 8 *
+    scale so that it equals code * scale + zero; scales and zeros in bf16,
+    as it takes them."""
+    state = {}
+
+    def call():
+        if not state:
+            codes = unpack_codes(qw["packed"]).t().contiguous().to(torch.int32)  # (N, K)
+            w = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+            state["w"] = torch._convert_weight_to_int4pack(w, 8)
+            state["sz"] = torch.stack(
+                [qw["scale"], qw["zero"] + 8 * qw["scale"]], dim=-1).to(BF16).contiguous()
+            state["group"] = codes.shape[1] // qw["scale"].shape[0]
+        return torch._weight_int4pack_mm(x, state["w"], state["group"], state["sz"])
+
+    return call
+
+
+GQA_KERNELS = (K.DECODE_GQA, K.DECODE_GQA_LAYER)
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     """Kernel vs plain at the main path's shapes; returns per-kernel summary."""
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEV, dtype=BF16)
-    summary = {name: {"err": 0.0} for name in (K.FLASH, K.DECODE, K.RAGGED, KQ.W4A16)}
+    summary = {name: {"err": 0.0}
+               for name in (K.FLASH, K.DECODE, K.RAGGED, *GQA_KERNELS, KQ.W4A16)}
 
-    def check(name, label, run, plain, args):
+    def check(name, label, run, plain, args, work=None, library=None):
         """run(): the kernel on the tensors `args`; plain(*args): the plain
         version, fed them with bf16 ones in fp32 (converted once, outside
-        the timed call) and as they are."""
+        the timed call) and as they are. `work` (bytes, flops) gives the
+        case's bound and `library` a PyTorch call computing the same
+        function (None where there is none), timed beside it. The first
+        case of each kernel is its headline shape: the kernels line reports
+        its numbers, and it must give `work`."""
         got = run().float()
         fargs = [a.float() if a.dtype == BF16 else a for a in args]
         f32 = lambda: plain(*fargs)
@@ -176,18 +261,45 @@ def phase_kernels(gen: torch.Generator) -> dict:
               f"device only: kernel {dev_ms:.4f} ms plain {dev_plain_ms:.4f} ms")
         s = summary[name]
         s["err"] = max(s["err"], err)
-        s.setdefault("ms", ms)  # the first case is the headline shape
-        s.setdefault("plain_ms", plain_ms)
+        lib_ms = library_time(name, library, want, scale)
+        if work is not None:
+            b = bound(*work)
+            print(f"{name} {label}: bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+                  f"({b['bytes']:.4g} bytes, {b['flops']:.4g} flop), kernel device "
+                  f"only {dev_ms / b['bound_ms']:.1f} x bound")
+        if "ms" not in s:  # the headline shape
+            s.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
         del fargs
+
+    def library_time(name, library, want, scale):
+        """Median launch time of the library call (as `ms`), None only when
+        the case has none. Raises when the call fails or does not compute
+        the same function within the kernel's tolerance."""
+        if library is None:
+            return None
+        err = (library().float() - want).abs().max().item()
+        if not err <= KERNEL_REL_TOL * scale:
+            raise AssertionError(
+                f"{name} library call disagrees: max_abs_err {err} > {KERNEL_REL_TOL} * {scale}")
+        lib_ms = median_ms(library)
+        try:
+            dev = f"{graph_ms(library):.4f}"
+        except RuntimeError as e:  # a call that a CUDA graph cannot capture
+            dev = f"not measured ({type(e).__name__})"
+        print(f"{name} library call: max_abs_err {err:.3e}, {lib_ms:.4f} ms; "
+              f"device only {dev} ms")
+        return lib_ms
 
     # ViT: 13 crops x 16 heads, 768 tokens (729 real), head_dim 72, as head
     # views of the fused QKV projection.
     b, t, h, d = 13, 768, 16, 72
     qkv = randn(b, t, 3 * h * d)
     q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, -1))
+    mask = unified_mask(t, t, 0, 729, DEV)
     check(K.FLASH, "vit 13x16x768x768 d72 prefix729",
           lambda: flash_attention(q, k, v, 0, 729),
-          lambda q, k, v: flash_attention_plain(q, k, v, 0, 729), (q, k, v))
+          lambda q, k, v: flash_attention_plain(q, k, v, 0, 729), (q, k, v),
+          attn_work(q, k, v, b * int(mask.sum())), sdpa(q, k, v, mask))
 
     # Text cases read k/v as the layer view of a (1, 32, 2048, 64) cache.
     cache_k, cache_v = randn(1, 32, 2048, 64), randn(1, 32, 2048, 64)
@@ -199,9 +311,11 @@ def phase_kernels(gen: torch.Generator) -> dict:
     ):
         q = randn(1, 32, tq, 64)
         kk, vv = cache_k[:, :, :tk], cache_v[:, :, :tk]
+        mask = unified_mask(tq, tk, pos, prefix, DEV)
         check(K.FLASH, label,
               lambda: flash_attention(q, kk, vv, pos, prefix),
-              lambda q, k, v: flash_attention_plain(q, k, v, pos, prefix), (q, kk, vv))
+              lambda q, k, v: flash_attention_plain(q, k, v, pos, prefix), (q, kk, vv),
+              attn_work(q, kk, vv, int(mask.sum())), sdpa(q, kk, vv, mask))
 
     # Decode on a stacked (24, 1, 32, 2048, 64) cache, layer 13, kv_bound
     # 1536, garbage (unit normals x 1000) in every slot past the span. In the
@@ -212,13 +326,44 @@ def phase_kernels(gen: torch.Generator) -> dict:
         kc, vc = randn(24, 1, 32, 2048, 64), randn(24, 1, 32, 2048, 64)
         kc[:, :, :, pos + tq:] *= 1000
         vc[:, :, :, pos + tq:] *= 1000
+        # the columns this read needs, and the layer view SDPA takes
+        cols = min(max(pos + tq, 730), 1536)
+        kl, vl = kc[13, :, :, :1536], vc[13, :, :, :1536]
+        mask = unified_mask(tq, 1536, pos, 730, DEV)
         for kind, q in (("random q", randn(1, 32, tq, 64)),
                         ("diagonal q", kc[13, :, :, pos:pos + tq].clone())):
             check(K.DECODE,
                   f"stacked L24 layer13 tq{tq} pos{pos} bound1536 garbage tail, {kind}",
                   lambda: decode_attention_cached(q, kc, vc, 13, pos, 730, 1536),
                   lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, pos, 730, 1536),
-                  (q, kc, vc))
+                  (q, kc, vc), attn_work(q, kl[..., :cols, :], vl[..., :cols, :],
+                                         int(mask[:, :cols].sum())),
+                  sdpa(q, kl, vl, mask))
+        del kl, vl
+
+    # Kernel B at the MHA lockstep batch's shapes: a stacked (24, 8, 32,
+    # 1024, 64) cache, layer 13, prefix 730, kv_bound 896; decode (Tq 1,
+    # pos 800) and the batched prompt spans (Tq 8 caption, Tq 16 query, pos
+    # 730); x1000 garbage past each span; the diagonal query of every batch
+    # row is its own key, so a batch-stride fault moves the output too.
+    tk = 896
+    for tq, pos in ((1, 800), (8, 730), (16, 730)):
+        kc, vc = randn(24, 8, 32, 1024, 64), randn(24, 8, 32, 1024, 64)
+        kc[..., pos + tq:, :] *= 1000
+        vc[..., pos + tq:, :] *= 1000
+        cols = max(pos + tq, 730)
+        kl, vl = kc[13, :, :, :tk], vc[13, :, :, :tk]
+        mask = unified_mask(tq, tk, pos, 730, DEV)
+        for kind, q in (("random q", randn(8, 32, tq, 64)),
+                        ("diagonal q", kc[13, :, :, pos:pos + tq].clone())):
+            check(K.DECODE,
+                  f"stacked L24 batch8 layer13 tq{tq} pos{pos} bound{tk} garbage tail, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, 13, pos, 730, tk),
+                  lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, pos, 730, tk),
+                  (q, kc, vc), attn_work(q, kl[..., :cols, :], vl[..., :cols, :],
+                                         8 * int(mask[:, :cols].sum())),
+                  sdpa(q, kl, vl, mask))
+        del kc, vc, kl, vl
 
     # Kernel B's int8 entry, the same cases on an int8 (24, 1, 32, 2048, 64)
     # cache quantized by the port (a scale per token and head pair), with
@@ -236,12 +381,17 @@ def phase_kernels(gen: torch.Generator) -> dict:
             scales.append(sc)
         (kc, vc), (ks, vs) = codes, scales
         diag = dequantize_kv(kc[13, :, :, pos:pos + tq], ks[13, :, :, pos:pos + tq], BF16)
+        # codes of the attended columns, their scales, q and the output; no
+        # single PyTorch call attends over int8 codes with per-token scales
+        cols = min(max(pos + tq, 730), 1536)
+        work = (2 * 32 * cols * 64 + 2 * 16 * cols * 4 + 2 * 32 * tq * 64 * 2,
+                4 * 32 * 64 * tq * cols)
         for kind, q in (("random q", randn(1, 32, tq, 64)), ("diagonal q", diag)):
             check(K.DECODE,
                   f"int8 stacked L24 layer13 tq{tq} pos{pos} bound1536 garbage tail, {kind}",
                   lambda: decode_attention_cached(q, kc, vc, 13, pos, 730, 1536, ks, vs),
                   lambda q: decode_attention_cached_plain(q, kc, vc, 13, pos, 730, 1536, ks, vs),
-                  (q,))
+                  (q,), work)
     del codes, scales, kc, vc, ks, vs
 
     # Kernel C on a 2B serving pool: a bf16 (24, 8, 32, 1024, 64) cache,
@@ -256,11 +406,17 @@ def phase_kernels(gen: torch.Generator) -> dict:
             kc[:, b, :, p + tq:] *= 1000
             vc[:, b, :, p + tq:] *= 1000
         diag = torch.stack([kc[layer, b, :, p:p + tq] for b, p in enumerate(pos)])
+        # per-slot masks (S, 1, Tq, T); bytes: each slot's attended columns
+        rows = pos_t.long()[:, None, None, None] + torch.arange(tq, device=DEV)[:, None]
+        mask = torch.arange(1024, device=DEV) <= rows
+        ncols = sum(p + tq for p in pos)
+        kv_bytes = 2 * 32 * ncols * 64 * 2
         for kind, q in (("random q", randn(slots, 32, tq, 64)), ("diagonal q", diag)):
             check(K.RAGGED, f"ragged pool 24x8x32x1024 d64 layer13 tq{tq} garbage tails, {kind}",
                   lambda: decode_attention_cached(q, kc, vc, layer, pos_t, 0),
                   lambda q, k, v: decode_attention_ragged_plain(q, k, v, layer, pos_t, 0),
-                  (q, kc, vc))
+                  (q, kc, vc), (kv_bytes + 2 * q.numel() * 2, 4 * 32 * 64 * int(mask.sum())),
+                  sdpa(q, kc[layer], vc[layer], mask))
     del kc, vc, diag
 
     # Prefix-shared: suffix (24, 8, 32, 384, 64), prefix pool (24, 4, 32,
@@ -333,6 +489,42 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   (q,))
     del kc, vc, ks, vs, pkc, pvc, pks, pvs, diag, args
 
+    # Kernel B's GQA entries at the GQA 2B's shapes (8 KV heads, rep 4): a
+    # stacked (24, B, 8, 1024, 64) cache, layer 13, pos 800, prefix 730,
+    # kv_bound 896, B 1 and 8; then the single-layer entry on (B, 8, 896,
+    # 64) with rep 4 and (B, 32, 896, 64) with rep 1 (the MHA function of
+    # `_decode_kernel`); x1000 garbage past pos everywhere. The diagonal
+    # query of head h is its KV head's key at pos.
+    pos, prefix, tk = 800, 730, 896
+    mask = unified_mask(1, tk, pos, prefix, DEV)
+    for bsz in (1, 8):
+        kc, vc = randn(24, bsz, 8, 1024, 64), randn(24, bsz, 8, 1024, 64)
+        kc[..., pos + 1:, :] *= 1000
+        vc[..., pos + 1:, :] *= 1000
+        kl, vl = kc[13, :, :, :tk], vc[13, :, :, :tk]
+        work = lambda q, k, v: attn_work(q, k[..., :pos + 1, :], v[..., :pos + 1, :],
+                                         q.shape[0] * (pos + 1))
+        for kind, q in (("random q", randn(bsz, 32, 1, 64)),
+                        ("diagonal q", kc[13, :, :, pos:pos + 1].repeat_interleave(4, dim=1))):
+            check(K.DECODE_GQA, f"stacked gqa 24x{bsz}x8x1024 rep4 layer13 pos{pos} "
+                  f"bound{tk} garbage tail, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, 13, pos, prefix, tk),
+                  lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, pos, prefix, tk),
+                  (q, kc, vc), work(q, kl, vl), sdpa(q, kl, vl, mask, gqa=True))
+        for hkv, rep in ((8, 4), (32, 1)):
+            kl, vl = kc[13, :, :, :tk].clone(), vc[13, :, :, :tk].clone()
+            if hkv == 32:
+                kl, vl = randn(bsz, 32, tk, 64), randn(bsz, 32, tk, 64)
+                kl[..., pos + 1:, :] *= 1000
+                vl[..., pos + 1:, :] *= 1000
+            for kind, q in (("random q", randn(bsz, 32, 1, 64)),
+                            ("diagonal q", kl[:, :, pos:pos + 1].repeat_interleave(rep, dim=1))):
+                check(K.DECODE_GQA_LAYER, f"single layer {bsz}x{hkv}x{tk} rep{rep} pos{pos}, {kind}",
+                      lambda: decode_attention(q, kl, vl, pos, prefix),
+                      lambda q, k, v: decode_attention_plain(q, k, v, pos, prefix),
+                      (q, kl, vl), work(q, kl, vl), sdpa(q, kl, vl, mask, gqa=rep > 1))
+        del kc, vc, kl, vl
+
     # W4A16 on weights quantized on the card: decode (M 1) and the 8-row
     # prompt span at the 2B text blocks' (K, N), then M 1 on layer 13 of a
     # stacked (24, 2048, 6144) qkv weight, read as a view.
@@ -342,9 +534,11 @@ def phase_kernels(gen: torch.Generator) -> dict:
         qw = quantize_weight_torch(fp32(k, n) * k ** -0.5)
         for m in (1, 8):
             x = randn(m, k)
+            wbytes = sum(t.numel() * t.element_size() for t in qw.values())
             check(KQ.W4A16, f"{what} M{m} K{k} N{n}",
                   lambda: quantized_matmul(x, qw),
-                  lambda x: quantized_matmul_plain(x, qw), (x,))
+                  lambda x: quantized_matmul_plain(x, qw), (x,),
+                  (wbytes + 2 * (m * k + m * n), 2 * m * k * n), int4pack_mm(x, qw))
     stacked = quantize_weight_torch(fp32(24, 2048, 6144) * 2048 ** -0.5)
     qw = {name: t[13] for name, t in stacked.items()}
     x = randn(1, 2048)
@@ -355,16 +549,19 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return summary
 
 
-def phase_small_reference(img: np.ndarray, quantized: bool = False) -> None:
+def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = False,
+                          n_kv_heads: int = 2) -> None:
     """Tiny config on one set of bf16-valued weights: bf16 on the card (the
     kernels) and bf16 on the CPU (the plain versions), each against fp32 on
-    the CPU, as a fraction of the fp32 run's largest magnitude. With
-    `quantized`, every run quantizes the text blocks to int4 from those
-    weights (the same codes on both devices, checked) and keeps an int8 KV
-    cache, whose snapshot is compared dequantized."""
+    the CPU, as a fraction of the fp32 run's largest magnitude: the KV
+    snapshot, the prompt's logits and one decode step's logits. With
+    `int4`, every run quantizes the text blocks to int4 from those weights
+    (the same codes on both devices, checked); with `kv_int8` the KV cache
+    is int8 and its snapshot is compared dequantized; `n_kv_heads` 1 is GQA
+    (one KV head for the two query heads)."""
     cfg = tiny_test_config()
-    if quantized:
-        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, kv_int8=kv_int8, n_kv_heads=n_kv_heads))
     state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
     state = {n: t.to(BF16).float() for n, t in state.items()}
     tmpl = list(cfg.tokenizer.templates["caption"]["normal"])
@@ -372,17 +569,23 @@ def phase_small_reference(img: np.ndarray, quantized: bool = False) -> None:
     def run(device, dtype) -> dict:
         params = build_params(cfg, device, dtype)
         params.load_state_dict(state)
-        if quantized:
+        if int4:
             quantize_text_params(params["text"])
         m = MoondreamModel(cfg, params, ByteTokenizer(), dtype, device=device)
         enc = m.encode_image(img)
-        logits = m._prefill_prompt(m.load_encoded_image(enc), tmpl, enc.pos, 0.0, 0.0)[0]
-        if not quantized:
-            return {"k": enc.k, "v": enc.v, "logits": logits}
-        return {"k": dequantize_kv(enc.k, enc.ks, torch.float32),
-                "v": dequantize_kv(enc.v, enc.vs, torch.float32), "logits": logits,
-                "codes": torch.cat([b.mlp.fc1.packed.flatten().cpu()
-                                    for b in params["text"].blocks])}
+        kv = m.load_encoded_image(enc)
+        logits, _, _, pos, kv = m._prefill_prompt(kv, tmpl, enc.pos, 0.0, 0.0)
+        emb = text_encoder(torch.tensor([[300]], device=device), m.text)
+        step = decode_step(m.text, kv, emb, pos, m._decode_bound(pos + 8))[0]
+        out = {"logits": logits, "decode logits": step}
+        if not kv_int8:
+            return {"k": enc.k, "v": enc.v, **out}
+        out.update(k=dequantize_kv(enc.k, enc.ks, torch.float32),
+                   v=dequantize_kv(enc.v, enc.vs, torch.float32))
+        if int4:
+            out["codes"] = torch.cat([b.mlp.fc1.packed.flatten().cpu()
+                                      for b in params["text"].blocks])
+        return out
 
     ref = run("cpu", torch.float32)
     codes = ref.pop("codes", None)
@@ -395,11 +598,61 @@ def phase_small_reference(img: np.ndarray, quantized: bool = False) -> None:
 
     card, cpu = rel(run(DEV, BF16)), rel(run("cpu", BF16))
     r5 = lambda d: {n: round(e, 5) for n, e in d.items()}
-    what = "int4 text blocks + int8 KV cache" if quantized else "bf16"
+    what = " + ".join(["GQA"] * (n_kv_heads == 1) + ["int4 text blocks"] * int4
+                      + ["int8 KV cache" if kv_int8 else "bf16"])
     print(f"small reference (tiny config, {what}, vs fp32 on the cpu), rel max err: "
           f"card bf16 {r5(card)}, cpu bf16 {r5(cpu)}, tol {SMALL_REF_FACTOR} x cpu bf16")
     if not all(card[n] <= SMALL_REF_FACTOR * cpu[n] for n in ref):
         raise AssertionError(f"tiny-config reference mismatch: {card} vs {cpu}")
+
+
+def phase_batch_reference(images: list, n_kv_heads: int = 2) -> None:
+    """The lockstep batches' device work on the tiny config, on one set of
+    bf16-valued weights: `encode_images` over the images (one ViT group per
+    size), ONE batched prompt prefill (the caption template, a span of 8,
+    then the query prompt, a span of 16) and one lockstep decode step with
+    another token per row. bf16 on the card (kernel B at batch > 1; under
+    GQA, `n_kv_heads` 1, kernel A for the spans and B's GQA entry for the
+    step) and bf16 on the CPU (the plain versions) are each held against
+    fp32 on the CPU as phase_small_reference holds them: KV snapshots,
+    prompt logits and decode logits of every row."""
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, n_kv_heads=n_kv_heads))
+    state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
+    state = {n: t.to(BF16).float() for n, t in state.items()}
+    tmpl = cfg.tokenizer.templates
+    tokens = [[300], [17], [5], [411]][:len(images)]
+    spans = {}
+
+    def run(device, dtype) -> dict:
+        params = build_params(cfg, device, dtype)
+        params.load_state_dict(state)
+        m = MoondreamModel(cfg, params, ByteTokenizer(), dtype, device=device)
+        encs = m.encode_images(images)
+        out = {"k": torch.cat([e.k for e in encs], 1), "v": torch.cat([e.v for e in encs], 1)}
+        for task, ids in (("caption", list(tmpl["caption"]["normal"])),
+                          ("query", list(tmpl["query"]["prefix"]) + m._encode_text(POOL_QUESTION)
+                           + list(tmpl["query"]["suffix"]))):
+            logits, _, kv, pos, length, bound = m._batched_prompt_prefill(
+                encs, ids, {}, lambda pos, length, pad: pos + pad + 8 + 1)
+            spans[task] = kv.k.shape[1], pos, length
+            emb = text_encoder(torch.tensor(tokens, device=device), m.text)
+            step = decode_step_batched(m.text, kv, emb, pos + length, bound)[0]
+            m._recycle_kv(kv)
+            out.update({f"{task} logits": logits, f"{task} decode logits": step})
+        return out
+
+    ref = run("cpu", torch.float32)
+    rel = lambda out: {n: ((out[n].float().cpu() - ref[n]).abs().max()
+                           / ref[n].abs().max()).item() for n in ref}
+    card, cpu = rel(run(DEV, BF16)), rel(run("cpu", BF16))
+    r5 = lambda d: {n: round(e, 5) for n, e in d.items()}
+    what = "GQA" if n_kv_heads == 1 else "MHA"
+    print(f"batch reference (tiny config, {what} bf16, {len(images)} images, (rows, pos, "
+          f"prompt length) {spans}, vs fp32 on the cpu), rel max err: card bf16 {r5(card)}, "
+          f"cpu bf16 {r5(cpu)}, tol {SMALL_REF_FACTOR} x cpu bf16")
+    if not all(card[n] <= SMALL_REF_FACTOR * cpu[n] for n in ref):
+        raise AssertionError(f"tiny-config batch reference mismatch: {card} vs {cpu}")
 
 
 def phase_serving_reference() -> None:
@@ -452,27 +705,57 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_main_path(img: np.ndarray, power: str, quantized: bool = False,
-                    cfg=MOONDREAM_2B) -> dict:
-    """The 2B caption path through the entry points. `quantized`: the same
-    seeded weights with the text blocks quantized to int4 on the card and
-    an int8 KV cache."""
-    L_txt, L_vit = cfg.text.n_layers, cfg.vision.enc_n_layers
+def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = False,
+                      batch_prefill: bool = False) -> dict:
+    """Exact launch counts of a path: `n_vit` ViT calls (kernel A per
+    vision block), a [BOS, image] prefill when the path encodes (one, or
+    one batched: kernel A per text block), `spans` prompt prefills of <= 16
+    rows and `steps` decode steps. Prompt spans take kernel B under MHA and
+    kernel A (heads repeated) under GQA; decode steps take kernel B (bf16 or
+    int8 entry) under MHA and kernel B's GQA entries under GQA (the stacked
+    one, or the single-layer one over the dequantized int8 layer). int4
+    blocks add four W4A16 launches per layer per span or step."""
+    tc = cfg.text
+    L_txt, mha = tc.n_layers, tc.n_kv_heads == tc.n_heads
+    want = {name: 0 for name in LAUNCHES}
+    want[K.FLASH] = n_vit * cfg.vision.enc_n_layers + L_txt * (n_vit > 0 or batch_prefill)
+    if mha:
+        want[K.DECODE_INT8 if tc.kv_int8 else K.DECODE] = L_txt * (spans + steps)
+    else:
+        want[K.FLASH] += L_txt * spans
+        want[K.DECODE_GQA_LAYER if tc.kv_int8 else K.DECODE_GQA] = L_txt * steps
+    if int4:
+        want[KQ.W4A16] = 4 * L_txt * (spans + steps)
+    return want
+
+
+def check_launches(label: str, launches: dict, want: dict) -> None:
+    print(f"{label} launches:", launches, "expected:", want)
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches} != {want}")
+
+
+def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = False,
+                    params=None) -> tuple:
+    """The 2B caption and query paths through the entry points, on `cfg`
+    (its kv_int8 and n_kv_heads choose the cache and MHA or GQA). `int4`:
+    seeded weights with the text blocks quantized to int4 on the card;
+    `params`: reuse a model's parameters. Returns (launch counts of the
+    caption run, of the query run), the model."""
+    L_txt = cfg.text.n_layers
+    kv_int8 = cfg.text.kv_int8
     t0 = time.perf_counter()
-    if quantized:
-        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
+    if int4:
         params = init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
         lins = lambda: [lin for b in params["text"].blocks
                         for lin in (b.qkv, b.proj, b.mlp.fc1, b.mlp.fc2)]
         dense_bytes = _nbytes(*(lin.w for lin in lins()))
         quantize_text_params(params["text"])
         packed_bytes = _nbytes(*(t for lin in lins() for t in (lin.packed, lin.scale, lin.zero)))
-        model = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
-        print(f"2B random init + int4 text blocks on the card: {sync_ms(t0):.1f} ms")
-    else:
-        model = MoondreamModel(cfg, tokenizer=ByteTokenizer(), dtype=BF16, seed=SEED, device=DEV)
-        print(f"2B random init on the card: {sync_ms(t0):.1f} ms")
-    label = "int4 + kv_int8" if quantized else "bf16"
+    model = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    heads = f"{cfg.text.n_kv_heads} KV heads"
+    label = " + ".join(["int4"] * int4 + ["kv_int8" if kv_int8 else "bf16"]) + f", {heads}"
+    print(f"2B model ({label}) on the card: {sync_ms(t0):.1f} ms")
     greedy = {"temperature": 0.0, "max_tokens": 64}
 
     # The counted run: one encode and one caption through the entry points.
@@ -486,10 +769,10 @@ def phase_main_path(img: np.ndarray, power: str, quantized: bool = False,
     snap = (L_txt, 1, cfg.text.n_kv_heads, 730, cfg.text.head_dim)
     if enc.pos != 730 or tuple(enc.k.shape) != snap:
         raise AssertionError(f"snapshot shape {tuple(enc.k.shape)}")
-    kv_dtype = torch.int8 if quantized else BF16
-    if enc.k.dtype != kv_dtype or (enc.ks is not None) != quantized:
+    kv_dtype = torch.int8 if kv_int8 else BF16
+    if enc.k.dtype != kv_dtype or (enc.ks is not None) != kv_int8:
         raise AssertionError(f"snapshot dtype {enc.k.dtype}, scales {enc.ks is not None}")
-    values = (enc.k, enc.v) if not quantized else (enc.ks, enc.vs)
+    values = (enc.k, enc.v) if not kv_int8 else (enc.ks, enc.vs)
     if not all(torch.isfinite(t).all() for t in values):
         raise AssertionError("non-finite KV snapshot")
 
@@ -520,15 +803,8 @@ def phase_main_path(img: np.ndarray, power: str, quantized: bool = False,
         raise AssertionError("entry-point caption differs from the timed run")
     # one decode step per emitted token, each through every text layer; the
     # 730-row image prefill's linears take the dense route (M >= 512)
-    steps = L_txt * (1 + len(ids))
-    want = {name: 0 for name in LAUNCHES}
-    want[K.FLASH] = L_vit + L_txt
-    want[K.DECODE_INT8 if quantized else K.DECODE] = steps
-    if quantized:
-        want[KQ.W4A16] = 4 * steps
-    print(f"main path ({label}) launches:", launches, "expected:", want, "tokens:", len(ids))
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+    check_launches(f"main path ({label}), {len(ids)} tokens", launches,
+                   expected_launches(cfg, 1, 1, len(ids), int4))
     if model.caption(enc, "normal", settings=greedy)["caption"] != text:
         raise AssertionError("second greedy caption differs")
     streamed = "".join(model.caption(enc, "normal", stream=True, settings=greedy)["caption"])
@@ -538,18 +814,34 @@ def phase_main_path(img: np.ndarray, power: str, quantized: bool = False,
     if not isinstance(sampled, str):
         raise AssertionError("sampled caption failed")
 
+    # One query on the encoded image, counted: a 15-token prompt span.
+    model.tokenizer = IdTokenizer()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answer = _ids(model.query(enc, POOL_QUESTION, settings=greedy)["answer"])
+    query_ms = sync_ms(t0)
+    query_launches = dict(LAUNCHES)
+    check_launches(f"query ({label}), {len(answer)} tokens", query_launches,
+                   expected_launches(cfg, 0, 1, len(answer), int4))
+    streamed = "".join(model.query(enc, POOL_QUESTION, stream=True, settings=greedy)["answer"])
+    if _ids(streamed) != answer:
+        raise AssertionError("streamed answer differs from the plain one")
+
     prefill_ms = min(r[1] for r in runs)
     tok_s = max(r[2] for r in runs)
     print(f"2B caption path ({label}) on {power}: encode {encode_ms:.1f} ms "
           f"(cold {cold_encode_ms:.1f} ms), prompt prefill {prefill_ms:.2f} ms, "
           f"decode {tok_s:.1f} tok/s over {len(runs[0][0])} tokens "
-          "(greedy, batch 1, 13 crops)")
-    if quantized:
-        kv = model.load_encoded_image(enc)
+          f"(greedy, batch 1, 13 crops); one query {query_ms:.1f} ms "
+          f"({len(answer)} tokens, encoded image)")
+    kv = model.load_encoded_image(enc)
+    if int4:
         print(f"bytes: text block linears int4 {packed_bytes} (packed + scale/zero) "
-              f"vs bf16 {dense_bytes}; KV cache int8 {_nbytes(kv.k, kv.v, kv.ks, kv.vs)} "
-              f"(codes + scales) vs bf16 {2 * _nbytes(kv.k) * 2}")
-    return launches, model
+              f"vs bf16 {dense_bytes}")
+    print(f"bytes: KV cache ({label}) "
+          f"{_nbytes(*(t for t in (kv.k, kv.v, kv.ks, kv.vs) if t is not None))}")
+    model._recycle_kv(kv)
+    return (launches, query_launches), model
 
 
 class IdTokenizer(ByteTokenizer):
@@ -652,9 +944,7 @@ def phase_pool(model, images, power: str, label: str, quantized: bool,
     want[K.RAGGED_INT8 if quantized else K.RAGGED] = L_txt * 8 * run["chunks"]
     if quantized:
         want[KQ.W4A16] = 4 * L_txt * (n_req + 8 * run["chunks"])
-    print(f"pool {label} launches:", launches, "expected:", want, "chunks:", run["chunks"])
-    if launches != want:
-        raise AssertionError(f"pool {label} launch counts {launches} != {want}")
+    check_launches(f"pool {label}, {run['chunks']} chunks", launches, want)
     if kind.get("prefix_share") and run["entries"] != n_img:
         raise AssertionError(f"{run['entries']} prefix entries for {n_img} images")
 
@@ -694,6 +984,106 @@ def phase_pool(model, images, power: str, label: str, quantized: bool,
     return launches
 
 
+def phase_batch(model, images, power: str) -> list:
+    """Lockstep batches on a 2B model through the entry points: caption_batch
+    and query_batch over the images (three sizes: encode_images forms one
+    ViT group per (crop count, tiling)), each a counted run with exact
+    launch counts; then the caption batch timed phase by phase (encode,
+    batched prompt prefill, lockstep decode), its greedy ids repeated, and
+    each row against batch-1 `caption` of the same image (printed)."""
+    cfg = model.config
+    tc = cfg.text
+    label = f"2B bf16, {tc.n_kv_heads} KV heads"
+    model.tokenizer = IdTokenizer()
+    greedy = {"temperature": 0.0, "max_tokens": 64}
+    n_img = len(images)
+    n_groups = len({(crops.shape[0], tiling) for crops, tiling in map(model._crops, images)})
+    runs, batch_ids = [], {}
+    for task in ("caption", "query"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if task == "caption":
+            texts = model.caption_batch(images, "normal", settings=greedy)
+        else:
+            texts = model.query_batch(images, POOL_QUESTION, settings=greedy)
+        ms = sync_ms(t0)
+        launches = dict(LAUNCHES)
+        ids = [_ids(t) for t in texts]
+        steps = batched_steps(max(len(r) for r in ids), greedy["max_tokens"])
+        check_launches(f"{task}_batch ({label}), {n_img} images in {n_groups} ViT groups, "
+                       f"{steps} lockstep steps", launches,
+                       expected_launches(cfg, n_groups, 1, steps, batch_prefill=True))
+        if len(ids) != n_img or not all(0 <= i < tc.vocab_size for r in ids for i in r):
+            raise AssertionError(f"{task}_batch: bad ids")
+        print(f"2B {task}_batch ({label}) on {power}: {n_img / (ms / 1e3):.2f} images/s, "
+              f"{ms:.1f} ms per batch of {n_img} from images (crops, ViT, prefill, "
+              f"decode), tokens per row {[len(r) for r in ids]}")
+        runs.append(launches)
+        batch_ids[task] = ids
+
+    # The caption batch by phases, from the images again.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encs = model.encode_images(images)
+    encode_ms = sync_ms(t0)
+    tmpl = list(cfg.tokenizer.templates["caption"]["normal"])
+    t0 = time.perf_counter()
+    logits, _, kv, pos, length, kv_bound = model._batched_prompt_prefill(
+        encs, tmpl, greedy, lambda pos, length, pad: pos + pad + 64 + 1)
+    prefill_ms = sync_ms(t0)
+    t0 = time.perf_counter()
+    first = sample_tokens_batched(logits, model.generator, 0.0, 0.0)
+    res = generate_text_batched(model.text, kv, first, pos + length, model.generator, 0.0,
+                                0.0, 64, cfg.tokenizer.eos_id, (cfg.tokenizer.answer_id,),
+                                kv_bound)
+    counts = res.counts.tolist()
+    decode_s = sync_ms(t0) / 1e3
+    model._recycle_kv(kv)
+    again = [row[:n] for row, n in zip(res.tokens.tolist(), counts)]
+    if again != batch_ids["caption"]:
+        raise AssertionError("caption batch ids differ between two runs")
+    steps = res.pos - pos - length
+    print(f"2B caption_batch ({label}) by phase on {power}: encode_images {encode_ms:.1f} ms "
+          f"({n_img / (encode_ms / 1e3):.2f} images/s), batched prompt prefill "
+          f"{prefill_ms:.2f} ms, lockstep decode {sum(counts) / decode_s:.1f} tok/s "
+          f"({sum(counts)} tokens, {steps} steps x {n_img} rows, "
+          f"{decode_s * 1e3 / max(steps, 1):.2f} ms per step)")
+
+    # Batch-1 captions of the same images on the card (printed: cuBLAS sums
+    # M = 8 and M = 1 in another order, so near ties may flip). Where a row
+    # differs, batch-1 is stepped again up to the first differing token and
+    # its logit margin there (its pick minus the batch row's) is printed:
+    # a near tie has a margin of a few bf16 steps of the logits; a row that
+    # read another row's cache would differ from its first token on.
+    same, first, margin, top = 0, [], [], 0.0
+    for enc, row in zip(encs, batch_ids["caption"]):
+        single = _ids(model.caption(enc, "normal", settings=greedy)["caption"])
+        same += single == row
+        if single == row:
+            continue
+        n = next((i for i, (a, b) in enumerate(zip(single, row)) if a != b),
+                 min(len(single), len(row)))
+        pick = lambda r: r[n] if n < len(r) else cfg.tokenizer.eos_id
+        logits, _, _, pos, kv = model._prefill_prompt(
+            model.load_encoded_image(enc), tmpl, enc.pos, 0.0, 0.0)
+        bound = model._decode_bound(pos + greedy["max_tokens"] + 1)
+        for i in range(n):
+            emb = text_encoder(torch.tensor([[single[i]]], device=DEV), model.text)
+            logits = decode_step(model.text, kv, emb, pos + i, bound)[0]
+        logits = logits.reshape(-1).float()
+        model._recycle_kv(kv)
+        first.append(n)
+        margin.append(round((logits[pick(single)] - logits[pick(row)]).item(), 4))
+        top = max(top, logits.abs().max().item())
+    print(f"caption_batch ({label}) vs batch-1 caption: {same} of {n_img} rows "
+          "have equal greedy ids" + (
+              f"; the others first differ at token {first}, where batch-1's logit "
+              f"margin over the batch row's pick is {margin} (|logits| up to {top:.2f})"
+              if first else ""))
+    return runs
+
+
 def main() -> None:
     power = card()
     print(power)
@@ -706,43 +1096,67 @@ def main() -> None:
     phase_build()
     summary = phase_kernels(gen)
     phase_small_reference(img)
-    phase_small_reference(img, quantized=True)
-    phase_serving_reference()
+    phase_small_reference(img, int4=True, kv_int8=True)
+    phase_small_reference(img, n_kv_heads=1)
+    phase_small_reference(img, kv_int8=True, n_kv_heads=1)
     rng = np.random.default_rng(SEED + 2)
     images = [rng.integers(0, 256, shape, dtype=np.uint8)
               for shape in ((756, 1008, 3), (378, 378, 3), (600, 800, 3))]
+    phase_batch_reference(images)
+    phase_batch_reference(images, n_kv_heads=1)
+    phase_serving_reference()
+    # 8 images of three sizes for the lockstep batches: 13, 2 and 7 crops
+    batch_images = [rng.integers(0, 256, shape, dtype=np.uint8)
+                    for shape in [(756, 1008, 3)] * 3 + [(378, 378, 3)] * 3
+                    + [(600, 800, 3)] * 2]
+    kv8 = lambda cfg: dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
     runs = []
     launches, model = phase_main_path(img, power)
-    runs += [launches,
+    runs += [*launches, *phase_batch(model, batch_images, power),
              phase_pool(model, images, power, "bf16 plain", False),
              phase_pool(model, images, power, "bf16 prefix-shared depth 2", False,
                         prefix_share=True, prefix_entries=4, pipeline_depth=2)]
     del model
-    launches, model = phase_main_path(img, power, quantized=True)
-    runs += [launches,
+    launches, model = phase_main_path(img, power, kv8(MOONDREAM_2B), int4=True)
+    runs += [*launches,
              phase_pool(model, images, power, "int4 + kv_int8 prefix-shared", True,
                         prefix_share=True, prefix_entries=4)]
     del model
+    launches, model = phase_main_path(img, power, MOONDREAM_2B_GQA)
+    runs += [*launches, *phase_batch(model, batch_images, power)]
+    params = model.params
+    del model
+    launches, model = phase_main_path(img, power, kv8(MOONDREAM_2B_GQA), params=params)
+    runs += [*launches]
+    del model, params
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     launches[K.DECODE] += launches.pop(K.DECODE_INT8)
     launches[K.RAGGED] += launches.pop(K.RAGGED_INT8)
 
+    decode_src = "moondream_tpu_torch/csrc/decode_attn_stacked.cu"
     sources = {
         K.FLASH: ("moondream_tpu_torch/csrc/flash_attn_fwd.cu",
                   "moondream_tpu/ops/attention.py:47; moondream_tpu/ops/attention.py:110"),
-        K.DECODE: ("moondream_tpu_torch/csrc/decode_attn_stacked.cu",
+        K.DECODE: (decode_src,
                    "moondream_tpu/ops/attention.py:931; moondream_tpu/ops/attention.py:631; "
                    "moondream_tpu/ops/attention.py:631 (int8 branch)"),
-        K.RAGGED: ("moondream_tpu_torch/csrc/decode_attn_stacked.cu",
+        K.RAGGED: (decode_src,
                    "moondream_tpu/ops/attention.py:963; moondream_tpu/ops/attention.py:631 "
                    "(ragged and prefix-shared branches, bf16 and int8)"),
+        K.DECODE_GQA: (decode_src, "moondream_tpu/ops/attention.py:1039"),
+        K.DECODE_GQA_LAYER: (decode_src, "moondream_tpu/ops/attention.py:341; "
+                             "moondream_tpu/ops/attention.py:380"),
         KQ.W4A16: ("moondream_tpu_torch/csrc/w4a16_matmul.cu",
                    "moondream_tpu/ops/quant.py:147; moondream_tpu/ops/quant.py:116"),
     }
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    missing = [name for name in sources if summary[name]["library_ms"] is None]
+    if missing:  # every kernel's headline case has a library call
+        raise AssertionError(f"no library time for {missing}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": summary[name]["err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
+         **{key: summary[name][key] for key in keys}}
         for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,17 @@
 // attends column c under the unified mask
 //     c <= pos + i  OR  (pos + i < prefix AND c < prefix).
 //
+// Kernel B's GQA entry, `decode_attn_stacked_gqa_bf16`: grouped-query
+// attention (Hq = rep * Hkv query heads, query head h reading KV head
+// h / rep), one token. It replaces `_decode_kernel_stacked_gqa` (one layer
+// of the stacked cache) and `_decode_kernel` / `_decode_kernel_gqa`
+// (through `decode_attention`, a single (B, Hkv, T, D) layer, taken as
+// L = 1). As on the TPU, whose block is q
+// (rep, D) against one (T, D) slab, one block holds the rep query heads of
+// one KV head as its rows: every K and V row is read once for all of them.
+// The rows all sit at position pos (row_step 0), where a span's row i sits
+// at pos + i (row_step 1).
+//
 // Kernel C, `decode_attn_ragged_*`: the serving pool's per-row positions.
 // Replaces `_decode_kernel_stacked_ragged` and the ragged (b) and
 // prefix-shared (c) branches of `_decode_kernel_paired`. Slot b's rows sit
@@ -51,7 +62,8 @@
 // scales per column and scale row) for 4 * Tq * ncols * D flops, ~Tq flops
 // per byte, far below the ~295 flop/byte ridge, so it is bound by memory
 // and, with one block per (slot, head) (32 blocks at batch 1, 256 at a
-// pool of 8, on 132 SMs), by the latency of those reads. The design reads
+// pool of 8, on 132 SMs; under GQA one per (batch row, KV head), 8 at batch
+// 1 for 8 KV heads), by the latency of those reads. The design reads
 // each K and V row exactly once with 16-byte (K) and 4- or 2-byte
 // coalesced (V) loads, keeps scores and probabilities in shared memory (no
 // device-memory round trip, one launch per layer), and skips every column
@@ -110,7 +122,11 @@ __device__ __forceinline__ float2 load_pair(const int8_t* p) {
 // each lane owns one pair of D. T is bf16 (scales unused) or int8_t. With
 // pos_arr null, every block sits at `pos` (kernel B); otherwise block
 // (b, h) reads pos_arr[b] (kernel C), and with pk non-null also pids[b].
-template <typename T>
+// Block row r sits at position p + r * ROW_STEP: 1 for a span of Tq query
+// positions, 0 for GQA's rep query heads of KV head h (their q and o rows
+// are then heads, the strides q_st / o_st a head's). ROW_STEP is a template
+// argument: as a runtime value it cost kernels B and C 20-30% of their time.
+template <typename T, int ROW_STEP>
 __global__ void __launch_bounds__(NT) decode_attn_kernel(
     const bf16* __restrict__ q, const T* __restrict__ kc,
     const T* __restrict__ vc, const float* __restrict__ ks,
@@ -147,15 +163,17 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
     return;
   }
   // Columns [0, npre) are prefix entry pid's, [npre, ncols) the slot's own
-  // cache from column 0; column c sits at global position gpos(c).
+  // cache from column 0; column c sits at global position gpos(c). The last
+  // row sits at p + span - 1.
+  const int span = (Tq - 1) * ROW_STEP + 1;
   int npre = 0, nsuf, base = 0, pfx = prefix;
   if (shared) {
-    npre = min(min(prefix_len, p + Tq), tp);
-    nsuf = max(0, min(tk, p + Tq - prefix_len));
+    npre = min(min(prefix_len, p + span), tp);
+    nsuf = max(0, min(tk, p + span - prefix_len));
     base = prefix_len;
     pfx = 0;  // decode rows sit past the image: no bidirectional clause
   } else {
-    nsuf = min(max(p + Tq, prefix), tk);
+    nsuf = min(max(p + span, prefix), tk);
   }
   const int ncols = npre + nsuf;
   auto gpos = [&](int c) { return c < npre ? c : base + c - npre; };
@@ -203,7 +221,7 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
 #pragma unroll
     for (int r = 0; r < MAXQ; ++r) {
       if (r < Tq)
-        sS[r * ncols + c] = attends(gc, p + r, pfx) ? acc[r] * cs : NEG;
+        sS[r * ncols + c] = attends(gc, p + r * ROW_STEP, pfx) ? acc[r] * cs : NEG;
     }
   }
   __syncthreads();
@@ -211,7 +229,7 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
   // Phase 2: masked softmax, one warp per row.
   for (int r = warp; r < Tq; r += NWARP) {
     float* row = sS + r * ncols;
-    const int qp = p + r;
+    const int qp = p + r * ROW_STEP;
     float mx = NEG;
     for (int c = lane; c < ncols; c += 32)
       if (attends(gpos(c), qp, pfx)) mx = fmaxf(mx, row[c]);
@@ -296,18 +314,21 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
            int T_, int D, int Tq, int layer, int tk, int g, int P, int Tp,
            int tp, long long q_sb, long long q_sh, long long q_st,
            long long o_sb, long long o_sh, long long o_st, int pos,
-           int prefix, int prefix_len, float scale, void* stream) {
+           int prefix, int prefix_len, int row_step, float scale,
+           void* stream) {
   constexpr int CH = Row16<T>::N;
   const bool shared = pref_k != nullptr;
   if (L <= 0 || B <= 0 || H <= 0 || T_ <= 0 || D <= 0 || D > 64 || (D % CH) ||
       Tq <= 0 || Tq > MAXQ || layer < 0 || layer >= L || tk <= 0 || tk > T_ ||
       g <= 0 || H % g || (pos_arr == nullptr && (pos < 0 || shared)) ||
+      (row_step != 0 && row_step != 1) ||
       (shared && (pids == nullptr || P <= 0 || tp <= 0 || tp > Tp ||
                   prefix_len <= 0)))
     return (int)cudaErrorInvalidValue;
   int cols;
   if (pos_arr == nullptr) {
-    cols = pos + Tq > prefix ? pos + Tq : prefix;
+    const int end = pos + (Tq - 1) * row_step + 1;
+    cols = end > prefix ? end : prefix;
     if (cols > tk) cols = tk;
   } else {
     cols = tk + (shared ? (prefix_len < tp ? prefix_len : tp) : 0);
@@ -316,11 +337,11 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
   const size_t reduce = (size_t)NWARP * Tq * D;
   const size_t bytes = sizeof(float) * ((size_t)Tq * D + MAXQ +
                                         (scores > reduce ? scores : reduce));
+  auto kernel = row_step ? decode_attn_kernel<T, 1> : decode_attn_kernel<T, 0>;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  decode_attn_kernel<T><<<B * H, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B * H, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const T*>(pref_k),
@@ -342,7 +363,7 @@ extern "C" int decode_attn_stacked_bf16(
   return launch<bf16>(q, k_cache, v_cache, nullptr, nullptr, nullptr, nullptr,
                       nullptr, nullptr, o, nullptr, nullptr, L, B, H, T, D, Tq,
                       layer, tk, 1, 0, 0, 0, q_sb, q_sh, q_st, o_sb, o_sh,
-                      o_st, pos, prefix, 0, scale, stream);
+                      o_st, pos, prefix, 0, 1, scale, stream);
 }
 
 // Kernel B on int8 codes (L, B, H, T, D) with fp32 scales (L, B, H/g, T).
@@ -355,7 +376,25 @@ extern "C" int decode_attn_stacked_int8(
   return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, nullptr,
                         nullptr, nullptr, nullptr, o, nullptr, nullptr, L, B,
                         H, T, D, Tq, layer, tk, g, 0, 0, 0, q_sb, q_sh, q_st,
-                        o_sb, o_sh, o_st, pos, prefix, 0, scale, stream);
+                        o_sb, o_sh, o_st, pos, prefix, 0, 1, scale, stream);
+}
+
+// Kernel B's GQA entry: q (B, Hkv * rep, 1, D) bf16 with batch and head
+// strides q_sb, q_sh (o likewise), over layer `layer` of the stacked bf16
+// (L, B, Hkv, T, D) caches. Block (b, h) takes query heads h * rep .. h *
+// rep + rep - 1 as its rows, all at `pos`. A single (B, Hkv, T, D) layer
+// (the single-layer `decode_attention`; rep 1 is its MHA case) is L = 1,
+// layer 0, tk = T.
+extern "C" int decode_attn_stacked_gqa_bf16(
+    const void* q, const void* k_cache, const void* v_cache, void* o, int L,
+    int B, int Hkv, int T, int D, int rep, int layer, int tk, long long q_sb,
+    long long q_sh, long long o_sb, long long o_sh, int pos, int prefix,
+    float scale, void* stream) {
+  return launch<bf16>(q, k_cache, v_cache, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, nullptr, o, nullptr, nullptr, L, B, Hkv, T, D,
+                      rep, layer, tk, 1, 0, 0, 0, q_sb, rep * q_sh, q_sh,
+                      o_sb, rep * o_sh, o_sh, pos, prefix, 0, 0, scale,
+                      stream);
 }
 
 // Kernel C. pos (S,) int32 on the device; pref_k/pref_v (L, P, H, Tp, D)
@@ -371,7 +410,7 @@ extern "C" int decode_attn_ragged_bf16(
   return launch<bf16>(q, k_cache, v_cache, nullptr, nullptr, pref_k, pref_v,
                       nullptr, nullptr, o, pos, pids, L, S, H, T, D, Tq, layer,
                       tk, 1, P, Tp, tp, q_sb, q_sh, q_st, o_sb, o_sh, o_st, 0,
-                      prefix, prefix_len, scale, stream);
+                      prefix, prefix_len, 1, scale, stream);
 }
 
 // Kernel C on int8 codes; scales (L, S, H/g, T) and (L, P, H/g, Tp).
@@ -386,5 +425,5 @@ extern "C" int decode_attn_ragged_int8(
   return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, pref_k, pref_v,
                         pref_ks, pref_vs, o, pos, pids, L, S, H, T, D, Tq,
                         layer, tk, g, P, Tp, tp, q_sb, q_sh, q_st, o_sb, o_sh,
-                        o_st, 0, prefix, prefix_len, scale, stream);
+                        o_st, 0, prefix, prefix_len, 1, scale, stream);
 }

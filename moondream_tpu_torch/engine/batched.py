@@ -1,20 +1,24 @@
-"""Logits and sampling for a batch of rows, one row per serving slot
-(moondream_tpu/engine/batched.py:32-75).
+"""Batched logits and sampling, one row per serving slot or per image, and
+the lockstep batched engine (moondream_tpu/engine/batched.py:32-180).
 
-Everything stays on the device: greedy rows take an argmax, sampled rows
-the nucleus draw of `sampling.sample_token`, with per-row uniforms from an
+Sampling stays on the device: greedy rows take an argmax, sampled rows the
+nucleus draw of `sampling.sample_token`, with per-row uniforms from an
 explicit `torch.Generator`. Nothing is read back to the host, so a serving
 chunk can run many steps without a sync.
+
+Lockstep batching runs B symmetric requests (the same prompt over B
+images) at one shared position with per-row EOS: `prefill_batched`,
+`decode_step_batched` and `generate_text_batched`.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..models.text import TextModel
-from .generate import _lm_logits
+from ..models.text import KVCache, TextModel, text_decoder, text_encoder
+from .generate import NEG_INF, _lm_logits
 from .sampling import apply_top_p_mask
 
 
@@ -61,3 +65,100 @@ def sample_tokens_batched(
         torch.argmax(logits, dim=-1),
         _nucleus(logits, generator, temperature, top_p),
     )
+
+
+def prefill_batched(
+    model: TextModel,
+    kv: KVCache,
+    embeds: torch.Tensor,
+    pos: int,
+    length: int,
+    prefix_len: int,
+    kv_bound: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill right-padded spans embeds (B, T_pad, D) at a shared `pos`, of
+    which the first `length` rows are real, writing `kv` in place. Returns
+    ((B, V) logits, (B, D) hidden) of the last real row."""
+    hidden = text_decoder(embeds, model, kv, pos, prefix_len, kv_bound)
+    h_last = hidden[:, length - 1]
+    return lm_logits_batched(h_last, model), h_last
+
+
+def decode_step_batched(
+    model: TextModel,
+    kv: KVCache,
+    emb: torch.Tensor,
+    pos: int,
+    kv_bound: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One lockstep decode step for emb (B, 1, D) at the shared `pos`.
+    Returns ((B, V) logits, (B, D) hidden)."""
+    hidden = text_decoder(emb, model, kv, pos, 0, kv_bound)
+    h = hidden[:, 0]
+    return lm_logits_batched(h, model), h
+
+
+# generate_text_batched reads its all-done flag to the host once per this
+# many steps (a sync each time), not once per step.
+DONE_CHECK_EVERY = 8
+
+
+def batched_steps(max_count: int, limit: int) -> int:
+    """The decode steps generate_text_batched runs when its longest row
+    emits `max_count` tokens (every row ends at EOS, or one reaches
+    `limit`): it stops at the first flag read after the last EOS."""
+    return min(limit, -(-max_count // DONE_CHECK_EVERY) * DONE_CHECK_EVERY)
+
+
+class BatchedGenerateResult(NamedTuple):
+    tokens: torch.Tensor  # (B, steps) int64 on the device, 0 after a row's EOS
+    counts: torch.Tensor  # (B,) int64 on the device: valid tokens per row
+    pos: int  # the shared position after the last step
+
+
+def generate_text_batched(
+    model: TextModel,
+    kv: KVCache,
+    first_tokens: torch.Tensor,
+    pos: int,
+    generator: Optional[torch.Generator],
+    temperature: float,
+    top_p: float,
+    max_tokens: int,
+    eos_id: int,
+    suppress_ids: Tuple[int, ...],
+    kv_bound: Optional[int] = None,
+) -> BatchedGenerateResult:
+    """Lockstep generation from first_tokens (B,) at the shared `pos`, as
+    the JAX package's loop runs it: while some row is not done and the
+    limit (max_tokens, the context end or kv_bound) is not reached, emit
+    each live row's token, run one decode step for all rows and sample the
+    next. A row is done once it samples EOS (not emitted); done rows keep
+    stepping, their tokens masked to 0 and their K/V written at positions
+    only they attend. Tokens and counts stay in device buffers. The host
+    reads the all-done flag once every DONE_CHECK_EVERY steps, so the loop
+    may run up to DONE_CHECK_EVERY - 1 steps past the last row's EOS: those
+    steps emit nothing (their token columns are 0 and no count moves), and
+    `pos` counts them."""
+    limit = min(max_tokens, model.config.max_context - pos)
+    if kv_bound is not None:
+        limit = min(limit, kv_bound - pos)
+    limit = max(limit, 0)
+    bsz, dev = first_tokens.shape[0], first_tokens.device
+    toks = torch.zeros((bsz, limit), dtype=torch.long, device=dev)
+    counts = torch.zeros((bsz,), dtype=torch.long, device=dev)
+    cur = first_tokens.long()
+    done = cur == eos_id
+    steps = 0
+    while steps < limit and (steps % DONE_CHECK_EVERY or not bool(done.all())):
+        toks[:, steps] = cur.masked_fill(done, 0)
+        counts += (~done).long()
+        logits, _ = decode_step_batched(
+            model, kv, text_encoder(cur[:, None], model), pos + steps, kv_bound
+        )
+        if suppress_ids:
+            logits[:, list(suppress_ids)] = NEG_INF
+        cur = sample_tokens_batched(logits, generator, temperature, top_p)
+        done = done | (cur == eos_id)
+        steps += 1
+    return BatchedGenerateResult(tokens=toks[:, :steps], counts=counts, pos=pos + steps)

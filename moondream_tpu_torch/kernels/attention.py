@@ -1,5 +1,6 @@
 """ctypes bindings of the attention kernels in `csrc/`: A (flash), and B
-(one position for the batch) and C (per-row positions, optionally over a
+(one position for the batch; its GQA entries over one layer of the stacked
+cache or over a single layer) and C (per-row positions, optionally over a
 shared prefix segment), two families of entry points of one decode kernel.
 
 Each wrapper checks device, dtype, shape, strides and alignment, allocates
@@ -26,7 +27,11 @@ DECODE_INT8 = "decode_attn_stacked_int8"
 # kernel C, the serving pool's ragged decode, bf16 and int8 entry points
 RAGGED = "decode_attn_ragged"
 RAGGED_INT8 = "decode_attn_ragged_int8"
-LAUNCHES.update({FLASH: 0, DECODE: 0, DECODE_INT8: 0, RAGGED: 0, RAGGED_INT8: 0})
+# kernel B's GQA entries: one layer of the stacked cache, and a single layer
+DECODE_GQA = "decode_attn_stacked_gqa"
+DECODE_GQA_LAYER = "decode_attn_layer_gqa"
+LAUNCHES.update({FLASH: 0, DECODE: 0, DECODE_INT8: 0, RAGGED: 0, RAGGED_INT8: 0,
+                 DECODE_GQA: 0, DECODE_GQA_LAYER: 0})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +63,9 @@ def _decode_lib() -> ctypes.CDLL:
         fnr8 = lib.decode_attn_ragged_int8
         fnr8.restype = _I
         fnr8.argtypes = [_P] * 12 + [_I] * 12 + [_L] * 6 + [_I, _I, _F, _P]
+        fng = lib.decode_attn_stacked_gqa_bf16
+        fng.restype = _I
+        fng.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 4 + [_I, _I, _F, _P]
     return lib
 
 
@@ -123,14 +131,14 @@ def flash_attn_fwd(
     return out
 
 
-def _check_decode(name, q, k_cache, v_cache, k_scale, v_scale, batch) -> int:
-    """Check q (S, H, Tq, D) against stacked (L, batch, H, T, D) caches (S
-    == batch for the slot's own cache, P for a prefix segment) and their
+def _check_decode(name, q, k_cache, v_cache, k_scale, v_scale, batch, rep=1) -> int:
+    """Check q (S, rep * H, Tq, D) against stacked (L, batch, H, T, D) caches
+    (S == batch for the slot's own cache, P for a prefix segment) and their
     scales; returns the number of scale rows H/g (0 for bf16)."""
     _check_bf16_cuda(name, q)
     _, h, tq, d = q.shape
     n_layers, cb, ch, t_max, cd = k_cache.shape
-    if (cb, ch, cd) != (batch, h, d) or v_cache.shape != k_cache.shape:
+    if (cb, ch * rep, cd) != (batch, h, d) or v_cache.shape != k_cache.shape:
         raise ValueError(
             f"{name}: q {tuple(q.shape)} does not match cache {tuple(k_cache.shape)}"
         )
@@ -287,6 +295,51 @@ def decode_attn_ragged(
             n_layers, s_, h, t_max, d, tq, int(layer), int(tk), n_pref, tp, tp,
             *tail,
         )
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
+def decode_attn_gqa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos: int,
+    prefix: int,
+    layer: Optional[int] = None,
+    tk: Optional[int] = None,
+) -> torch.Tensor:
+    """Kernel B's GQA entries: one token q (B, Hq, 1, D), query head h over
+    KV head h // rep (rep = Hq / Hkv, at most 16; 1 is MHA). With `layer`,
+    k/v are the stacked bf16 (L, B, Hkv, T, D) caches, read at that layer
+    up to the first `tk` slots; without, a single (B, Hkv, T, D) layer
+    (the counterpart of `decode_attention`). Only a single token: as in the
+    JAX package, query spans need MHA."""
+    name = DECODE_GQA if layer is not None else DECODE_GQA_LAYER
+    if layer is None:  # a single layer: L = 1, layer 0, every slot
+        k, v, layer = k[None], v[None], 0
+    if k.dim() != 5:
+        raise ValueError(f"{name}: cache shape {tuple(k.shape)}")
+    b, hq, tq, d = q.shape
+    n_layers, _, hkv, t_max, _ = k.shape
+    rep = hq // hkv
+    if tq != 1 or not 1 <= rep <= 16:
+        raise ValueError(
+            f"{name}: GQA decode takes one query token and Hq = rep * Hkv with "
+            f"rep <= 16, got q {tuple(q.shape)} for cache {tuple(k.shape)}"
+        )
+    _check_decode(name, q, k, v, None, None, b, rep)
+    tk = t_max if tk is None else tk
+    if not (0 <= layer < n_layers and 0 < tk <= t_max and pos >= 0):
+        raise ValueError(f"{name}: layer {layer}, tk {tk}, pos {pos}")
+    out = _head_major_out(b, hq, 1, d, q)
+    rc = _decode_lib().decode_attn_stacked_gqa_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        n_layers, b, hkv, t_max, d, rep, int(layer), int(tk),
+        q.stride(0), q.stride(1), out.stride(0), out.stride(1), int(pos),
+        int(prefix), float(d) ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return out

@@ -1,12 +1,16 @@
-"""MoondreamModel, caption path and what the serving pool needs of the
-model (the main-path subset of moondream_tpu/models/moondream.py).
+"""MoondreamModel: caption, query (without reasoning), the lockstep batched
+paths and what the serving pool needs of the model (a subset of
+moondream_tpu/models/moondream.py).
 
 encode_image: host overlap crops -> ViT over a bucketed crop batch ->
-stitch + projection -> [BOS, image] prefill -> KV snapshot. caption: the
-template prompt prefill over the restored snapshot, then greedy or top-p
-decode, plain or streamed. `models.serve.ContinuousBatchingEngine` prefills
-its requests through load_encoded_image (on recycled buffers) and
-_prefill_prompt.
+stitch + projection -> [BOS, image] prefill -> KV snapshot. caption and
+query: the template prompt prefill over the restored snapshot (query also
+without an image), then greedy or top-p decode, plain or streamed.
+encode_images: one ViT call per (crop count, tiling) group of images, one
+stitch + projection per group and one batched [BOS, image] prefill;
+caption_batch / query_batch: one shared prompt over many images, decoded in
+lockstep. `models.serve.ContinuousBatchingEngine` prefills its requests
+through load_encoded_image (on recycled buffers) and _prefill_prompt.
 """
 
 from __future__ import annotations
@@ -19,12 +23,13 @@ import numpy as np
 import torch
 
 from ..config import MoondreamConfig
+from ..engine import batched as batched_engine
 from ..engine import generate as engine
 from ..engine.sampling import sample_token
 from ..ops.image_crops import overlap_crop_image, reconstruct_from_crops
 from ..tokenizer import TokenizerBase, load_tokenizer
 from ..utils.streaming import TokenStreamer, stream_text
-from ..weights import init_params
+from ..weights import checked_device, init_params
 from .text import KVCache, text_encoder
 from .vision import vision_encoder, vision_projection
 
@@ -54,14 +59,21 @@ class EncodedImage:
         return KVCache(k=self.k, v=self.v, ks=self.ks, vs=self.vs)
 
 
-def _snap_enc(kv: KVCache, pos: int) -> EncodedImage:
-    cut = lambda a: None if a is None else a[..., :pos].clone()
-    return EncodedImage(
-        pos=pos,
-        k=kv.k[:, :, :, :pos].clone(),
-        v=kv.v[:, :, :, :pos].clone(),
-        ks=cut(kv.ks),
-        vs=cut(kv.vs),
+def _snap_enc(kv: KVCache, pos: int, b: Optional[int] = None) -> EncodedImage:
+    """The snapshot [0, pos) of batch row b of a cache (of its only row when
+    b is None)."""
+    rows = slice(None) if b is None else slice(b, b + 1)
+    cut = lambda a: None if a is None else a[:, rows, :, :pos].clone()
+    return EncodedImage(pos=pos, k=cut(kv.k), v=cut(kv.v), ks=cut(kv.ks), vs=cut(kv.vs))
+
+
+def _concat_enc_kv(encs: List[EncodedImage]) -> KVCache:
+    """Per-image snapshots stacked on the batch axis
+    (moondream_tpu/models/moondream.py:106-114)."""
+    cat = lambda xs: None if xs[0] is None else torch.cat(xs, dim=1)
+    return KVCache(
+        k=cat([e.k for e in encs]), v=cat([e.v for e in encs]),
+        ks=cat([e.ks for e in encs]), vs=cat([e.vs for e in encs]),
     )
 
 
@@ -84,29 +96,31 @@ class MoondreamModel:
         tokenizer: Optional[TokenizerBase] = None,
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         """`params`: from `weights.params_from_jax`, `weights.load_params`
         or `weights.init_params` (int4 text blocks: `load_params(...,
         runtime_int4=True)`, or `models.text.quantize_text_params` on
         dense ones); None draws random weights on `device` from `seed`. An
-        int8 KV cache comes from config.text.kv_int8. On a CUDA device the
+        int8 KV cache comes from config.text.kv_int8. `device` is the card
+        unless the caller asks for the CPU (device="cpu", the plain
+        versions); without a card the default raises. On a CUDA device the
         kernels take bf16 activations only."""
         self.config = config
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if params is None:
             params = init_params(config, self.generator, self.device, dtype)
         self.params = params
         self.tokenizer = tokenizer if tokenizer is not None else load_tokenizer()
-        # Recycled single-row KV buffers, by slot count (the JAX package's
+        # Recycled KV buffers, by (batch, slot count) (the JAX package's
         # pool, moondream_tpu/models/moondream.py:151-159): the serving pool
         # returns each prefilled request's buffer once its slot write is
         # done, so the next load_encoded_image costs only the snapshot
         # copy. Stale slots past a snapshot are overwritten before they are
         # attended. Servers recycle from other threads: hence the lock.
-        self._kv_pool: Dict[int, List[KVCache]] = {}
+        self._kv_pool: Dict[Tuple[int, int], List[KVCache]] = {}
         self._kv_pool_lock = threading.Lock()
 
     @property
@@ -139,9 +153,9 @@ class MoondreamModel:
         return None if bound >= max_ctx else bound
 
     # ------------------------------------------------------------- vision
-    def _run_vision_encoder(self, image) -> torch.Tensor:
-        """PIL image or uint8 (H, W, 3) array -> (729, text_dim) image
-        embedding."""
+    def _crops(self, image) -> Tuple[np.ndarray, Tuple[int, int]]:
+        """Host overlap crops (n, 378, 378, 3) uint8 and the tiling of a PIL
+        image or a uint8 (H, W, 3) array."""
         cfg = self.config.vision
         if isinstance(image, np.ndarray):
             np_image = image
@@ -152,21 +166,32 @@ class MoondreamModel:
         out = overlap_crop_image(
             np_image, overlap_margin=cfg.overlap_margin, max_crops=cfg.max_crops
         )
-        crops, tiling = out["crops"], tuple(out["tiling"])
-        n = crops.shape[0]
-        b = _bucket(n)
-        x = torch.zeros((b, *crops.shape[1:]), dtype=torch.uint8)
-        x[:n] = torch.from_numpy(crops)
-        x = x.to(self.device).to(self.dtype) / 255.0
-        x = (x - 0.5) / 0.5
-        feats = vision_encoder(x, self.vision)
+        return out["crops"], tuple(out["tiling"])
 
+    def _vision_features(self, crops: torch.Tensor) -> torch.Tensor:
+        """(N, 378, 378, 3) uint8 crops on the host -> (N, 729, enc_dim)."""
+        x = crops.to(self.device).to(self.dtype) / 255.0
+        return vision_encoder((x - 0.5) / 0.5, self.vision)
+
+    def _stitch_project(self, feats: torch.Tensor, tiling) -> torch.Tensor:
+        """(..., n, 729, enc_dim) features of each image's global crop and n - 1
+        local crops -> (..., 729, text_dim) image embeddings."""
+        cfg = self.config.vision
         g = cfg.grid_size
-        local = feats[1:n].reshape(-1, g, g, cfg.enc_dim)
+        local = feats[..., 1:, :, :].reshape(*feats.shape[:-3], -1, g, g, cfg.enc_dim)
         recon = reconstruct_from_crops(
             local, tiling, overlap_margin=cfg.overlap_margin, patch_size=1
         )
-        return vision_projection(feats[0], recon, self.vision)
+        return vision_projection(feats[..., 0, :, :], recon, self.vision)
+
+    def _run_vision_encoder(self, image) -> torch.Tensor:
+        """PIL image or uint8 (H, W, 3) array -> (729, text_dim) image
+        embedding, the ViT over the crops padded to a crop-count bucket."""
+        crops, tiling = self._crops(image)
+        n = crops.shape[0]
+        x = torch.zeros((_bucket(n), *crops.shape[1:]), dtype=torch.uint8)
+        x[:n] = torch.from_numpy(crops)
+        return self._stitch_project(self._vision_features(x)[:n], tiling)
 
     def encode_image(self, image, settings: Optional[Dict[str, Any]] = None) -> EncodedImage:
         """Encode an image and prefill [BOS, image] through the text model."""
@@ -183,23 +208,37 @@ class MoondreamModel:
         )
         return _snap_enc(kv, seq)
 
-    def _take_kv_buffer(self, slots: Optional[int] = None) -> KVCache:
+    def _take_kv_buffer(self, batch: int = 1, slots: Optional[int] = None) -> KVCache:
+        """A (batch, slots) cache buffer, recycled when the pool has one;
+        its contents are stale."""
         slots = slots or self.config.text.max_context
         with self._kv_pool_lock:
-            pool = self._kv_pool.get(slots)
+            pool = self._kv_pool.get((batch, slots))
             if pool:
                 return pool.pop()
-        return KVCache.create(self.config.text, 1, self.dtype, self.device, slots)
+        return KVCache.create(self.config.text, batch, self.dtype, self.device, slots)
 
     def _recycle_kv(self, kv: Optional[KVCache]) -> None:
-        """Return a single-row buffer to the pool (at most two kept per
+        """Return a buffer to the pool (at most two kept per batch and
         size); the caller must not use it afterwards."""
         if kv is None:
             return
         with self._kv_pool_lock:
-            pool = self._kv_pool.setdefault(int(kv.k.shape[3]), [])
+            pool = self._kv_pool.setdefault((int(kv.k.shape[1]), int(kv.k.shape[3])), [])
             if len(pool) < 2:
                 pool.append(kv)
+
+    def _load_snapshot(self, snap: KVCache, slots: Optional[int]) -> KVCache:
+        """A working cache holding `snap` (its batch rows) from column 0, on
+        a recycled buffer when the pool has one."""
+        kv = self._take_kv_buffer(int(snap.k.shape[1]), slots)
+        n = snap.k.shape[3]  # the whole snapshot, as the JAX package writes it
+        kv.k[:, :, :, :n] = snap.k
+        kv.v[:, :, :, :n] = snap.v
+        if kv.ks is not None:
+            kv.ks[..., :n] = snap.ks
+            kv.vs[..., :n] = snap.vs
+        return kv
 
     def load_encoded_image(
         self, encoded: EncodedImage, slots: Optional[int] = None
@@ -207,14 +246,7 @@ class MoondreamModel:
         """A working cache holding the snapshot, on a recycled buffer when
         the pool has one. `slots` bounds its token capacity (default
         max_context): serving pools pass their slot_len."""
-        kv = self._take_kv_buffer(slots)
-        n = encoded.k.shape[3]  # the whole snapshot, as the JAX package writes it
-        kv.k[:, :, :, :n] = encoded.k
-        kv.v[:, :, :, :n] = encoded.v
-        if kv.ks is not None:
-            kv.ks[..., :n] = encoded.ks
-            kv.vs[..., :n] = encoded.vs
-        return kv
+        return self._load_snapshot(encoded.as_cache(), slots)
 
     # ------------------------------------------------------------ prefill
     def _prefill_prompt(
@@ -286,6 +318,52 @@ class MoondreamModel:
         if tail:
             yield tail
 
+    # -------------------------------------------------------------- query
+    def query(
+        self,
+        image=None,
+        question: Optional[str] = None,
+        reasoning: bool = False,
+        spatial_refs=None,
+        stream: bool = False,
+        settings: Optional[Dict[str, Any]] = None,
+    ):
+        """Visual question answering, plain or streamed, with or without an
+        image (moondream_tpu/models/moondream.py:1156-1250, no reasoning).
+        Without an image the prompt starts with BOS at position 0 and is
+        causal throughout."""
+        templates = self.config.tokenizer.templates["query"]
+        if templates is None:
+            raise NotImplementedError("Model does not support querying.")
+        if question is None:
+            raise ValueError("question must be provided.")
+        if spatial_refs and image is None:
+            raise ValueError("spatial_refs can only be used with an image.")
+        if reasoning or spatial_refs:
+            raise NotImplementedError(
+                "query with reasoning or spatial_refs needs the region heads, "
+                "not ported to moondream_tpu_torch yet (ROADMAP.md Queue 1 #8)"
+            )
+        tok_cfg = self.config.tokenizer
+        if image is not None:
+            enc = self.encode_image(image, settings)
+            kv, pos = self.load_encoded_image(enc), enc.pos
+            prompt = list(templates["prefix"])
+            prefix_len = self.config.text.prefix_attn
+        else:
+            kv, pos = self._take_kv_buffer(1), 0
+            prompt = [tok_cfg.bos_id] + list(templates["prefix"])
+            prefix_len = 0
+        prompt += self._encode_text(question) + list(templates["suffix"])
+        _, temperature, top_p = self._settings(settings)
+        _, _, next_token, pos, kv = self._prefill_prompt(
+            kv, prompt, pos, temperature, top_p, prefix_len=prefix_len
+        )
+        if stream:
+            return {"answer": self._stream_answer(kv, next_token, pos, settings)}
+        tokens = self._generate_answer_tokens(kv, next_token, pos, settings)
+        return {"answer": "".join(stream_text(tokens, self._decode_tokens))}
+
     # ------------------------------------------------------------ caption
     def caption(
         self,
@@ -310,3 +388,101 @@ class MoondreamModel:
             tokens = self._generate_answer_tokens(kv, next_token, pos, settings)
             return {"caption": "".join(stream_text(tokens, self._decode_tokens))}
         return {"caption": self._stream_answer(kv, next_token, pos, settings)}
+
+    # ------------------------------------------------------------ batching
+    def encode_images(self, images, settings=None) -> List[EncodedImage]:
+        """Batched encode (moondream_tpu/models/moondream.py:1401-1452): host
+        crops per image, ONE ViT call per (crop count, tiling) group over the
+        group's concatenated crops, one stitch + projection per group, and
+        ONE batched [BOS, image] prefill for all images."""
+        prepped = [self._crops(im) for im in images]
+        groups: Dict[Tuple[int, Tuple[int, int]], List[int]] = {}
+        for i, (crops, tiling) in enumerate(prepped):
+            groups.setdefault((crops.shape[0], tiling), []).append(i)
+        img_embs: List[Optional[torch.Tensor]] = [None] * len(images)
+        for (n, tiling), idxs in groups.items():
+            crops = torch.from_numpy(np.concatenate([prepped[i][0] for i in idxs]))
+            feats = self._vision_features(crops)
+            embs = self._stitch_project(feats.reshape(len(idxs), n, *feats.shape[1:]), tiling)
+            for j, i in enumerate(idxs):
+                img_embs[i] = embs[j]
+
+        bos = self.config.tokenizer.bos_id
+        bos_emb = text_encoder(torch.tensor([bos], device=self.device), self.text)
+        embeds = torch.stack([torch.cat([bos_emb, e]) for e in img_embs]).to(self.dtype)
+        bsz, seq, _ = embeds.shape
+        bound = self._kv_bound(seq)
+        kv = self._take_kv_buffer(bsz, bound)
+        batched_engine.prefill_batched(self.text, kv, embeds, 0, seq, seq, kv_bound=bound)
+        encs = [_snap_enc(kv, seq, b) for b in range(bsz)]
+        self._recycle_kv(kv)
+        return encs
+
+    def caption_batch(
+        self,
+        images,
+        length: Literal["normal", "short", "long"] = "normal",
+        settings: Optional[Dict[str, Any]] = None,
+    ) -> List[str]:
+        """Lockstep batched captioning: one prompt for every image, a shared
+        position, per-row EOS."""
+        return self._symmetric_batch_generate(
+            images, list(self.config.tokenizer.templates["caption"][length]),
+            settings,
+        )
+
+    def query_batch(
+        self, images, question: str, settings: Optional[Dict[str, Any]] = None
+    ) -> List[str]:
+        """Batched VQA: ONE question over every image, decoded in lockstep."""
+        templates = self.config.tokenizer.templates["query"]
+        prompt = (
+            list(templates["prefix"])
+            + self._encode_text(question)
+            + list(templates["suffix"])
+        )
+        return self._symmetric_batch_generate(images, prompt, settings)
+
+    def _batched_prompt_prefill(self, images, ids, settings, session_end):
+        """The symmetric batched paths' scaffold
+        (moondream_tpu/models/moondream.py:1480-1515): images to
+        EncodedImages (one encode_images for the fresh ones), the batched
+        cache loaded to the session's bound (`session_end(pos, length, pad)`
+        is the last position the session can write), the shared prompt
+        broadcast to every row, and ONE batched prefill. Returns (logits,
+        hidden, kv, pos, length, bound)."""
+        encs = [im if isinstance(im, EncodedImage) else None for im in images]
+        to_encode = [im for im, e in zip(images, encs) if e is None]
+        if to_encode:
+            fresh = iter(self.encode_images(to_encode, settings))
+            encs = [e if e is not None else next(fresh) for e in encs]
+
+        pos, length = encs[0].pos, len(ids)
+        pad = max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
+        bound = self._decode_bound(session_end(pos, length, pad))
+        kv = self._load_snapshot(_concat_enc_kv(encs), bound)
+        ids_t = torch.tensor([list(ids) + [0] * (pad - length)], device=self.device)
+        emb = text_encoder(ids_t, self.text).to(self.dtype).repeat(len(encs), 1, 1)
+        logits, hidden = batched_engine.prefill_batched(
+            self.text, kv, emb, pos, length, self.config.text.prefix_attn,
+            kv_bound=self._kv_bound(pos + pad),
+        )
+        return logits, hidden, kv, pos, length, bound
+
+    def _symmetric_batch_generate(self, images, prompt_tokens, settings) -> List[str]:
+        max_tokens, temperature, top_p = self._settings(settings)
+        logits, _, kv, pos, length, bound = self._batched_prompt_prefill(
+            images, prompt_tokens, settings,
+            lambda pos, length, pad: pos + pad + max_tokens + 1,
+        )
+        first = batched_engine.sample_tokens_batched(
+            logits, self.generator, temperature, top_p
+        )
+        res = batched_engine.generate_text_batched(
+            self.text, kv, first, pos + length, self.generator, temperature,
+            top_p, max_tokens, self.config.tokenizer.eos_id,
+            (self.config.tokenizer.answer_id,), kv_bound=bound,
+        )
+        rows = torch.cat([res.counts[:, None], res.tokens], dim=1).tolist()  # one read
+        self._recycle_kv(kv)
+        return ["".join(stream_text(r[1:1 + r[0]], self._decode_tokens)) for r in rows]

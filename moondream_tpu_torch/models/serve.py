@@ -19,7 +19,9 @@ ValueError; token budgets are clamped to the room left in the slot.
 Not ported yet: speculative chunks and LoRA variants (the arguments
 `speculative`, `spec_adaptive`, `variants` and `variant=` raise
 NotImplementedError), the structured detect/point/gaze requests with their
-mixed chunks, and `submit_many` (which needs a batched encode_images).
+mixed chunks, and `submit_many`. A GQA text config (n_kv_heads < n_heads)
+is refused: the pool's ragged decode is MHA only, as in the JAX package
+(moondream_tpu/ops/attention.py:608).
 """
 
 from __future__ import annotations
@@ -109,6 +111,13 @@ class ContinuousBatchingEngine:
             raise _not_ported("speculative serving")
         if variants:
             raise _not_ported("multi-variant (LoRA) serving")
+        tc = model.config.text
+        if tc.n_kv_heads != tc.n_heads:
+            raise ValueError(
+                f"ContinuousBatchingEngine needs an MHA text config, got "
+                f"n_kv_heads {tc.n_kv_heads} < n_heads {tc.n_heads}: the ragged "
+                "pool decode is MHA only"
+            )
         self.model = model
         self.config = model.config.text
         self.eos_id = model.config.tokenizer.eos_id if eos_id is None else eos_id

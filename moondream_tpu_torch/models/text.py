@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from ..config import TextConfig
-from ..ops.attention import decode_attention_cached, flash_attention
+from ..ops.attention import decode_attention, decode_attention_cached, flash_attention
 from ..ops.layers import MLP, LayerNorm, Linear
 from ..ops.quant import quantize_weight_torch, quantized_matmul
 from ..ops.rope import apply_rotary_emb, precompute_freqs_cis
@@ -219,10 +219,16 @@ def attn_with_cache(
 ) -> torch.Tensor:
     """One attention layer reading and updating the stacked cache.
 
-    x: (B, T, D) pre-normed input at positions pos..pos+T-1. Spans of up to
-    16 rows (decode tokens, short prompt prefills) go to the stacked-cache
-    decode attention; longer spans read cache[layer][:, :, :kv_bound] and go
-    to flash attention (moondream_tpu/models/text.py:377-406)."""
+    x: (B, T, D) pre-normed input at positions pos..pos+T-1, routed as the
+    JAX package routes it (moondream_tpu/models/text.py:377-406):
+      * MHA spans of up to 16 rows (decode tokens, short prompt prefills),
+        and GQA decode tokens over a bf16 cache, go to the stacked-cache
+        decode attention;
+      * a GQA decode token over an int8 cache dequantizes the layer's
+        [0, kv_bound) span and goes to the single-layer decode attention;
+      * longer spans (and GQA spans) read cache[layer][:, :, :kv_bound],
+        dequantized for int8, with KV heads repeated under GQA, and go to
+        flash attention."""
     bsz, q_len, _ = x.shape
     q, k, v = _split_qkv(block.qkv(x), config)
     position_ids = torch.arange(pos, pos + q_len, device=x.device)
@@ -246,7 +252,7 @@ def attn_with_cache(
         kv.v[layer, :, :, span] = v
 
     mha = config.n_kv_heads == config.n_heads
-    if q_len <= DECODE_SPAN_MAX and mha:
+    if (q_len <= DECODE_SPAN_MAX and mha) or (q_len == 1 and not int8):
         out = decode_attention_cached(
             q, kv.k, kv.v, layer, pos, prefix_len, kv_bound, kv.ks, kv.vs
         )
@@ -258,11 +264,15 @@ def attn_with_cache(
             # moondream_tpu/models/text.py:390-406: dequantize the span
             k_l = dequantize_kv(k_l, kv.ks[layer, :, :, :tk], q.dtype)
             v_l = dequantize_kv(v_l, kv.vs[layer, :, :, :tk], q.dtype)
-        if not mha:
-            rep = config.n_heads // config.n_kv_heads
-            k_l = k_l.repeat_interleave(rep, dim=1)
-            v_l = v_l.repeat_interleave(rep, dim=1)
-        out = flash_attention(q, k_l, v_l, pos, prefix_len)
+        if q_len == 1:
+            # GQA over an int8 cache (moondream_tpu/ops/attention.py:1083)
+            out = decode_attention(q, k_l, v_l, pos, prefix_len)
+        else:
+            if not mha:  # heads repeated, as moondream_tpu/ops/attention.py:1085-1089
+                rep = config.n_heads // config.n_kv_heads
+                k_l = k_l.repeat_interleave(rep, dim=1)
+                v_l = v_l.repeat_interleave(rep, dim=1)
+            out = flash_attention(q, k_l, v_l, pos, prefix_len)
     return block.proj(out.transpose(1, 2).reshape(bsz, q_len, config.dim))
 
 

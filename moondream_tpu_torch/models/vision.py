@@ -93,21 +93,23 @@ def _pool_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """(H, W, C) -> (out_h, out_w, C) adaptive mean pool as two fp32
-    matrix products."""
-    ph = torch.from_numpy(_pool_matrix(int(x.shape[0]), out_hw[0])).to(x.device)
-    pw = torch.from_numpy(_pool_matrix(int(x.shape[1]), out_hw[1])).to(x.device)
-    pooled = torch.einsum("oh,hwc->owc", ph, x.float())
-    pooled = torch.einsum("pw,owc->opc", pw, pooled)
+    """(..., H, W, C) -> (..., out_h, out_w, C) adaptive mean pool as two
+    fp32 matrix products."""
+    ph = torch.from_numpy(_pool_matrix(int(x.shape[-3]), out_hw[0])).to(x.device)
+    pw = torch.from_numpy(_pool_matrix(int(x.shape[-2]), out_hw[1])).to(x.device)
+    pooled = torch.einsum("oh,...hwc->...owc", ph, x.float())
+    pooled = torch.einsum("pw,...owc->...opc", pw, pooled)
     return pooled.to(x.dtype)
 
 
 def vision_projection(
     global_features: torch.Tensor, reconstructed: torch.Tensor, model: VisionModel
 ) -> torch.Tensor:
-    """global_features (729, enc_dim), reconstructed (H, W, enc_dim) ->
-    (729, proj_out_dim)."""
+    """global_features (..., 729, enc_dim), reconstructed (..., H, W,
+    enc_dim) -> (..., 729, proj_out_dim); leading axes are images."""
     cfg = model.config
     g = cfg.grid_size
-    pooled = adaptive_avg_pool2d(reconstructed, (g, g)).reshape(g * g, cfg.enc_dim)
+    pooled = adaptive_avg_pool2d(reconstructed, (g, g)).reshape(
+        *reconstructed.shape[:-3], g * g, cfg.enc_dim
+    )
     return model.proj_mlp(torch.cat([global_features, pooled], dim=-1))

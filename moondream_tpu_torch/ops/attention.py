@@ -86,9 +86,38 @@ def _cache_softmax_pv(q, k, v, mask, ks=None, vs=None) -> torch.Tensor:
 
 def _scale_rows(scale, layer: int, h: int, t: int, rows=slice(None)):
     """Layer `layer` of (L, B, H/g, T) scales (batch entries `rows`) as
-    (B, H, 1, t): head h reads scale row h // g."""
+    (B, H, 1, t): head h of the H query heads reads scale row
+    h // (H / rows), its KV head's row under GQA too."""
     s = scale[layer, rows, :, None, :t]
     return s.repeat_interleave(h // scale.shape[2], dim=1)
+
+
+def _repeat_kv(x: torch.Tensor, hq: int) -> torch.Tensor:
+    """(..., Hkv, T, D) -> (..., Hq, T, D): query head h reads KV head
+    h // (Hq / Hkv) (GQA); unchanged under MHA."""
+    hkv = x.shape[-3]
+    return x if hkv == hq else x.repeat_interleave(hq // hkv, dim=-3)
+
+
+def decode_attention_plain(q, k, v, pos: int, prefix: int) -> torch.Tensor:
+    """Plain version of kernel B's single-layer GQA entry: q (B, Hq, 1, D)
+    over one (B, Hkv, T, D) layer, query head h reading KV head h // rep,
+    as `decode_attention` of the JAX package computes it
+    (moondream_tpu/ops/attention.py:341-489: `_decode_kernel`, rep 1, and
+    `_decode_kernel_gqa`)."""
+    hq = q.shape[1]
+    return flash_attention_plain(q, _repeat_kv(k, hq), _repeat_kv(v, hq), pos, prefix)
+
+
+def decode_attention(q, k, v, pos: int, prefix: int) -> torch.Tensor:
+    """One query token q (B, Hq, 1, D) over a single (B, Hkv, T, D) layer,
+    Hq a multiple of Hkv: the counterpart of `decode_attention` of the JAX
+    package, which the int8 cache's dequantized layer takes under GQA."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, pos, prefix)
+    from ..kernels.attention import decode_attn_gqa
+
+    return decode_attn_gqa(q, k, v, pos, prefix)
 
 
 def decode_attention_cached_plain(
@@ -97,11 +126,13 @@ def decode_attention_cached_plain(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of kernel B: q (B, H, Tq, D) over layer `layer` of the
-    stacked (L, B, H, T, D) caches, every batch row at `pos`: kernel C's
-    plain version with one position for all rows. With k_scale/v_scale
-    (L, B, H/g, T), the caches hold int8 codes (x ~ code * scale) and head
-    h reads scale row h // g."""
+    """Plain version of kernel B and of its stacked GQA entry: q (B, Hq,
+    Tq, D) over layer `layer` of the stacked (L, B, Hkv, T, D) caches,
+    every batch row at `pos`: kernel C's plain version with one position
+    for all rows. With Hq = rep * Hkv, query head h reads KV head h // rep
+    (`_decode_kernel_stacked_gqa`). With k_scale/v_scale (L, B, Hkv/g, T),
+    the caches hold int8 codes (x ~ code * scale) and KV head h reads scale
+    row h // g."""
     rows = torch.full((q.shape[0],), pos, device=q.device)
     return decode_attention_ragged_plain(
         q, k_cache, v_cache, layer, rows, prefix, kv_bound, k_scale, v_scale
@@ -135,8 +166,8 @@ def decode_attention_ragged_plain(
     as in kernel B."""
     h, tq = q.shape[1], q.shape[2]
     tk = read_bound(k_cache.shape[3], kv_bound)
-    k = k_cache[layer, :, :, :tk]
-    v = v_cache[layer, :, :, :tk]
+    k = _repeat_kv(k_cache[layer, :, :, :tk], h)
+    v = _repeat_kv(v_cache[layer, :, :, :tk], h)
     qpos = (pos.long()[:, None] + torch.arange(tq, device=q.device))[:, None, :, None]
     cols = torch.arange(tk, device=q.device)
     int8 = k_scale is not None
@@ -148,8 +179,8 @@ def decode_attention_ragged_plain(
     tp = pref_k.shape[3]
     colsp = torch.arange(tp, device=q.device)
     pids = pids.long()
-    k = torch.cat([pref_k[layer][pids], k], dim=2)
-    v = torch.cat([pref_v[layer][pids], v], dim=2)
+    k = torch.cat([_repeat_kv(pref_k[layer][pids], h), k], dim=2)
+    v = torch.cat([_repeat_kv(pref_v[layer][pids], h), v], dim=2)
     mask = torch.cat(
         [(colsp <= qpos) & (colsp < prefix_len), prefix_len + cols <= qpos], dim=-1
     )
@@ -174,8 +205,10 @@ def decode_attention_cached(
     """Attention for one token or a span of <= 16 rows over one layer of the
     whole stacked cache, bf16 or int8 codes with scales; the layer is
     addressed by index, never sliced or copied. Counterpart of
-    `decode_attention_cached` of the JAX package on its plain (unpaired,
-    MHA) layout.
+    `decode_attention_cached` of the JAX package on its plain (unpaired)
+    layout. With fewer KV heads than query heads (GQA), one token over a
+    bf16 cache, as the JAX package allows it (its kernel
+    `_decode_kernel_stacked_gqa`).
 
     An int `pos` places row i of every batch entry at pos + i (kernel B). A
     1-D `pos` tensor (S,) gives each slot its own position, as in the
@@ -194,9 +227,19 @@ def decode_attention_cached(
         return decode_attention_cached_plain(
             q, k_cache, v_cache, layer, pos, prefix, kv_bound, k_scale, v_scale
         )
-    from ..kernels.attention import decode_attn_ragged, decode_attn_stacked
+    from ..kernels.attention import (
+        decode_attn_gqa,
+        decode_attn_ragged,
+        decode_attn_stacked,
+    )
 
     tk = read_bound(k_cache.shape[3], kv_bound)
+    if q.shape[1] != k_cache.shape[2]:
+        if ragged or k_scale is not None:
+            raise ValueError(
+                "GQA decode takes one position for the batch and a bf16 cache"
+            )
+        return decode_attn_gqa(q, k_cache, v_cache, pos, prefix, layer, tk)
     if ragged:
         return decode_attn_ragged(
             q, k_cache, v_cache, layer, pos, prefix, tk, k_scale, v_scale,

@@ -158,11 +158,12 @@ def reconstruct_from_crops(
     overlap_margin: int,
     patch_size: int = 14,
 ) -> torch.Tensor:
-    """Stitch (n_tiles, H, W, C) per-crop planes into one plane, dropping
-    interior margins and keeping the outer border, as one index gather
-    (moondream_tpu/ops/image_crops.py:125-173)."""
+    """Stitch (..., n_tiles, H, W, C) per-crop planes into one plane each,
+    dropping interior margins and keeping the outer border, as one index
+    gather (moondream_tpu/ops/image_crops.py:125-173); leading axes are
+    images of one tiling."""
     n_rows, n_cols = tiling
-    tile_h, tile_w = int(crops.shape[1]), int(crops.shape[2])
+    tile_h, tile_w = int(crops.shape[-3]), int(crops.shape[-2])
     margin = overlap_margin * patch_size
     inner_h, inner_w = tile_h - 2 * margin, tile_w - 2 * margin
     out_h = inner_h * n_rows + 2 * margin
@@ -178,4 +179,7 @@ def reconstruct_from_crops(
     tile_c, off_c = axis_index(out_w, inner_w, n_cols, tile_w)
     as_t = lambda a: torch.from_numpy(a).to(crops.device)
     tile_idx = as_t(tile_r[:, None] * n_cols + tile_c[None, :])
-    return crops[tile_idx, as_t(off_r)[:, None], as_t(off_c)[None, :]]
+    lead = crops.shape[:-4]
+    flat = crops.reshape(-1, *crops.shape[-4:])
+    out = flat[:, tile_idx, as_t(off_r)[:, None], as_t(off_c)[None, :]]
+    return out.reshape(*lead, *out.shape[1:])

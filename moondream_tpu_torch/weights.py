@@ -29,6 +29,19 @@ from .models.vision import VisionModel
 from .ops.layers import MLP, LayerNorm, Linear
 
 
+def checked_device(device) -> torch.device:
+    """`device` as a torch.device; raises for a CUDA device when there is no
+    card: the port's entry points run on the card unless the caller asks
+    for the CPU, and never fall back to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            'device="cpu" to run its plain versions on the CPU'
+        )
+    return dev
+
+
 def build_params(config: MoondreamConfig, device=None, dtype=torch.bfloat16) -> nn.ModuleDict:
     """Uninitialised parameters of the caption path."""
     return nn.ModuleDict({
@@ -316,14 +329,16 @@ def params_from_flat(
 
 def load_params(
     path: str, config: MoondreamConfig, dtype=torch.bfloat16,
-    runtime_int4: bool = False, device=None,
+    runtime_int4: bool = False, device="cuda",
 ) -> nn.ModuleDict:
     """Load a checkpoint into the port's vision and text modules, in
-    `dtype` on `device`. runtime_int4=True then quantizes the text blocks'
+    `dtype` on `device` (the card unless the caller asks for the CPU;
+    raises without one). runtime_int4=True then quantizes the text blocks'
     qkv, proj, fc1 and fc2 from those `dtype` weights into the runtime int4
     format (`models.text.quantize_text_params`), as the JAX package's
     `load_params(..., runtime_int4=True)` does; an int4 checkpoint goes
     through the load-time dequant first."""
+    device = checked_device(device)
     params = params_from_flat(load_flat(path), config, device, dtype)
     if runtime_int4:
         quantize_text_params(params["text"])

@@ -4,10 +4,11 @@ On the CPU: the plain versions of kernel A (`flash_attention_plain`) and
 kernel B (`decode_attention_cached_plain`) against `flash_attention` and
 `decode_attention_cached` run with interpret=True, on the cases of
 tests/test_attention_kernel.py, fp32 inputs, atol 2e-5 (the same fp32 math
-summed in another order).
+summed in another order). The GQA plain versions are held to the JAX
+package in tests/test_torch_gqa.py.
 
-Tests marked `cuda` hold the CUDA kernels against the plain versions on the
-card and skip without one. jax is imported inside the CPU tests only, so on
+Tests marked `cuda` hold the CUDA kernels (kernel B's GQA entries too)
+against the plain versions on the card and skip without one. jax is imported inside the CPU tests only, so on
 a machine without jax the card tests run with
 `python -m pytest --noconftest -m cuda tests/test_torch_attention.py`.
 """
@@ -17,8 +18,10 @@ import pytest
 import torch
 
 from moondream_tpu_torch.ops.attention import (
+    decode_attention,
     decode_attention_cached,
     decode_attention_cached_plain,
+    decode_attention_plain,
     flash_attention,
     flash_attention_plain,
 )
@@ -199,3 +202,43 @@ def test_kernels_refuse_fp32(cuda):
     cache = torch.zeros(1, 1, 1, 128, 64, device=cuda)
     with pytest.raises(ValueError):
         decode_attention_cached(x[:, :, :1], cache, cache, 0, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,rep", [(1, 4), (8, 4), (3, 2), (2, 1)])
+def test_gqa_kernels_match_plain(cuda, b, rep):
+    """Kernel B's GQA entries (stacked, and over a single layer) against
+    their fp32 plain versions on bf16 inputs, with x1000 garbage past pos,
+    on random queries and on "diagonal" ones (each head's KV key at pos,
+    scaled to carry most of the row's weight)."""
+    pos, prefix, hkv, layer = 300, 200, 8 // rep if rep > 1 else 4, 2
+    rng = np.random.default_rng(20 + b * rep)
+    k, v = _bf16(cuda, *((rng.standard_normal((4, b, hkv, 512, 64)) * 0.5).astype(np.float32)
+                          for _ in range(2)))
+    k[..., pos + 1:, :] *= 1000
+    v[..., pos + 1:, :] *= 1000
+    (q,) = _bf16(cuda, (rng.standard_normal((b, hkv * rep, 1, 64)) * 0.5).astype(np.float32))
+    diag = (k[layer, :, :, pos:pos + 1] * 10).repeat_interleave(rep, dim=1)
+    for q in (q, diag):
+        got = decode_attention_cached(q, k, v, layer, pos, prefix, 384)
+        want = decode_attention_cached_plain(q.float(), k.float(), v.float(), layer, pos,
+                                             prefix, 384)
+        assert _rel_err(got, want) < CUDA_REL_TOL
+        got = decode_attention(q, k[layer], v[layer], pos, prefix)
+        want = decode_attention_plain(q.float(), k[layer].float(), v[layer].float(), pos,
+                                      prefix)
+        assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+def test_gqa_kernel_refuses_spans_and_int8(cuda):
+    """JAX allows query spans only under MHA, and the int8 cache reaches
+    GQA decode dequantized: both raise on the card."""
+    q = torch.zeros(1, 4, 2, 64, device=cuda, dtype=torch.bfloat16)
+    cache = torch.zeros(1, 1, 2, 128, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one query token"):
+        decode_attention_cached(q, cache, cache, 0, 5, 0)
+    codes = torch.zeros(1, 1, 2, 128, 64, device=cuda, dtype=torch.int8)
+    scales = torch.ones(1, 1, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="bf16 cache"):
+        decode_attention_cached(q[:, :, :1], codes, codes, 0, 5, 0, None, scales, scales)

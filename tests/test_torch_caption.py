@@ -49,7 +49,7 @@ def models():
     port_cfg = port_tiny_config()
     ours = MoondreamModel(
         port_cfg, params=params_from_jax(tree, port_cfg), tokenizer=IdTokenizer(),
-        dtype=torch.float32,
+        dtype=torch.float32, device="cpu",
     )
     return ref, ours
 

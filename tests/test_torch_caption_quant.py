@@ -66,7 +66,7 @@ def test_quantized_greedy_caption_ids_identical(tree, image, int4, kv_int8, monk
     cfg = _with_kv_int8(port_tiny_config(), kv_int8)
     ours = MoondreamModel(
         cfg, params=params_from_jax(tree, cfg), tokenizer=IdTokenizer(),
-        dtype=torch.float32,
+        dtype=torch.float32, device="cpu",
     )
     blk = ours.text.blocks[1]
     assert isinstance(blk.mlp.fc2, Int4Linear) == int4

@@ -2,7 +2,8 @@
 fresh interpreter with `sys.modules["jax"]` and `sys.modules["moondream_tpu"]`
 set to None, import every module of moondream_tpu_torch and run a tiny
 greedy caption on the CPU, dense and with int4 text blocks and an int8 KV
-cache, and serve two requests on one image through a prefix-shared pool."""
+cache, serve two requests on one image through a prefix-shared pool, caption
+two images in one lockstep batch, and caption with a GQA text config."""
 
 import os
 import subprocess
@@ -22,7 +23,7 @@ for m in pkgutil.walk_packages(moondream_tpu_torch.__path__, "moondream_tpu_torc
     importlib.import_module(m.name)
 from moondream_tpu_torch.config import tiny_test_config
 from moondream_tpu_torch.models.moondream import MoondreamModel
-model = MoondreamModel(tiny_test_config(), dtype=torch.float32, seed=1)
+model = MoondreamModel(tiny_test_config(), dtype=torch.float32, seed=1, device="cpu")
 img = np.random.default_rng(0).integers(0, 255, (300, 500, 3), dtype=np.uint8)
 out = model.caption(img, settings={"temperature": 0, "max_tokens": 4})
 assert isinstance(out["caption"], str)
@@ -39,11 +40,17 @@ cfg = tiny_test_config()
 cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
 params = init_params(cfg, torch.Generator().manual_seed(1), "cpu", torch.float32)
 quantize_text_params(params["text"])
-qmodel = MoondreamModel(cfg, params=params, dtype=torch.float32)
+qmodel = MoondreamModel(cfg, params=params, dtype=torch.float32, device="cpu")
 enc = qmodel.encode_image(img)
 assert enc.k.dtype == torch.int8 and enc.ks is not None
 qout = qmodel.caption(enc, settings={"temperature": 0, "max_tokens": 4})
 assert isinstance(qout["caption"], str)
+batch = model.caption_batch([img, img[:200]], settings={"temperature": 0, "max_tokens": 4})
+assert len(batch) == 2 and all(isinstance(t, str) for t in batch)
+gcfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, n_kv_heads=1))
+gmodel = MoondreamModel(gcfg, dtype=torch.float32, seed=1, device="cpu")
+assert gmodel.encode_image(img).k.shape[2] == 1
+assert isinstance(gmodel.caption(img, settings={"temperature": 0, "max_tokens": 4})["caption"], str)
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))

@@ -58,7 +58,7 @@ def _pair(kv_int8: bool):
     ref = JaxModel(cfg, params=dict(tree, region=None), tokenizer=IdTokenizer(),
                    dtype=jnp.float32)
     ours = MoondreamModel(port_cfg, params=params_from_jax(tree, port_cfg),
-                          tokenizer=IdTokenizer(), dtype=torch.float32)
+                          tokenizer=IdTokenizer(), dtype=torch.float32, device="cpu")
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 255, (80 + 16 * i, 100, 3), np.uint8) for i in range(3)]
     with pytest.MonkeyPatch.context() as mp:

@@ -166,15 +166,16 @@ def _assert_same(a, b):
 
 @pytest.mark.parametrize("name", ["new", "legacy", "int4"])
 def test_loads_the_same_tensors_as_jax(files, name):
-    ours = load_params(files[name], port_tiny_config(), dtype=torch.float32)
+    ours = load_params(files[name], port_tiny_config(), dtype=torch.float32, device="cpu")
     _assert_same(ours, _jax_loaded(files[name])[1])
     if name == "legacy":
-        _assert_same(ours, load_params(files["new"], port_tiny_config(), dtype=torch.float32))
+        _assert_same(ours, load_params(files["new"], port_tiny_config(),
+                                       dtype=torch.float32, device="cpu"))
 
 
 def test_int4_checkpoint_dequantizes_to_the_dense_values(files):
-    ours = load_params(files["int4"], port_tiny_config(), dtype=torch.float32)
-    dense = load_params(files["int4_dense"], port_tiny_config(), dtype=torch.float32)
+    ours = load_params(files["int4"], port_tiny_config(), dtype=torch.float32, device="cpu")
+    dense = load_params(files["int4_dense"], port_tiny_config(), dtype=torch.float32, device="cpu")
     _assert_same(ours, dense)
 
 
@@ -189,7 +190,8 @@ def test_dequantize_int4_matches_jax():
 
 @pytest.mark.parametrize("name", ["new", "int4"])
 def test_runtime_int4_same_packed_bytes_as_jax(files, name):
-    ours = load_params(files[name], port_tiny_config(), dtype=torch.float32, runtime_int4=True)
+    ours = load_params(files[name], port_tiny_config(), dtype=torch.float32, runtime_int4=True,
+                       device="cpu")
     tree, _ = _jax_loaded(files[name], runtime_int4=True)
     bq = tree["text"]["blocks_q"]
     for i, blk in enumerate(ours["text"].blocks):
