@@ -234,14 +234,15 @@ def phase_kernels(gen: torch.Generator) -> dict:
     summary = {name: {"err": 0.0}
                for name in (K.FLASH, K.DECODE, K.RAGGED, *GQA_KERNELS, KQ.W4A16)}
 
-    def check(name, label, run, plain, args, work=None, library=None):
+    def check(name, label, run, plain, args, work=None, library=None, timed=True):
         """run(): the kernel on the tensors `args`; plain(*args): the plain
         version, fed them with bf16 ones in fp32 (converted once, outside
         the timed call) and as they are. `work` (bytes, flops) gives the
         case's bound and `library` a PyTorch call computing the same
         function (None where there is none), timed beside it. The first
         case of each kernel is its headline shape: the kernels line reports
-        its numbers, and it must give `work`."""
+        its numbers, and it must give `work`. An edge case (`timed` False)
+        is held to the same tolerance and not timed."""
         got = run().float()
         fargs = [a.float() if a.dtype == BF16 else a for a in args]
         f32 = lambda: plain(*fargs)
@@ -253,42 +254,52 @@ def phase_kernels(gen: torch.Generator) -> dict:
             raise AssertionError(
                 f"{name} {label}: max_abs_err {err} > {KERNEL_REL_TOL} * {scale}"
             )
+        s = summary[name]
+        s["err"] = max(s["err"], err)
+        if not timed:
+            print(f"{name} {label}: max_abs_err {err:.3e} = {err / scale:.2e} of "
+                  f"max|plain| {scale:.3f} (tol {KERNEL_REL_TOL}, bf16 plain "
+                  f"{floor / scale:.2e})")
+            return
         ms, plain_ms = median_ms(run), median_ms(f32)
         dev_ms, dev_plain_ms = graph_ms(run), graph_ms(f32)
         print(f"{name} {label}: max_abs_err {err:.3e} = {err / scale:.2e} of "
               f"max|plain| {scale:.3f} (tol {KERNEL_REL_TOL}, bf16 plain "
               f"{floor / scale:.2e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "
               f"device only: kernel {dev_ms:.4f} ms plain {dev_plain_ms:.4f} ms")
-        s = summary[name]
-        s["err"] = max(s["err"], err)
-        lib_ms = library_time(name, library, want, scale)
+        lib_ms, lib_dev_ms = library_time(name, library, want, scale)
         if work is not None:
             b = bound(*work)
             print(f"{name} {label}: bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
                   f"({b['bytes']:.4g} bytes, {b['flops']:.4g} flop), kernel device "
                   f"only {dev_ms / b['bound_ms']:.1f} x bound")
+        if lib_dev_ms is not None:
+            print(f"{name} {label}: kernel device only {dev_ms / lib_dev_ms:.2f} x library")
         if "ms" not in s:  # the headline shape
-            s.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+            s.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
+                     library_device_ms=lib_dev_ms, **b)
         del fargs
 
     def library_time(name, library, want, scale):
-        """Median launch time of the library call (as `ms`), None only when
-        the case has none. Raises when the call fails or does not compute
-        the same function within the kernel's tolerance."""
+        """Median launch time of the library call (as `ms`) and its device
+        time (as graph_ms; None where a CUDA graph cannot capture it), both
+        None only when the case has none. Raises when the call fails or
+        does not compute the same function within the kernel's tolerance."""
         if library is None:
-            return None
+            return None, None
         err = (library().float() - want).abs().max().item()
         if not err <= KERNEL_REL_TOL * scale:
             raise AssertionError(
                 f"{name} library call disagrees: max_abs_err {err} > {KERNEL_REL_TOL} * {scale}")
         lib_ms = median_ms(library)
         try:
-            dev = f"{graph_ms(library):.4f}"
+            lib_dev_ms = graph_ms(library)
+            dev = f"{lib_dev_ms:.4f}"
         except RuntimeError as e:  # a call that a CUDA graph cannot capture
-            dev = f"not measured ({type(e).__name__})"
+            lib_dev_ms, dev = None, f"not measured ({type(e).__name__})"
         print(f"{name} library call: max_abs_err {err:.3e}, {lib_ms:.4f} ms; "
               f"device only {dev} ms")
-        return lib_ms
+        return lib_ms, lib_dev_ms
 
     # ViT: 13 crops x 16 heads, 768 tokens (729 real), head_dim 72, as head
     # views of the fused QKV projection.
@@ -524,6 +535,112 @@ def phase_kernels(gen: torch.Generator) -> dict:
                       lambda q, k, v: decode_attention_plain(q, k, v, pos, prefix),
                       (q, kl, vl), work(q, kl, vl), sdpa(q, kl, vl, mask, gqa=rep > 1))
         del kc, vc, kl, vl
+
+    # Edge cases of the redesigned kernels, held to the same tolerance and
+    # not timed. Kernel A: `prefix` one column either side of the 64-column
+    # wgmma step and the 128-column tile (32 heads, 512 x 512, pos 0), the
+    # GQA prompt spans (8 and 16 rows at pos 730 over heads repeated from 8
+    # KV heads, kv_bound 896), and the ViT's d72 head views with q's and
+    # k's columns next to each head's 72 (the padding's neighbours) x30: a
+    # kernel that read them as padding would move every score.
+    kk, vv = cache_k[:, :, :512], cache_v[:, :, :512]
+    for prefix in (63, 64, 65, 127, 128, 129):
+        for kind, q in (("random q", randn(1, 32, 512, 64)), ("diagonal q", kk.clone())):
+            check(K.FLASH, f"edge 32x512x512 prefix{prefix}, {kind}",
+                  lambda: flash_attention(q, kk, vv, 0, prefix),
+                  lambda q, k, v: flash_attention_plain(q, k, v, 0, prefix), (q, kk, vv),
+                  timed=False)
+    kr, vr = (randn(1, 8, 896, 64).repeat_interleave(4, 1) for _ in range(2))
+    for tq in (8, 16):
+        for kind, q in (("random q", randn(1, 32, tq, 64)),
+                        ("diagonal q", kr[:, :, 730:730 + tq].clone())):
+            check(K.FLASH, f"edge gqa prompt span 32x{tq}x896 pos730 prefix730, {kind}",
+                  lambda: flash_attention(q, kr, vr, 730, 730),
+                  lambda q, k, v: flash_attention_plain(q, k, v, 730, 730), (q, kr, vr),
+                  timed=False)
+    b, t, h, d = 13, 768, 16, 72
+    qkv = randn(b, t, 3 * h * d)
+    qkv.view(b, t, 3 * h, d)[:, :, :2 * h, :8] *= 30  # q and k heads
+    q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, -1))
+    check(K.FLASH, "edge vit d72, the padding's neighbours x30, 729 real rows",
+          lambda: flash_attention(q, k, v, 0, 729),
+          lambda q, k, v: flash_attention_plain(q, k, v, 0, 729), (q, k, v), timed=False)
+    del qkv, q, k, v, kr, vr
+
+    # The decode kernel's column splits: kernel B (bf16 and int8) at pos 0,
+    # 63, 64 (a tile edge) and the last slot over (2, 1, 32, 2048, 64)
+    # caches (layer 1, full read bound: 2048 columns for 32 pairs), x1000
+    # garbage past each span; GQA rep 1, 2, 4 and 16 (32 query heads) at
+    # pos 0, 64 and 2047.
+    def garbage_tail(x, end):
+        x = x.clone()
+        x[..., end:, :] *= 1000
+        return x
+
+    base_k, base_v = randn(2, 1, 32, 2048, 64), randn(2, 1, 32, 2048, 64)
+    for tq, pos in ((1, 0), (1, 63), (1, 64), (1, 2047), (8, 0), (8, 64), (16, 2032)):
+        kc, vc = garbage_tail(base_k, pos + tq), garbage_tail(base_v, pos + tq)
+        (k8, ks), (v8, vs) = (quantize_kv(x.float().view(2, 32, 2048, 64), 2)
+                              for x in (kc, vc))
+        k8, v8 = k8.view(2, 1, 32, 2048, 64), v8.view(2, 1, 32, 2048, 64)
+        ks, vs = ks.view(2, 1, 16, 2048), vs.view(2, 1, 16, 2048)
+        for kind, q in (("random q", randn(1, 32, tq, 64)),
+                        ("diagonal q", kc[1, :, :, pos:pos + tq].clone())):
+            check(K.DECODE, f"edge stacked 2x1x32x2048 tq{tq} pos{pos}, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, 1, pos, 0),
+                  lambda q, k, v: decode_attention_cached_plain(q, k, v, 1, pos, 0),
+                  (q, kc, vc), timed=False)
+            check(K.DECODE, f"edge int8 stacked 2x1x32x2048 tq{tq} pos{pos}, {kind}",
+                  lambda: decode_attention_cached(q, k8, v8, 1, pos, 0, None, ks, vs),
+                  lambda q: decode_attention_cached_plain(q, k8, v8, 1, pos, 0, None, ks, vs),
+                  (q,), timed=False)
+    for rep in (1, 2, 4, 16):
+        hkv = 32 // rep
+        for pos in (0, 64, 2047):
+            # rows before the prefix edge 730 attend every column below it
+            kc = garbage_tail(base_k[:, :, :hkv], max(pos + 1, 730))
+            vc = garbage_tail(base_v[:, :, :hkv], max(pos + 1, 730))
+            for kind, q in (("random q", randn(1, 32, 1, 64)),
+                            ("diagonal q", kc[1, :, :, pos:pos + 1].repeat_interleave(rep, 1))):
+                check(K.DECODE_GQA, f"edge stacked gqa 2x1x{hkv}x2048 rep{rep} pos{pos}, {kind}",
+                      lambda: decode_attention_cached(q, kc, vc, 1, pos, 730),
+                      lambda q, k, v: decode_attention_cached_plain(q, k, v, 1, pos, 730),
+                      (q, kc, vc), timed=False)
+                check(K.DECODE_GQA_LAYER, f"edge single layer 1x{hkv}x2048 rep{rep} pos{pos}, "
+                      f"{kind}",
+                      lambda: decode_attention(q, kc[1], vc[1], pos, 730),
+                      lambda q, k, v: decode_attention_plain(q, k, v, pos, 730),
+                      (q, kc[1], vc[1]), timed=False)
+    del base_k, base_v, kc, vc, k8, v8, ks, vs
+
+    # Kernel C: a pool whose slots sit at 0, 1, 730 and the last column at
+    # once, slot 4 idle at 0 (bf16 and int8, Tq 1 and 4); most of the
+    # early slots' splits are empty.
+    for tq, pos in ((1, [0, 1, 730, 1023, 0, 64, 63, 500]),
+                    (4, [0, 1, 730, 1020, 0, 64, 60, 500])):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+        kc, vc = randn(24, slots, 32, 1024, 64), randn(24, slots, 32, 1024, 64)
+        for b, p in enumerate(pos):
+            kc[:, b, :, p + tq:] *= 1000
+            vc[:, b, :, p + tq:] *= 1000
+        diag = torch.stack([kc[layer, b, :, p:p + tq] for b, p in enumerate(pos)])
+        (k8, ks), (v8, vs) = (int8_cache((24, slots, 32, 1024, 64), [p + tq for p in pos])
+                              for _ in range(2))
+        for kind, q in (("random q", randn(slots, 32, tq, 64)), ("diagonal q", diag)):
+            check(K.RAGGED, f"edge ragged pool slots at {pos} tq{tq}, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, layer, pos_t, 0),
+                  lambda q, k, v: decode_attention_ragged_plain(q, k, v, layer, pos_t, 0),
+                  (q, kc, vc), timed=False)
+            check(K.RAGGED, f"edge int8 ragged pool slots at {pos} tq{tq}, {kind}",
+                  lambda: decode_attention_cached(q, k8, v8, layer, pos_t, 0, None, ks, vs),
+                  lambda q: decode_attention_ragged_plain(q, k8, v8, layer, pos_t, 0, None,
+                                                          ks, vs),
+                  (q,), timed=False)
+    del kc, vc, k8, v8, ks, vs, diag
+    n_split, cols = K.plan_decode_splits(384 + 730, slots * 32)
+    print(f"prefix-shared pools above: {n_split} splits of {cols} columns per (slot, head); "
+          f"the prefix edge 730 lies inside split {730 // cols} "
+          f"[{730 // cols * cols}, {730 // cols * cols + cols})")
 
     # W4A16 on weights quantized on the card: decode (M 1) and the 8-row
     # prompt span at the 2B text blocks' (K, N), then M 1 on layer 13 of a
@@ -1149,14 +1266,24 @@ def main() -> None:
         KQ.W4A16: ("moondream_tpu_torch/csrc/w4a16_matmul.cu",
                    "moondream_tpu/ops/quant.py:147; moondream_tpu/ops/quant.py:116"),
     }
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+            "library_device_ms")
     missing = [name for name in sources if summary[name]["library_ms"] is None]
     if missing:  # every kernel's headline case has a library call
         raise AssertionError(f"no library time for {missing}")
+
+    def ratios(s):
+        """Device-only kernel time over the library call's (its launch
+        times where a CUDA graph could not capture the call) and over the
+        bound."""
+        lib = (s["device_ms"] / s["library_device_ms"] if s["library_device_ms"]
+               else s["ms"] / s["library_ms"])
+        return {"vs_library": lib, "vs_bound": s["device_ms"] / s["bound_ms"]}
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": summary[name]["err"],
-         **{key: summary[name][key] for key in keys}}
+         **{key: summary[name][key] for key in keys}, **ratios(summary[name])}
         for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

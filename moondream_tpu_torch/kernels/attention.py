@@ -9,12 +9,17 @@ synchronising, raises when the C entry point reports a CUDA error, and
 adds one to its entry in `build.LAUNCHES` for each launch. They take CUDA
 bf16 queries (and bf16 or int8 caches) only; the plain versions live
 beside their dispatch in `moondream_tpu_torch.ops.attention`.
+
+The decode kernel splits each (batch row, head)'s columns across blocks:
+`plan_decode_splits` (pure Python, no card needed) chooses the split, and
+the wrapper passes it with a per-device workspace for the partial results
+and the tickets that pick the block which merges them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,19 +58,20 @@ def _decode_lib() -> ctypes.CDLL:
     fn = lib.decode_attn_stacked_bf16
     if fn.argtypes is None:
         fn.restype = _I
-        fn.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 6 + [_I, _I, _F, _P]
+        split = [_I, _I, _P, _P, _P]  # n_split, split_cols, ws, tickets, stream
+        fn.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 6 + [_I, _I, _F] + split
         fn8 = lib.decode_attn_stacked_int8
         fn8.restype = _I
-        fn8.argtypes = [_P] * 6 + [_I] * 9 + [_L] * 6 + [_I, _I, _F, _P]
+        fn8.argtypes = [_P] * 6 + [_I] * 9 + [_L] * 6 + [_I, _I, _F] + split
         fnr = lib.decode_attn_ragged_bf16
         fnr.restype = _I
-        fnr.argtypes = [_P] * 8 + [_I] * 11 + [_L] * 6 + [_I, _I, _F, _P]
+        fnr.argtypes = [_P] * 8 + [_I] * 11 + [_L] * 6 + [_I, _I, _F] + split
         fnr8 = lib.decode_attn_ragged_int8
         fnr8.restype = _I
-        fnr8.argtypes = [_P] * 12 + [_I] * 12 + [_L] * 6 + [_I, _I, _F, _P]
+        fnr8.argtypes = [_P] * 12 + [_I] * 12 + [_L] * 6 + [_I, _I, _F] + split
         fng = lib.decode_attn_stacked_gqa_bf16
         fng.restype = _I
-        fng.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 4 + [_I, _I, _F, _P]
+        fng.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 4 + [_I, _I, _F] + split
     return lib
 
 
@@ -91,6 +97,75 @@ def _raise_on(name: str, rc: int) -> None:
         )
 
 
+def _tma_strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
+    """t's (batch, head, token) strides for kernel A's TMA descriptors,
+    which need a unit head_dim stride, a 16-byte aligned base and strides
+    of whole 16 bytes (8 bf16). A dimension of size 1 is never stepped: its
+    stride is passed as 0."""
+    strides = tuple(0 if n == 1 else st for n, st in zip(t.shape[:3], t.stride()[:3]))
+    if t.stride(3) != 1 or any(st % 8 for st in strides) or t.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: TMA needs a contiguous head_dim, a 16-byte aligned base and "
+            f"strides in multiples of 8 elements, got strides {t.stride()} at "
+            f"offset {t.data_ptr() % 16} bytes"
+        )
+    return strides
+
+
+# The decode kernel's split plan: about three blocks per SM (two and four
+# were slower on the H100), each split a multiple of 16 columns and at
+# least 32, at most 128 splits.
+SPLIT_BLOCKS_PER_SM = 3
+SPLIT_ALIGN = 16
+MIN_SPLIT_COLS = 32
+MAX_SPLITS = 128
+H100_SMS = 132
+
+
+def plan_decode_splits(ncols: int, pairs: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(n_split, split_cols) for a decode launch over `pairs` (batch row,
+    head) pairs of at most `ncols` columns each (kernel B: the exact count;
+    kernel C: its host read bounds tk + min(prefix_len, tp)). Split i covers
+    columns [i * split_cols, min((i + 1) * split_cols, ncols)): together
+    they cover [0, ncols) once and each starts on a multiple of 16 columns.
+    split_cols is the fewest columns, a multiple of 16 and at least
+    MIN_SPLIT_COLS, that keep the splits per pair within the target
+    ceil(SPLIT_BLOCKS_PER_SM * sms / pairs) (at most MAX_SPLITS): the splits
+    come out nearly equal, with no sliver at the end whose blocks would
+    only add a wave."""
+    if ncols <= 0 or pairs <= 0:
+        raise ValueError(f"plan_decode_splits: ncols {ncols}, pairs {pairs}")
+    want = min(MAX_SPLITS, -(-SPLIT_BLOCKS_PER_SM * sms // pairs))
+    per_split = -(-ncols // want)
+    cols = max(MIN_SPLIT_COLS, -(-per_split // SPLIT_ALIGN) * SPLIT_ALIGN)
+    return -(-ncols // cols), cols
+
+
+# Per device: (fp32 workspace, int32 tickets), grown only, the tickets
+# zeroed once at allocation (every launch leaves them at 0). A decode step
+# then allocates nothing and the addresses stay fixed (for a CUDA graph).
+# One workspace per device: launches that may run at once on different
+# streams must not share it.
+_WORKSPACE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_SMS: Dict[torch.device, int] = {}
+
+
+def _split_args(like: torch.Tensor, ncols: int, pairs: int, tq: int, d: int) -> tuple:
+    """(n_split, split_cols, ws pointer, tickets pointer) for one launch."""
+    dev = like.device
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, cols = plan_decode_splits(ncols, pairs, _SMS[dev])
+    floats = pairs * n_split * tq * (d + 2)
+    ws, tickets = _WORKSPACE.get(dev, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < pairs:
+        tickets = torch.zeros(pairs, dtype=torch.int32, device=dev)
+    _WORKSPACE[dev] = ws, tickets
+    return n_split, cols, ws.data_ptr(), tickets.data_ptr()
+
+
 def _head_major_out(b: int, h: int, t: int, d: int, like: torch.Tensor):
     """A (B, H, T, D) view over (B, T, H, D) memory: the caller's
     transpose(1, 2).reshape(B, T, H*D) is then free."""
@@ -103,26 +178,23 @@ def flash_attn_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, prefix: int
 ) -> torch.Tensor:
     """Masked attention, q (B, H, Tq, D), k/v (B, H, Tk, D) -> (B, H, Tq, D).
-    Query row i sits at position pos + i (unified mask rule). Any strides
-    with a unit, even-aligned head_dim axis are taken as they are."""
+    Query row i sits at position pos + i (unified mask rule). q, k and v
+    are read by TMA as they lie: a unit head_dim stride, a 16-byte aligned
+    base and batch, head and token strides of whole 16 bytes (the ViT's
+    fused-QKV head views, the stacked cache's layer views and contiguous
+    tensors all are); anything else raises."""
     _check_bf16_cuda(FLASH, q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != k.shape:
         raise ValueError(f"{FLASH}: shapes {q.shape} {k.shape} {v.shape}")
-    if d % 2 or d > 80:
-        raise ValueError(f"{FLASH}: head_dim {d} must be even and <= 80")
-    for t in (q, k, v):
-        if t.stride(3) != 1 or any(s % 2 for s in t.stride()[:3]) or t.data_ptr() % 4:
-            raise ValueError(
-                f"{FLASH}: head_dim must be contiguous with even strides and "
-                f"4-byte aligned rows, got strides {t.stride()}"
-            )
+    if d % 8 or d > 80:
+        raise ValueError(f"{FLASH}: head_dim {d} must be a multiple of 8 and <= 80")
+    strides = [_tma_strides(FLASH, t) for t in (q, k, v)]
     out = _head_major_out(b, h, tq, d, q)
     rc = _flash_lib().flash_attn_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, tq, tk, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        b, h, tq, tk, d, *strides[0], *strides[1], *strides[2], *out.stride()[:3],
         int(pos), int(prefix), float(d) ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -207,9 +279,10 @@ def decode_attn_stacked(
         raise ValueError(f"{name}: layer {layer}, tk {tk}, pos {pos}")
     out = _head_major_out(b, h, tq, d, q)
     lib = _decode_lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ncols = min(max(pos + tq, prefix), tk)
     tail = (*q.stride()[:3], *out.stride()[:3], int(pos), int(prefix),
-            float(d) ** -0.5, stream)
+            float(d) ** -0.5, *_split_args(q, ncols, b * h, tq, d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if int8:
         rc = lib.decode_attn_stacked_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -278,8 +351,11 @@ def decode_attn_ragged(
     out = _head_major_out(s_, h, tq, d, q)
     lib = _decode_lib()
     ptr = lambda t: None if t is None else t.data_ptr()
+    # the positions live on the device: split the most columns a slot may read
+    ncols = tk + (min(prefix_len, tp) if shared else 0)
     tail = (*q.stride()[:3], *out.stride()[:3], int(prefix), int(prefix_len),
-            float(d) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+            float(d) ** -0.5, *_split_args(q, ncols, s_ * h, tq, d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if int8:
         rc = lib.decode_attn_ragged_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -338,6 +414,7 @@ def decode_attn_gqa(
         n_layers, b, hkv, t_max, d, rep, int(layer), int(tk),
         q.stride(0), q.stride(1), out.stride(0), out.stride(1), int(pos),
         int(prefix), float(d) ** -0.5,
+        *_split_args(q, min(max(pos + 1, prefix), tk), b * hkv, rep, d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(name, rc)

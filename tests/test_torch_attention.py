@@ -242,3 +242,125 @@ def test_gqa_kernel_refuses_spans_and_int8(cuda):
     scales = torch.ones(1, 1, 2, 128, device=cuda)
     with pytest.raises(ValueError, match="bf16 cache"):
         decode_attention_cached(q[:, :, :1], codes, codes, 0, 5, 0, None, scales, scales)
+
+
+# Kernel A's tile edges (64-column wgmma steps, 128-column tiles and 128-row
+# blocks): `prefix` one column either side of a tile edge, spans of 8 and 16
+# rows after the image (the GQA prompt prefill, heads repeated), 729 real
+# rows in a 768-row plane.
+FLASH_EDGE_CASES = {
+    f"prefix{p}": (30 + p, 1, 3, 300, 300, 64, 0, p) for p in (63, 64, 65, 127, 128, 129)
+}
+FLASH_EDGE_CASES.update({
+    "span8_pos730": (40, 2, 4, 8, 1024, 64, 730, 730),
+    "span16_pos700": (41, 1, 4, 16, 1024, 64, 700, 730),
+    "span16_pos1008": (42, 1, 2, 16, 1024, 64, 1008, 730),
+    "vit_plane_729_real": (43, 1, 2, 768, 768, 72, 0, 729),
+})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_EDGE_CASES))
+def test_flash_kernel_tile_edges(cuda, case):
+    """Random queries, then "diagonal" ones (row i's query is its own key,
+    scaled to carry most of the row's weight: a mask off by one at a tile
+    edge moves the output by about max|plain|)."""
+    seed, b, h, tq, tk, d, pos, prefix = FLASH_EDGE_CASES[case]
+    q, k, v = _bf16(cuda, *_qkv(seed, b, h, tq, tk, d, scale=0.5))
+    diag = (k[:, :, pos:pos + tq] * 10).contiguous()
+    for q in (q, diag):
+        got = flash_attention(q, k, v, pos, prefix)
+        want = flash_attention_plain(q.float(), k.float(), v.float(), pos, prefix)
+        assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+def test_flash_kernel_zero_pads_head_dim_72(cuda):
+    """d72 head views of the fused QKV: the columns past a head's 72 are the
+    next head's (large) values, which the kernel's padding to 80 must not
+    read."""
+    b, t, h, d = 2, 300, 3, 72
+    qkv = torch.randn(b, t, 3 * h * d, device=cuda, dtype=torch.bfloat16)
+    qkv.view(b, t, 3 * h, d)[..., :8] *= 100  # each head's first 8: the last head's neighbours
+    q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, -1))
+    got = flash_attention(q, k, v, 0, 290)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), 0, 290)
+    assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_unaligned_views(cuda):
+    """TMA needs 16-byte aligned bases and strides: a view 2 elements in, or
+    a token stride of 36 elements, raises instead of reading wrongly."""
+    x = torch.zeros(1, 2, 64, 72 + 8, device=cuda, dtype=torch.bfloat16)
+    ok = x[..., :72]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(x[..., 2:74], ok, ok, 0, 0)
+    y = torch.zeros(1, 2, 64, 36, device=cuda, dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(y, y, y, 0, 0)
+
+
+# The decode kernel's column splits: positions at the ends of the cache and
+# at a 64-column tile edge, over 2048 slots (many splits at a few pairs).
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("tq", [1, 8, 16])
+@pytest.mark.parametrize("pos", [0, 63, 64, 2047])
+def test_decode_kernel_split_edges(cuda, pos, tq, int8):
+    from moondream_tpu_torch.models.text import dequantize_kv, quantize_kv
+
+    L, b, h, t, d, layer, prefix = 2, 1, 4, 2048, 64, 1, 0
+    pos = min(pos, t - tq)
+    rng = np.random.default_rng(pos + tq)
+    k, v = _bf16(cuda, *_cache(60 + tq, L, b, h, t, d, pos, pos + tq))
+    q = (k[layer, :, :, pos:pos + tq] * 10).contiguous()
+    ks = vs = None
+    if int8:
+        (k, ks), (v, vs) = (quantize_kv(x.float().view(L * b, h, t, d), 2) for x in (k, v))
+        k, v = k.view(L, b, h, t, d), v.view(L, b, h, t, d)
+        ks, vs = ks.view(L, b, h // 2, t), vs.view(L, b, h // 2, t)
+        q = (dequantize_kv(k[layer, :, :, pos:pos + tq], ks[layer, :, :, pos:pos + tq],
+                           torch.bfloat16) * 10).contiguous()
+    for q in (q, _bf16(cuda, (rng.standard_normal((b, h, tq, d)) * 0.5).astype(np.float32))[0]):
+        got = decode_attention_cached(q, k, v, layer, pos, prefix, None, ks, vs)
+        want = decode_attention_cached_plain(q.float(), k if int8 else k.float(),
+                                             v if int8 else v.float(), layer, pos, prefix,
+                                             None, ks, vs)
+        assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2, 4, 16])
+@pytest.mark.parametrize("pos", [0, 63, 64, 800, 2047])
+def test_gqa_kernels_split_edges(cuda, rep, pos):
+    """Kernel B's GQA entries at rep 1/2/4/16 over 2048 slots, diagonal
+    queries (each head's KV key at pos), x1000 garbage past pos."""
+    b, hkv, t, layer, prefix = 1, 2, 2048, 1, 730
+    rng = np.random.default_rng(rep * 100 + pos)
+    k, v = _bf16(cuda, *((rng.standard_normal((2, b, hkv, t, 64)) * 0.5).astype(np.float32)
+                          for _ in range(2)))
+    k[..., pos + 1:, :] *= 1000
+    v[..., pos + 1:, :] *= 1000
+    q = (k[layer, :, :, pos:pos + 1] * 10).repeat_interleave(rep, dim=1)
+    got = decode_attention_cached(q, k, v, layer, pos, prefix)
+    want = decode_attention_cached_plain(q.float(), k.float(), v.float(), layer, pos, prefix)
+    assert _rel_err(got, want) < CUDA_REL_TOL
+    got = decode_attention(q, k[layer], v[layer], pos, prefix)
+    want = decode_attention_plain(q.float(), k[layer].float(), v[layer].float(), pos, prefix)
+    assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+def test_decode_kernel_leaves_tickets_at_zero(cuda):
+    """The merge's tickets return to 0 after every launch: a second call on
+    the same workspace gives the same output."""
+    from moondream_tpu_torch.kernels import attention as K
+
+    k, v = _bf16(cuda, *_cache(70, 2, 2, 4, 1024, 64, 900, 901))
+    q = k[1, :, :, 900:901].contiguous()
+    first = decode_attention_cached(q, k, v, 1, 900, 0)
+    again = decode_attention_cached(q, k, v, 1, 900, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert int(K._WORKSPACE[q.device][1].abs().sum()) == 0

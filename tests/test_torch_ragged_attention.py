@@ -318,3 +318,83 @@ def test_ragged_kernel_refuses_host_positions(cuda):
         decode_attention_cached(q, k, k, 0, torch.zeros(2, dtype=torch.int32), 0)
     with pytest.raises(ValueError):
         decode_attention_cached(q, k, k, 0, torch.zeros(2, dtype=torch.int64, device=cuda), 0)
+
+
+# The decode kernel splits each (slot, head)'s columns across blocks from the
+# host's read bounds; slots whose positions end early leave the later splits
+# empty. A pool at 0, 1, 730 and the last slot at once, an idle slot (0),
+# and prefix segments whose 730-column edge falls inside a split.
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("tq", [1, 4])
+def test_ragged_kernel_split_edges(cuda, tq, int8):
+    s_, h, t, d = 4, 8, 1024, 64
+    pos = [0, 1, 730, t - tq]
+    rng = np.random.default_rng(60 + tq)
+    k, v = (torch.from_numpy(_normal(rng, L, s_, h, t, d)) for _ in range(2))
+    for b, p in enumerate(pos):
+        k[:, b, :, p + tq:] *= 1000
+        v[:, b, :, p + tq:] *= 1000
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    diag = torch.stack([k[LAYER, b, :, p:p + tq] for b, p in enumerate(pos)]) * 10
+    rand = torch.from_numpy(_normal(rng, s_, h, tq, d, scale=0.5))
+    if int8:
+        (kc, ks), (vc, vs) = (quantize_kv(x.reshape(L * s_, h, t, d), G) for x in (k, v))
+        kc, vc = kc.reshape(L, s_, h, t, d).to(cuda), vc.reshape(L, s_, h, t, d).to(cuda)
+        ks, vs = (x.reshape(L, s_, h // G, t).to(cuda) for x in (ks, vs))
+        args = (kc, vc, LAYER, pos_t, 0, None, ks, vs)
+        plain = lambda q: decode_attention_ragged_plain(q.float(), *args)
+    else:
+        kc, vc = k.to(cuda, torch.bfloat16), v.to(cuda, torch.bfloat16)
+        args = (kc, vc, LAYER, pos_t, 0)
+        plain = lambda q: decode_attention_ragged_plain(q.float(), kc.float(), vc.float(),
+                                                        LAYER, pos_t, 0)
+    for q in (diag, rand):
+        q = q.to(cuda, torch.bfloat16)
+        got = decode_attention_cached(q, *args)
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, plain(q)) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("tq", [1, 4])
+def test_prefix_shared_kernel_split_straddles_prefix(cuda, tq, int8):
+    """A 730-column prefix (768 with padding x1000) and 384-column suffixes:
+    the split holding columns 704-735 (or wider) reads both segments; slot
+    3 is idle at 0. Each slot's first query row is its prefix entry's key at
+    column 729, the last prefix column."""
+    s_, h, d, tp, ts, plen = 4, 8, 64, 768, 384, 730
+    pos, pids_l = [730, 731, 0, 1110 - tq + 1], [0, 1, 1, 0]
+    rng = np.random.default_rng(70 + tq)
+    k, v = (torch.from_numpy(_normal(rng, L, s_, h, ts, d)) for _ in range(2))
+    for b, p in enumerate(pos):
+        k[:, b, :, max(p + tq - plen, 0):] *= 1000
+        v[:, b, :, max(p + tq - plen, 0):] *= 1000
+    pk, pv = (torch.from_numpy(_normal(rng, L, 2, h, tp, d)) for _ in range(2))
+    pk[..., plen:, :] *= 1000
+    pv[..., plen:, :] *= 1000
+    q = torch.from_numpy(_normal(rng, s_, h, tq, d, scale=0.5))
+    q[:, :, 0] = pk[LAYER, torch.tensor(pids_l), :, plen - 1] * 10
+    q = q.to(cuda, torch.bfloat16)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    pids = torch.tensor(pids_l, dtype=torch.int32, device=cuda)
+    if int8:
+        q8 = lambda x, n: (y.to(cuda) for y in quantize_kv(x.reshape(L * n, h, x.shape[3], d), G))
+        (kc, ks), (vc, vs) = q8(k, s_), q8(v, s_)
+        (pkc, pks), (pvc, pvs) = q8(pk, 2), q8(pv, 2)
+        kc, vc = kc.reshape(k.shape), vc.reshape(v.shape)
+        pkc, pvc = pkc.reshape(pk.shape), pvc.reshape(pv.shape)
+        ks, vs = ks.reshape(L, s_, h // G, ts), vs.reshape(L, s_, h // G, ts)
+        pks, pvs = pks.reshape(L, 2, h // G, tp), pvs.reshape(L, 2, h // G, tp)
+        args = (kc, vc, LAYER, pos_t, 0, None, ks, vs, pkc, pvc, pks, pvs, pids, plen)
+        want = decode_attention_ragged_plain(q.float(), *args)
+    else:
+        kc, vc, pkc, pvc = (x.to(cuda, torch.bfloat16) for x in (k, v, pk, pv))
+        args = (kc, vc, LAYER, pos_t, 0, None, None, None, pkc, pvc, None, None, pids, plen)
+        want = decode_attention_ragged_plain(q.float(), kc.float(), vc.float(), LAYER, pos_t,
+                                             0, None, pref_k=pkc.float(), pref_v=pvc.float(),
+                                             pids=pids, prefix_len=plen)
+    got = decode_attention_cached(q, *args)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) < CUDA_REL_TOL
