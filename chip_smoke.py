@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -642,26 +643,46 @@ def phase_kernels(gen: torch.Generator) -> dict:
           f"the prefix edge 730 lies inside split {730 // cols} "
           f"[{730 // cols * cols}, {730 // cols * cols + cols})")
 
-    # W4A16 on weights quantized on the card: decode (M 1) and the 8-row
-    # prompt span at the 2B text blocks' (K, N), then M 1 on layer 13 of a
-    # stacked (24, 2048, 6144) qkv weight, read as a view.
+    # W4A16 on weights quantized on the card, at the 2B text blocks' (K, N)
+    # and M 1 (decode), 8 (a pool step, the 8-row caption span), 16 (the
+    # query span), 64 and 128 (lockstep spans). Then row invariance: rows
+    # of M 8 / 16 / 64 equal the same rows run at M 1 / 8 / 16, bit for bit.
     fp32 = lambda *s: torch.randn(*s, generator=gen, device=DEV)
     for k, n, what in ((2048, 6144, "qkv"), (2048, 2048, "proj"),
                        (2048, 8192, "fc1"), (8192, 2048, "fc2")):
         qw = quantize_weight_torch(fp32(k, n) * k ** -0.5)
-        for m in (1, 8):
+        wbytes = sum(t.numel() * t.element_size() for t in qw.values())
+        n_split, rows = KQ.plan_w4a16_splits(k, n, k // qw["scale"].shape[0])
+        for m in (1, 8, 16, 64, 128):
             x = randn(m, k)
-            wbytes = sum(t.numel() * t.element_size() for t in qw.values())
-            check(KQ.W4A16, f"{what} M{m} K{k} N{n}",
+            check(KQ.W4A16, f"{what} M{m} K{k} N{n} ({n_split} splits of {rows} rows)",
                   lambda: quantized_matmul(x, qw),
                   lambda x: quantized_matmul_plain(x, qw), (x,),
                   (wbytes + 2 * (m * k + m * n), 2 * m * k * n), int4pack_mm(x, qw))
+        x = randn(64, k)
+        full = quantized_matmul(x, qw)
+        for m in (1, 8, 16):
+            if not torch.equal(quantized_matmul(x[:m], qw), full[:m]):
+                raise AssertionError(f"{KQ.W4A16} {what}: rows of M {m} differ from M 64's")
+        print(f"{KQ.W4A16} {what}: rows of M 1 / 8 / 16 equal those of M 64 bit for bit")
+    # Edge cases, not timed: the tiny config's widths (K 64 / 128, groups of
+    # 32 / 64), a half-full last tile (N % 64 == 32), M 65 and 300 (several
+    # M tiles), and M 1 / 16 on layer 13 of a stacked (24, 1024, 6144) qkv
+    # weight, read as a view.
+    for m, k, n in ((1, 64, 64), (8, 64, 192), (13, 128, 128), (16, 128, 64),
+                    (1, 2048, 96), (9, 8192, 2080), (65, 2048, 2048), (300, 512, 256)):
+        qw = quantize_weight_torch(fp32(k, n) * k ** -0.5)
+        x = randn(m, k)
+        check(KQ.W4A16, f"edge M{m} K{k} N{n}", lambda: quantized_matmul(x, qw),
+              lambda x: quantized_matmul_plain(x, qw), (x,), timed=False)
     stacked = quantize_weight_torch(fp32(24, 2048, 6144) * 2048 ** -0.5)
     qw = {name: t[13] for name, t in stacked.items()}
-    x = randn(1, 2048)
-    check(KQ.W4A16, "qkv M1 K2048 N6144, layer 13 of a stacked (24, 1024, 6144) view",
-          lambda: quantized_matmul(x, qw),
-          lambda x: quantized_matmul_plain(x, qw), (x,))
+    for m in (1, 16):
+        x = randn(m, 2048)
+        check(KQ.W4A16, f"edge qkv M{m}, layer 13 of a stacked (24, 1024, 6144) view",
+              lambda: quantized_matmul(x, qw),
+              lambda x: quantized_matmul_plain(x, qw), (x,), timed=False)
+    del stacked, qw
     torch.cuda.synchronize()
     return summary
 
@@ -1046,7 +1067,8 @@ def phase_pool(model, images, power: str, label: str, quantized: bool,
     greedy, eos -1 so every request decodes POOL_TOKENS tokens) driven
     through the engine's entry points. The counted run checks exact launch
     counts and one prefix entry per image, and is timed; a second run
-    checks no host sync inside a chunk and identical ids."""
+    checks no host sync inside a chunk and identical ids. Where a request's
+    ids differ from batch-1's, batch-1's logit margin there is printed."""
     cfg = model.config
     L_txt, L_vit = cfg.text.n_layers, cfg.vision.enc_n_layers
     model.tokenizer = IdTokenizer()
@@ -1081,9 +1103,10 @@ def phase_pool(model, images, power: str, label: str, quantized: bool,
           f"(a plain pool of these slots: {run['plain_bytes']})")
 
     # agreement with batch-1 decoding of the same prompts (printed only:
-    # cuBLAS reduces in another order at M = 1 than at M = 8)
+    # cuBLAS reduces in another order at M = 1 than at M = 8); where a
+    # request differs, batch-1's logit margin at the first differing token
     tmpl = cfg.tokenizer.templates
-    agree = []
+    agree, margins = [], []
     for (img, question), pool_ids in zip(POOL_REQUESTS, again["out"]):
         enc = again["encs"][img]
         prompt = (list(tmpl["caption"]["normal"]) if question is None else
@@ -1096,9 +1119,38 @@ def phase_pool(model, images, power: str, label: str, quantized: bool,
         n = next((i for i, (a, b) in enumerate(zip(pool_ids, ids)) if a != b),
                  min(len(pool_ids), len(ids)))
         agree.append(n)
+        if n < min(len(pool_ids), len(ids)):
+            margins.append(first_difference_margin(model, enc, prompt, ids, pool_ids, n,
+                                                   POOL_TOKENS, slots=1024))
     print(f"pool {label} vs batch-1 greedy: matching prefix (tokens of {POOL_TOKENS}) "
-          f"per request {agree}")
+          f"per request {agree}" + (
+              f"; at the first differing token batch-1's logit margin over the pool's "
+              f"pick is {[m[0] for m in margins]}, {[m[1] for m in margins]} bf16 steps "
+              f"of its logit" if margins else ""))
     return launches
+
+
+def first_difference_margin(model, enc, prompt, single, other, n, max_tokens,
+                            slots=None) -> tuple:
+    """Batch-1 greedy ids `single` and another run's `other` first differ
+    at token n: step batch-1 again up to token n and return its logit
+    margin there (its pick minus the other's; EOS past a row's end) and
+    that margin in bf16 steps (ulps) of its pick's logit. A near tie is a
+    few steps; a run that read the wrong weights or cache is far more."""
+    eos = model.config.tokenizer.eos_id
+    pick = lambda r: r[n] if n < len(r) else eos
+    logits, _, _, pos, kv = model._prefill_prompt(
+        model.load_encoded_image(enc, slots=slots), prompt, enc.pos, 0.0, 0.0)
+    bound = model._decode_bound(pos + max_tokens + 1)
+    for i in range(n):
+        emb = text_encoder(torch.tensor([[single[i]]], device=DEV), model.text)
+        logits = decode_step(model.text, kv, emb, pos + i, bound)[0]
+    logits = logits.reshape(-1).float()
+    model._recycle_kv(kv)
+    margin = (logits[pick(single)] - logits[pick(other)]).item()
+    top = abs(logits[pick(single)].item())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 2.0 ** -133
+    return round(margin, 4), round(margin / ulp, 2)
 
 
 def phase_batch(model, images, power: str) -> list:
@@ -1173,7 +1225,7 @@ def phase_batch(model, images, power: str) -> list:
     # its logit margin there (its pick minus the batch row's) is printed:
     # a near tie has a margin of a few bf16 steps of the logits; a row that
     # read another row's cache would differ from its first token on.
-    same, first, margin, top = 0, [], [], 0.0
+    same, first, margin = 0, [], []
     for enc, row in zip(encs, batch_ids["caption"]):
         single = _ids(model.caption(enc, "normal", settings=greedy)["caption"])
         same += single == row
@@ -1181,23 +1233,14 @@ def phase_batch(model, images, power: str) -> list:
             continue
         n = next((i for i, (a, b) in enumerate(zip(single, row)) if a != b),
                  min(len(single), len(row)))
-        pick = lambda r: r[n] if n < len(r) else cfg.tokenizer.eos_id
-        logits, _, _, pos, kv = model._prefill_prompt(
-            model.load_encoded_image(enc), tmpl, enc.pos, 0.0, 0.0)
-        bound = model._decode_bound(pos + greedy["max_tokens"] + 1)
-        for i in range(n):
-            emb = text_encoder(torch.tensor([[single[i]]], device=DEV), model.text)
-            logits = decode_step(model.text, kv, emb, pos + i, bound)[0]
-        logits = logits.reshape(-1).float()
-        model._recycle_kv(kv)
         first.append(n)
-        margin.append(round((logits[pick(single)] - logits[pick(row)]).item(), 4))
-        top = max(top, logits.abs().max().item())
+        margin.append(first_difference_margin(model, enc, tmpl, single, row, n,
+                                              greedy["max_tokens"]))
     print(f"caption_batch ({label}) vs batch-1 caption: {same} of {n_img} rows "
           "have equal greedy ids" + (
               f"; the others first differ at token {first}, where batch-1's logit "
-              f"margin over the batch row's pick is {margin} (|logits| up to {top:.2f})"
-              if first else ""))
+              f"margin over the batch row's pick is {[m[0] for m in margin]} "
+              f"({[m[1] for m in margin]} bf16 steps of its logit)" if first else ""))
     return runs
 
 

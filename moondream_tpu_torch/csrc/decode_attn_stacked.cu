@@ -86,8 +86,8 @@
 // 0) and weighs 0 in the merge.
 //
 // The workspace (fp32 partials, then int32 tickets) belongs to the wrapper,
-// one per device, and is NOT safe to share between launches that may run at
-// once on different streams.
+// one per (device, stream): launches that may run at once on different
+// streams must not share one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

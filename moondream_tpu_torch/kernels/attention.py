@@ -12,7 +12,7 @@ beside their dispatch in `moondream_tpu_torch.ops.attention`.
 
 The decode kernel splits each (batch row, head)'s columns across blocks:
 `plan_decode_splits` (pure Python, no card needed) chooses the split, and
-the wrapper passes it with a per-device workspace for the partial results
+the wrapper passes it with a per-stream workspace for the partial results
 and the tickets that pick the block which merges them.
 """
 
@@ -141,28 +141,36 @@ def plan_decode_splits(ncols: int, pairs: int, sms: int = H100_SMS) -> Tuple[int
     return -(-ncols // cols), cols
 
 
-# Per device: (fp32 workspace, int32 tickets), grown only, the tickets
-# zeroed once at allocation (every launch leaves them at 0). A decode step
-# then allocates nothing and the addresses stay fixed (for a CUDA graph).
-# One workspace per device: launches that may run at once on different
-# streams must not share it.
-_WORKSPACE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+# Per (device, stream): (fp32 workspace, int32 tickets), grown only, the
+# tickets zeroed once at allocation (every launch leaves them at 0). A
+# decode step then allocates nothing and the addresses stay fixed (for a
+# CUDA graph). Launches on one stream run in order, so they may share one;
+# launches on two streams may run at once, so each stream has its own.
+_WORKSPACE: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 _SMS: Dict[torch.device, int] = {}
 
 
-def _split_args(like: torch.Tensor, ncols: int, pairs: int, tq: int, d: int) -> tuple:
-    """(n_split, split_cols, ws pointer, tickets pointer) for one launch."""
-    dev = like.device
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, cols = plan_decode_splits(ncols, pairs, _SMS[dev])
-    floats = pairs * n_split * tq * (d + 2)
-    ws, tickets = _WORKSPACE.get(dev, (None, None))
+def workspace(dev: torch.device, stream: int, floats: int, pairs: int):
+    """The (workspace, tickets) of `stream` (a `cuda_stream` handle) on
+    `dev`, grown to at least `floats` and `pairs` entries."""
+    ws, tickets = _WORKSPACE.get((dev, stream), (None, None))
     if ws is None or ws.numel() < floats:
         ws = torch.empty(floats, dtype=torch.float32, device=dev)
     if tickets is None or tickets.numel() < pairs:
         tickets = torch.zeros(pairs, dtype=torch.int32, device=dev)
-    _WORKSPACE[dev] = ws, tickets
+    _WORKSPACE[(dev, stream)] = ws, tickets
+    return ws, tickets
+
+
+def _split_args(like: torch.Tensor, ncols: int, pairs: int, tq: int, d: int) -> tuple:
+    """(n_split, split_cols, ws pointer, tickets pointer) for one launch on
+    the current stream."""
+    dev = like.device
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, cols = plan_decode_splits(ncols, pairs, _SMS[dev])
+    ws, tickets = workspace(dev, torch.cuda.current_stream(dev).cuda_stream,
+                            pairs * n_split * tq * (d + 2), pairs)
     return n_split, cols, ws.data_ptr(), tickets.data_ptr()
 
 

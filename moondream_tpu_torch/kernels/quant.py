@@ -5,11 +5,19 @@ the output, launches on `torch.cuda.current_stream()` without
 synchronising, raises when the C entry point reports a CUDA error, and adds
 one to `build.LAUNCHES[W4A16]` for each launch. The plain version lives
 beside its dispatch in `moondream_tpu_torch.ops.quant`.
+
+The kernel splits K across the blocks of a thread-block cluster and merges
+the splits inside the launch: `plan_w4a16_splits` (pure Python, no card
+needed) chooses the split from (K, N, group length, SMs), never from M, and
+the wrapper passes it. The merge lives in the cluster's shared memory, so
+there is no workspace to share between streams.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,8 +26,49 @@ from .build import LAUNCHES, load_cuda_library
 W4A16 = "w4a16_matmul"
 LAUNCHES[W4A16] = 0
 
-# output columns per block in the kernel
-_TN = 32
+# The kernel's tiles: 64 output columns per block for M tiles of up to 16
+# rows (N must be a multiple of 32: the last tile may be half full), 8 warps
+# along the block's split, each taking every 8th chunk of 32 byte rows (the
+# group length must be a multiple of a chunk).
+N_ALIGN = 32
+TILE_N = 64
+STAGE_ROWS = 32
+WARP_ROWS = 8
+# The split plan: a split is a whole number of group pairs (glen byte rows,
+# which feed one group through the high nibbles and one through the low),
+# of at least MIN_SPLIT_ROWS rows (two chunks for every warp) where K
+# allows, and at most MAX_SPLITS: clusters of 8 blocks measured slower
+# than 4 on the H100 (PERF.md). The most splits that keep one wave of
+# BLOCKS_PER_SM blocks per SM.
+MAX_SPLITS = 4
+MIN_SPLIT_ROWS = 2 * STAGE_ROWS * WARP_ROWS
+BLOCKS_PER_SM = 2
+H100_SMS = 132
+
+
+@lru_cache(maxsize=None)
+def plan_w4a16_splits(k: int, n: int, glen: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(n_split, split_rows) for a W4A16 launch over a (K/2, N) packed
+    weight with groups of `glen` rows. Split i covers byte rows [i *
+    split_rows, (i + 1) * split_rows): together they cover [0, K/2) once,
+    each a whole number of group pairs. n_split is the largest divisor of
+    the K / (2 * glen) group pairs, at most MAX_SPLITS, whose splits keep at
+    least min(MIN_SPLIT_ROWS, K/2) rows and whose ceil(N / 64) * n_split
+    blocks fit in one wave of BLOCKS_PER_SM per SM; 1 when none does. M
+    plays no part: every row of x is summed in the same order whatever M
+    is."""
+    if k <= 0 or n <= 0 or glen <= 0 or k % (2 * glen):
+        raise ValueError(f"plan_w4a16_splits: K {k}, N {n}, glen {glen}")
+    pairs, rows = k // (2 * glen), k // 2
+    tiles = -(-n // TILE_N)
+    fits = [d for d in range(1, min(MAX_SPLITS, pairs) + 1)
+            if pairs % d == 0 and rows // d >= min(MIN_SPLIT_ROWS, rows)
+            and tiles * d <= BLOCKS_PER_SM * sms]
+    n_split = max(fits, default=1)
+    return n_split, rows // n_split
+
+
+_SMS: Dict[torch.device, int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -27,7 +76,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.w4a16_matmul_bf16
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return lib
 
 
@@ -53,20 +102,23 @@ def w4a16_matmul(
             f"{W4A16}: scale {tuple(scale.shape)} / zero {tuple(zero.shape)} "
             f"do not fit packed {tuple(packed.shape)}"
         )
-    if k % groups or k % (2 * (k // groups)) or n % _TN or m == 0:
+    glen = k // groups if k % groups == 0 else 0
+    if not glen or k % (2 * glen) or glen % STAGE_ROWS or n % N_ALIGN or m == 0:
         raise ValueError(f"{W4A16}: M={m}, K={k}, N={n}, {groups} groups")
-    for t, align in ((x, 4), (packed, 4), (scale, 16), (zero, 16)):
-        if t.device != dev or not t.is_contiguous() or t.data_ptr() % align:
+    for t in (x, packed, scale, zero):
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
-                f"{W4A16}: operands must be contiguous on {dev}, "
-                f"{align}-byte aligned"
+                f"{W4A16}: operands must be contiguous on {dev}, 16-byte aligned"
             )
     if scale.dtype != torch.float32 or zero.dtype != torch.float32:
         raise ValueError(f"{W4A16}: scale and zero must be fp32")
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, _ = plan_w4a16_splits(k, n, glen, _SMS[dev])
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     rc = _lib().w4a16_matmul_bf16(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-        out.data_ptr(), m, k, n, k // groups,
+        out.data_ptr(), m, k, n, glen, n_split,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -363,4 +363,29 @@ def test_decode_kernel_leaves_tickets_at_zero(cuda):
     again = decode_attention_cached(q, k, v, 1, 900, 0)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
-    assert int(K._WORKSPACE[q.device][1].abs().sum()) == 0
+    ws = K._WORKSPACE[(q.device, torch.cuda.current_stream(q.device).cuda_stream)]
+    assert int(ws[1].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_decode_workspace_is_per_stream(cuda):
+    """Launches on two streams, which may run at once, get two workspaces
+    (partials and tickets); each gives the output of the default stream."""
+    from moondream_tpu_torch.kernels import attention as K
+
+    k, v = _bf16(cuda, *_cache(71, 2, 2, 4, 1024, 64, 900, 901))
+    q = k[1, :, :, 900:901].contiguous()
+    want = decode_attention_cached(q, k, v, 1, 900, 0)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            outs.append(decode_attention_cached(q, k, v, 1, 900, 0))
+    torch.cuda.synchronize()
+    spaces = [K._WORKSPACE[(q.device, s.cuda_stream)] for s in streams]
+    assert spaces[0][0].data_ptr() != spaces[1][0].data_ptr()
+    assert spaces[0][1].data_ptr() != spaces[1][1].data_ptr()
+    for out in outs:
+        assert torch.equal(out, want)

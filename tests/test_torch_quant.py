@@ -135,8 +135,12 @@ def test_w4a16_matches_legacy_kernel(m, monkeypatch):
 # 2^-8 (3.9e-3) of it, so 1e-2, as for the attention kernels.
 CUDA_REL_TOL = 1e-2
 # (M, K, N): decode and the prompt span at the 2B and tiny widths, a
-# 300-row span and an M that is not a multiple of the kernel's 8-row tile
-CUDA_CASES = [(1, 2048, 6144), (8, 8192, 2048), (300, 512, 256), (13, 64, 192), (1, 128, 64)]
+# 300-row span and an M that is not a multiple of the kernel's 8-row tile;
+# the query span (16) and lockstep spans (64, 128) at 2B widths
+CUDA_CASES = [(1, 2048, 6144), (8, 8192, 2048), (300, 512, 256), (13, 64, 192), (1, 128, 64),
+              (16, 2048, 6144), (64, 2048, 8192), (128, 8192, 2048), (16, 2048, 2048)]
+# (K, N) of the 2B text linears: qkv, proj, fc1, fc2
+TWO_B = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048)]
 
 
 @pytest.fixture
@@ -156,6 +160,19 @@ def test_w4a16_kernel_matches_plain(cuda, m, k, n):
     got = quantized_matmul(xb, tq).float()
     want = quantized_matmul_plain(xb.float(), tq)
     assert ((got - want).abs().max() / want.abs().max()).item() < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", TWO_B)
+def test_w4a16_kernel_rows_do_not_depend_on_m(cuda, k, n):
+    """A row's output bits depend only on that row of x and the weight: M 1
+    and the rows of M 8 / 16 equal the first rows of M 64, bit for bit."""
+    x, qw = _case(k + n, 64, k, n)
+    tq = {name: torch.from_numpy(v).to(cuda) for name, v in qw.items()}
+    xb = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    full = quantized_matmul(xb, tq)
+    for m in (1, 8, 16):
+        assert torch.equal(quantized_matmul(xb[:m].clone(), tq), full[:m]), m
 
 
 @pytest.mark.cuda

@@ -288,3 +288,25 @@ def test_split_merge_equals_jax_decode():
     tk = read_bound(t, kv_bound)
     got = emulate_split_decode(q, k, v, layer, [pos] * b, prefix, tk, pos + tq)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+def test_workspace_is_keyed_by_device_and_stream():
+    """The decode workspace (partials, tickets) belongs to one (device,
+    stream): two streams never share one, one stream reuses its own and
+    grows it only when a launch needs more."""
+    from moondream_tpu_torch.kernels import attention as K
+
+    cpu = torch.device("cpu")
+    try:
+        a_ws, a_t = K.workspace(cpu, 101, 64, 4)
+        b_ws, b_t = K.workspace(cpu, 102, 64, 4)
+        assert a_ws.data_ptr() != b_ws.data_ptr() and a_t.data_ptr() != b_t.data_ptr()
+        assert int(a_t.abs().sum()) == 0
+        again_ws, again_t = K.workspace(cpu, 101, 32, 2)
+        assert again_ws is a_ws and again_t is a_t
+        grown_ws, grown_t = K.workspace(cpu, 101, 128, 8)
+        assert grown_ws.numel() == 128 and grown_t.numel() == 8
+        assert K.workspace(cpu, 102, 64, 4)[0] is b_ws
+    finally:
+        for stream in (101, 102):
+            K._WORKSPACE.pop((cpu, stream), None)
