@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's caption, query, lockstep-batch and serving paths
-once on one CUDA card.
+"""Drive the PyTorch port's caption, query, lockstep-batch, serving and
+region-head (detect, point, gaze, reasoning, spatial refs) paths once on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,8 +10,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      moondream_tpu_torch/csrc and g++-build the native crop library, all at
      once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
-     on the same inputs, TF32 off) at the main paths' shapes, with median
-     times of both; at each kernel's headline shape also its bound (bytes
+     on the same inputs, TF32 off) at the main paths' shapes (the gaze
+     batch's B 20 span and step included), with median times of both; at each kernel's headline shape also its bound (bytes
      or operations over the H100's peak rates) and the time of one PyTorch
      call computing the same function (SDPA; the int4-pack matmul);
   3. small references: the tiny config in bf16 on the card and in bf16 on
@@ -19,7 +20,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      cache, then with one KV head (GQA) and a plain or int8 cache; the
      lockstep batches' encode_images, batched prompt prefill (spans of 8
      and 16) and one decode step over 3 images, MHA and GQA; one
-     serving-pool decode step, plain and prefix-shared;
+     serving-pool decode step, plain and prefix-shared; the region-head
+     paths with peaked decoders, whose boxes, points and ids must equal
+     the CPU's;
   4. the main paths at MOONDREAM_2B widths and depth with seeded random
      weights, each with exact kernel launch counts (reset just before the
      path, read just after): the bf16 model (caption, query, lockstep
@@ -27,8 +30,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      pools), the same weights with int4 text blocks and an int8 KV cache
      (caption, query, a prefix-shared pool), and the 2B with 8 KV heads
      (GQA), bf16 (caption, query, lockstep batches) then kv_int8 (caption,
-     query). Captions check repeated greedy ids, streamed == plain and one
-     sampled caption; pools check no host sync inside a chunk.
+     query); the region-head paths: bf16 detect, point, detect_gaze (eye
+     and accuracy mode), query with reasoning and with spatial refs and
+     detect_batch over 8 images, int4 + kv_int8 detect and GQA detect, each
+     with its decode loops' host reads (at most one per DONE_CHECK_EVERY
+     steps plus one). Captions check repeated greedy ids, streamed == plain
+     and one sampled caption; pools check no host sync inside a chunk.
 
 Prints the card's name and power limit first, a kernels JSON line second to
 last, and {"ok": true, "device": {...}} last.
@@ -39,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import random
 import statistics
 import subprocess
 import time
@@ -56,7 +64,14 @@ from moondream_tpu_torch.engine.batched import (  # noqa: E402
     generate_text_batched,
     sample_tokens_batched,
 )
-from moondream_tpu_torch.engine.generate import decode_step  # noqa: E402
+from moondream_tpu_torch.engine.generate import (  # noqa: E402
+    DONE_CHECK_EVERY,
+    LOOP_COUNTS,
+    decode_step,
+    generate_reasoning,
+    generate_text,
+    reset_loop_counts,
+)
 from moondream_tpu_torch.engine.serving import ragged_decode_step  # noqa: E402
 from moondream_tpu_torch.kernels import attention as K  # noqa: E402
 from moondream_tpu_torch.kernels import quant as KQ  # noqa: E402
@@ -320,6 +335,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
         ("span 32x128x1024 pos700 prefix730", 128, 1024, 700, 730),
         ("causal 32x512x512", 512, 512, 0, 0),
         ("kv 2048: 32x2048x2048 prefix730", 2048, 2048, 0, 730),
+        # the gaze prompt (17 rows) and a query with two spatial refs (20
+        # rows), each padded to 24 at kv_bound 768
+        ("span 32x24x768 pos730 prefix730", 24, 768, 730, 730),
     ):
         q = randn(1, 32, tq, 64)
         kk, vv = cache_k[:, :, :tk], cache_v[:, :, :tk]
@@ -376,6 +394,34 @@ def phase_kernels(gen: torch.Generator) -> dict:
                                          8 * int(mask[:, :cols].sum())),
                   sdpa(q, kl, vl, mask))
         del kc, vc, kl, vl
+
+    # The accuracy-mode gaze batch: 20 rows (10 eye positions over the image
+    # and 10 over its mirror) on a (24, 20, 32, 768, 64) cache, layer 13.
+    # Kernel A prefills the 17-row gaze prompt padded to 24 at pos 730 over
+    # the layer view's 768 columns (prefix 730); kernel B then takes the y
+    # step (Tq 1, pos 747, causal, kv_bound 768). x1000 garbage past each
+    # span; the diagonal query of every row is its own key.
+    kc, vc = randn(24, 20, 32, 768, 64), randn(24, 20, 32, 768, 64)
+    kl, vl = kc[13], vc[13]
+    for t in (kc, vc):
+        t[..., 754:, :] *= 1000
+    mask = unified_mask(24, 768, 730, 730, DEV)
+    for kind, q in (("random q", randn(20, 32, 24, 64)), ("diagonal q", kl[:, :, 730:754].clone())):
+        check(K.FLASH, f"gaze span batch20 32x24x768 pos730 prefix730, layer view, {kind}",
+              lambda: flash_attention(q, kl, vl, 730, 730),
+              lambda q, k, v: flash_attention_plain(q, k, v, 730, 730), (q, kl, vl),
+              attn_work(q, kl[..., :754, :], vl[..., :754, :], 20 * int(mask.sum())),
+              sdpa(q, kl, vl, mask))
+    for t in (kc, vc):
+        t[..., 748:754, :] *= 1000
+    mask = unified_mask(1, 768, 747, 0, DEV)
+    for kind, q in (("random q", randn(20, 32, 1, 64)), ("diagonal q", kl[:, :, 747:748].clone())):
+        check(K.DECODE, f"gaze step stacked L24 batch20 layer13 tq1 pos747 bound768, {kind}",
+              lambda: decode_attention_cached(q, kc, vc, 13, 747, 0, 768),
+              lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, 747, 0, 768),
+              (q, kc, vc), attn_work(q, kl[..., :748, :], vl[..., :748, :], 20 * 748),
+              sdpa(q, kl, vl, mask))
+    del kc, vc, kl, vl
 
     # Kernel B's int8 entry, the same cases on an int8 (24, 1, 32, 2048, 64)
     # cache quantized by the port (a scale per token and head pair), with
@@ -844,26 +890,32 @@ def _nbytes(*tensors) -> int:
 
 
 def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = False,
-                      batch_prefill: bool = False) -> dict:
+                      batch_prefill: bool = False, long_spans: int = 0,
+                      prefills: int = None) -> dict:
     """Exact launch counts of a path: `n_vit` ViT calls (kernel A per
-    vision block), a [BOS, image] prefill when the path encodes (one, or
-    one batched: kernel A per text block), `spans` prompt prefills of <= 16
-    rows and `steps` decode steps. Prompt spans take kernel B under MHA and
-    kernel A (heads repeated) under GQA; decode steps take kernel B (bf16 or
-    int8 entry) under MHA and kernel B's GQA entries under GQA (the stacked
-    one, or the single-layer one over the dequantized int8 layer). int4
-    blocks add four W4A16 launches per layer per span or step."""
+    vision block), `prefills` [BOS, image] prefills (kernel A per text
+    block; by default one when the path encodes, or one batched), `spans`
+    prompt prefills of <= 16 rows, `long_spans` of 17 to 1024 rows and
+    `steps` decode steps (the decode loops run whole runs of
+    DONE_CHECK_EVERY steps: `batched_steps`). Long spans take kernel A;
+    short ones kernel B under MHA and kernel A (heads repeated) under GQA;
+    decode steps take kernel B (bf16 or int8 entry) under MHA and kernel B's
+    GQA entries under GQA (the stacked one, or the single-layer one over the
+    dequantized int8 layer). int4 blocks add four W4A16 launches per layer
+    per span or step."""
     tc = cfg.text
     L_txt, mha = tc.n_layers, tc.n_kv_heads == tc.n_heads
+    if prefills is None:
+        prefills = int(n_vit > 0 or batch_prefill)
     want = {name: 0 for name in LAUNCHES}
-    want[K.FLASH] = n_vit * cfg.vision.enc_n_layers + L_txt * (n_vit > 0 or batch_prefill)
+    want[K.FLASH] = n_vit * cfg.vision.enc_n_layers + L_txt * (prefills + long_spans)
     if mha:
         want[K.DECODE_INT8 if tc.kv_int8 else K.DECODE] = L_txt * (spans + steps)
     else:
         want[K.FLASH] += L_txt * spans
         want[K.DECODE_GQA_LAYER if tc.kv_int8 else K.DECODE_GQA] = L_txt * steps
     if int4:
-        want[KQ.W4A16] = 4 * L_txt * (spans + steps)
+        want[KQ.W4A16] = 4 * L_txt * (spans + long_spans + steps)
     return want
 
 
@@ -939,10 +991,12 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
         raise AssertionError("token id out of range")
     if "".join(stream_text(ids, model._decode_tokens)) != text:
         raise AssertionError("entry-point caption differs from the timed run")
-    # one decode step per emitted token, each through every text layer; the
-    # 730-row image prefill's linears take the dense route (M >= 512)
-    check_launches(f"main path ({label}), {len(ids)} tokens", launches,
-                   expected_launches(cfg, 1, 1, len(ids), int4))
+    # the decode steps (emitted tokens rounded up to a whole run of
+    # DONE_CHECK_EVERY, at most the limit), each through every text layer;
+    # the 730-row image prefill's linears take the dense route (M >= 512)
+    steps = batched_steps(len(ids), greedy["max_tokens"])
+    check_launches(f"main path ({label}), {len(ids)} tokens, {steps} steps", launches,
+                   expected_launches(cfg, 1, 1, steps, int4))
     if model.caption(enc, "normal", settings=greedy)["caption"] != text:
         raise AssertionError("second greedy caption differs")
     streamed = "".join(model.caption(enc, "normal", stream=True, settings=greedy)["caption"])
@@ -959,8 +1013,9 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
     answer = _ids(model.query(enc, POOL_QUESTION, settings=greedy)["answer"])
     query_ms = sync_ms(t0)
     query_launches = dict(LAUNCHES)
-    check_launches(f"query ({label}), {len(answer)} tokens", query_launches,
-                   expected_launches(cfg, 0, 1, len(answer), int4))
+    steps = batched_steps(len(answer), greedy["max_tokens"])
+    check_launches(f"query ({label}), {len(answer)} tokens, {steps} steps", query_launches,
+                   expected_launches(cfg, 0, 1, steps, int4))
     streamed = "".join(model.query(enc, POOL_QUESTION, stream=True, settings=greedy)["answer"])
     if _ids(streamed) != answer:
         raise AssertionError("streamed answer differs from the plain one")
@@ -1244,6 +1299,214 @@ def phase_batch(model, images, power: str) -> list:
     return runs
 
 
+# Settings of the structured paths: the gaze face box, the spatial refs (a
+# point and a box: a 20-row query prompt) and greedy 64-token answers.
+FACE = {"x_min": 0.35, "x_max": 0.55, "y_min": 0.2, "y_max": 0.4}
+SPATIAL_REFS = [(0.3, 0.4), (0.2, 0.3, 0.6, 0.7)]
+GREEDY64 = {"temperature": 0.0, "max_tokens": 64}
+
+
+def _same(a, b, atol: float = 1e-6) -> bool:
+    """Equal nested results, floats within atol (exp2 may round by an ulp
+    differently on the card)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k], atol) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y, atol) for x, y in zip(a, b))
+    if isinstance(a, float) and isinstance(b, float):
+        return abs(a - b) <= atol
+    return a == b
+
+
+def phase_structured_reference(img: np.ndarray) -> None:
+    """The region-head paths on the tiny config, bf16 on the card against
+    fp32 on the CPU, on one set of bf16-valued weights whose choices are
+    decisive in bf16: the region decoders' fc2 biases get N(0, 50^2) (the
+    peaked oracle) and lm_head's bias +30 on coord_id, so every greedy token
+    is coord_id (never EOS) and every reasoning token takes the coordinate
+    branch. detect and point (6 objects), detect_gaze in eye mode and in
+    accuracy mode (20 rows in one lockstep batch: kernel A at B 20 and
+    kernel B at B 20), query with reasoning (16 tokens) and with spatial
+    refs must give the CPU's boxes, points and ids."""
+    cfg = tiny_test_config()
+    state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for site in ("coord_decoder", "size_decoder"):
+        b = state[f"region.{site}.fc2.b"]
+        state[f"region.{site}.fc2.b"] = b + 50 * torch.randn(b.shape, generator=gen)
+    state["text.lm_head.b"][cfg.tokenizer.coord_id] += 30.0
+    state = {n: t.to(BF16).float() for n, t in state.items()}
+    greedy = {"temperature": 0.0, "max_tokens": 16}
+
+    def run(device, dtype) -> dict:
+        params = build_params(cfg, device, dtype)
+        params.load_state_dict(state)
+        m = MoondreamModel(cfg, params, IdTokenizer(), dtype, device=device)
+        enc = m.encode_image(img)
+        random.seed(SEED)
+        return {
+            "detect": m.detect(enc, "object", settings={"max_objects": 6}),
+            "point": m.point(enc, "object", settings={"max_objects": 6}),
+            "gaze eye": m.detect_gaze(enc, eye=(0.4, 0.3)),
+            "gaze accuracy": m.detect_gaze(img, face=FACE,
+                                           unstable_settings={"prioritize_accuracy": True}),
+            "reasoning": m.query(enc, "What?", reasoning=True, settings=greedy),
+            "spatial refs": m.query(enc, "What?", spatial_refs=SPATIAL_REFS, settings=greedy),
+        }
+
+    want, got = run("cpu", torch.float32), run(DEV, BF16)
+    if len(want["detect"]["objects"]) != 6 or want["gaze accuracy"]["gaze"] is None:
+        raise AssertionError(f"tiny structured reference is not decisive: {want}")
+    if not want["reasoning"]["reasoning"]["grounding"]:
+        raise AssertionError("tiny reasoning reference took no coordinate branch")
+    bad = [k for k in want if not _same(got[k], want[k])]
+    print(f"structured reference (tiny config, card bf16 vs cpu fp32, peaked decoders): "
+          f"{len(want) - len(bad)} of {len(want)} paths equal ({', '.join(want)}); "
+          f"detect {got['detect']['objects'][0]}, gaze accuracy {got['gaze accuracy']}")
+    if bad:
+        raise AssertionError(f"structured reference differs: "
+                             f"{ {k: (got[k], want[k]) for k in bad} }")
+
+
+def phase_structured(model, enc, img, batch_images, power: str, int4: bool = False,
+                     full: bool = True) -> list:
+    """The region-head paths on a 2B model through the entry points, each a
+    counted run (kernel launches and the decode loops' host reads, reset
+    just before and read just after), timed on the host clock after a
+    synchronise: detect (default max_objects 50) on the encoded image;
+    with `full` also point, detect_gaze in eye mode (encoded image) and in
+    accuracy mode (the image and its mirror: two encodes, one lockstep
+    batch of 20), query with reasoning and with two spatial refs (64
+    greedy tokens each) and detect_batch over `batch_images`. Returns the
+    launch counts of every run."""
+    cfg = model.config
+    label = (" + ".join(["int4"] * int4 + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
+             + f", {cfg.text.n_kv_heads} KV heads")
+    model.tokenizer = IdTokenizer()
+    runs, times = [], []
+
+    def counted(name, call, want_launches):
+        """Run call() with counts reset; want_launches(out) gives the exact
+        launch counts. Every decode loop must read the device at most
+        ceil(steps / DONE_CHECK_EVERY) + 1 times per call."""
+        reset_launch_counts()
+        reset_loop_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        ms = sync_ms(t0)
+        launches, loops = dict(LAUNCHES), {k: dict(v) for k, v in LOOP_COUNTS.items()}
+        for loop, c in loops.items():
+            if c["reads"] > math.ceil(c["steps"] / DONE_CHECK_EVERY) + c["calls"]:
+                raise AssertionError(f"{name}: {loop} read the device {c['reads']} times "
+                                     f"in {c['steps']} steps")
+        check_launches(f"{name} ({label}), loops {loops}", launches, want_launches(out))
+        runs.append(launches)
+        times.append(f"{name} {ms:.1f} ms")
+        return out, ms, loops
+
+    def boxes_ok(rows, keys):
+        vals = [[r[k] for k in keys] for r in rows]
+        return all(math.isfinite(v) for row in vals for v in row) and (
+            len(keys) == 2 or all(r["x_min"] <= r["x_max"] and r["y_min"] <= r["y_max"]
+                                  for r in rows))
+
+    box_keys = ("x_min", "y_min", "x_max", "y_max")
+    for task, spo, keys in (("detect", 3, box_keys), ("point", 2, ("x", "y")))[:1 + full]:
+        out, ms, loops = counted(
+            task, lambda: getattr(model, task)(enc, "object"),
+            lambda o: expected_launches(cfg, 0, 1, batched_steps(
+                spo * len(next(iter(o.values()))), spo * 50), int4))
+        rows = next(iter(out.values()))
+        if len(rows) > 50 or not boxes_ok(rows, keys):
+            raise AssertionError(f"{task}: bad result {rows[:3]}")
+        if getattr(model, task)(enc, "object") != out:
+            raise AssertionError(f"{task}: greedy boxes differ between two runs")
+        steps = loops.get("generate_points", {"steps": 0})["steps"]
+        times[-1] += f" ({len(rows)} found, {steps} steps, {ms / max(steps, 1):.2f} ms per step)"
+    if not full:
+        print(f"2B structured ({label}) on {power}: " + "; ".join(times))
+        return runs
+
+    out, _, _ = counted("detect_gaze eye mode", lambda: model.detect_gaze(enc, eye=(0.45, 0.3)),
+                        lambda o: expected_launches(cfg, 0, 0, 0 if o["gaze"] is None else 2,
+                                                    long_spans=1))
+    gaze_eye = out["gaze"]
+    random.seed(SEED)
+    out, _, loops = counted(
+        "detect_gaze accuracy mode",
+        lambda: model.detect_gaze(img, face=FACE, unstable_settings={"prioritize_accuracy": True}),
+        lambda o: expected_launches(cfg, 2, 0, 1, long_spans=1, prefills=2))
+    if loops:
+        raise AssertionError(f"accuracy-mode gaze ran a decode loop: {loops}")
+    gaze_acc = out["gaze"]
+    for g in (gaze_eye, gaze_acc):
+        if g is not None and not all(math.isfinite(v) for v in g.values()):
+            raise AssertionError(f"bad gaze {g}")
+
+    def query_want(o, spans, long_spans):
+        steps = batched_steps(len(_ids(o["answer"])), 64)
+        if "reasoning" in o:
+            steps += batched_steps(len(_ids(o["reasoning"]["text"])), 64)
+        return expected_launches(cfg, 0, spans, steps, long_spans=long_spans)
+
+    out, ms, loops = counted("query reasoning", lambda: model.query(
+        enc, POOL_QUESTION, reasoning=True, settings=GREEDY64), lambda o: query_want(o, 2, 0))
+    n_tok = len(_ids(out["reasoning"]["text"])) + len(_ids(out["answer"]))
+    times[-1] += (f" ({len(_ids(out['reasoning']['text']))} reasoning + "
+                  f"{len(_ids(out['answer']))} answer tokens, {n_tok / (ms / 1e3):.1f} tok/s, "
+                  f"{len(out['reasoning']['grounding'])} grounded spans)")
+    # The reasoning loop beside the answer loop, back to back from one
+    # prefilled reasoning prompt (64 steps each): what the coordinate branch
+    # (its MLP and the selected embedding) costs per step.
+    tok_cfg = cfg.tokenizer
+    tmpl = cfg.tokenizer.templates["query"]
+    prompt = (list(tmpl["prefix"]) + model._encode_text(POOL_QUESTION) + list(tmpl["suffix"])
+              + [tok_cfg.thinking_id])
+    loop_ms = {}
+    for loop in ("reasoning", "answer"):
+        _, hid, first, pos, kv = model._prefill_prompt(
+            model.load_encoded_image(enc), prompt, enc.pos, 0.0, 0.0)
+        bound = model._decode_bound(pos + 65)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if loop == "reasoning":
+            res = generate_reasoning(model.text, model.region, kv, first, hid, pos, None, 0.0,
+                                     0.0, 64, tok_cfg.answer_id, tok_cfg.coord_id,
+                                     (tok_cfg.eos_id, tok_cfg.size_id), bound)
+        else:
+            res = generate_text(model.text, kv, first, pos, None, 0.0, 0.0, 64, -1,
+                                (tok_cfg.answer_id,), bound)
+        loop_ms[loop] = (sync_ms(t0), res.count)
+        model._recycle_kv(kv)
+    times.append("loops back to back: " + ", ".join(
+        f"{k} {n / (ms / 1e3):.1f} tok/s ({n} tokens, {ms / max(n, 1):.2f} ms per token)"
+        for k, (ms, n) in loop_ms.items()))
+    out, ms, _ = counted("query spatial refs", lambda: model.query(
+        enc, POOL_QUESTION, spatial_refs=SPATIAL_REFS, settings=GREEDY64),
+        lambda o: query_want(o, 0, 1))
+    if not out["answer"]:
+        raise AssertionError("spatial-refs query gave no answer")
+
+    n_groups = len({(c.shape[0], t) for c, t in map(model._crops, batch_images)})
+    out, ms, loops = counted(
+        f"detect_batch of {len(batch_images)}", lambda: model.detect_batch(batch_images, "object"),
+        lambda o: expected_launches(cfg, n_groups, 1, batched_steps(
+            3 * max(len(r["objects"]) for r in o), 150), batch_prefill=True))
+    if not all(boxes_ok(r["objects"], box_keys) for r in out):
+        raise AssertionError("detect_batch: bad boxes")
+    times[-1] += (f" from images ({len(batch_images) / (ms / 1e3):.2f} images/s, found "
+                  f"{[len(r['objects']) for r in out]})")
+    # rows against batch-1 detect on the same images (printed: cuBLAS sums
+    # M = 8 and M = 1 in another order, so near-tie bins may flip)
+    encs = model.encode_images(batch_images)
+    same = sum(model.detect(e, "object") == r for e, r in zip(encs, out))
+    print(f"2B structured ({label}) on {power}: " + "; ".join(times)
+          + f"; gaze eye {gaze_eye}, accuracy {gaze_acc}; detect_batch rows equal to "
+          f"batch-1 detect: {same} of {len(out)}")
+    return runs
+
+
 def main() -> None:
     power = card()
     print(power)
@@ -1265,6 +1528,7 @@ def main() -> None:
     phase_batch_reference(images)
     phase_batch_reference(images, n_kv_heads=1)
     phase_serving_reference()
+    phase_structured_reference(img)
     # 8 images of three sizes for the lockstep batches: 13, 2 and 7 crops
     batch_images = [rng.integers(0, 256, shape, dtype=np.uint8)
                     for shape in [(756, 1008, 3)] * 3 + [(378, 378, 3)] * 3
@@ -1276,14 +1540,19 @@ def main() -> None:
              phase_pool(model, images, power, "bf16 plain", False),
              phase_pool(model, images, power, "bf16 prefix-shared depth 2", False,
                         prefix_share=True, prefix_entries=4, pipeline_depth=2)]
+    runs += phase_structured(model, model.encode_image(img), img, batch_images, power)
     del model
     launches, model = phase_main_path(img, power, kv8(MOONDREAM_2B), int4=True)
     runs += [*launches,
              phase_pool(model, images, power, "int4 + kv_int8 prefix-shared", True,
                         prefix_share=True, prefix_entries=4)]
+    runs += phase_structured(model, model.encode_image(img), img, batch_images, power,
+                             int4=True, full=False)
     del model
     launches, model = phase_main_path(img, power, MOONDREAM_2B_GQA)
     runs += [*launches, *phase_batch(model, batch_images, power)]
+    runs += phase_structured(model, model.encode_image(img), img, batch_images, power,
+                             full=False)
     params = model.params
     del model
     launches, model = phase_main_path(img, power, kv8(MOONDREAM_2B_GQA), params=params)

@@ -1,11 +1,13 @@
 """moondream_tpu_torch: the PyTorch + CUDA port of moondream_tpu for one
 NVIDIA H100, beside the JAX package it is tested against.
 
-This slice runs the caption path: host overlap crops, the ViT, stitch and
-projection, the [BOS, image] prefill, the prompt prefill, greedy or top-p
-decode and streaming detokenisation. Attention runs in two hand-written
-CUDA kernels (`csrc/`) on the card and in their plain PyTorch versions on
-the CPU. The package never imports jax.
+It runs caption, query (with reasoning and spatial refs), detect, point,
+detect_gaze, the lockstep batches and the continuous-batching pool: host
+overlap crops, the ViT, stitch and projection, the [BOS, image] prefill,
+the prompt prefill, the decode loops, the region heads and streaming
+detokenisation. Attention and the int4 linears run in hand-written CUDA
+kernels (`csrc/`) on the card and in their plain PyTorch versions on the
+CPU. The package never imports jax.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
 """Model configuration of the port: the fields of `moondream_tpu.config`
-that the caption path reads, with the same names, defaults and published
-sizes (tests/test_torch_host.py holds the two side by side).
+that the port reads, with the same names, defaults and published sizes
+(tests/test_torch_host.py holds the two side by side).
 
 The port keeps its own copy so that neither it nor `chip_smoke.py` imports
-anything of the JAX package. Region heads, `group_size` and the TPU's
-runtime switches (`xla_attn`) are not ported yet; `kv_int8` is.
+anything of the JAX package. The text config's `group_size` and the TPU's
+runtime switches (`xla_attn`) are not ported; `kv_int8` and the region
+heads are.
 """
 
 from __future__ import annotations
@@ -67,6 +68,17 @@ class VisionConfig:
         return self.enc_patch_size * self.enc_patch_size * self.in_channels
 
 
+@dataclass(frozen=True)
+class RegionConfig:
+    dim: int = 2048
+    coord_feat_dim: int = 256
+    coord_out_dim: int = 1024
+    size_feat_dim: int = 512
+    size_out_dim: int = 2048
+    inner_dim: int = 8192
+    group_size: Optional[int] = None
+
+
 def _default_templates() -> Dict[str, Optional[Dict[str, List[int]]]]:
     # prompt templates in token-id space ("starmie-v1" tokenizer scheme)
     return {
@@ -86,6 +98,11 @@ class TokenizerConfig:
     bos_id: int = 0
     eos_id: int = 0
     answer_id: int = 3
+    thinking_id: int = 4
+    coord_id: int = 5
+    size_id: int = 6
+    start_ground_points_id: int = 7
+    end_ground_id: int = 9
     # every task's template, as the JAX package keeps them
     templates: Dict[str, Optional[Dict[str, List[int]]]] = field(
         default_factory=_default_templates
@@ -96,6 +113,7 @@ class TokenizerConfig:
 class MoondreamConfig:
     text: TextConfig = field(default_factory=TextConfig)
     vision: VisionConfig = field(default_factory=VisionConfig)
+    region: RegionConfig = field(default_factory=RegionConfig)
     tokenizer: TokenizerConfig = field(default_factory=TokenizerConfig)
 
 
@@ -104,6 +122,7 @@ MOONDREAM_2B = MoondreamConfig()
 MOONDREAM_05B = MoondreamConfig(
     text=TextConfig(dim=1024, ff_dim=4096, n_heads=16, n_kv_heads=16),
     vision=VisionConfig(enc_dim=720, enc_ff_dim=2690, enc_n_heads=10, proj_out_dim=1024),
+    region=RegionConfig(dim=1024),
 )
 
 
@@ -131,4 +150,5 @@ def tiny_test_config(vocab_size: int = 512) -> MoondreamConfig:
             enc_dim=32, enc_n_layers=2, enc_ff_dim=64, enc_n_heads=2,
             proj_out_dim=64, proj_inner_dim=64,
         ),
+        region=RegionConfig(dim=64, coord_feat_dim=16, size_feat_dim=32, inner_dim=64),
     )

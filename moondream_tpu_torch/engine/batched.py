@@ -8,7 +8,8 @@ chunk can run many steps without a sync.
 
 Lockstep batching runs B symmetric requests (the same prompt over B
 images) at one shared position with per-row EOS: `prefill_batched`,
-`decode_step_batched` and `generate_text_batched`.
+`decode_step_batched`, `generate_text_batched` and the structured
+`generate_points_batched`.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from ..models.region import RegionModel
 from ..models.text import KVCache, TextModel, text_decoder, text_encoder
-from .generate import NEG_INF, _lm_logits
+from .generate import DONE_CHECK_EVERY, NEG_INF, PointsResult, _lm_logits, points_loop
 from .sampling import apply_top_p_mask
 
 
@@ -98,15 +100,12 @@ def decode_step_batched(
     return lm_logits_batched(h, model), h
 
 
-# generate_text_batched reads its all-done flag to the host once per this
-# many steps (a sync each time), not once per step.
-DONE_CHECK_EVERY = 8
-
-
 def batched_steps(max_count: int, limit: int) -> int:
     """The decode steps generate_text_batched runs when its longest row
     emits `max_count` tokens (every row ends at EOS, or one reaches
-    `limit`): it stops at the first flag read after the last EOS."""
+    `limit`): it stops at the first flag read after the last EOS. The same
+    holds for generate.generate_text, generate_reasoning and the
+    structured loops, counted in their own steps."""
     return min(limit, -(-max_count // DONE_CHECK_EVERY) * DONE_CHECK_EVERY)
 
 
@@ -162,3 +161,24 @@ def generate_text_batched(
         done = done | (cur == eos_id)
         steps += 1
     return BatchedGenerateResult(tokens=toks[:, :steps], counts=counts, pos=pos + steps)
+
+
+def generate_points_batched(
+    model: TextModel,
+    region: RegionModel,
+    kv: KVCache,
+    first_hidden: torch.Tensor,
+    first_tokens: torch.Tensor,
+    pos: int,
+    eos_id: int,
+    include_size: bool,
+    max_objects: int,
+    kv_bound: Optional[int] = None,
+) -> PointsResult:
+    """Lockstep structured decode (moondream_tpu/engine/batched.py:190-288):
+    the same object over B images from their prompts' last hidden states
+    (B, D) and greedy tokens (B,), per-row object counts and EOS; rows that
+    are done freeze until every row is (generate.points_loop). Returns
+    boxes (B, max_objects, 4) float64 and counts."""
+    return points_loop(model, region, kv, first_hidden, first_tokens, pos, eos_id,
+                       include_size, max_objects, kv_bound, "generate_points_batched")

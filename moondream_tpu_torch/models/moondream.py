@@ -1,20 +1,29 @@
-"""MoondreamModel: caption, query (without reasoning), the lockstep batched
-paths and what the serving pool needs of the model (a subset of
+"""MoondreamModel: caption, query (with reasoning and spatial refs),
+detect, point, detect_gaze, the lockstep batched paths and what the
+serving pool needs of the model (a subset of
 moondream_tpu/models/moondream.py).
 
 encode_image: host overlap crops -> ViT over a bucketed crop batch ->
 stitch + projection -> [BOS, image] prefill -> KV snapshot. caption and
 query: the template prompt prefill over the restored snapshot (query also
-without an image), then greedy or top-p decode, plain or streamed.
+without an image), then greedy or top-p decode, plain or streamed; query
+with reasoning first runs the reasoning loop with inline grounding, and
+spatial refs replace the prompt's coordinate and size token embeddings.
+detect / point: the prompt prefill, then the structured coordinate loop
+through the region heads. detect_gaze: an embedding-space prompt around an
+eye position, then one point (eye mode), or 20 sampled eye positions over
+the image and its mirror in one lockstep batch (accuracy mode).
 encode_images: one ViT call per (crop count, tiling) group of images, one
 stitch + projection per group and one batched [BOS, image] prefill;
-caption_batch / query_batch: one shared prompt over many images, decoded in
-lockstep. `models.serve.ContinuousBatchingEngine` prefills its requests
-through load_encoded_image (on recycled buffers) and _prefill_prompt.
+caption_batch / query_batch / detect_batch / point_batch: one shared
+prompt over many images, decoded in lockstep.
+`models.serve.ContinuousBatchingEngine` prefills its requests through
+load_encoded_image (on recycled buffers) and _prefill_prompt.
 """
 
 from __future__ import annotations
 
+import random
 import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Literal, Optional, Tuple
@@ -28,14 +37,17 @@ from ..engine import generate as engine
 from ..engine.sampling import sample_token
 from ..ops.image_crops import overlap_crop_image, reconstruct_from_crops
 from ..tokenizer import TokenizerBase, load_tokenizer
+from ..utils.points import remove_outlier_points
 from ..utils.streaming import TokenStreamer, stream_text
 from ..weights import checked_device, init_params
+from . import region as region_ops
 from .text import KVCache, text_encoder
 from .vision import vision_encoder, vision_projection
 
 DEFAULT_MAX_TOKENS = 768
 DEFAULT_TEMPERATURE = 0.5
 DEFAULT_TOP_P = 0.3
+DEFAULT_MAX_OBJECTS = 50
 
 # Crop-count buckets for the ViT batch (1 global + up to 12 local crops).
 CROP_BUCKETS = (2, 5, 9, 13)
@@ -75,6 +87,11 @@ def _concat_enc_kv(encs: List[EncodedImage]) -> KVCache:
         k=cat([e.k for e in encs]), v=cat([e.v for e in encs]),
         ks=cat([e.ks for e in encs]), vs=cat([e.vs for e in encs]),
     )
+
+
+def _box(b) -> Dict[str, float]:
+    return {"x_min": float(b[0]), "y_min": float(b[1]),
+            "x_max": float(b[2]), "y_max": float(b[3])}
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -130,6 +147,12 @@ class MoondreamModel:
     @property
     def text(self):
         return self.params["text"]
+
+    @property
+    def region(self):
+        if "region" not in self.params:
+            raise ValueError("these parameters have no region heads")
+        return self.params["region"]
 
     def _encode_text(self, text: str) -> List[int]:
         return self.tokenizer.encode(text)
@@ -251,16 +274,26 @@ class MoondreamModel:
     # ------------------------------------------------------------ prefill
     def _prefill_prompt(
         self, kv: KVCache, prompt_tokens: List[int], pos: int,
-        temperature: float, top_p: float, prefix_len: Optional[int] = None,
+        temperature: float, top_p: float, spatial_refs=None,
+        prefix_len: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int, KVCache]:
         """Embed and prefill a prompt into `kv` (in place), sample the first
-        token. Returns (logits, hidden, next_token (0-d device tensor),
-        new_pos, kv), as the JAX package does."""
+        token. `spatial_refs` (points and boxes) replace the embeddings at
+        the prompt's coord_id and size_id tokens, in order. Returns
+        (logits, hidden, next_token (0-d device tensor), new_pos, kv), as
+        the JAX package does."""
+        tok_cfg = self.config.tokenizer
         ids = list(prompt_tokens)
         length = len(ids)
         pad = max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
         ids_t = torch.tensor([ids + [0] * (pad - length)], device=self.device)
         emb = text_encoder(ids_t, self.text).to(self.dtype)
+        if spatial_refs:
+            encoded = region_ops.encode_spatial_refs(spatial_refs, self.region)
+            at = lambda tid: [i for i, t in enumerate(ids) if t == tid]
+            emb[0, at(tok_cfg.coord_id)] = encoded["coords"].to(self.dtype)
+            if encoded["sizes"] is not None:
+                emb[0, at(tok_cfg.size_id)] = encoded["sizes"].to(self.dtype)
         if prefix_len is None:
             prefix_len = self.config.text.prefix_attn
         logits, hidden = engine.prefill(
@@ -289,7 +322,7 @@ class MoondreamModel:
             max_tokens, eos, (self.config.tokenizer.answer_id,),
             kv_bound=self._decode_bound(pos + max_tokens + 1),
         )
-        return result.tokens.tolist()
+        return result.tokens
 
     def _stream_answer(
         self, kv, next_token, pos, settings, eos_id=None
@@ -329,9 +362,13 @@ class MoondreamModel:
         settings: Optional[Dict[str, Any]] = None,
     ):
         """Visual question answering, plain or streamed, with or without an
-        image (moondream_tpu/models/moondream.py:1156-1250, no reasoning).
-        Without an image the prompt starts with BOS at position 0 and is
-        causal throughout."""
+        image (moondream_tpu/models/moondream.py:1156-1250). Without an
+        image the prompt starts with BOS at position 0 and is causal
+        throughout. `reasoning`: a reasoning phase after the prompt and
+        the thinking token (the reasoning loop, its text and grounding
+        returned under "reasoning"), then the answer. `spatial_refs`
+        ((x, y) points and (x_min, y_min, x_max, y_max) boxes, with an
+        image only) go into the prompt as coordinate and size embeddings."""
         templates = self.config.tokenizer.templates["query"]
         if templates is None:
             raise NotImplementedError("Model does not support querying.")
@@ -339,11 +376,6 @@ class MoondreamModel:
             raise ValueError("question must be provided.")
         if spatial_refs and image is None:
             raise ValueError("spatial_refs can only be used with an image.")
-        if reasoning or spatial_refs:
-            raise NotImplementedError(
-                "query with reasoning or spatial_refs needs the region heads, "
-                "not ported to moondream_tpu_torch yet (ROADMAP.md Queue 1 #8)"
-            )
         tok_cfg = self.config.tokenizer
         if image is not None:
             enc = self.encode_image(image, settings)
@@ -354,15 +386,71 @@ class MoondreamModel:
             kv, pos = self._take_kv_buffer(1), 0
             prompt = [tok_cfg.bos_id] + list(templates["prefix"])
             prefix_len = 0
-        prompt += self._encode_text(question) + list(templates["suffix"])
-        _, temperature, top_p = self._settings(settings)
+        for ref in spatial_refs or []:
+            prompt += [tok_cfg.coord_id, tok_cfg.coord_id] + [tok_cfg.size_id] * (len(ref) == 4)
+        prompt += self._encode_text(question)
+        max_tokens, temperature, top_p = self._settings(settings)
+
+        reasoning_dict = {}
+        if reasoning:
+            r_prompt = prompt + list(templates["suffix"]) + [tok_cfg.thinking_id]
+            _, hidden, next_token, pos, kv = self._prefill_prompt(
+                kv, r_prompt, pos, temperature, top_p, spatial_refs,
+                prefix_len=prefix_len,
+            )
+            res = engine.generate_reasoning(
+                self.text, self.region, kv, next_token, hidden, pos, self.generator,
+                temperature, top_p, max_tokens, tok_cfg.answer_id, tok_cfg.coord_id,
+                (tok_cfg.eos_id, tok_cfg.size_id),
+                kv_bound=self._decode_bound(pos + max_tokens + 1),
+            )
+            pos = res.pos
+            reasoning_dict = {"reasoning": self._assemble_reasoning(
+                res.tokens, res.is_coord, res.coord_vals)}
+            answer_prompt = list(templates["suffix"])
+        else:
+            answer_prompt = prompt + list(templates["suffix"])
+
         _, _, next_token, pos, kv = self._prefill_prompt(
-            kv, prompt, pos, temperature, top_p, prefix_len=prefix_len
+            kv, answer_prompt, pos, temperature, top_p,
+            None if reasoning else spatial_refs, prefix_len=prefix_len,
         )
         if stream:
-            return {"answer": self._stream_answer(kv, next_token, pos, settings)}
+            return {**reasoning_dict,
+                    "answer": self._stream_answer(kv, next_token, pos, settings)}
         tokens = self._generate_answer_tokens(kv, next_token, pos, settings)
-        return {"answer": "".join(stream_text(tokens, self._decode_tokens))}
+        return {**reasoning_dict,
+                "answer": "".join(stream_text(tokens, self._decode_tokens))}
+
+    def _assemble_reasoning(self, tokens, is_coord, coord_vals) -> dict:
+        """The reasoning tokens as text and grounding spans
+        (moondream_tpu/models/moondream.py:1252-1286): the text splits into
+        chunks at each start-ground-points and end-ground token; a chunk
+        with two or more coordinates grounds its text span with their
+        (x, y) pairs."""
+        tok_cfg = self.config.tokenizer
+        text_chunks: List[List[int]] = [[]]
+        ground_chunks: List[List[float]] = [[]]
+        for t, c, v in zip(tokens, is_coord, coord_vals):
+            t = int(t)
+            if t in (tok_cfg.start_ground_points_id, tok_cfg.end_ground_id):
+                text_chunks.append([])
+                ground_chunks.append([])
+            text_chunks[-1].append(t)
+            if c:
+                ground_chunks[-1].append(float(v))
+
+        decoded = [self._decode_tokens(chunk) for chunk in text_chunks]
+        grounding = []
+        start_idx = 0
+        for chunk_text, gchunk in zip(decoded, ground_chunks):
+            if len(gchunk) > 1:
+                pts = [(gchunk[i], gchunk[i + 1])
+                       for i in range(0, len(gchunk) - (len(gchunk) % 2), 2)]
+                grounding.append({"start_idx": start_idx,
+                                  "end_idx": start_idx + len(chunk_text), "points": pts})
+            start_idx += len(chunk_text)
+        return {"text": "".join(decoded), "grounding": grounding}
 
     # ------------------------------------------------------------ caption
     def caption(
@@ -388,6 +476,48 @@ class MoondreamModel:
             tokens = self._generate_answer_tokens(kv, next_token, pos, settings)
             return {"caption": "".join(stream_text(tokens, self._decode_tokens))}
         return {"caption": self._stream_answer(kv, next_token, pos, settings)}
+
+    # ------------------------------------------------------ detect / point
+    def _max_objects(self, settings) -> int:
+        return (settings or {}).get("max_objects", DEFAULT_MAX_OBJECTS)
+
+    def _structured_prompt(self, template_key: str, object: str) -> List[int]:
+        templates = self.config.tokenizer.templates[template_key]
+        if templates is None:
+            raise NotImplementedError(f"Model does not support {template_key}.")
+        return (list(templates["prefix"]) + self._encode_text(" " + object)
+                + list(templates["suffix"]))
+
+    def _structured_decode(
+        self, image, object: str, template_key: str, include_size: bool, settings
+    ) -> np.ndarray:
+        """The prompt prefill, then the greedy structured loop
+        (moondream_tpu/models/moondream.py:1326-1360). Returns the boxes
+        (count, 4) as float64."""
+        prompt = self._structured_prompt(template_key, object)
+        enc = self.encode_image(image, settings)
+        kv = self.load_encoded_image(enc)
+        _, hidden, next_token, pos, kv = self._prefill_prompt(kv, prompt, enc.pos, 0.0, 0.0)
+        max_objects = self._max_objects(settings)
+        steps_per_object = 3 if include_size else 2
+        boxes = engine.generate_points(
+            self.text, self.region, kv, hidden, next_token, pos,
+            self.config.tokenizer.eos_id, include_size, max_objects,
+            kv_bound=self._decode_bound(pos + steps_per_object * max_objects + 2),
+        )
+        self._recycle_kv(kv)
+        return boxes
+
+    def detect(self, image, object: str, settings=None):
+        """Bounding boxes of `object`, normalised to [0, 1]; settings may set
+        max_objects (default 50)."""
+        boxes = self._structured_decode(image, object, "detect", True, settings)
+        return {"objects": [_box(b) for b in boxes]}
+
+    def point(self, image, object: str, settings=None):
+        """Centre points of `object`, normalised to [0, 1]."""
+        pts = self._structured_decode(image, object, "point", False, settings)
+        return {"points": [{"x": float(p[0]), "y": float(p[1])} for p in pts]}
 
     # ------------------------------------------------------------ batching
     def encode_images(self, images, settings=None) -> List[EncodedImage]:
@@ -443,6 +573,40 @@ class MoondreamModel:
         )
         return self._symmetric_batch_generate(images, prompt, settings)
 
+    def _structured_decode_batch(
+        self, images, object: str, template_key: str, include_size: bool, settings
+    ) -> List[np.ndarray]:
+        """Lockstep detect / point of one object over the images
+        (moondream_tpu/models/moondream.py:1569-1608): one batched prefill
+        and one structured loop with per-row counts and EOS. Returns each
+        image's boxes (count, 4) as float64."""
+        ids = self._structured_prompt(template_key, object)
+        max_objects = self._max_objects(settings)
+        steps_per_object = 3 if include_size else 2
+        # the single path's bound (pos + length is the position after the
+        # prompt), so that both read the same columns
+        logits, hidden, kv, pos, length, bound = self._batched_prompt_prefill(
+            images, ids, settings,
+            lambda pos, length, pad: pos + length + steps_per_object * max_objects + 2,
+        )
+        res = batched_engine.generate_points_batched(
+            self.text, self.region, kv, hidden, torch.argmax(logits, dim=-1),
+            pos + length, self.config.tokenizer.eos_id, include_size, max_objects,
+            kv_bound=bound,
+        )
+        self._recycle_kv(kv)
+        return [res.boxes[b, :n] for b, n in enumerate(res.counts)]
+
+    def detect_batch(self, images, object: str, settings=None) -> List[dict]:
+        """`detect` of one object over many images, in lockstep."""
+        return [{"objects": [_box(b) for b in boxes]} for boxes in
+                self._structured_decode_batch(images, object, "detect", True, settings)]
+
+    def point_batch(self, images, object: str, settings=None) -> List[dict]:
+        """`point` of one object over many images, in lockstep."""
+        return [{"points": [{"x": float(p[0]), "y": float(p[1])} for p in pts]} for pts in
+                self._structured_decode_batch(images, object, "point", False, settings)]
+
     def _batched_prompt_prefill(self, images, ids, settings, session_end):
         """The symmetric batched paths' scaffold
         (moondream_tpu/models/moondream.py:1480-1515): images to
@@ -486,3 +650,132 @@ class MoondreamModel:
         rows = torch.cat([res.counts[:, None], res.tokens], dim=1).tolist()  # one read
         self._recycle_kv(kv)
         return ["".join(stream_text(r[1:1 + r[0]], self._decode_tokens)) for r in rows]
+
+    # ---------------------------------------------------------------- gaze
+    def _gaze_embeds(self, sources: List[Tuple[float, float]]) -> Tuple[torch.Tensor, int]:
+        """The embedding-space gaze prompt of each eye position: "\\n\\nPoint:",
+        enc(x), enc(y), " gaze\\n\\n" (moondream_tpu/models/moondream.py:1644-1673),
+        (B, pad, D) right-padded with zeros, and its length."""
+        bsz = len(sources)
+        ids = lambda text: torch.tensor([self._encode_text(text)], device=self.device)
+        before = text_encoder(ids("\n\nPoint:"), self.text).expand(bsz, -1, -1)
+        after = text_encoder(ids(" gaze\n\n"), self.text).expand(bsz, -1, -1)
+        xy = torch.tensor(sources, dtype=torch.float64).to(self.dtype).to(self.device)
+        x_emb = region_ops.encode_coordinate(xy[:, 0, None, None], self.region)
+        y_emb = region_ops.encode_coordinate(xy[:, 1, None, None], self.region)
+        embeds = torch.cat([before, x_emb, y_emb, after], dim=1).to(self.dtype)
+        length = embeds.shape[1]
+        pad = max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
+        return torch.nn.functional.pad(embeds, (0, 0, 0, pad - length)), length
+
+    def _detect_gaze(
+        self, encoded: EncodedImage, source: Tuple[float, float], force_detect=False
+    ) -> Optional[Dict[str, float]]:
+        """Eye mode (moondream_tpu/models/moondream.py:1676-1697): the gaze
+        prompt prefilled over the image, then one point. `force_detect`
+        replaces the prompt's greedy token with 0 before the EOS check."""
+        kv = self.load_encoded_image(encoded)
+        embeds, length = self._gaze_embeds([source])
+        pos = encoded.pos
+        logits, hidden = engine.prefill(
+            self.text, kv, embeds, pos, length, self.config.text.prefix_attn,
+            kv_bound=self._kv_bound(pos + embeds.shape[1]),
+        )
+        pos += length
+        next_token = torch.argmax(logits, dim=-1)
+        if force_detect:
+            next_token = torch.zeros_like(next_token)
+        if int(next_token) == self.config.tokenizer.eos_id:
+            self._recycle_kv(kv)
+            return None
+        pts = engine.generate_points(
+            self.text, self.region, kv, hidden, next_token, pos,
+            self.config.tokenizer.eos_id, False, 1, kv_bound=self._decode_bound(pos + 4),
+        )
+        self._recycle_kv(kv)
+        return {"x": float(pts[0][0]), "y": float(pts[0][1])} if len(pts) else None
+
+    def _detect_gaze_batch(
+        self, encs: List[EncodedImage], sources: List[Tuple[float, float]],
+        force_detect: bool = False,
+    ) -> List[Optional[Dict[str, float]]]:
+        """Every (image, eye position) row at once
+        (moondream_tpu/models/moondream.py:1699-1782): one batched prefill
+        of the gaze prompts, x from its last hidden states, one lockstep
+        step on enc(x) for y, and one read of (token, x, y) per row; the
+        row math is `_detect_gaze`'s. A row whose greedy token (0 under
+        `force_detect`) is EOS gives None."""
+        embeds, length = self._gaze_embeds(sources)
+        pos = encs[0].pos
+        bound = self._kv_bound(pos + embeds.shape[1] + 4)
+        kv = self._load_snapshot(_concat_enc_kv(encs), bound)
+        logits, hidden = batched_engine.prefill_batched(
+            self.text, kv, embeds, pos, length, self.config.text.prefix_attn, kv_bound=bound)
+        pos += length
+        x = region_ops.coordinate_value(region_ops.decode_coordinate(hidden, self.region))
+        emb = region_ops.encode_coordinate(x[:, None, None].to(self.dtype), self.region)
+        _, hidden_y = batched_engine.decode_step_batched(self.text, kv, emb, pos, bound)
+        y = region_ops.coordinate_value(region_ops.decode_coordinate(hidden_y, self.region))
+        toks = torch.argmax(logits, dim=-1)
+        if force_detect:
+            toks = torch.zeros_like(toks)
+        rows = torch.stack([toks.double(), x.double(), y.double()], dim=1).tolist()  # one read
+        self._recycle_kv(kv)
+        eos = self.config.tokenizer.eos_id
+        return [None if int(t) == eos else {"x": xv, "y": yv} for t, xv, yv in rows]
+
+    def detect_gaze(
+        self,
+        image,
+        eye: Optional[Tuple[float, float]] = None,
+        face: Optional[Dict[str, float]] = None,
+        unstable_settings: Optional[Dict[str, Any]] = None,
+    ):
+        """Where a person looks (moondream_tpu/models/moondream.py:1784-1854).
+        Eye mode: one gaze point from `eye`. Accuracy mode
+        (unstable_settings["prioritize_accuracy"]): 10 eye positions drawn
+        uniformly inside `face` (Python's module-level `random`) over the
+        image and 10 over its mirror image ("flip_enc_img", or the image
+        flipped left to right), all in one lockstep batch; fewer than 10
+        detections give {"gaze": None}, else the mean of the detections
+        that survive the outlier filter."""
+        unstable_settings = unstable_settings or {}
+        force_detect = unstable_settings.get("force_detect", False)
+        if not unstable_settings.get("prioritize_accuracy", False):
+            if eye is None:
+                raise ValueError("eye must be provided when prioritize_accuracy=False")
+            enc = self.encode_image(image)
+            return {"gaze": self._detect_gaze(enc, eye, force_detect=force_detect)}
+
+        if face is None:
+            raise ValueError("face must be provided when prioritize_accuracy=True")
+        if isinstance(image, EncodedImage) and "flip_enc_img" not in unstable_settings:
+            raise ValueError(
+                "image must be a PIL Image or an array when prioritize_accuracy=True, "
+                "or flip_enc_img must be provided"
+            )
+        enc = self.encode_image(image)
+        if "flip_enc_img" in unstable_settings:
+            enc_flipped = unstable_settings["flip_enc_img"]
+        elif isinstance(image, np.ndarray):
+            enc_flipped = self.encode_image(np.ascontiguousarray(image[:, ::-1]))
+        else:
+            from PIL import Image as PILImage
+
+            enc_flipped = self.encode_image(
+                image.transpose(method=PILImage.Transpose.FLIP_LEFT_RIGHT))
+
+        n = 10
+        draw = lambda lo, hi: random.uniform(face[lo], face[hi])
+        sources = [(draw("x_min", "x_max"), draw("y_min", "y_max")) for _ in range(n)]
+        sources += [(1 - draw("x_min", "x_max"), draw("y_min", "y_max")) for _ in range(n)]
+        rows = self._detect_gaze_batch([enc] * n + [enc_flipped] * n, sources,
+                                       force_detect=force_detect)
+        detections = ([(g["x"], g["y"]) for g in rows[:n] if g is not None]
+                      + [(1 - g["x"], g["y"]) for g in rows[n:] if g is not None])
+        if len(detections) < n:
+            return {"gaze": None}
+        detections = remove_outlier_points(detections)
+        mean_x = sum(d[0] for d in detections) / len(detections)
+        mean_y = sum(d[1] for d in detections) / len(detections)
+        return {"gaze": {"x": mean_x, "y": mean_y}}

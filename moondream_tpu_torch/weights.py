@@ -4,14 +4,16 @@ pytree (dense, or with int4 text blocks) onto the port's modules,
 makes seeded random weights of any configuration directly on the device.
 
 The port's parameters are an `nn.ModuleDict` with "vision"
-(`models.vision.VisionModel`) and "text" (`models.text.TextModel`).
-Linear weights keep the JAX (in, out) layout; the JAX package stacks block
-weights on a leading layer axis, which maps to one module per block here.
+(`models.vision.VisionModel`), "text" (`models.text.TextModel`) and
+"region" (`models.region.RegionModel`, absent where a JAX tree or a
+checkpoint has no region weights). Linear weights keep the JAX (in, out)
+layout; the JAX package stacks block weights on a leading layer axis, which
+maps to one module per block here.
 
-The checkpoint loader is the JAX package's (moondream_tpu/weights.py:45-346)
-for vision and text: both naming schemes, `model.`/`._orig_mod` prefixes,
-and the reference's int4 group-128 checkpoints, dequantized at load time.
-Region weights are not read (the region heads are not ported yet).
+The checkpoint loader is the JAX package's (moondream_tpu/weights.py:45-346):
+both naming schemes, `model.`/`._orig_mod` prefixes, and the reference's
+int4 group-128 checkpoints, dequantized at load time. Region weights stay
+dense under runtime_int4.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from torch import nn
 
 from .config import MoondreamConfig
+from .models.region import RegionModel
 from .models.text import Int4Linear, TextModel, quantize_text_params
 from .models.vision import VisionModel
 from .ops.layers import MLP, LayerNorm, Linear
@@ -42,12 +45,28 @@ def checked_device(device) -> torch.device:
     return dev
 
 
-def build_params(config: MoondreamConfig, device=None, dtype=torch.bfloat16) -> nn.ModuleDict:
-    """Uninitialised parameters of the caption path."""
-    return nn.ModuleDict({
+def build_params(
+    config: MoondreamConfig, device=None, dtype=torch.bfloat16, region: bool = True
+) -> nn.ModuleDict:
+    """Uninitialised parameters: vision, text and (with `region`) the region
+    heads."""
+    params = nn.ModuleDict({
         "vision": VisionModel(config.vision, device, dtype),
         "text": TextModel(config.text, device, dtype),
     })
+    if region:
+        params["region"] = RegionModel(config.region, device, dtype)
+    return params
+
+
+def _init_dense(root: nn.Module, generator: torch.Generator) -> None:
+    for m in root.modules():
+        if isinstance(m, Linear):
+            m.w.normal_(0.0, m.w.shape[0] ** -0.5, generator=generator)
+            m.b.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
 
 
 @torch.no_grad()
@@ -58,17 +77,17 @@ def init_params(
     """Random weights drawn on `device` from `generator` (which must live on
     that device), with the JAX package's init scales: linear weights
     N(0, 1/fan_in), zero biases, unit LayerNorms, embeddings N(0, 0.02^2).
-    Nothing passes through host memory."""
-    params = build_params(config, device, dtype)
-    for m in params.modules():
-        if isinstance(m, Linear):
-            m.w.normal_(0.0, m.w.shape[0] ** -0.5, generator=generator)
-            m.b.zero_()
-        elif isinstance(m, LayerNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
+    Fourier matrices N(0, 10^2). The region heads are drawn last. Nothing
+    passes through host memory."""
+    params = build_params(config, device, dtype, region=False)
+    _init_dense(params, generator)
     params["vision"].pos_emb.normal_(0.0, 0.02, generator=generator)
     params["text"].wte.normal_(0.0, 0.02, generator=generator)
+    region = RegionModel(config.region, device, dtype)
+    _init_dense(region, generator)
+    region.coord_features.normal_(0.0, 10.0, generator=generator)
+    region.size_features.normal_(0.0, 10.0, generator=generator)
+    params["region"] = region
     return params
 
 
@@ -117,11 +136,13 @@ def params_from_jax(
     tree: dict, config: MoondreamConfig, device=None, dtype=torch.float32
 ) -> nn.ModuleDict:
     """The JAX pytree {"vision": init_vision_params(...), "text":
-    init_text_params(...)} (leaves as numpy or jax arrays) as the port's
-    modules. A text tree from the JAX `quantize_text_params` (stacked
-    `blocks_q` {packed, scale, zero}, biases in `blocks`) gives int4
-    blocks with the same codes."""
-    params = build_params(config, device, dtype)
+    init_text_params(...), "region": init_region_params(...)} (leaves as
+    numpy or jax arrays) as the port's modules; a tree whose "region" is
+    missing or None gives no region heads. A text tree from the JAX
+    `quantize_text_params` (stacked `blocks_q` {packed, scale, zero},
+    biases in `blocks`) gives int4 blocks with the same codes."""
+    rt = tree.get("region")
+    params = build_params(config, device, dtype, region=rt is not None)
     vt, vis = tree["vision"], params["vision"]
     _put_linear(vis.patch_emb, vt["patch_emb"])
     _put(vis.pos_emb, vt["pos_emb"])
@@ -153,6 +174,14 @@ def params_from_jax(
         blk.mlp.fc1, blk.mlp.fc2 = q("mlp", "fc1"), q("mlp", "fc2")
     _put_ln(txt.post_ln, tt["post_ln"])
     _put_linear(txt.lm_head, tt["lm_head"])
+    if rt is not None:
+        reg = params["region"]
+        _put(reg.coord_features, rt["coord_features"])
+        _put_linear(reg.coord_encoder, rt["coord_encoder"])
+        _put_mlp(reg.coord_decoder, rt["coord_decoder"])
+        _put(reg.size_features, rt["size_features"])
+        _put_linear(reg.size_encoder, rt["size_encoder"])
+        _put_mlp(reg.size_decoder, rt["size_decoder"])
     return params
 
 
@@ -296,9 +325,11 @@ def params_from_flat(
     dtype=torch.bfloat16,
 ) -> nn.ModuleDict:
     """The port's modules from a flat name -> array dict in either naming
-    scheme, int4 checkpoint tensors dequantized."""
+    scheme, int4 checkpoint tensors dequantized; region heads when the dict
+    has `region.*` tensors."""
     flat = _dequantize_flat(_normalize_keys(dict(flat)))
-    params = build_params(config, device, dtype)
+    has_region = any(k.startswith("region.") for k in flat)
+    params = build_params(config, device, dtype, region=has_region)
     vis, txt = params["vision"], params["text"]
     _put_ckpt_linear(vis.patch_emb, flat, "vision.patch_emb")
     _put(vis.pos_emb, flat["vision.pos_emb"])
@@ -324,14 +355,34 @@ def params_from_flat(
         _put_ckpt_linear(blk.mlp.fc2, flat, f"{p}.mlp.fc2")
     _put_ckpt_ln(txt.post_ln, flat, "text.post_ln")
     _put_ckpt_linear(txt.lm_head, flat, "text.lm_head")
+    if has_region:
+        _put_ckpt_region(params["region"], flat)
     return params
+
+
+def _put_ckpt_region(reg: RegionModel, flat: dict) -> None:
+    """Region tensors of a checkpoint (moondream_tpu/weights.py:233-266). A
+    Fourier matrix is stored (n_freq, d_in), as `region.*_features` or
+    `region.*_features.weight`, and used (d_in, n_freq)."""
+    for name in ("coord", "size"):
+        key = f"region.{name}_features"
+        if key + ".weight" in flat:
+            key += ".weight"
+        arr = np.asarray(flat[key])
+        if key.endswith(".weight") or arr.shape[0] > arr.shape[-1]:
+            arr = arr.T
+        _put(getattr(reg, f"{name}_features"), arr)
+        _put_ckpt_linear(getattr(reg, f"{name}_encoder"), flat, f"region.{name}_encoder")
+        dec = getattr(reg, f"{name}_decoder")
+        _put_ckpt_linear(dec.fc1, flat, f"region.{name}_decoder.fc1")
+        _put_ckpt_linear(dec.fc2, flat, f"region.{name}_decoder.fc2")
 
 
 def load_params(
     path: str, config: MoondreamConfig, dtype=torch.bfloat16,
     runtime_int4: bool = False, device="cuda",
 ) -> nn.ModuleDict:
-    """Load a checkpoint into the port's vision and text modules, in
+    """Load a checkpoint into the port's vision, text and region modules, in
     `dtype` on `device` (the card unless the caller asks for the CPU;
     raises without one). runtime_int4=True then quantizes the text blocks'
     qkv, proj, fc1 and fc2 from those `dtype` weights into the runtime int4

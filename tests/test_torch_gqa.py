@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 
 from moondream_tpu.config import tiny_test_config
+from moondream_tpu.models import region as jax_region
 from moondream_tpu.models import text as jax_text
 from moondream_tpu.models import vision as jax_vision
 from moondream_tpu.models.moondream import MoondreamModel as JaxModel
@@ -179,9 +180,9 @@ def models(request):
     tree = {
         "vision": jax_vision.init_vision_params(cfg.vision, kv, jnp.float32),
         "text": jax_text.init_text_params(cfg.text, kt, jnp.float32),
+        "region": jax_region.init_region_params(cfg.region, jax.random.PRNGKey(1), jnp.float32),
     }
-    ref = JaxModel(cfg, params=dict(tree, region=None), tokenizer=IdTokenizer(),
-                   dtype=jnp.float32)
+    ref = JaxModel(cfg, params=tree, tokenizer=IdTokenizer(), dtype=jnp.float32)
     pcfg = _gqa(port_tiny_config(), kv_int8)
     ours = MoondreamModel(pcfg, params=params_from_jax(tree, pcfg),
                           tokenizer=IdTokenizer(), dtype=torch.float32, device="cpu")
@@ -239,11 +240,16 @@ def test_query_streamed_equals_plain(models, image, with_image):
 
 
 def test_query_reasoning_and_spatial_refs_not_ported(models, image):
-    _, ours = models
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        ours.query(image, "Why?", reasoning=True)
-    with pytest.raises(NotImplementedError, match="region heads"):
-        ours.query(image, "Why?", spatial_refs=[(0.5, 0.5)])
+    """Reasoning and spatial refs, once refused, now run on the GQA config
+    and give the JAX package's ids; the argument checks stay."""
+    from PIL import Image
+
+    ref, ours = models
+    for kw in ({"reasoning": True}, {"spatial_refs": [(0.5, 0.5), (0.1, 0.2, 0.6, 0.7)]}):
+        want = ref.query(Image.fromarray(image), "Why?", settings=GREEDY, **kw)
+        got = ours.query(image, "Why?", settings=GREEDY, **kw)
+        assert got == want and got["answer"]
+        assert ("reasoning" in got) == ("reasoning" in kw)
     with pytest.raises(ValueError, match="with an image"):
         ours.query(None, "Why?", spatial_refs=[(0.5, 0.5)])
     with pytest.raises(ValueError, match="question"):

@@ -1,17 +1,21 @@
-"""The port's own host modules against the JAX package's: configuration,
-the offline byte tokenizer and word-boundary streaming. The port keeps
-copies so that it never imports the JAX package; these tests hold the copies
-to the originals, exactly."""
+"""The port's own host modules against the JAX package's: configuration
+(region heads and tokenizer ids included), the offline byte tokenizer,
+word-boundary streaming and the gaze outlier filter. The port keeps copies
+so that it never imports the JAX package; these tests hold the copies to
+the originals, exactly."""
 
 import dataclasses
+import inspect
 
+import numpy as np
 import pytest
 
 from moondream_tpu import config as jax_config
 from moondream_tpu import tokenizer as jax_tokenizer
+from moondream_tpu.utils import points as jax_points
 from moondream_tpu.utils import streaming as jax_streaming
 from moondream_tpu_torch import config, tokenizer
-from moondream_tpu_torch.utils import streaming
+from moondream_tpu_torch.utils import points, streaming
 
 CONFIGS = {
     "2b": (config.MOONDREAM_2B, jax_config.MOONDREAM_2B),
@@ -21,6 +25,7 @@ CONFIGS = {
 DERIVED = {
     "text": ("head_dim", "qkv_dim", "rope_dim"),
     "vision": ("grid_size", "num_patches", "patch_dim"),
+    "region": (),
     "tokenizer": (),
 }
 
@@ -68,3 +73,23 @@ def test_load_tokenizer():
     assert isinstance(tokenizer.load_tokenizer("byte"), tokenizer.ByteTokenizer)
     with pytest.raises(FileNotFoundError):
         tokenizer.load_tokenizer("no/such/tokenizer.json")
+
+
+POINT_SETS = {
+    "empty": [],
+    "one": [(0.5, 0.5)],
+    "two": [(0.1, 0.2), (0.9, 0.8)],
+    "cluster+outliers": [(0.5 + 0.01 * i, 0.4 - 0.01 * i) for i in range(8)]
+    + [(0.05, 0.95), (0.99, 0.01)],
+    "random": [tuple(p) for p in np.random.default_rng(3).random((20, 2))],
+}
+
+
+@pytest.mark.parametrize("name", sorted(POINT_SETS))
+def test_remove_outlier_points_matches_jax(name):
+    pts = POINT_SETS[name]
+    for k, thr in ((2, 2.0), (3, 1.5)):
+        assert points.remove_outlier_points(pts, k, thr) == jax_points.remove_outlier_points(
+            pts, k, thr)
+    assert inspect.getsource(points.remove_outlier_points) == inspect.getsource(
+        jax_points.remove_outlier_points)

@@ -3,7 +3,9 @@ fresh interpreter with `sys.modules["jax"]` and `sys.modules["moondream_tpu"]`
 set to None, import every module of moondream_tpu_torch and run a tiny
 greedy caption on the CPU, dense and with int4 text blocks and an int8 KV
 cache, serve two requests on one image through a prefix-shared pool, caption
-two images in one lockstep batch, and caption with a GQA text config."""
+two images in one lockstep batch, caption with a GQA text config, and run
+the region-head paths: detect, point, both gaze modes, query with reasoning
+and spatial refs, detect_batch and point_batch."""
 
 import os
 import subprocess
@@ -51,6 +53,16 @@ gcfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, n_kv_heads=1)
 gmodel = MoondreamModel(gcfg, dtype=torch.float32, seed=1, device="cpu")
 assert gmodel.encode_image(img).k.shape[2] == 1
 assert isinstance(gmodel.caption(img, settings={"temperature": 0, "max_tokens": 4})["caption"], str)
+greedy = {"temperature": 0, "max_tokens": 4}
+assert len(model.detect(img, "cat", settings={"max_objects": 3})["objects"]) <= 3
+assert len(model.point(img, "cat", settings={"max_objects": 3})["points"]) <= 3
+assert "gaze" in model.detect_gaze(img, eye=(0.5, 0.5))
+face = {"x_min": 0.3, "x_max": 0.6, "y_min": 0.2, "y_max": 0.5}
+assert "gaze" in model.detect_gaze(img, face=face, unstable_settings={"prioritize_accuracy": True})
+assert "reasoning" in model.query(img, "why?", reasoning=True, settings=greedy)
+assert isinstance(model.query(img, "why?", spatial_refs=[(0.2, 0.3)], settings=greedy)["answer"], str)
+assert len(model.detect_batch([img, img[:200]], "cat", settings={"max_objects": 2})) == 2
+assert len(model.point_batch([img, img[:200]], "cat", settings={"max_objects": 2})) == 2
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))

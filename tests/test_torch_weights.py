@@ -4,11 +4,12 @@ Synthetic flat checkpoints at tiny_test_config, made with numpy from a
 seed: torch (out, in) linears in the new naming scheme (with `model.`
 prefixes), the same tensors in the legacy scheme, and a copy whose text
 block linears are packed in the reference's int4 checkpoint format
-(256-element strips, `weight.packed/scale/zero_point`). Region tensors are
-there for the JAX loader, which reads them; the port skips them. Every
-file must load to the same tensors through `moondream_tpu.weights.
-load_params` and the port's `load_params`, exactly; with
-runtime_int4=True, the packed bytes must be equal too.
+(256-element strips, `weight.packed/scale/zero_point`). Region tensors
+are at the tiny config's region widths, Fourier matrices stored (n_freq,
+d_in) as the checkpoints store them. Every file must load to the same
+tensors through `moondream_tpu.weights.load_params` and the port's
+`load_params`, exactly, region heads included; with runtime_int4=True,
+the packed bytes must be equal too and the region heads stay dense.
 """
 
 import re
@@ -65,12 +66,15 @@ def _new_flat(seed: int) -> dict:
     ln("text.post_ln", t.dim)
     lin("text.lm_head", t.vocab_size, t.dim)
 
-    # region: read by the JAX loader only
-    flat["region.coord_features"] = rng.standard_normal((4, 2)).astype(np.float32)
-    flat["region.size_features"] = rng.standard_normal((4, 2)).astype(np.float32)
-    for name in ("coord_encoder", "coord_decoder.fc1", "coord_decoder.fc2",
-                 "size_encoder", "size_decoder.fc1", "size_decoder.fc2"):
-        lin(f"region.{name}", 4, 8)
+    r = cfg.region
+    flat["region.coord_features"] = rng.standard_normal((r.coord_feat_dim // 2, 1)).astype(np.float32)
+    flat["region.size_features"] = rng.standard_normal((r.size_feat_dim // 2, 2)).astype(np.float32)
+    lin("region.coord_encoder", r.dim, r.coord_feat_dim)
+    lin("region.coord_decoder.fc1", r.inner_dim, r.dim)
+    lin("region.coord_decoder.fc2", r.coord_out_dim, r.inner_dim)
+    lin("region.size_encoder", r.dim, r.size_feat_dim)
+    lin("region.size_decoder.fc1", r.inner_dim, r.dim)
+    lin("region.size_decoder.fc2", r.size_out_dim, r.inner_dim)
     return flat
 
 
@@ -167,6 +171,7 @@ def _assert_same(a, b):
 @pytest.mark.parametrize("name", ["new", "legacy", "int4"])
 def test_loads_the_same_tensors_as_jax(files, name):
     ours = load_params(files[name], port_tiny_config(), dtype=torch.float32, device="cpu")
+    assert "region" in ours
     _assert_same(ours, _jax_loaded(files[name])[1])
     if name == "legacy":
         _assert_same(ours, load_params(files["new"], port_tiny_config(),
@@ -202,3 +207,29 @@ def test_runtime_int4_same_packed_bytes_as_jax(files, name):
             np.testing.assert_array_equal(lin.packed.numpy(), np.asarray(want["packed"][i]))
             np.testing.assert_array_equal(lin.scale.numpy(), np.asarray(want["scale"][i]))
             np.testing.assert_array_equal(lin.zero.numpy(), np.asarray(want["zero"][i]))
+    # region weights stay dense under runtime_int4
+    assert not any(isinstance(m, Int4Linear) for m in ours["region"].modules())
+    np.testing.assert_array_equal(ours["region"].coord_decoder.fc1.w.numpy(),
+                                  np.asarray(tree["region"]["coord_decoder"]["fc1"]["w"]))
+
+
+def test_region_features_weight_key_and_no_region(tmp_path):
+    """Fourier matrices stored as `region.*_features.weight` load transposed
+    as the JAX loader loads them; a checkpoint without region tensors gives
+    no region heads."""
+    from safetensors.numpy import save_file
+
+    flat = _new_flat(2)
+    for name in ("coord", "size"):
+        flat[f"region.{name}_features.weight"] = flat.pop(f"region.{name}_features")
+    save_file(flat, str(tmp_path / "w.safetensors"))
+    ours = load_params(str(tmp_path / "w.safetensors"), port_tiny_config(),
+                       dtype=torch.float32, device="cpu")
+    _assert_same(ours, _jax_loaded(str(tmp_path / "w.safetensors"))[1])
+    assert ours["region"].coord_features.shape == (1, 8)
+
+    save_file({k: v for k, v in flat.items() if not k.startswith("region.")},
+              str(tmp_path / "n.safetensors"))
+    bare = load_params(str(tmp_path / "n.safetensors"), port_tiny_config(),
+                       dtype=torch.float32, device="cpu")
+    assert "region" not in bare
