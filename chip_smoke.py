@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's caption, query, lockstep-batch, serving and
-region-head (detect, point, gaze, reasoning, spatial refs) paths once on
-one CUDA card.
+"""Drive the PyTorch port's caption, query, lockstep-batch, serving,
+speculative and region-head (detect, point, gaze, reasoning, spatial refs)
+paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -11,9 +11,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
      on the same inputs, TF32 off) at the main paths' shapes (the gaze
-     batch's B 20 span and step included), with median times of both; at each kernel's headline shape also its bound (bytes
-     or operations over the H100's peak rates) and the time of one PyTorch
-     call computing the same function (SDPA; the int4-pack matmul);
+     batch's B 20 span and step, the speculative verify spans: kernel B and
+     B-int8 at Tq 8 past the prefix, kernel C bf16, int8 and prefix-shared
+     at Tq 8 and 16, and a 24-row span that the pool splits into two kernel
+     C launches), with median times of both, each case's bound (bytes or
+     operations over the H100's peak rates) and the time of one PyTorch
+     call computing the same function where there is one (SDPA; the
+     int4-pack matmul);
   3. small references: the tiny config in bf16 on the card and in bf16 on
      the CPU (plain versions), each against fp32 on the CPU, same weights:
      the caption path dense, then with int4 text blocks and an int8 KV
@@ -22,7 +26,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and 16) and one decode step over 3 images, MHA and GQA; one
      serving-pool decode step, plain and prefix-shared; the region-head
      paths with peaked decoders, whose boxes, points and ids must equal
-     the CPU's;
+     the CPU's; the speculative verify forwards (pool k 8 and 24, plain and
+     prefix-shared; batch-1 spans of 8 and 24 rows), and a batch-1
+     speculative caption, a speculative pool, a mixed pool and a mixed
+     speculative pool, whose ids and boxes must equal the CPU's;
   4. the main paths at MOONDREAM_2B widths and depth with seeded random
      weights, each with exact kernel launch counts (reset just before the
      path, read just after): the bf16 model (caption, query, lockstep
@@ -34,11 +41,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and accuracy mode), query with reasoning and with spatial refs and
      detect_batch over 8 images, int4 + kv_int8 detect and GQA detect, each
      with its decode loops' host reads (at most one per DONE_CHECK_EVERY
-     steps plus one). Captions check repeated greedy ids, streamed == plain
-     and one sampled caption; pools check no host sync inside a chunk.
+     steps plus one); speculative decode (k 8) of a bf16 and an int4 +
+     kv_int8 caption and query (tok/s, accept rate, host reads, ids against
+     plain greedy with the logit margin where they differ), bf16
+     speculative pools of k 8 and k 24, and a mixed pool of text, detect,
+     point and gaze rows, plain and speculative, whose structured results
+     must equal the single requests'. Captions check repeated greedy ids,
+     streamed == plain and one sampled caption; pools check no host sync
+     inside a chunk (plain, speculative, mixed and mixed speculative).
 
-Prints the card's name and power limit first, a kernels JSON line second to
-last, and {"ok": true, "device": {...}} last.
+Prints the card's name and power limit first, the seconds of each phase,
+a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -67,12 +80,16 @@ from moondream_tpu_torch.engine.batched import (  # noqa: E402
 from moondream_tpu_torch.engine.generate import (  # noqa: E402
     DONE_CHECK_EVERY,
     LOOP_COUNTS,
+    _verify_logits,
     decode_step,
     generate_reasoning,
     generate_text,
     reset_loop_counts,
 )
-from moondream_tpu_torch.engine.serving import ragged_decode_step  # noqa: E402
+from moondream_tpu_torch.engine.serving import (  # noqa: E402
+    ragged_decode_step,
+    ragged_verify_step,
+)
 from moondream_tpu_torch.kernels import attention as K  # noqa: E402
 from moondream_tpu_torch.kernels import quant as KQ  # noqa: E402
 from moondream_tpu_torch.kernels.build import (  # noqa: E402
@@ -81,7 +98,7 @@ from moondream_tpu_torch.kernels.build import (  # noqa: E402
     build_seconds,
     reset_launch_counts,
 )
-from moondream_tpu_torch.models.moondream import MoondreamModel  # noqa: E402
+from moondream_tpu_torch.models.moondream import MoondreamModel, _prompt_pad  # noqa: E402
 from moondream_tpu_torch.models.serve import ContinuousBatchingEngine  # noqa: E402
 from moondream_tpu_torch.models.text import (  # noqa: E402
     KVCache,
@@ -352,7 +369,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
     # "diagonal" cases row i's query is the key at pos + i, so that column
     # holds ~70% of the row's weight: a mask off by one moves the output by
     # about max|plain|.
-    for tq, pos in ((1, 735), (8, 730)):
+    # Tq 8 at pos 800: a speculative verify span past the prefix
+    for tq, pos in ((1, 735), (8, 730), (8, 800)):
         kc, vc = randn(24, 1, 32, 2048, 64), randn(24, 1, 32, 2048, 64)
         kc[:, :, :, pos + tq:] *= 1000
         vc[:, :, :, pos + tq:] *= 1000
@@ -427,7 +445,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     # cache quantized by the port (a scale per token and head pair), with
     # random codes and scales x1000 in every slot past the span; the
     # diagonal query is the dequantized key at pos + i.
-    for tq, pos in ((1, 735), (8, 730)):
+    for tq, pos in ((1, 735), (8, 730), (8, 800)):
         codes, scales = [], []
         for _ in range(2):
             c, sc = quantize_kv(torch.randn(24, 32, 2048, 64, generator=gen, device=DEV), 2)
@@ -455,9 +473,14 @@ def phase_kernels(gen: torch.Generator) -> dict:
     # Kernel C on a 2B serving pool: a bf16 (24, 8, 32, 1024, 64) cache,
     # layer 13, one position per slot (slot 4 idle at 0), x1000 garbage
     # past each slot's span; the diagonal query is each slot's own key.
+    # Tq 8 and 16 are the speculative pools' verify spans (k 8; k 16, and
+    # each 16-row piece of a k 24 span).
     slots, layer = 8, 13
-    for tq, pos in ((1, [735, 736, 800, 1000, 0, 760, 900, 1022]),
-                    (4, [735, 736, 800, 1000, 0, 760, 900, 1020])):
+    pool_pos = {1: [735, 736, 800, 1000, 0, 760, 900, 1022],
+                4: [735, 736, 800, 1000, 0, 760, 900, 1020],
+                8: [735, 736, 800, 1000, 0, 760, 900, 1016],
+                16: [735, 736, 800, 1000, 0, 760, 900, 1008]}
+    for tq, pos in pool_pos.items():
         pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
         kc, vc = randn(24, slots, 32, 1024, 64), randn(24, slots, 32, 1024, 64)
         for b, p in enumerate(pos):
@@ -477,14 +500,32 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   sdpa(q, kc[layer], vc[layer], mask))
     del kc, vc, diag
 
+    def shared_work(pos, pid_t, tq, val_bytes, scale_bytes, prefix_len=730):
+        """(bytes, flops) of one prefix-shared pool layer: q read and the
+        output written in bf16; each slot's attended suffix columns, and
+        each prefix entry's columns up to the furthest any of its slots
+        attends, read once (values of `val_bytes`, a `scale_bytes` scale
+        per token and head pair); QK^T and PV over the attended pairs."""
+        pids_h = pid_t.tolist()
+        suffix = sum(max(p + tq - prefix_len, 0) for p in pos)
+        prefix = sum(max(min(p + tq, prefix_len) for p, e in zip(pos, pids_h) if e == entry)
+                     for entry in set(pids_h))
+        col_bytes = 2 * 32 * (64 * val_bytes + scale_bytes / 2)
+        pairs = sum(p + i + 1 for p in pos for i in range(tq))
+        return ((suffix + prefix) * col_bytes + 2 * slots * 32 * tq * 64 * 2,
+                4 * 32 * 64 * pairs)
+
     # Prefix-shared: suffix (24, 8, 32, 384, 64), prefix pool (24, 4, 32,
     # 768, 64) with prefix_len 730, entries shared by several slots; x1000
     # garbage past each suffix span and in the prefix padding 730-767. The
     # diagonal query's first row is prefix entry pids[b]'s key at column
     # 100: reading another entry moves the output by ~max|plain|.
     pids = torch.tensor([0, 0, 1, 2, 3, 1, 2, 0], dtype=torch.int32, device=DEV)
-    for tq, pos in ((1, [735, 730, 800, 1100, 0, 760, 900, 1113]),
-                    (4, [735, 730, 800, 1100, 0, 760, 900, 1110])):
+    shared_pos = {1: [735, 730, 800, 1100, 0, 760, 900, 1113],
+                  4: [735, 730, 800, 1100, 0, 760, 900, 1110],
+                  8: [735, 730, 800, 1100, 0, 760, 900, 1106],
+                  16: [735, 730, 800, 1098, 0, 760, 900, 1098]}
+    for tq, pos in shared_pos.items():
         pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
         kc, vc = randn(24, slots, 32, 384, 64), randn(24, slots, 32, 384, 64)
         for b, p in enumerate(pos):
@@ -502,7 +543,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda q, k, v, pk, pv: decode_attention_ragged_plain(
                       q, k, v, layer, pos_t, 0, None, pref_k=pk, pref_v=pv, pids=pids,
                       prefix_len=730),
-                  (q, kc, vc, pk, pv))
+                  (q, kc, vc, pk, pv), shared_work(pos, pids, tq, 2, 0))
     del kc, vc, pk, pv, diag
 
     # Kernel C's int8 entry: both pools again on int8 caches quantized by
@@ -517,8 +558,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
             sc[:, b, :, e:] *= 1000
         return c, sc
 
-    for tq, pos in ((1, [735, 736, 800, 1000, 0, 760, 900, 1022]),
-                    (4, [735, 736, 800, 1000, 0, 760, 900, 1020])):
+    for tq, pos in pool_pos.items():
         pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
         ends = [p + tq for p in pos]
         (kc, ks), (vc, vs) = (int8_cache((24, slots, 32, 1024, 64), ends) for _ in range(2))
@@ -528,10 +568,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
             check(K.RAGGED, f"int8 ragged pool 24x8x32x1024 layer13 tq{tq} garbage tails, {kind}",
                   lambda: decode_attention_cached(q, kc, vc, layer, pos_t, 0, None, ks, vs),
                   lambda q: decode_attention_ragged_plain(q, kc, vc, layer, pos_t, 0, None, ks, vs),
-                  (q,))
+                  (q,), shared_work(pos, torch.arange(slots), tq, 1, 4, prefix_len=0))
     del kc, vc, ks, vs, diag
-    for tq, pos in ((1, [735, 730, 800, 1100, 0, 760, 900, 1113]),
-                    (4, [735, 730, 800, 1100, 0, 760, 900, 1110])):
+    for tq, pos in shared_pos.items():
         pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
         ends = [max(p + tq - 730, 0) for p in pos]
         (kc, ks), (vc, vs) = (int8_cache((24, slots, 32, 384, 64), ends) for _ in range(2))
@@ -544,7 +583,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
             check(K.RAGGED, f"int8 prefix-shared 24x8x32x384 + 24x4x32x768 prefix730 tq{tq}, {kind}",
                   lambda: decode_attention_cached(q, kc, vc, *args),
                   lambda q: decode_attention_ragged_plain(q, kc, vc, *args),
-                  (q,))
+                  (q,), shared_work(pos, pids, tq, 1, 4))
     del kc, vc, ks, vs, pkc, pvc, pks, pvs, diag, args
 
     # Kernel B's GQA entries at the GQA 2B's shapes (8 KV heads, rep 4): a
@@ -684,6 +723,36 @@ def phase_kernels(gen: torch.Generator) -> dict:
                                                           ks, vs),
                   (q,), timed=False)
     del kc, vc, k8, v8, ks, vs, diag
+    # A verify span of 24 rows (a k 24 speculative pool): the dispatch
+    # splits it into launches of 16 and 8 rows, the second at pos + 16;
+    # plain and prefix-shared, x1000 garbage past each span.
+    pos = [735, 736, 800, 1000, 0, 760, 900, 1000]
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+    kc, vc = randn(24, slots, 32, 1024, 64), randn(24, slots, 32, 1024, 64)
+    for b, p in enumerate(pos):
+        kc[:, b, :, p + 24:] *= 1000
+        vc[:, b, :, p + 24:] *= 1000
+    diag = torch.stack([kc[layer, b, :, p:p + 24] for b, p in enumerate(pos)])
+    for kind, q in (("random q", randn(slots, 32, 24, 64)), ("diagonal q", diag)):
+        check(K.RAGGED, f"edge ragged pool tq24 (16 + 8 rows), {kind}",
+              lambda: decode_attention_cached(q, kc, vc, layer, pos_t, 0),
+              lambda q, k, v: decode_attention_ragged_plain(q, k, v, layer, pos_t, 0),
+              (q, kc, vc), timed=False)
+    kc, vc = kc[:, :, :, :384].contiguous(), vc[:, :, :, :384].contiguous()
+    pk, pv = randn(24, 4, 32, 768, 64), randn(24, 4, 32, 768, 64)
+    pk[..., 730:, :] *= 1000
+    pv[..., 730:, :] *= 1000
+    for b, p in enumerate(pos):
+        kc[:, b, :, max(p + 24 - 730, 0):] *= 1000
+        vc[:, b, :, max(p + 24 - 730, 0):] *= 1000
+    q = randn(slots, 32, 24, 64)
+    check(K.RAGGED, "edge prefix-shared tq24 (16 + 8 rows), random q",
+          lambda: decode_attention_cached(q, kc, vc, layer, pos_t, 0, None, pref_k=pk,
+                                          pref_v=pv, pids=pids, prefix_len=730),
+          lambda q, k, v, pk, pv: decode_attention_ragged_plain(
+              q, k, v, layer, pos_t, 0, None, pref_k=pk, pref_v=pv, pids=pids, prefix_len=730),
+          (q, kc, vc, pk, pv), timed=False)
+    del kc, vc, pk, pv, diag, q
     n_split, cols = K.plan_decode_splits(384 + 730, slots * 32)
     print(f"prefix-shared pools above: {n_split} splits of {cols} columns per (slot, head); "
           f"the prefix edge 730 lies inside split {730 // cols} "
@@ -1111,7 +1180,7 @@ def _pool_run(model, images, kind: dict, sync_check: bool = False) -> dict:
     slots_bytes = nbytes(eng.kv)
     pref_bytes = nbytes(eng.kv_pref) if eng.prefix_share else 0
     return {"out": out, "chunks": chunks[0], "entries": entries, "encode_ms": encode_ms,
-            "step_ms": step_ms, "admit_ms": admit_ms, "encs": encs,
+            "step_ms": step_ms, "admit_ms": admit_ms, "encs": encs, "engine": eng,
             "cache_bytes": slots_bytes + pref_bytes,
             "plain_bytes": slots_bytes * eng.slot_len // eng.kv.k.shape[3]}
 
@@ -1160,17 +1229,9 @@ def phase_pool(model, images, power: str, label: str, quantized: bool,
     # agreement with batch-1 decoding of the same prompts (printed only:
     # cuBLAS reduces in another order at M = 1 than at M = 8); where a
     # request differs, batch-1's logit margin at the first differing token
-    tmpl = cfg.tokenizer.templates
     agree, margins = [], []
-    for (img, question), pool_ids in zip(POOL_REQUESTS, again["out"]):
-        enc = again["encs"][img]
-        prompt = (list(tmpl["caption"]["normal"]) if question is None else
-                  list(tmpl["query"]["prefix"]) + model._encode_text(question)
-                  + list(tmpl["query"]["suffix"]))
-        _, _, first, pos, kv = model._prefill_prompt(
-            model.load_encoded_image(enc, slots=1024), prompt, enc.pos, 0.0, 0.0)
-        ids = model._generate_answer_tokens(
-            kv, first, pos, {"temperature": 0.0, "max_tokens": POOL_TOKENS}, eos_id=-1)
+    refs = _batch1_refs(model, again["encs"], POOL_REQUESTS, POOL_TOKENS)
+    for (enc, prompt, ids), pool_ids in zip(refs, again["out"]):
         n = next((i for i, (a, b) in enumerate(zip(pool_ids, ids)) if a != b),
                  min(len(pool_ids), len(ids)))
         agree.append(n)
@@ -1368,6 +1429,407 @@ def phase_structured_reference(img: np.ndarray) -> None:
                              f"{ {k: (got[k], want[k]) for k in bad} }")
 
 
+def _peaked_tiny_state(cfg, scale: float = 50.0) -> dict:
+    """The tiny config's seeded weights, bf16-valued, with the peaked
+    oracle of phase_structured_reference: region decoders' fc2 biases
+    + N(0, scale^2) and lm_head's bias +30 on coord_id. At scale 50 every
+    region argmax is the bias's own; at 0.1 it moves with the hidden state."""
+    state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for site in ("coord_decoder", "size_decoder"):
+        b = state[f"region.{site}.fc2.b"]
+        state[f"region.{site}.fc2.b"] = b + scale * torch.randn(b.shape, generator=gen)
+    state["text.lm_head.b"][cfg.tokenizer.coord_id] += 30.0
+    return {n: t.to(BF16).float() for n, t in state.items()}
+
+
+def phase_spec_reference(img: np.ndarray) -> None:
+    """The speculative and mixed paths on the tiny config. First the verify
+    forwards' logits, bf16 on the card and on the CPU each against fp32 on
+    the CPU (as phase_serving_reference): a pool verify step
+    (`ragged_verify_step`) of k 8 and 24 rows (24: kernel C in two
+    launches), plain and prefix-shared, and a batch-1 verify span of 8
+    (kernel B) and 24 rows (kernel A). Then, under the peaked oracle, the
+    ids and boxes of a batch-1 speculative caption, a speculative pool, a
+    mixed pool (caption, detect, point, gaze) and a mixed speculative pool:
+    card bf16 must equal CPU fp32. Then the two mixed pools again with the
+    region biases' noise at x0.1, where each box follows the hidden state
+    the chunk holds for its row (a request's boxes and points differ from
+    one another) yet every argmax stays decisive in bf16: card bf16 must
+    still equal CPU fp32. (At x1 the card machine's CPU reference gives
+    every object the bias's box; with no noise, bf16 flips argmaxes.)"""
+    cfg = tiny_test_config()
+    tc = cfg.text
+    state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
+    state = {n: t.to(BF16).float() for n, t in state.items()}
+    gen = torch.Generator().manual_seed(SEED + 4)
+    cache = lambda n, t: [torch.randn(tc.n_layers, n, tc.n_heads, t, tc.head_dim,
+                                      generator=gen).to(BF16).float() for _ in range(2)]
+    toks = torch.randint(0, tc.vocab_size, (4, 24), generator=gen)
+    cases = {
+        "pool": (cache(4, 1024), None, [0, 731, 850, 1000], None, 0),
+        "prefix-shared pool": (cache(4, 384), cache(2, 768), [731, 760, 900, 1020], [1, 0, 1, 0],
+                               730),
+        "batch-1": (cache(1, 1024), None, 800, None, 0),
+    }
+    errs = {}
+    for label, (kv, pref, pos, pids, prefix_len) in cases.items():
+        for k in (8, 24):
+            def run(device, dtype) -> torch.Tensor:
+                params = build_params(cfg, device, dtype)
+                params.load_state_dict(state)
+                to = lambda ts: KVCache(*(t.to(device, dtype) for t in ts))
+                if label == "batch-1":
+                    return _verify_logits(params["text"], to(kv), toks[0, :k].to(device), pos,
+                                          None, ()).float().cpu()
+                return ragged_verify_step(
+                    params["text"], to(kv), toks[:, :k].to(device),
+                    torch.tensor(pos, dtype=torch.int32, device=device), None, None, None,
+                    None if pref is None else to(pref),
+                    None if pids is None else torch.tensor(pids, dtype=torch.int32, device=device),
+                    prefix_len,
+                )[0].float().cpu()
+
+            ref = run("cpu", torch.float32)
+            rel = lambda x: ((x - ref).abs().max() / ref.abs().max()).item()
+            card_err, cpu_err = rel(run(DEV, BF16)), rel(run("cpu", BF16))
+            errs[f"{label} k{k}"] = (round(card_err, 5), round(cpu_err, 5))
+            if not card_err <= SMALL_REF_FACTOR * cpu_err:
+                raise AssertionError(f"{label} verify k {k}: {card_err} vs cpu bf16 {cpu_err}")
+    print(f"spec reference (tiny config, verify logits rel max err vs fp32 on the cpu, "
+          f"(card bf16, cpu bf16), tol {SMALL_REF_FACTOR} x cpu bf16): {errs}")
+
+    greedy = {"temperature": 0.0, "max_tokens": 16, "speculative": 8}
+
+    def paths(state, device, dtype, pools) -> dict:
+        params = build_params(cfg, device, dtype)
+        params.load_state_dict(state)
+        m = MoondreamModel(cfg, params, IdTokenizer(), dtype, device=device)
+        enc = m.encode_image(img)
+        out = {}
+        if "spec pool" in pools:
+            out["caption"] = m.caption(enc, settings=greedy)["caption"]
+        for name, kw in (("spec pool", {"speculative": 8}), ("mixed pool", {}),
+                         ("mixed spec pool", {"speculative": 8})):
+            if name not in pools:
+                continue
+            eng = ContinuousBatchingEngine(m, n_slots=5, slot_len=1024, chunk=3,
+                                           max_objects=3, **kw)
+            rids = [eng.submit(enc, max_tokens=12), eng.submit(enc, POOL_QUESTION, max_tokens=12)]
+            if name != "spec pool":
+                rids += [eng.submit_detect(enc, "object"), eng.submit_point(enc, "object"),
+                         eng.submit_gaze(enc, (0.4, 0.3))]
+            res = eng.drain()
+            out[name] = [res[r] for r in rids]
+        return out
+
+    everything = ("spec pool", "mixed pool", "mixed spec pool")
+    for scale, pools in ((50.0, everything), (0.1, everything[1:])):
+        state = _peaked_tiny_state(cfg, scale)
+        want = paths(state, "cpu", torch.float32, pools)
+        got = paths(state, DEV, BF16, pools)
+        det = want["mixed pool"][2]["objects"]
+        if len(det) != 3 or want["mixed pool"][4]["gaze"] is None:
+            raise AssertionError(f"tiny mixed reference is not decisive: {want['mixed pool']}")
+        pts = want["mixed pool"][3]["points"]
+        if scale < 1 and min(len({tuple(o.values()) for o in rows}) for rows in (det, pts)) < 2:
+            raise AssertionError(f"x{scale:g} boxes do not follow the hidden state: {det}, {pts}")
+        bad = [k for k in want if not _same(got[k], want[k])]
+        print(f"spec reference (tiny config, card bf16 vs cpu fp32, region biases "
+              f"x{scale:g}): {len(want) - len(bad)} of {len(want)} paths equal "
+              f"({', '.join(want)}); detect {got['mixed spec pool'][2]['objects']}")
+        if bad:
+            raise AssertionError(f"spec reference x{scale:g} differs: "
+                                 f"{ {k: (got[k], want[k]) for k in bad} }")
+
+
+SPEC_K = 8  # the 2B speculative paths' k (settings={"speculative": True})
+
+
+def _first_diff(a: list, b: list) -> int:
+    """The first index where two id lists differ, counting a length
+    difference (len of both when equal)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                len(a) if len(a) == len(b) else min(len(a), len(b)))
+
+
+def _check_margin(label: str, model, enc, prompt, single, other, max_tokens, slots=None):
+    """None where `other` equals batch-1 greedy `single`; else batch-1's
+    logit margin at the first difference as (margin, bf16 steps). Raises
+    above 8 bf16 steps: a near tie is a few, a wrong accepted draft or a
+    span mask off by one far more."""
+    n = _first_diff(single, other)
+    if n == len(single) == len(other):
+        return None
+    m = first_difference_margin(model, enc, prompt, single, other, n, max_tokens, slots)
+    if abs(m[1]) > 8:
+        raise AssertionError(f"{label}: ids differ from batch-1 greedy at token {n} with a "
+                             f"logit margin of {m[1]} bf16 steps")
+    return n, m
+
+
+def phase_spec(model, enc, power: str, int4: bool = False) -> list:
+    """The 2B speculative caption and query (settings["speculative"] = 8,
+    64 greedy tokens) on the encoded image, each a counted run: exact
+    launches (every verify span of 8 rows takes kernel B on every layer,
+    and four W4A16 launches per layer with int4 blocks) and host reads (one
+    per verify iteration plus one). Ids against the plain greedy call:
+    where they differ, batch-1's logit margin (at most 8 bf16 steps). Both
+    timed on the host clock, prompt prefill included."""
+    cfg = model.config
+    label = " + ".join(["int4"] * int4 + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
+    model.tokenizer = IdTokenizer()
+    tmpl = cfg.tokenizer.templates
+    tasks = {
+        "caption": (list(tmpl["caption"]["normal"]),
+                    lambda s: model.caption(enc, "normal", settings=s)["caption"]),
+        "query": (list(tmpl["query"]["prefix"]) + model._encode_text(POOL_QUESTION)
+                  + list(tmpl["query"]["suffix"]),
+                  lambda s: model.query(enc, POOL_QUESTION, settings=s)["answer"]),
+    }
+    runs, lines, spans = [], [], {}
+    for task, (prompt, call) in tasks.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = _ids(call(GREEDY64))
+        plain_ms = sync_ms(t0)
+        reset_launch_counts()
+        reset_loop_counts()
+        t0 = time.perf_counter()
+        spec = _ids(call({**GREEDY64, "speculative": SPEC_K}))
+        spec_ms = sync_ms(t0)
+        launches = dict(LAUNCHES)
+        loop = dict(LOOP_COUNTS["generate_text_spec"])
+        iters = spans[task] = loop["steps"]
+        if loop["calls"] != 1 or loop["reads"] != iters + 1:
+            raise AssertionError(f"spec {task}: {loop} (one read per iteration plus one)")
+        check_launches(f"spec {task} ({label}), {len(spec)} tokens in {iters} verify spans",
+                       launches, expected_launches(cfg, 0, 1 + iters, 0, int4))
+        runs.append(launches)
+        diff = _check_margin(f"spec {task} ({label})", model, enc, prompt, plain, spec, 64)
+        tok_s = lambda ids, ms: len(ids) / (ms / 1e3)
+        lines.append(
+            f"{task} {tok_s(spec, spec_ms):.1f} tok/s spec vs {tok_s(plain, plain_ms):.1f}"
+            f" plain ({len(spec)} tokens, {iters} verify spans: accept rate "
+            f"{len(spec) / max(iters, 1):.2f} tokens per span, {loop['reads']} host reads; "
+            + ("ids equal plain greedy" if diff is None else
+               f"first differs from plain greedy at token {diff[0]}, batch-1 margin "
+               f"{diff[1][0]} ({diff[1][1]} bf16 steps)") + ")")
+    # speculative sampling (the default temperature 0.5, top_p 0.3): the
+    # rejection test on the card, within max_tokens, one read per span;
+    # then at top_p 0, where the target is one-hot at the argmax: the
+    # sampled loop must give the greedy spec ids in as many spans
+    greedy_caption = (_ids(tasks["caption"][1]({**GREEDY64, "speculative": SPEC_K})),
+                      spans["caption"])
+    for top_p in (None, 0.0):
+        settings = {"max_tokens": 64, "speculative": SPEC_K}
+        if top_p is not None:
+            settings.update(temperature=0.5, top_p=top_p)
+        reset_loop_counts()
+        t0 = time.perf_counter()
+        sampled = _ids(tasks["caption"][1](settings))
+        ms = sync_ms(t0)
+        loop = LOOP_COUNTS["generate_text_spec_sampled"]
+        if not 0 < len(sampled) <= 64 or loop["reads"] != loop["steps"] + 1:
+            raise AssertionError(f"sampled spec caption: {len(sampled)} tokens, {loop}")
+        if top_p == 0.0 and (sampled, loop["steps"]) != greedy_caption:
+            raise AssertionError(f"sampled spec at top_p 0: {len(sampled)} tokens in "
+                                 f"{loop['steps']} spans differ from greedy spec's "
+                                 f"{len(greedy_caption[0])} in {greedy_caption[1]}")
+        lines.append(f"sampled caption{' at top_p 0' if top_p == 0.0 else ''} "
+                     f"{len(sampled) / (ms / 1e3):.1f} tok/s ({len(sampled)} tokens in "
+                     f"{loop['steps']} verify spans"
+                     + ("; greedy spec's ids and spans" if top_p == 0.0 else "") + ")")
+    print(f"2B speculative k {SPEC_K} ({label}) on {power}: " + "; ".join(lines))
+    return runs
+
+
+def _batch1_refs(model, encs, requests, max_tokens, eos_id=-1) -> list:
+    """Batch-1 greedy ids of (image, question) requests on their encodes,
+    in slots of 1024 as a pool's, with their prompts."""
+    tmpl = model.config.tokenizer.templates
+    out = []
+    for img, question in requests:
+        enc = encs[img]
+        prompt = (list(tmpl["caption"]["normal"]) if question is None else
+                  list(tmpl["query"]["prefix"]) + model._encode_text(question)
+                  + list(tmpl["query"]["suffix"]))
+        _, _, first, pos, kv = model._prefill_prompt(
+            model.load_encoded_image(enc, slots=1024), prompt, enc.pos, 0.0, 0.0)
+        ids = model._generate_answer_tokens(
+            kv, first, pos, {"temperature": 0.0, "max_tokens": max_tokens}, eos_id=eos_id)
+        model._recycle_kv(kv)
+        out.append((enc, prompt, ids))
+    return out
+
+
+def phase_spec_pools(model, images, power: str) -> list:
+    """Two 2B speculative pools (8 slots of 1024, chunk 8, eos -1, the 8
+    POOL_REQUESTS of 48 tokens): k 8, and k 24, whose verify spans take
+    kernel C in two launches (16 + 8 rows) per layer; then a sampled pool
+    at k 8 (temperature 0.5, top_p 0.3). Each a counted run with exact
+    launches, one spec chunk dispatched under
+    torch.cuda.set_sync_debug_mode("error"), and ms per chunk; every
+    greedy request's ids against batch-1 greedy (margins at most 8 bf16
+    steps)."""
+    cfg = model.config
+    L_txt, L_vit = cfg.text.n_layers, cfg.vision.enc_n_layers
+    model.tokenizer = IdTokenizer()
+    runs, outs, refs = [], {}, None
+    for k in (SPEC_K, 24):
+        reset_launch_counts()
+        run = _pool_run(model, images, {"speculative": k}, sync_check=True)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        want = {name: 0 for name in LAUNCHES}
+        want[K.FLASH] = len(images) * (L_vit + L_txt)
+        want[K.DECODE] = len(POOL_REQUESTS) * L_txt
+        want[K.RAGGED] = L_txt * 8 * -(-k // 16) * run["chunks"]
+        check_launches(f"spec pool k {k}, {run['chunks']} chunks", launches, want)
+        runs.append(launches)
+        if refs is None:
+            refs = _batch1_refs(model, run["encs"], POOL_REQUESTS, POOL_TOKENS)
+        diffs = [_check_margin(f"spec pool k {k}", model, enc, prompt, ids, got, POOL_TOKENS,
+                               slots=1024)
+                 for (enc, prompt, ids), got in zip(refs, run["out"])]
+        outs[k] = run["out"]
+        tokens = len(POOL_REQUESTS) * POOL_TOKENS
+        print(f"2B spec pool k {k} (bf16) on {power}: {tokens / (sum(run['step_ms']) / 1e3):.1f} "
+              f"tok/s decode ({tokens} tokens in {run['chunks']} chunks of 8 verify iterations "
+              f"x 8 slots, {sum(run['step_ms']) / run['chunks']:.2f} ms per chunk, read-back "
+              f"included, one chunk under sync debug mode), accept rate "
+              f"{run['engine'].spec_accept_rate:.3f} tokens per slot-iteration; vs batch-1 "
+              f"greedy: {sum(d is None for d in diffs)} of {len(diffs)} requests equal"
+              + "".join(f"; request {i} first differs at token {d[0]} (margin {d[1][0]}, "
+                        f"{d[1][1]} bf16 steps)" for i, d in enumerate(diffs) if d))
+    same = sum(a == b for a, b in zip(outs[SPEC_K], outs[24]))
+    print(f"spec pools k {SPEC_K} and k 24: {same} of {len(POOL_REQUESTS)} requests with equal ids")
+    # the sampled spec pool (serve_chunk_spec_sampled) at temperature 0.5,
+    # top_p 0.3: the same counted run, each request exactly its budget
+    reset_launch_counts()
+    run = _pool_run(model, images, {"speculative": SPEC_K, "temperature": 0.5, "top_p": 0.3},
+                    sync_check=True)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if not run["engine"]._sampling_used:
+        raise AssertionError("the sampled spec pool took the greedy chunk")
+    want = {name: 0 for name in LAUNCHES}
+    want[K.FLASH] = len(images) * (L_vit + L_txt)
+    want[K.DECODE] = len(POOL_REQUESTS) * L_txt
+    want[K.RAGGED] = L_txt * 8 * run["chunks"]
+    check_launches(f"sampled spec pool k {SPEC_K}, {run['chunks']} chunks", launches, want)
+    runs.append(launches)
+    tokens = len(POOL_REQUESTS) * POOL_TOKENS
+    print(f"2B sampled spec pool k {SPEC_K} (bf16, temperature 0.5, top_p 0.3) on {power}: "
+          f"{tokens / (sum(run['step_ms']) / 1e3):.1f} tok/s decode ({tokens} tokens in "
+          f"{run['chunks']} chunks, {sum(run['step_ms']) / run['chunks']:.2f} ms per chunk, "
+          f"read-back included, one chunk under sync debug mode), accept rate "
+          f"{run['engine'].spec_accept_rate:.3f}")
+    return runs
+
+
+def _peak_region(model) -> None:
+    """The peaked oracle on a model's region heads, in place: the coordinate
+    and size decoders' fc2 biases + N(0, 50^2), seeded, so every argmax is
+    decisive and a pooled box equals the single one whatever order the
+    pool's products sum in."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    for site in (model.region.coord_decoder, model.region.size_decoder):
+        b = site.fc2.b
+        b.data += (50 * torch.randn(b.shape, generator=gen, device=DEV)).to(b.dtype)
+
+
+MIXED_EYE = (0.45, 0.3)
+MIXED_OBJECTS = 8
+
+
+def phase_mixed_pools(model, images, power: str) -> list:
+    """Two 2B mixed pools (8 slots of 1024, chunk 8, max_objects 8, the
+    tokenizer's EOS): four caption / query rows of POOL_REQUESTS beside a
+    detect, a point and a gaze row, plain and speculative (k 8), with the
+    peaked oracle on the region heads (_peak_region; from here on the
+    model keeps it). Each a counted run: exact launches (prompt spans of
+    <= 16 rows take kernel B, the gaze prompt's 17 kernel A; every pool
+    step kernel C, k 8 spans one launch per layer), the first chunk
+    dispatched under torch.cuda.set_sync_debug_mode("error"), ms per chunk
+    and each structured request's latency from the first admission. The
+    boxes, points and gaze must equal the single-request ones; text rows
+    against batch-1 greedy (margins at most 8 bf16 steps)."""
+    cfg = model.config
+    L_txt = cfg.text.n_layers
+    model.tokenizer = IdTokenizer()
+    _peak_region(model)
+    encs = [model.encode_image(im) for im in images]
+    settings = {"max_objects": MIXED_OBJECTS}
+    singles = {"detect": model.detect(encs[0], "object", settings=settings),
+               "point": model.point(encs[1], "object", settings=settings),
+               "gaze": model.detect_gaze(encs[2], eye=MIXED_EYE)}
+    texts = POOL_REQUESTS[:4]
+    refs = _batch1_refs(model, encs, texts, POOL_TOKENS, eos_id=cfg.tokenizer.eos_id)
+    pad16 = lambda n: _prompt_pad(n) <= 16
+    prompts = [len(p) for _, p, _ in refs] + [
+        len(model._structured_prompt("detect", "object")),
+        len(model._structured_prompt("point", "object")), model._gaze_embeds([MIXED_EYE])[1]]
+    runs = []
+    for spec in (0, SPEC_K):
+        eng = ContinuousBatchingEngine(model, n_slots=8, slot_len=1024, chunk=8,
+                                       max_objects=MIXED_OBJECTS, speculative=spec)
+        chunks, step_ms, done_ms = [0], [], {}
+        dispatch = eng._dispatch_chunk
+
+        def counted_dispatch():
+            chunks[0] += 1
+            dispatch()
+
+        eng._dispatch_chunk = counted_dispatch
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        rids = [eng.submit(encs[i], question=q, max_tokens=POOL_TOKENS) for i, q in texts]
+        rids += [eng.submit_detect(encs[0], "object"), eng.submit_point(encs[1], "object"),
+                 eng.submit_gaze(encs[2], MIXED_EYE)]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._dispatch_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        while any(s.active for s in eng.slots) or eng._inflight:
+            t0 = time.perf_counter()
+            for rid in eng.step():
+                done_ms[rid] = (time.perf_counter() - t_start) * 1e3
+            step_ms.append(sync_ms(t0))
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        want = {name: 0 for name in LAUNCHES}
+        want[K.DECODE] = L_txt * sum(pad16(n) for n in prompts)
+        want[K.FLASH] = L_txt * sum(not pad16(n) for n in prompts)
+        want[K.RAGGED] = L_txt * 8 * max(1, -(-spec // 16)) * chunks[0]
+        kind = f"mixed spec pool k {spec}" if spec else "mixed pool"
+        check_launches(f"{kind}, {chunks[0]} chunks", launches, want)
+        runs.append(launches)
+        got = {"detect": eng.results[rids[4]], "point": eng.results[rids[5]],
+               "gaze": eng.results[rids[6]]}
+        bad = [k for k in singles if not _same(got[k], singles[k])]
+        if bad:
+            raise AssertionError(f"{kind}: pooled {bad} differ from the single request: "
+                                 f"{ {k: (got[k], singles[k]) for k in bad} }")
+        diffs = [_check_margin(kind, model, enc, prompt, ids, _ids(eng.results[r]), POOL_TOKENS,
+                               slots=1024)
+                 for (enc, prompt, ids), r in zip(refs, rids)]
+        print(f"2B {kind} (bf16) on {power}: {chunks[0]} chunks, "
+              f"{sum(step_ms) / len(step_ms):.2f} ms per chunk (read-back included; the first "
+              f"under sync debug mode); detect of {len(got['detect']['objects'])} objects done "
+              f"in {done_ms[rids[4]]:.1f} ms, point {done_ms[rids[5]]:.1f} ms, gaze "
+              f"{done_ms[rids[6]]:.1f} ms from the first admission (single detect: "
+              f"{len(singles['detect']['objects'])} objects); boxes, points and gaze equal the "
+              f"single requests'; text rows vs batch-1 greedy: {sum(d is None for d in diffs)} "
+              f"of {len(diffs)} equal"
+              + "".join(f"; row {i} first differs at token {d[0]} ({d[1][1]} bf16 steps)"
+                        for i, d in enumerate(diffs) if d)
+              + (f"; accept rate {eng.spec_accept_rate:.3f}" if spec else ""))
+    return runs
+
+
 def phase_structured(model, enc, img, batch_images, power: str, int4: bool = False,
                      full: bool = True) -> list:
     """The region-head paths on a 2B model through the entry points, each a
@@ -1516,48 +1978,70 @@ def main() -> None:
     # 756x1008 tiles 3x4: the 13-crop ViT batch
     img = np.random.default_rng(SEED).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
 
-    phase_build()
-    summary = phase_kernels(gen)
-    phase_small_reference(img)
-    phase_small_reference(img, int4=True, kv_int8=True)
-    phase_small_reference(img, n_kv_heads=1)
-    phase_small_reference(img, kv_int8=True, n_kv_heads=1)
+    seconds = {}
+
+    def phase(name, fn, *args, **kw):
+        """Run one phase and keep its wall seconds (printed at the end)."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = round(seconds.get(name, 0.0) + time.perf_counter() - t0, 1)
+        return out
+
+    phase("1 build", phase_build)
+    summary = phase("2 kernels", phase_kernels, gen)
+    phase("3 small references", phase_small_reference, img)
+    phase("3 small references", phase_small_reference, img, int4=True, kv_int8=True)
+    phase("3 small references", phase_small_reference, img, n_kv_heads=1)
+    phase("3 small references", phase_small_reference, img, kv_int8=True, n_kv_heads=1)
     rng = np.random.default_rng(SEED + 2)
     images = [rng.integers(0, 256, shape, dtype=np.uint8)
               for shape in ((756, 1008, 3), (378, 378, 3), (600, 800, 3))]
-    phase_batch_reference(images)
-    phase_batch_reference(images, n_kv_heads=1)
-    phase_serving_reference()
-    phase_structured_reference(img)
+    phase("3 small references", phase_batch_reference, images)
+    phase("3 small references", phase_batch_reference, images, n_kv_heads=1)
+    phase("3 small references", phase_serving_reference)
+    phase("3 small references", phase_structured_reference, img)
+    phase("3 spec reference", phase_spec_reference, img)
     # 8 images of three sizes for the lockstep batches: 13, 2 and 7 crops
     batch_images = [rng.integers(0, 256, shape, dtype=np.uint8)
                     for shape in [(756, 1008, 3)] * 3 + [(378, 378, 3)] * 3
                     + [(600, 800, 3)] * 2]
     kv8 = lambda cfg: dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
     runs = []
-    launches, model = phase_main_path(img, power)
-    runs += [*launches, *phase_batch(model, batch_images, power),
-             phase_pool(model, images, power, "bf16 plain", False),
-             phase_pool(model, images, power, "bf16 prefix-shared depth 2", False,
-                        prefix_share=True, prefix_entries=4, pipeline_depth=2)]
-    runs += phase_structured(model, model.encode_image(img), img, batch_images, power)
-    del model
-    launches, model = phase_main_path(img, power, kv8(MOONDREAM_2B), int4=True)
+    launches, model = phase("4 2B bf16 caption/query", phase_main_path, img, power)
+    runs += [*launches, *phase("4 2B bf16 lockstep", phase_batch, model, batch_images, power),
+             phase("4 2B bf16 pools", phase_pool, model, images, power, "bf16 plain", False),
+             phase("4 2B bf16 pools", phase_pool, model, images, power,
+                   "bf16 prefix-shared depth 2", False, prefix_share=True, prefix_entries=4,
+                   pipeline_depth=2)]
+    enc = model.encode_image(img)
+    runs += phase("4 2B bf16 structured", phase_structured, model, enc, img, batch_images,
+                  power)
+    runs += phase("4 2B bf16 speculative", phase_spec, model, enc, power)
+    runs += phase("4 2B bf16 spec pools", phase_spec_pools, model, images, power)
+    runs += phase("4 2B bf16 mixed pools", phase_mixed_pools, model, images, power)
+    del model, enc
+    launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(MOONDREAM_2B),
+                            int4=True)
     runs += [*launches,
-             phase_pool(model, images, power, "int4 + kv_int8 prefix-shared", True,
-                        prefix_share=True, prefix_entries=4)]
-    runs += phase_structured(model, model.encode_image(img), img, batch_images, power,
-                             int4=True, full=False)
-    del model
-    launches, model = phase_main_path(img, power, MOONDREAM_2B_GQA)
-    runs += [*launches, *phase_batch(model, batch_images, power)]
-    runs += phase_structured(model, model.encode_image(img), img, batch_images, power,
-                             full=False)
+             phase("4 2B int4", phase_pool, model, images, power,
+                   "int4 + kv_int8 prefix-shared", True, prefix_share=True, prefix_entries=4)]
+    enc = model.encode_image(img)
+    runs += phase("4 2B int4", phase_structured, model, enc, img, batch_images, power,
+                  int4=True, full=False)
+    runs += phase("4 2B int4 speculative", phase_spec, model, enc, power, int4=True)
+    del model, enc
+    launches, model = phase("4 2B GQA", phase_main_path, img, power, MOONDREAM_2B_GQA)
+    runs += [*launches, *phase("4 2B GQA", phase_batch, model, batch_images, power)]
+    runs += phase("4 2B GQA", phase_structured, model, model.encode_image(img), img,
+                  batch_images, power, full=False)
     params = model.params
     del model
-    launches, model = phase_main_path(img, power, kv8(MOONDREAM_2B_GQA), params=params)
+    launches, model = phase("4 2B GQA", phase_main_path, img, power, kv8(MOONDREAM_2B_GQA),
+                            params=params)
     runs += [*launches]
     del model, params
+    print("seconds per phase:", seconds, "total", round(sum(seconds.values()), 1))
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     launches[K.DECODE] += launches.pop(K.DECODE_INT8)
     launches[K.RAGGED] += launches.pop(K.RAGGED_INT8)

@@ -37,7 +37,7 @@ def _nucleus(logits, generator, temperature, top_p) -> torch.Tensor:
     p_lim = top_p[:, None] if isinstance(top_p, torch.Tensor) else top_p
     safe_t = t.clamp_min(1e-6) if isinstance(t, torch.Tensor) else max(t, 1e-6)
     probs = torch.softmax(logits / safe_t, dim=-1)
-    probs_desc, order = torch.sort(probs, dim=-1, descending=True)
+    probs_desc, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     cdf = torch.cumsum(apply_top_p_mask(probs_desc, p_lim), dim=-1)
     u = torch.rand(
         (logits.shape[0], 1), generator=generator, device=logits.device

@@ -1,6 +1,7 @@
 """Prefill, decode step and the decode loops (moondream_tpu/engine/generate.py):
-the answer loop, the reasoning loop with inline grounding, and the
-structured coordinate (detect / point) loop.
+the answer loop, its speculative forms (greedy and sampled, fused or
+streamed span by span), the reasoning loop with inline
+grounding, and the structured coordinate (detect / point) loop.
 
 Mask model: row i (position pos+i) may attend column j iff j <= pos+i or
 (pos+i < prefix_len and j < prefix_len); prefix_len is 730 after an image
@@ -16,7 +17,7 @@ the stop emit nothing and write K/V only at positions before that limit.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +26,8 @@ from ..models import region as region_ops
 from ..models.region import RegionModel
 from ..models.text import KVCache, TextModel, text_decoder, text_encoder
 from ..ops.layers import layer_norm
-from .sampling import sample_token
+from .drafting import ngram_draft
+from .sampling import sample_token, target_probs
 
 NEG_INF = -1e30
 
@@ -166,6 +168,210 @@ def generate_text(
     _record("generate_text", steps, reads)
     n = host[1]
     return GenerateResult(tokens=out[:n], count=n, pos=pos + n)
+
+
+def _spec_limit(model: TextModel, pos: int, max_tokens: int, spec_k: int,
+                kv_bound: Optional[int]) -> int:
+    """Tokens a speculative loop may emit from pos: as `_limit`, but every
+    verify span of spec_k rows must fit, so it stops spec_k - 1 tokens
+    before the context end or kv_bound, as the JAX package does."""
+    limit = min(max_tokens, model.config.max_context - spec_k + 1 - pos)
+    if kv_bound is not None:
+        limit = min(limit, kv_bound - spec_k + 1 - pos)
+    return max(limit, 0)
+
+
+def _verify_logits(model: TextModel, kv: KVCache, q_toks: torch.Tensor, pos: int,
+                   kv_bound: Optional[int], suppress_ids: Tuple[int, ...]) -> torch.Tensor:
+    """One verify forward: the (k,) span q_toks = [current, draft...] at
+    positions pos..pos+k-1, written to the cache in place. Returns the
+    span's (k, V) logits with `suppress_ids` masked. Rows past what the
+    loop accepts leave K/V at positions the next span overwrites before
+    anything attends them."""
+    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, pos, 0, kv_bound)
+    logits = _lm_logits(hidden[0], model)
+    if suppress_ids:
+        logits[:, list(suppress_ids)] = NEG_INF
+    return logits
+
+
+def greedy_accept(draft: torch.Tensor, g: torch.Tensor, eos_id: int) -> torch.Tensor:
+    """Tokens a greedy verify emits per row (moondream_tpu/engine/
+    generate.py:255-265): 1 plus the longest draft prefix equal to the
+    greedy continuations g, cut so that the first EOS in g becomes the
+    carried token. draft (..., k-1), g (..., k) -> m (...) int64 in 1..k."""
+    ok = (draft.long() == g[..., :-1].long()).long()
+    m = 1 + torch.cumprod(ok, dim=-1).sum(dim=-1)
+    return _cut_at_eos(m, g == eos_id)
+
+
+def _cut_at_eos(m: torch.Tensor, is_eos: torch.Tensor) -> torch.Tensor:
+    """m cut to (first EOS position) + 1 where an EOS lies before m - 1."""
+    eos_pos = is_eos.long().argmax(dim=-1)
+    return torch.where(is_eos.any(dim=-1) & (eos_pos + 1 < m), eos_pos + 1, m)
+
+
+def speculative_sample(p: torch.Tensor, draft: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rejection test of deterministic drafts against target probabilities
+    (moondream_tpu/engine/generate.py:345-370): draft j is accepted with
+    probability p[j, draft[j]] while all before it were; at the first
+    rejection the token comes from p with the draft's column removed, and
+    after k-1 acceptances a bonus token from p[k-1]. The emitted sequence is
+    then distributed exactly as the plain sampled loop's. p (..., k, V),
+    draft (..., k-1) -> (emitted (..., k): drafts [:n], the drawn token at
+    n; m = n + 1 (...) int64). Draws come from `generator`."""
+    k, vocab = p.shape[-2], p.shape[-1]
+    lead = p.shape[:-2]
+    d = draft.long()
+    u = torch.rand((*lead, k - 1), generator=generator, device=p.device)
+    p_draft = p[..., :k - 1, :].gather(-1, d[..., None])[..., 0]
+    n_acc = torch.cumprod((u < p_draft).long(), dim=-1).sum(dim=-1)
+    p_res = p.clone()
+    p_res[..., :k - 1, :].scatter_(-1, d[..., None], 0.0)
+    # JAX draws categorical(log(max(p, 1e-30))): weights max(p, 1e-30)
+    cdf = torch.cumsum(p_res.clamp_min(1e-30), dim=-1)
+    v = torch.rand((*lead, k, 1), generator=generator, device=p.device) * cdf[..., -1:]
+    samp = torch.searchsorted(cdf, v).clamp_(max=vocab - 1)[..., 0]
+    tail = samp.gather(-1, n_acc[..., None])
+    steps = torch.arange(k, device=p.device)
+    emitted = torch.where(steps == n_acc[..., None], tail,
+                          torch.cat([d, tail], dim=-1))
+    return emitted, n_acc + 1
+
+
+def sampled_accept(logits: torch.Tensor, draft: torch.Tensor,
+                   generator: Optional[torch.Generator], temperature, top_p,
+                   eos_id: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sampled loops' acceptance (moondream_tpu/engine/generate.py:
+    345-381): the rejection test of `draft` (..., k-1) against the target
+    nucleus of the span's logits (..., k, V) (`temperature`/`top_p` floats,
+    or tensors that broadcast against (..., 1, 1)), cut so that the first
+    EOS among the emitted tokens is carried. Returns (emitted (..., k),
+    m (...))."""
+    emitted, m = speculative_sample(target_probs(logits, temperature, top_p), draft, generator)
+    steps = torch.arange(emitted.shape[-1], device=emitted.device)
+    return emitted, _cut_at_eos(m, (emitted == eos_id) & (steps < m[..., None]))
+
+
+def spec_spans(
+    model: TextModel,
+    kv: KVCache,
+    first_token: torch.Tensor,
+    pos: int,
+    max_tokens: int,
+    eos_id: int,
+    suppress_ids: Tuple[int, ...],
+    spec_k: int = 8,
+    kv_bound: Optional[int] = None,
+    seed: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    temperature: float = 0.0,
+    top_p: float = 0.0,
+) -> Iterator[List[int]]:
+    """The speculative answer loop, one verify span at a time: while the
+    token is not EOS and the limit is not reached, draft spec_k - 1 tokens
+    from [seed; emitted] (ngram_draft), verify [token; draft] in one forward
+    and advance by the m tokens the acceptance gives: greedy
+    (`greedy_accept`) at temperature 0, else the rejection test against the
+    target nucleus (`sampled_accept`). Yields each span's m emitted tokens
+    (the span's token and its accepted drafts) as host ints. The host reads
+    m and the span's tokens in one transfer per span (it needs m for the
+    next position), and the first token once before the loop; the reads are
+    recorded under LOOP_COUNTS "generate_text_spec" (or
+    "generate_text_spec_sampled") when the loop ends. The fused loops and
+    the speculative stream both run it."""
+    sampled = temperature > 0
+
+    def accept(draft, q_toks, at):
+        logits = _verify_logits(model, kv, q_toks, at, kv_bound, suppress_ids)
+        if sampled:
+            return sampled_accept(logits, draft, generator, temperature, top_p, eos_id)
+        g = torch.argmax(logits, dim=-1)
+        return g, greedy_accept(draft, g, eos_id)
+
+    limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
+    dev = first_token.device
+    s0 = 0 if seed is None else seed.shape[0]
+    # the draft history [seed; emitted], JAX's width (seed + max_context)
+    hist = torch.zeros(s0 + model.config.max_context, dtype=torch.long, device=dev)
+    if seed is not None:
+        hist[:s0] = seed
+    tok = first_token.reshape(()).long()
+    t = int(tok)
+    reads, iters, i = 1, 0, 0
+    while t != eos_id and i < limit:
+        hist[s0 + i] = tok
+        draft, _ = ngram_draft(hist, s0 + i + 1, tok, spec_k)
+        emitted, m = accept(draft, torch.cat([tok.view(1), draft]), pos + i)
+        m = m.clamp(max=limit - i)
+        host = torch.cat([m.view(1), emitted]).tolist()
+        reads += 1
+        iters += 1
+        n = host[0]
+        if n > 1:
+            hist[s0 + i + 1:s0 + i + n] = emitted[:n - 1]
+        yield [t] + host[1:n]
+        tok, t = emitted[n - 1], host[n]
+        i += n
+    _record("generate_text_spec_sampled" if sampled else "generate_text_spec", iters, reads)
+
+
+def _collect(spans: Iterator[List[int]], pos: int) -> GenerateResult:
+    out = [t for span in spans for t in span]
+    return GenerateResult(tokens=out, count=len(out), pos=pos + len(out))
+
+
+def generate_text_spec(
+    model: TextModel,
+    kv: KVCache,
+    first_token: torch.Tensor,
+    pos: int,
+    max_tokens: int,
+    eos_id: int,
+    suppress_ids: Tuple[int, ...],
+    spec_k: int = 8,
+    kv_bound: Optional[int] = None,
+    seed: Optional[torch.Tensor] = None,
+) -> GenerateResult:
+    """Speculative greedy generation (moondream_tpu/engine/generate.py:
+    176-293): n-gram drafts verified in one spec_k-row forward per
+    iteration, each emitting 1..spec_k tokens; the ids equal
+    `generate_text`'s at temperature 0 (a draft is accepted only where it
+    equals the greedy continuation; span and step accumulate in another
+    order, so a near tie could flip, as in the JAX package). The first
+    in-span EOS is carried and never emitted. `kv_bound` must cover pos +
+    max_tokens + spec_k; the loop stops spec_k - 1 tokens before the
+    context end or kv_bound. `seed`: a (S0,) prompt tail, left-padded with
+    -1, ahead of the draft history (prompt lookup; it changes drafts only).
+    Reads the device once per iteration plus once (`spec_spans`)."""
+    return _collect(spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids,
+                               spec_k, kv_bound, seed), pos)
+
+
+def generate_text_spec_sampled(
+    model: TextModel,
+    kv: KVCache,
+    first_token: torch.Tensor,
+    pos: int,
+    generator: Optional[torch.Generator],
+    temperature: float,
+    top_p: float,
+    max_tokens: int,
+    eos_id: int,
+    suppress_ids: Tuple[int, ...],
+    spec_k: int = 8,
+    kv_bound: Optional[int] = None,
+    seed: Optional[torch.Tensor] = None,
+) -> GenerateResult:
+    """Speculative sampling at temperature > 0 (moondream_tpu/engine/
+    generate.py:296-417): the drafts of generate_text_spec accepted by the
+    rejection test against the target nucleus (`speculative_sample`), so
+    the emitted sequence is distributed as the plain sampled loop's,
+    though not draw for draw. The first EOS among an iteration's emitted
+    tokens is carried. Same limits, seed and reads as generate_text_spec."""
+    return _collect(spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids,
+                               spec_k, kv_bound, seed, generator, temperature, top_p), pos)
 
 
 class ReasoningResult(NamedTuple):

@@ -19,6 +19,25 @@ def apply_top_p_mask(probs_desc: torch.Tensor, top_p: float) -> torch.Tensor:
     return filtered / filtered.sum(dim=-1, keepdim=True)
 
 
+def target_probs(logits: torch.Tensor, temperature, top_p) -> torch.Tensor:
+    """The distribution a nucleus draw at temperature > 0 samples from:
+    softmax(logits / T), top-p filtered and renormalised, in vocabulary
+    order (moondream_tpu/engine/sampling.py:25). (..., V) logits -> (..., V)
+    fp32 probabilities; `temperature`/`top_p` are floats or tensors that
+    broadcast against (..., 1). Speculative sampling's accept and residual
+    rule reads these probabilities themselves, not just a draw. The sort is
+    stable, as JAX's argsort, so ties at the top-p edge resolve alike."""
+    logits = logits.float()
+    if isinstance(temperature, torch.Tensor):
+        safe_t = temperature.float().clamp_min(1e-6)
+    else:
+        safe_t = max(temperature, 1e-6)
+    probs = torch.softmax(logits / safe_t, dim=-1)
+    probs_desc, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    filtered = apply_top_p_mask(probs_desc, top_p)
+    return torch.zeros_like(filtered).scatter_(-1, order, filtered)
+
+
 def sample_token(
     logits: torch.Tensor,
     generator: torch.Generator,
@@ -31,7 +50,8 @@ def sample_token(
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
-    probs_desc, order = torch.sort(probs, dim=-1, descending=True)
+    # stable, as JAX's argsort: exact ties keep the lower id first
+    probs_desc, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     filtered = apply_top_p_mask(probs_desc, top_p)
     cdf = torch.cumsum(filtered, dim=-1)
     u = torch.rand((1,), generator=generator, device=logits.device) * cdf[-1]

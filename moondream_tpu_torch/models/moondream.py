@@ -53,6 +53,10 @@ DEFAULT_MAX_OBJECTS = 50
 CROP_BUCKETS = (2, 5, 9, 13)
 # Prompt prefills pad to multiples of this.
 PROMPT_PAD = 8
+# Speculative decoding seeds its draft history with the prompt's last
+# tokens, left-padded with -1 to this width (moondream_tpu/models/
+# moondream.py:276).
+SPEC_SEED_LEN = 64
 
 
 @dataclass(frozen=True)
@@ -96,6 +100,12 @@ def _box(b) -> Dict[str, float]:
 
 def _ceil_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _prompt_pad(length: int) -> int:
+    """The rows a prompt prefill of `length` tokens writes: the length
+    rounded up to PROMPT_PAD, at least PROMPT_PAD."""
+    return max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
 
 
 def _bucket(n: int, buckets=CROP_BUCKETS) -> int:
@@ -285,7 +295,7 @@ class MoondreamModel:
         tok_cfg = self.config.tokenizer
         ids = list(prompt_tokens)
         length = len(ids)
-        pad = max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
+        pad = _prompt_pad(length)
         ids_t = torch.tensor([ids + [0] * (pad - length)], device=self.device)
         emb = text_encoder(ids_t, self.text).to(self.dtype)
         if spatial_refs:
@@ -312,44 +322,97 @@ class MoondreamModel:
             s.get("top_p", DEFAULT_TOP_P),
         )
 
-    def _generate_answer_tokens(
-        self, kv, next_token, pos, settings, eos_id=None
-    ) -> List[int]:
-        max_tokens, temperature, top_p = self._settings(settings)
-        eos = eos_id if eos_id is not None else self.config.tokenizer.eos_id
-        result = engine.generate_text(
-            self.text, kv, next_token, pos, self.generator, temperature, top_p,
-            max_tokens, eos, (self.config.tokenizer.answer_id,),
-            kv_bound=self._decode_bound(pos + max_tokens + 1),
-        )
-        return result.tokens
+    @staticmethod
+    def _spec_k(settings) -> int:
+        """settings["speculative"]: True is k 8, a number k is max(2, k),
+        anything false is 0 (no speculation)."""
+        spec = (settings or {}).get("speculative")
+        if not spec:
+            return 0
+        return 8 if spec is True else max(2, int(spec))
 
-    def _stream_answer(
-        self, kv, next_token, pos, settings, eos_id=None
-    ) -> Iterator[str]:
-        """Incremental streaming: one decode step and one host sync per
-        token, text flushed on word boundaries."""
+    def _spec_seed(self, prompt_tokens) -> Optional[torch.Tensor]:
+        """The draft seed of a prompt: its last SPEC_SEED_LEN tokens,
+        left-padded with -1 to that width, on the device (None without a
+        prompt)."""
+        if not prompt_tokens:
+            return None
+        tail = list(prompt_tokens)[-SPEC_SEED_LEN:]
+        return torch.tensor([-1] * (SPEC_SEED_LEN - len(tail)) + tail, device=self.device)
+
+    def _generate_answer_tokens(
+        self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None,
+    ) -> List[int]:
+        """The answer's ids. With settings["speculative"] (k 8 for True):
+        n-gram drafts, seeded by the prompt's tail, verified k rows at a
+        time; greedy ids equal the plain loop's, and at temperature > 0 the
+        drafts pass the rejection test against the target nucleus
+        (moondream_tpu/models/moondream.py:929-982)."""
         max_tokens, temperature, top_p = self._settings(settings)
         eos = eos_id if eos_id is not None else self.config.tokenizer.eos_id
         suppress = (self.config.tokenizer.answer_id,)
+        spec_k = self._spec_k(settings)
+        if not spec_k:
+            return engine.generate_text(
+                self.text, kv, next_token, pos, self.generator, temperature, top_p,
+                max_tokens, eos, suppress, kv_bound=self._decode_bound(pos + max_tokens + 1),
+            ).tokens
+        bound = self._decode_bound(pos + max_tokens + spec_k + 1)
+        seed = self._spec_seed(prompt_tokens)
+        if temperature == 0:
+            return engine.generate_text_spec(
+                self.text, kv, next_token, pos, max_tokens, eos, suppress, spec_k,
+                bound, seed,
+            ).tokens
+        return engine.generate_text_spec_sampled(
+            self.text, kv, next_token, pos, self.generator, temperature, top_p,
+            max_tokens, eos, suppress, spec_k, bound, seed,
+        ).tokens
+
+    def _stream_answer(
+        self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None,
+    ) -> Iterator[str]:
+        """Incremental streaming, text flushed on word boundaries: one decode
+        step and one host sync per token, or with settings["speculative"]
+        the fused loop's verify spans (engine.spec_spans), one sync per
+        1..k tokens."""
+        max_tokens, temperature, top_p = self._settings(settings)
+        eos = eos_id if eos_id is not None else self.config.tokenizer.eos_id
+        suppress = (self.config.tokenizer.answer_id,)
+        spec_k = self._spec_k(settings)
+        if spec_k:
+            tokens = (t for span in engine.spec_spans(
+                self.text, kv, next_token, pos, max_tokens, eos, suppress, spec_k,
+                self._decode_bound(pos + max_tokens + spec_k + 1),
+                self._spec_seed(prompt_tokens), self.generator, temperature, top_p,
+            ) for t in span)
+        else:
+            tokens = self._step_tokens(kv, next_token, pos, max_tokens, eos, suppress,
+                                       temperature, top_p)
         streamer = TokenStreamer(self._decode_tokens)
+        for tok in tokens:
+            chunk = streamer.feed(tok)
+            if chunk:
+                yield chunk
+        tail = streamer.finish()
+        if tail:
+            yield tail
+
+    def _step_tokens(self, kv, next_token, pos, max_tokens, eos, suppress, temperature,
+                     top_p) -> Iterator[int]:
+        """The answer's ids one decode step and one host sync at a time."""
         max_ctx = self.config.text.max_context
         bound = self._decode_bound(pos + max_tokens + 1)
         tok = int(next_token)
         generated = 0
         while tok != eos and generated < max_tokens and pos < max_ctx:
-            chunk = streamer.feed(tok)
-            if chunk:
-                yield chunk
+            yield tok
             emb = text_encoder(torch.tensor([[tok]], device=self.device), self.text)
             logits, _ = engine.decode_step(self.text, kv, emb, pos, bound)
             engine.suppress(logits, suppress)
             tok = int(sample_token(logits, self.generator, temperature, top_p))
             pos += 1
             generated += 1
-        tail = streamer.finish()
-        if tail:
-            yield tail
 
     # -------------------------------------------------------------- query
     def query(
@@ -416,9 +479,10 @@ class MoondreamModel:
             None if reasoning else spatial_refs, prefix_len=prefix_len,
         )
         if stream:
-            return {**reasoning_dict,
-                    "answer": self._stream_answer(kv, next_token, pos, settings)}
-        tokens = self._generate_answer_tokens(kv, next_token, pos, settings)
+            return {**reasoning_dict, "answer": self._stream_answer(
+                kv, next_token, pos, settings, prompt_tokens=answer_prompt)}
+        tokens = self._generate_answer_tokens(kv, next_token, pos, settings,
+                                              prompt_tokens=answer_prompt)
         return {**reasoning_dict,
                 "answer": "".join(stream_text(tokens, self._decode_tokens))}
 
@@ -469,13 +533,16 @@ class MoondreamModel:
         enc = self.encode_image(image, settings)
         _, temperature, top_p = self._settings(settings)
         kv = self.load_encoded_image(enc)
+        prompt = list(templates[length])
         _, _, next_token, pos, kv = self._prefill_prompt(
-            kv, list(templates[length]), enc.pos, temperature, top_p
+            kv, prompt, enc.pos, temperature, top_p
         )
         if not stream:
-            tokens = self._generate_answer_tokens(kv, next_token, pos, settings)
+            tokens = self._generate_answer_tokens(kv, next_token, pos, settings,
+                                                  prompt_tokens=prompt)
             return {"caption": "".join(stream_text(tokens, self._decode_tokens))}
-        return {"caption": self._stream_answer(kv, next_token, pos, settings)}
+        return {"caption": self._stream_answer(kv, next_token, pos, settings,
+                                               prompt_tokens=prompt)}
 
     # ------------------------------------------------------ detect / point
     def _max_objects(self, settings) -> int:
@@ -622,7 +689,7 @@ class MoondreamModel:
             encs = [e if e is not None else next(fresh) for e in encs]
 
         pos, length = encs[0].pos, len(ids)
-        pad = max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
+        pad = _prompt_pad(length)
         bound = self._decode_bound(session_end(pos, length, pad))
         kv = self._load_snapshot(_concat_enc_kv(encs), bound)
         ids_t = torch.tensor([list(ids) + [0] * (pad - length)], device=self.device)
@@ -665,8 +732,20 @@ class MoondreamModel:
         y_emb = region_ops.encode_coordinate(xy[:, 1, None, None], self.region)
         embeds = torch.cat([before, x_emb, y_emb, after], dim=1).to(self.dtype)
         length = embeds.shape[1]
-        pad = max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
+        pad = _prompt_pad(length)
         return torch.nn.functional.pad(embeds, (0, 0, 0, pad - length)), length
+
+    def _gaze_prefill(self, kv: KVCache, pos: int, embeds: torch.Tensor, length: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Prefill one eye position's gaze prompt (`_gaze_embeds`, (1, pad,
+        D) of `length` rows) onto `kv` at pos (moondream_tpu/models/
+        moondream.py:1644-1674). Returns (the last hidden state (D,), its
+        greedy token (0-d), the position after it)."""
+        logits, hidden = engine.prefill(
+            self.text, kv, embeds, pos, length, self.config.text.prefix_attn,
+            kv_bound=self._kv_bound(pos + embeds.shape[1]),
+        )
+        return hidden, torch.argmax(logits, dim=-1), pos + length
 
     def _detect_gaze(
         self, encoded: EncodedImage, source: Tuple[float, float], force_detect=False
@@ -675,14 +754,7 @@ class MoondreamModel:
         prompt prefilled over the image, then one point. `force_detect`
         replaces the prompt's greedy token with 0 before the EOS check."""
         kv = self.load_encoded_image(encoded)
-        embeds, length = self._gaze_embeds([source])
-        pos = encoded.pos
-        logits, hidden = engine.prefill(
-            self.text, kv, embeds, pos, length, self.config.text.prefix_attn,
-            kv_bound=self._kv_bound(pos + embeds.shape[1]),
-        )
-        pos += length
-        next_token = torch.argmax(logits, dim=-1)
+        hidden, next_token, pos = self._gaze_prefill(kv, encoded.pos, *self._gaze_embeds([source]))
         if force_detect:
             next_token = torch.zeros_like(next_token)
         if int(next_token) == self.config.tokenizer.eos_id:

@@ -1,5 +1,5 @@
 """ContinuousBatchingEngine: the host-side scheduler over the slot pool
-(moondream_tpu/models/serve.py, the plain-chunk subset).
+(moondream_tpu/models/serve.py, without LoRA variants).
 
 Requests with different images, prompts and lengths are admitted whenever
 a slot is free, prefilled one by one, and advanced together by fused
@@ -9,19 +9,23 @@ chunk, not per token.
     eng = ContinuousBatchingEngine(model, n_slots=8)
     r1 = eng.submit(image1)                          # caption
     r2 = eng.submit(image2, question="What is it?")  # VQA
-    results = eng.drain()                            # {req_id: text}
+    r3 = eng.submit_detect(image3, "person")         # boxes
+    results = eng.drain()     # {req_id: text, or {"objects": [...]} for r3}
 
 `slot_len` bounds prompt + generated tokens per request; an encoded image
 alone occupies 730 KV positions, so slot_len must cover image + question
 + expected output. Submissions whose prompt already fills the slot raise
 ValueError; token budgets are clamped to the room left in the slot.
 
-Not ported yet: speculative chunks and LoRA variants (the arguments
-`speculative`, `spec_adaptive`, `variants` and `variant=` raise
-NotImplementedError), the structured detect/point/gaze requests with their
-mixed chunks, and `submit_many`. A GQA text config (n_kv_heads < n_heads)
-is refused: the pool's ragged decode is MHA only, as in the JAX package
-(moondream_tpu/ops/attention.py:608).
+Detect, point and gaze requests (`submit_detect`, `submit_point`,
+`submit_gaze`) share the pool with text requests through the mixed chunks;
+`speculative=k` drafts and verifies k tokens per slot and iteration, also
+beside structured rows in a greedy pool.
+
+Not ported yet: LoRA variants (the arguments `variants` and `variant=`
+raise NotImplementedError) and `submit_many`. A GQA text config
+(n_kv_heads < n_heads) is refused: the pool's ragged decode is MHA only, as
+in the JAX package (moondream_tpu/ops/attention.py:608).
 """
 
 from __future__ import annotations
@@ -29,11 +33,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..engine import serving
 from ..utils.streaming import TokenStreamer, stream_text
-from .moondream import EncodedImage, MoondreamModel
+from .moondream import EncodedImage, MoondreamModel, _prompt_pad
 from .text import KVCache, slice_cache_span, slice_cache_span_from
 
 DEFAULT_MAX_TOKENS = 512
@@ -49,6 +54,7 @@ class _Slot:
     active: bool = False
     on_text: Optional[Any] = None  # callback(req_id, chunk) per text chunk
     streamer: Optional[TokenStreamer] = None  # when on_text is set
+    structured: Optional[str] = None  # None (text), "detect", "point" or "gaze"
 
 
 @dataclass
@@ -69,6 +75,11 @@ class PreparedRequest:
     # the EncodedImage the request was prefilled from: prefix-shared pools
     # key their shared-prefix entries on its identity
     enc: Optional[EncodedImage] = None
+    # structured requests carry their state machine's start
+    structured: Optional[str] = None  # "detect", "point" or "gaze"
+    hidden: Optional[torch.Tensor] = None  # the prompt's last hidden state
+    include_size: bool = False
+    n_objects: int = 0
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -89,6 +100,7 @@ class ContinuousBatchingEngine:
         pipeline_depth: int = 1,
         speculative: int = 0,
         spec_adaptive: float = 0.0,
+        max_objects: int = 50,
         variants: Optional[Dict[str, Any]] = None,
         eos_id: Optional[int] = None,
         prefix_share: bool = False,
@@ -106,9 +118,19 @@ class ContinuousBatchingEngine:
         image KV once and admission copies only the prompt suffix.
 
         `eos_id`: overrides the tokenizer's (-1 forces fixed-length
-        generation, for timing)."""
-        if speculative or spec_adaptive:
-            raise _not_ported("speculative serving")
+        generation, for timing).
+
+        `speculative=k`: each chunk iteration drafts k-1 tokens per slot
+        from its own history, verifies them in one ragged span forward and
+        advances each slot by 1..k tokens; greedy pools emit the plain
+        chunks' tokens, sampled pools draw by the rejection test against
+        each row's nucleus (the same distribution). Budgets are clamped k
+        tokens earlier so that every span fits its slot. `spec_adaptive`:
+        when > 0, speculation turns off for the engine's life once the
+        accept rate (`spec_accept_rate`) is below it after 8 spec chunks.
+
+        `max_objects`: the most objects a detect or point request may ask
+        for (the size of each slot's box buffer)."""
         if variants:
             raise _not_ported("multi-variant (LoRA) serving")
         tc = model.config.text
@@ -127,6 +149,11 @@ class ContinuousBatchingEngine:
         self.temperature = temperature
         self.top_p = top_p
         self.pipeline_depth = max(1, int(pipeline_depth))
+        self.spec_k = max(0, int(speculative))
+        self.spec_adaptive = float(spec_adaptive)
+        self._spec_tokens = 0  # tokens emitted by spec chunks
+        self._spec_slot_iters = 0  # active slots x iterations of spec chunks
+        self._spec_chunks = 0
         self._inflight: List[Any] = []
         dev = model.device
 
@@ -167,9 +194,28 @@ class ContinuousBatchingEngine:
         self.temp_row = torch.full((S,), float(temperature), device=dev)
         self.topp_row = torch.full((S,), float(top_p), device=dev)
         self._row_overrides = False
+        # sticky once any request samples: routes spec chunks to the
+        # sampled form and a pool with structured rows to the plain mixed one
+        self._sampling_used = temperature > 0
         # sampled rows draw from the pool's own generator (the JAX engine
         # starts from PRNGKey(0))
         self.generator = torch.Generator(device=dev).manual_seed(0)
+        if self.spec_k:
+            # per-slot draft histories, plus the spare column of the chunks'
+            # masked writes (engine.serving._put)
+            self.hist = torch.zeros((S, self.slot_len + 1), dtype=torch.int32, device=dev)
+            self.hist_cnt = torch.zeros((S,), dtype=torch.int32, device=dev)
+        # structured rows' state machine (engine.serving._StructState),
+        # allocated up front so that structured and text requests mix freely
+        self.max_objects = int(max_objects)
+        self.mode = torch.zeros((S,), dtype=torch.int32, device=dev)  # MODE_TEXT
+        self.hidS = torch.zeros((S, self.config.dim), dtype=model.dtype, device=dev)
+        self.pending = torch.zeros((S,), dtype=torch.int32, device=dev)
+        self.xbuf = torch.zeros((S,), dtype=torch.float32, device=dev)
+        self.ybuf = torch.zeros((S,), dtype=torch.float32, device=dev)
+        self.sboxes = torch.zeros((S, self.max_objects, 4), dtype=torch.float32, device=dev)
+        self.nobj = torch.zeros((S,), dtype=torch.int32, device=dev)
+        self.is_box = torch.zeros((S,), dtype=torch.bool, device=dev)
 
         self.slots = [_Slot() for _ in range(S)]
         self._slot_pid: List[Optional[int]] = [None] * S
@@ -268,15 +314,22 @@ class ContinuousBatchingEngine:
         tok_cfg = model.config.tokenizer
         temp = self.temperature if temperature is None else temperature
         topp = self.top_p if top_p is None else top_p
-        enc = model.encode_image(image)
-        kv1 = model.load_encoded_image(enc, slots=self.slot_len)
         if question is None:
             prompt = list(tok_cfg.templates["caption"][caption_length])
         else:
             t = tok_cfg.templates["query"]
             prompt = list(t["prefix"]) + model._encode_text(question) + list(t["suffix"])
+        enc = model.encode_image(image)
+        kv1 = self._prefill_buffer(enc, len(prompt))
         _, _, next_token, pos, kv1 = model._prefill_prompt(kv1, prompt, enc.pos, temp, topp)
         return PreparedRequest(kv1, next_token, pos, prompt, temp, topp, enc=enc)
+
+    def _prefill_buffer(self, enc: EncodedImage, prompt_len: int) -> KVCache:
+        """A single-row buffer holding `enc` with room for the prompt's
+        padded prefill: slot_len slots, more when the padded prompt runs
+        past them (admission then refuses the request with a ValueError)."""
+        end = enc.pos + _prompt_pad(prompt_len)
+        return self.model.load_encoded_image(enc, slots=max(self.slot_len, end))
 
     def admit_prepared(
         self, prep: PreparedRequest, max_tokens: int = DEFAULT_MAX_TOKENS,
@@ -291,10 +344,24 @@ class ContinuousBatchingEngine:
         if prep.released:
             raise ValueError("PreparedRequest was already admitted/released")
         prep.released = True  # _admit consumes (or recycles) the buffer
-        return self._admit(
-            prep.kv1, prep.next_token, prep.pos, free[0], max_tokens, on_text,
-            prep.temperature, prep.top_p, prep.enc,
-        )
+        slot = free[0]
+        if prep.structured is None:
+            return self._admit(
+                prep.kv1, prep.next_token, prep.pos, slot, max_tokens, on_text,
+                prep.prompt, prep.temperature, prep.top_p, prep.enc,
+            )
+        # a structured row's budget: every object's steps and two more
+        steps = (3 if prep.include_size else 2) * prep.n_objects + 2
+        req_id = self._admit(prep.kv1, prep.next_token, prep.pos, slot, steps, None,
+                             prep.prompt, 0.0, 0.0, prep.enc)
+        # its state machine starts at XN from the prompt's hidden state and token
+        self.slots[slot].structured = prep.structured
+        self.mode[slot] = serving.MODE_XN
+        self.hidS[slot] = prep.hidden.reshape(-1)[-self.config.dim:]
+        self.pending[slot] = prep.next_token
+        self.nobj[slot] = 0
+        self.is_box[slot] = bool(prep.include_size)
+        return req_id
 
     def release_prepared(self, prep: PreparedRequest) -> None:
         """Return an unadmitted request's buffer to the model (idempotent)."""
@@ -304,21 +371,26 @@ class ContinuousBatchingEngine:
 
     def _admit(
         self, kv1: KVCache, next_token: torch.Tensor, pos: int, slot: int,
-        max_tokens: int, on_text, temperature: float, top_p: float,
+        max_tokens: int, on_text, prompt: List[int], temperature: float, top_p: float,
         enc: Optional[EncodedImage],
     ) -> int:
         """Copy a prefilled request into `slot` and arm it. Rejects prompts
         that leave no room to generate; clamps the budget so decode never
-        writes past the slot."""
+        writes past the slot: speculative verify spans write spec_k rows
+        from the slot's position, so with speculation on the budget keeps
+        pos + budget + spec_k within the slot."""
         model = self.model
-        if pos + 1 > self.slot_len:
+        margin = self.spec_k
+        if pos + 1 + margin > self.slot_len:
             model._recycle_kv(kv1)
             raise ValueError(
                 f"prompt occupies {pos} KV positions but slot_len is "
-                f"{self.slot_len}; no room to generate. Size slot_len >= "
-                "prompt length (image is 730 tokens) + expected output."
+                f"{self.slot_len}; no room to generate"
+                + (f" (speculative margin {margin})" if margin else "")
+                + ". Size slot_len >= prompt length (image is 730 tokens) + "
+                "expected output."
             )
-        budget = min(max_tokens, self.slot_len - pos)
+        budget = min(max_tokens, self.slot_len - pos - margin)
         if self.prefix_share:
             if enc is None:
                 raise ValueError("prefix_share pools need the request's EncodedImage")
@@ -348,15 +420,90 @@ class ContinuousBatchingEngine:
         self.slots[slot] = _Slot(
             req_id=req_id, tokens=[], active=True, on_text=on_text, streamer=streamer
         )
+        # a text row; admit_prepared turns structured ones over afterwards
+        # (else a text request would inherit a structured one's mode)
+        self.mode[slot] = serving.MODE_TEXT
         self.temp_row[slot] = temperature
         self.topp_row[slot] = top_p
+        if temperature > 0:
+            self._sampling_used = True
         if temperature != self.temperature or top_p != self.top_p:
             self._row_overrides = True
         self.cur[slot] = next_token
         self.pos[slot] = pos
         self.active[slot] = True
         self.budget[slot] = budget
+        if self.spec_k:
+            # the prompt's tail seeds the slot's draft history (prompt
+            # lookup: answers that copy from the question draft from it)
+            seed = list(prompt)[-(self.slot_len // 2):]
+            row = torch.zeros((self.slot_len + 1,), dtype=torch.int32)
+            row[:len(seed)] = torch.tensor(seed, dtype=torch.int32)
+            self.hist[slot] = row.to(self.hist.device, non_blocking=True)
+            self.hist_cnt[slot] = len(seed)
         return req_id
+
+    def submit_detect(self, image, object: str, max_objects: Optional[int] = None) -> int:
+        """Admit a detect request (boxes of `object`) into the pool beside
+        text requests; its result is {"objects": [{x_min, y_min, x_max,
+        y_max}, ...]}, as `MoondreamModel.detect` gives."""
+        return self._submit_structured(image, object, "detect", True, max_objects)
+
+    def submit_point(self, image, object: str, max_objects: Optional[int] = None) -> int:
+        """Admit a point request; its result is {"points": [{x, y}, ...]}, as
+        `MoondreamModel.point` gives."""
+        return self._submit_structured(image, object, "point", False, max_objects)
+
+    def submit_gaze(self, image, eye, force_detect: bool = False) -> int:
+        """Admit a gaze request for the eye at `eye` (x, y): the gaze prompt
+        is prefilled once, then its one point rides the mixed chunks. The
+        result is {"gaze": {"x", "y"} or None}, as `MoondreamModel.
+        detect_gaze` gives in eye mode."""
+        if not self.free_slots():
+            raise RuntimeError("no free slot; step() or drain() first")
+        return self.admit_prepared(self.prepare_gaze(image, eye, force_detect))
+
+    def prepare_gaze(self, image, eye, force_detect: bool = False) -> PreparedRequest:
+        """Encode and prefill a gaze request without touching the pool (the
+        same contract as prepare())."""
+        model = self.model
+        enc = model.encode_image(image)
+        embeds, length = model._gaze_embeds([tuple(eye)])
+        kv1 = self._prefill_buffer(enc, length)
+        hidden, next_token, pos = model._gaze_prefill(kv1, enc.pos, embeds, length)
+        if force_detect:
+            next_token = torch.zeros_like(next_token)
+        return PreparedRequest(kv1, next_token, pos, [], 0.0, 0.0, enc=enc,
+                               structured="gaze", hidden=hidden, n_objects=1)
+
+    def _submit_structured(self, image, object: str, template_key: str,
+                           include_size: bool, max_objects: Optional[int]) -> int:
+        if not self.free_slots():
+            raise RuntimeError("no free slot; step() or drain() first")
+        return self.admit_prepared(self.prepare_structured(
+            image, object, template_key, include_size, max_objects))
+
+    def prepare_structured(self, image, object: str, template_key: str,
+                           include_size: bool,
+                           max_objects: Optional[int] = None) -> PreparedRequest:
+        """Encode and prefill a detect (`template_key` "detect", with
+        sizes) or point request without touching the pool (the same
+        contract as prepare()). Raises ValueError when `max_objects`
+        exceeds the pool's."""
+        n_obj = self.max_objects if max_objects is None else int(max_objects)
+        if n_obj > self.max_objects:
+            raise ValueError(
+                f"max_objects={n_obj} exceeds the pool's max_objects="
+                f"{self.max_objects} (set at engine construction)"
+            )
+        model = self.model
+        prompt = model._structured_prompt(template_key, object)
+        enc = model.encode_image(image)
+        kv1 = self._prefill_buffer(enc, len(prompt))
+        _, hidden, next_token, pos, kv1 = model._prefill_prompt(kv1, prompt, enc.pos, 0.0, 0.0)
+        return PreparedRequest(kv1, next_token, pos, prompt, 0.0, 0.0, enc=enc,
+                               structured=template_key, hidden=hidden,
+                               include_size=include_size, n_objects=n_obj)
 
     def step(self) -> List[int]:
         """Advance all active slots by one chunk. Returns the req_ids that
@@ -372,27 +519,57 @@ class ContinuousBatchingEngine:
 
     def _dispatch_chunk(self) -> None:
         """Enqueue one chunk on the device state and start copying its
-        tokens to the host; nothing waits for the device here."""
+        results to the host; nothing waits for the device here. Five chunks
+        (moondream_tpu/models/serve.py:791-876): with structured rows
+        active, the mixed chunk, speculative in a greedy pool (a sampled
+        pool with structured rows takes the plain mixed chunk: its text rows
+        do not draft meanwhile); otherwise the speculative chunk, sampled
+        once any request sampled, or the plain one."""
         if self._row_overrides:
             temp, topp = self.temp_row, self.topp_row
         else:
             temp, topp = self.temperature, self.top_p
-        res = serving.serve_chunk(
-            self.model.text, self.kv, self.cur, self.pos, self.active,
-            self.budget, self.generator, temp, topp, self.kv_pref, self.pids,
-            eos_id=self.eos_id,
-            suppress_ids=(self.model.config.tokenizer.answer_id,),
-            chunk=self.chunk, kv_bound=self._suffix_slots,
-            prefix_len=self.prefix_len,
-        )
+        text = self.model.text
+        use_mixed = any(s.active and s.structured for s in self.slots)
+        use_mixed_spec = use_mixed and self.spec_k and not self._sampling_used
+        was_spec = bool(self.spec_k) and (not use_mixed or use_mixed_spec)
+        shared = dict(pref=self.kv_pref, pids=self.pids)
+        kw = dict(eos_id=self.eos_id, suppress_ids=(self.model.config.tokenizer.answer_id,),
+                  kv_bound=self._suffix_slots, prefix_len=self.prefix_len)
+        state = (self.kv, self.cur, self.pos, self.active, self.budget)
+        struct = (self.mode, self.hidS, self.pending, self.xbuf, self.ybuf, self.sboxes,
+                  self.nobj, self.is_box)
+        if use_mixed_spec:
+            res = serving.serve_chunk_mixed_spec(
+                text, self.model.region, *state, self.hist, self.hist_cnt, *struct, **shared,
+                n_iter=self.chunk, spec_k=self.spec_k, max_objects=self.max_objects, **kw)
+        elif use_mixed:
+            res = serving.serve_chunk_mixed(
+                text, self.model.region, *state, self.generator, temp, topp, *struct,
+                **shared, chunk=self.chunk, max_objects=self.max_objects, **kw)
+        elif self.spec_k and self._sampling_used:
+            res = serving.serve_chunk_spec_sampled(
+                text, *state, self.hist, self.hist_cnt, self.generator, temp, topp, **shared,
+                n_iter=self.chunk, spec_k=self.spec_k, **kw)
+        elif self.spec_k:
+            res = serving.serve_chunk_spec(
+                text, *state, self.hist, self.hist_cnt, **shared, n_iter=self.chunk,
+                spec_k=self.spec_k, **kw)
+        else:
+            res = serving.serve_chunk(text, *state, self.generator, temp, topp, **shared,
+                                      chunk=self.chunk, **kw)
         self.cur, self.pos = res.cur, res.pos
         self.active, self.budget = res.active, res.budget
-        # ONE host transfer per chunk: tokens, emitted flags and the active
-        # rows packed into one int32 tensor, copied without blocking
-        packed = torch.cat(
-            [res.tokens, res.emitted.to(torch.int32), res.active.to(torch.int32)[:, None]],
-            dim=1,
-        )
+        if res.hist_cnt is not None:
+            self.hist_cnt = res.hist_cnt
+        # ONE host transfer per chunk: tokens, emitted flags, the active
+        # rows and, after a mixed chunk, the object counts and the boxes
+        # (their fp32 bits) packed into one int32 tensor, copied without
+        # blocking
+        parts = [res.tokens, res.emitted.to(torch.int32), res.active.to(torch.int32)[:, None]]
+        if use_mixed:
+            parts += [self.nobj[:, None], self.sboxes.flatten(1).view(torch.int32)]
+        packed = torch.cat(parts, dim=1)
         if packed.is_cuda:
             host = packed.to("cpu", non_blocking=True)
             done = torch.cuda.Event()
@@ -403,35 +580,56 @@ class ContinuousBatchingEngine:
         # chunk is in flight hands the slot to a new req_id, which must not
         # be credited with the old rows
         owners = {i: s.req_id for i, s in enumerate(self.slots) if s.active}
-        self._inflight.append((host, done, owners))
+        self._inflight.append((host, done, owners, res.tokens.shape[1], use_mixed, was_spec))
+
+    @property
+    def spec_accept_rate(self) -> Optional[float]:
+        """Mean tokens emitted per active slot and iteration of the
+        speculative chunks (1.0: no draft accepted; spec_k: all accepted;
+        below 1.0 when requests end inside a chunk, whose rows count for the
+        whole chunk). None before a spec chunk has been read back."""
+        if not self._spec_slot_iters:
+            return None
+        return self._spec_tokens / self._spec_slot_iters
 
     def _process_oldest(self) -> List[int]:
-        host, done, owners = self._inflight.pop(0)
+        host, done, owners, width, mixed, was_spec = self._inflight.pop(0)
         if done is not None:
             done.synchronize()
-        rows = host.tolist()
-        c = self.chunk
+        rows = host.numpy()
+        toks, emitted = rows[:, :width], rows[:, width:2 * width].astype(bool)
+        still_active = rows[:, 2 * width]
+        if mixed:
+            nobj = rows[:, 2 * width + 1]
+            boxes = np.ascontiguousarray(rows[:, 2 * width + 2:]).view(np.float32)
+            boxes = boxes.reshape(len(rows), self.max_objects, 4)
+        if was_spec and owners:
+            self._spec_tokens += int(emitted.sum())
+            self._spec_slot_iters += len(owners) * self.chunk
+            self._spec_chunks += 1
+            if (self.spec_adaptive and self.spec_k and self._spec_chunks >= 8
+                    and self.spec_accept_rate < self.spec_adaptive):
+                self.spec_k = 0  # plain chunks from here on
         finished = []
         for i, slot in enumerate(self.slots):
             if not slot.active or owners.get(i) != slot.req_id:
                 continue
-            toks, emitted, still_active = rows[i][:c], rows[i][c:2 * c], rows[i][2 * c]
-            new = [t for t, e in zip(toks, emitted) if e]
+            new = toks[i][emitted[i]].tolist()
             slot.tokens.extend(new)
             if slot.on_text is not None:
                 for t in new:
                     text = slot.streamer.feed(t)
                     if text:
                         slot.on_text(slot.req_id, text)
-            if not still_active:
-                self._retire(i)
+            if not still_active[i]:
+                self._retire(i, boxes[i][:nobj[i]] if mixed else None)
                 finished.append(slot.req_id)
         self._trim_history()
         return finished
 
-    def _retire(self, i: int) -> None:
+    def _retire(self, i: int, boxes: Optional[np.ndarray] = None) -> None:
         """Mark slot i done: release its prefix, flush its stream, record
-        its text."""
+        its text, or for a structured row its objects `boxes` (n, 4)."""
         slot = self.slots[i]
         slot.active = False
         self._release_prefix(i)
@@ -439,10 +637,27 @@ class ContinuousBatchingEngine:
             tail = slot.streamer.finish()
             if tail:
                 slot.on_text(slot.req_id, tail)
+        if slot.structured is not None and boxes is not None:
+            self.results[slot.req_id] = self._format_structured(slot.structured, boxes)
+            self.token_counts[slot.req_id] = 0
+            return
         self.results[slot.req_id] = "".join(
             stream_text(slot.tokens, self.model._decode_tokens)
         )
         self.token_counts[slot.req_id] = len(slot.tokens)
+
+    @staticmethod
+    def _format_structured(kind: str, rows) -> dict:
+        """A structured row's objects (n, 4) as `detect`, `point` or
+        `detect_gaze` format them."""
+        if kind == "detect":
+            return {"objects": [{"x_min": float(b[0]), "y_min": float(b[1]),
+                                 "x_max": float(b[2]), "y_max": float(b[3])} for b in rows]}
+        if kind == "gaze":
+            if len(rows) == 0:
+                return {"gaze": None}
+            return {"gaze": {"x": float(rows[0][0]), "y": float(rows[0][1])}}
+        return {"points": [{"x": float(b[0]), "y": float(b[1])} for b in rows]}
 
     def _trim_history(self) -> None:
         while len(self.results) > RESULTS_CAP:
@@ -452,12 +667,17 @@ class ContinuousBatchingEngine:
 
     def cancel(self, req_id: int) -> bool:
         """Cancel an active request: its slot frees at once and the text
-        decoded so far becomes its result. False when the request is not
+        decoded so far (a structured request: the objects found so far)
+        becomes its result. False when the request is not
         active (finished or unknown)."""
         for i, slot in enumerate(self.slots):
             if slot.active and slot.req_id == req_id:
                 self.active[i] = False
-                self._retire(i)
+                boxes = None
+                if slot.structured is not None:  # the objects found so far
+                    n = int(self.nobj[i])
+                    boxes = self.sboxes[i, :n].cpu().numpy()
+                self._retire(i, boxes)
                 self._trim_history()
                 return True
         return False

@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+# Query rows of one kernel C launch (its wrapper's limit).
+RAGGED_SPAN_MAX = 16
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -202,8 +204,9 @@ def decode_attention_cached(
     pids: Optional[torch.Tensor] = None,
     prefix_len: int = 0,
 ) -> torch.Tensor:
-    """Attention for one token or a span of <= 16 rows over one layer of the
-    whole stacked cache, bf16 or int8 codes with scales; the layer is
+    """Attention for one token or a span over one layer of the whole stacked
+    cache (<= 16 rows with one position for the batch; any span with per-row
+    positions), bf16 or int8 codes with scales; the layer is
     addressed by index, never sliced or copied. Counterpart of
     `decode_attention_cached` of the JAX package on its plain (unpaired)
     layout. With fewer KV heads than query heads (GQA), one token over a
@@ -241,10 +244,19 @@ def decode_attention_cached(
             )
         return decode_attn_gqa(q, k_cache, v_cache, pos, prefix, layer, tk)
     if ragged:
-        return decode_attn_ragged(
-            q, k_cache, v_cache, layer, pos, prefix, tk, k_scale, v_scale,
-            pref_k, pref_v, pref_ks, pref_vs, pids, prefix_len,
-        )
+        # kernel C takes at most RAGGED_SPAN_MAX rows: a longer span (a
+        # speculative verify of k > 16) goes in pieces, piece j's rows at
+        # pos + j * RAGGED_SPAN_MAX. Exact: the whole span's K/V are in the
+        # cache before any piece attends.
+        pieces = [
+            decode_attn_ragged(
+                q[:, :, i:i + RAGGED_SPAN_MAX], k_cache, v_cache, layer,
+                pos + i if i else pos, prefix, tk, k_scale, v_scale,
+                pref_k, pref_v, pref_ks, pref_vs, pids, prefix_len,
+            )
+            for i in range(0, q.shape[2], RAGGED_SPAN_MAX)
+        ]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=2)
     return decode_attn_stacked(
         q, k_cache, v_cache, layer, pos, prefix, tk, k_scale, v_scale
     )

@@ -1,6 +1,8 @@
 """The port's own host modules against the JAX package's: configuration
 (region heads and tokenizer ids included), the offline byte tokenizer,
-word-boundary streaming and the gaze outlier filter. The port keeps copies
+word-boundary streaming, the gaze outlier filter and the copied constants
+(the drafter's n-gram length, the draft seed's width, the mixed pool's
+modes). The port keeps copies
 so that it never imports the JAX package; these tests hold the copies to
 the originals, exactly."""
 
@@ -11,10 +13,15 @@ import numpy as np
 import pytest
 
 from moondream_tpu import config as jax_config
+from moondream_tpu.engine import drafting as jax_drafting
+from moondream_tpu.engine import serving as jax_serving
+from moondream_tpu.models.moondream import MoondreamModel as JaxModel
 from moondream_tpu import tokenizer as jax_tokenizer
 from moondream_tpu.utils import points as jax_points
 from moondream_tpu.utils import streaming as jax_streaming
 from moondream_tpu_torch import config, tokenizer
+from moondream_tpu_torch.engine import drafting, serving
+from moondream_tpu_torch.models import moondream
 from moondream_tpu_torch.utils import points, streaming
 
 CONFIGS = {
@@ -93,3 +100,15 @@ def test_remove_outlier_points_matches_jax(name):
             pts, k, thr)
     assert inspect.getsource(points.remove_outlier_points) == inspect.getsource(
         jax_points.remove_outlier_points)
+
+
+@pytest.mark.parametrize("name,ours,theirs", [
+    ("MAX_NGRAM", drafting.MAX_NGRAM, jax_drafting.MAX_NGRAM),
+    ("SPEC_SEED_LEN", moondream.SPEC_SEED_LEN, JaxModel.SPEC_SEED_LEN),
+    ("MODE_TEXT", serving.MODE_TEXT, jax_serving.MODE_TEXT),
+    ("MODE_XN", serving.MODE_XN, jax_serving.MODE_XN),
+    ("MODE_Y", serving.MODE_Y, jax_serving.MODE_Y),
+    ("MODE_SIZE", serving.MODE_SIZE, jax_serving.MODE_SIZE),
+])
+def test_copied_constants_match_jax(name, ours, theirs):
+    assert ours == theirs, name

@@ -3,9 +3,11 @@ fresh interpreter with `sys.modules["jax"]` and `sys.modules["moondream_tpu"]`
 set to None, import every module of moondream_tpu_torch and run a tiny
 greedy caption on the CPU, dense and with int4 text blocks and an int8 KV
 cache, serve two requests on one image through a prefix-shared pool, caption
-two images in one lockstep batch, caption with a GQA text config, and run
+two images in one lockstep batch, caption with a GQA text config, run
 the region-head paths: detect, point, both gaze modes, query with reasoning
-and spatial refs, detect_batch and point_batch."""
+and spatial refs, detect_batch and point_batch, and the speculative paths:
+a speculative caption, a drafting call, and a speculative pool serving a
+caption beside a detect."""
 
 import os
 import subprocess
@@ -63,6 +65,16 @@ assert "reasoning" in model.query(img, "why?", reasoning=True, settings=greedy)
 assert isinstance(model.query(img, "why?", spatial_refs=[(0.2, 0.3)], settings=greedy)["answer"], str)
 assert len(model.detect_batch([img, img[:200]], "cat", settings={"max_objects": 2})) == 2
 assert len(model.point_batch([img, img[:200]], "cat", settings={"max_objects": 2})) == 2
+spec = model.caption(img, settings={**greedy, "speculative": 4})["caption"]
+assert spec == model.caption(img, settings=greedy)["caption"]
+from moondream_tpu_torch.engine.drafting import ngram_draft
+draft, hit = ngram_draft(torch.tensor([5, 6, 7, 5, 6]), 5, torch.tensor(6), 3)
+assert draft.tolist() == [7, 5] and bool(hit)
+seng = ContinuousBatchingEngine(model, n_slots=2, slot_len=1024, chunk=2, speculative=3,
+                                max_objects=2)
+rids = [seng.submit(img, max_tokens=4), seng.submit_detect(img, "cat")]
+served = seng.drain()
+assert isinstance(served[rids[0]], str) and len(served[rids[1]]["objects"]) <= 2
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))

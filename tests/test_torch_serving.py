@@ -284,8 +284,8 @@ def test_prefix_pool_exhaustion_and_wrong_span(sides):
 
 def test_unported_options_raise(sides):
     _, ours = sides
-    with pytest.raises(NotImplementedError):
-        _engine(ours, speculative=3)
+    # speculative serving is ported now (tests/test_torch_serving_spec.py)
+    assert _engine(ours, speculative=3).spec_k == 3
     with pytest.raises(NotImplementedError):
         _engine(ours, variants={"a": {}})
     eng = _engine(ours, n_slots=1)
