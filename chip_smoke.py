@@ -14,7 +14,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      batch's B 20 span and step, the speculative verify spans: kernel B and
      B-int8 at Tq 8 past the prefix, kernel C bf16, int8 and prefix-shared
      at Tq 8 and 16, and a 24-row span that the pool splits into two kernel
-     C launches), with median times of both, each case's bound (bytes or
+     C launches), kernel B's device-position form (bf16, int8, GQA stacked
+     and single-layer, at the caption's and the lockstep batch's decode
+     step and at pos kv_bound - 1) with its device-only time beside the
+     host form's, with median times of both, each case's bound (bytes or
      operations over the H100's peak rates) and the time of one PyTorch
      call computing the same function where there is one (SDPA; the
      int4-pack matmul);
@@ -49,6 +52,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      must equal the single requests'. Captions check repeated greedy ids,
      streamed == plain and one sampled caption; pools check no host sync
      inside a chunk (plain, speculative, mixed and mixed speculative).
+     The answer loops, the lockstep batches and the plain pools replay
+     CUDA graphs (engine/graphs.py), so these launch counts include the
+     replays'. Per model a graph phase runs the graphed paths against the
+     same steps run eagerly in turns: the batch-1 answer loop (greedy, and
+     sampled from one seed), the lockstep caption batch (MHA and GQA), the
+     plain, prefix-shared and int4 + kv_int8 pools; ids must be equal bit
+     for bit, every graph replays once more with a host sync an error, and
+     it prints tok/s, ms per lockstep step and per pool chunk of both and
+     each capture's ms and graph pool bytes.
 
 Prints the card's name and power limit first, the seconds of each phase,
 a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
@@ -86,6 +98,7 @@ from moondream_tpu_torch.engine.generate import (  # noqa: E402
     generate_text,
     reset_loop_counts,
 )
+from moondream_tpu_torch.engine import graphs  # noqa: E402
 from moondream_tpu_torch.engine.serving import (  # noqa: E402
     ragged_decode_step,
     ragged_verify_step,
@@ -101,6 +114,7 @@ from moondream_tpu_torch.kernels.build import (  # noqa: E402
 from moondream_tpu_torch.models.moondream import MoondreamModel, _prompt_pad  # noqa: E402
 from moondream_tpu_torch.models.serve import ContinuousBatchingEngine  # noqa: E402
 from moondream_tpu_torch.models.text import (  # noqa: E402
+    Int4Linear,
     KVCache,
     dequantize_kv,
     quantize_kv,
@@ -699,6 +713,74 @@ def phase_kernels(gen: torch.Generator) -> dict:
                       (q, kc[1], vc[1]), timed=False)
     del base_k, base_v, kc, vc, k8, v8, ks, vs
 
+    # Kernel B's device-position form, as the graphed decode steps call it:
+    # one token per row, the position a (B,) int32 tensor on the card, the
+    # splits planned from the read bound; prefix 0 (decode steps are
+    # causal). bf16 and int8 stacked (24, B, 32, T, 64) caches, GQA rep 4
+    # over 8 KV heads (stacked, and the single-layer entry over a
+    # dequantized [0, kv_bound) layer), at the caption's step (B 1, pos 735,
+    # kv_bound 1024), the lockstep batch's (B 8, pos 800, kv_bound 896) and
+    # the last column the bound reads (pos kv_bound - 1); x1000 garbage past
+    # each row's position, random and diagonal queries. Then each form's
+    # device-only time beside the host form's at the decode shapes.
+    dev_pos = lambda b, p: torch.full((b,), p, dtype=torch.int32, device=DEV)
+    forms = []
+    for b, pos, kvb, t in ((1, 735, 1024, 2048), (8, 800, 896, 1024), (1, 1023, 1024, 2048)):
+        at = f"batch{b} pos{pos} bound{kvb}"
+        pt = dev_pos(b, pos)
+        kc, vc = (garbage_tail(randn(24, b, 32, t, 64), pos + 1) for _ in range(2))
+        diag = kc[13, :, :, pos:pos + 1].clone()
+        for kind, q in (("random q", randn(b, 32, 1, 64)), ("diagonal q", diag)):
+            check(K.DECODE, f"device pos stacked L24 layer13 {at}, {kind}",
+                  lambda: decode_attention_cached(q, kc, vc, 13, pt, 0, kvb, lockstep=True),
+                  lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, pos, 0, kvb),
+                  (q, kc, vc), timed=False)
+        q = randn(b, 32, 1, 64)
+        host_ms = graph_ms(lambda: decode_attention_cached(q, kc, vc, 13, pos, 0, kvb))
+        dev_ms = graph_ms(lambda: decode_attention_cached(q, kc, vc, 13, pt, 0, kvb,
+                                                          lockstep=True))
+        forms.append((K.DECODE, at, host_ms, dev_ms))
+        (k8, ks), (v8, vs) = (quantize_kv(x.float().view(24 * b, 32, t, 64), 2) for x in (kc, vc))
+        k8, v8 = k8.view(24, b, 32, t, 64), v8.view(24, b, 32, t, 64)
+        ks, vs = ks.view(24, b, 16, t), vs.view(24, b, 16, t)
+        diag = dequantize_kv(k8[13, :, :, pos:pos + 1], ks[13, :, :, pos:pos + 1], BF16)
+        for kind, q in (("random q", randn(b, 32, 1, 64)), ("diagonal q", diag)):
+            check(K.DECODE, f"device pos int8 stacked L24 layer13 {at}, {kind}",
+                  lambda: decode_attention_cached(q, k8, v8, 13, pt, 0, kvb, ks, vs,
+                                                  lockstep=True),
+                  lambda q: decode_attention_cached_plain(q, k8, v8, 13, pos, 0, kvb, ks, vs),
+                  (q,), timed=False)
+        q = randn(b, 32, 1, 64)
+        host_ms = graph_ms(lambda: decode_attention_cached(q, k8, v8, 13, pos, 0, kvb, ks, vs))
+        dev_ms = graph_ms(lambda: decode_attention_cached(q, k8, v8, 13, pt, 0, kvb, ks, vs,
+                                                       lockstep=True))
+        forms.append((K.DECODE_INT8, at, host_ms, dev_ms))
+        del k8, v8, ks, vs
+        kg, vg = kc[:, :, :8].contiguous(), vc[:, :, :8].contiguous()
+        del kc, vc
+        layer_k, layer_v = kg[13, :, :, :kvb].contiguous(), vg[13, :, :, :kvb].contiguous()
+        diag = kg[13, :, :, pos:pos + 1].repeat_interleave(4, 1)
+        for kind, q in (("random q", randn(b, 32, 1, 64)), ("diagonal q", diag)):
+            check(K.DECODE_GQA, f"device pos stacked gqa rep4 L24 layer13 {at}, {kind}",
+                  lambda: decode_attention_cached(q, kg, vg, 13, pt, 0, kvb, lockstep=True),
+                  lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, pos, 0, kvb),
+                  (q, kg, vg), timed=False)
+            check(K.DECODE_GQA_LAYER, f"device pos single layer gqa rep4 {at}, {kind}",
+                  lambda: decode_attention(q, layer_k, layer_v, pt, 0),
+                  lambda q, k, v: decode_attention_plain(q, k, v, pos, 0),
+                  (q, layer_k, layer_v), timed=False)
+        q = randn(b, 32, 1, 64)
+        for name, host_fn, dev_fn in (
+                (K.DECODE_GQA, lambda: decode_attention_cached(q, kg, vg, 13, pos, 0, kvb),
+                 lambda: decode_attention_cached(q, kg, vg, 13, pt, 0, kvb, lockstep=True)),
+                (K.DECODE_GQA_LAYER, lambda: decode_attention(q, layer_k, layer_v, pos, 0),
+                 lambda: decode_attention(q, layer_k, layer_v, pt, 0))):
+            forms.append((name, at, graph_ms(host_fn), graph_ms(dev_fn)))
+        del kg, vg, layer_k, layer_v
+    for name, at, host_ms, dev_ms in forms:
+        print(f"{name} device pos form {at} tq1: device only {dev_ms:.4f} ms, host pos form "
+              f"{host_ms:.4f} ms ({dev_ms / host_ms:.2f} x)")
+
     # Kernel C: a pool whose slots sit at 0, 1, 730 and the last column at
     # once, slot 4 idle at 0 (bf16 and int8, Tq 1 and 4); most of the
     # early slots' splits are empty.
@@ -1003,6 +1085,7 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
     caption run, of the query run), the model."""
     L_txt = cfg.text.n_layers
     kv_int8 = cfg.text.kv_int8
+    graphs.reset_graph_counts()  # phase_graphs prints this model's captures
     t0 = time.perf_counter()
     if int4:
         params = init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
@@ -1128,9 +1211,10 @@ POOL_TOKENS = 48
 def _pool_run(model, images, kind: dict, sync_check: bool = False) -> dict:
     """Encode the images, then serve POOL_REQUESTS through one pool: four
     admitted at once, the other four one per step, then drain. Returns the
-    results with counts and timings. With `sync_check`, one chunk is
+    results with counts and timings. With `sync_check`, two chunks are
     dispatched under torch.cuda.set_sync_debug_mode("error") right after
-    the first four admissions."""
+    the first four admissions (in a graphed pool the first captures the
+    chunk's CUDA graph and the second replays it)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     encs = [model.encode_image(im) for im in images]
@@ -1162,6 +1246,7 @@ def _pool_run(model, images, kind: dict, sync_check: bool = False) -> dict:
     if sync_check:
         torch.cuda.set_sync_debug_mode("error")
         try:
+            eng._dispatch_chunk()
             eng._dispatch_chunk()
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -1969,6 +2054,133 @@ def phase_structured(model, enc, img, batch_images, power: str, int4: bool = Fal
     return runs
 
 
+def _graph_captures(label: str) -> str:
+    """The captures since graphs.reset_graph_counts() (the model's creation
+    in phase_main_path): per graph label, how many, their median and
+    largest capture ms and the bytes the graphs' memory pools grew by (the
+    first capture into a pool grows it; later ones mostly reuse it)."""
+    out = []
+    for name in sorted({c["label"] for c in graphs.CAPTURES}):
+        cs = [c for c in graphs.CAPTURES if c["label"] == name]
+        ms = [c["ms"] for c in cs]
+        out.append(f"{name}: {len(cs)} captures, {statistics.median(ms):.1f} ms median, "
+                   f"{max(ms):.1f} ms max, graph pool bytes {sum(c['pool_bytes'] for c in cs)}, "
+                   f"{cs[0]['launches']} launches of the port's kernels per replay")
+    return f"CUDA graph captures ({label}): " + "; ".join(out)
+
+
+def phase_graphs(model, enc, images, batch_images, power: str, lockstep: bool = False,
+                 pools=()) -> None:
+    """The graphed paths of one model against the same steps run eagerly
+    (`graphed=False`), in turns (eager, graphed, graphed, eager), in this
+    call: the batch-1 answer loop (caption prompt, 64 greedy tokens with
+    eos off), a sampled run from one seed, with `lockstep` the caption
+    batch over `batch_images` (64 steps, eos off), and `pools`, (label,
+    ContinuousBatchingEngine keywords) each. Graphed ids must equal the
+    eager ones bit for bit (both plan the decode kernel's splits from
+    kv_bound); launch counts of a graphed answer loop must be exact with
+    its replays counted; the answer and lockstep graphs replay once more,
+    and a third graphed pool dispatches its capturing and its first
+    replayed chunk, under torch.cuda.set_sync_debug_mode("error") (no host
+    sync). Prints tok/s, ms per lockstep step and per pool chunk of both,
+    and each capture's ms and graph pool bytes."""
+    cfg, tok = model.config, model.config.tokenizer
+    int4 = isinstance(model.text.blocks[0].qkv, Int4Linear)
+    label = (" + ".join(["int4"] * int4 + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
+             + f", {cfg.text.n_kv_heads} KV heads")
+    tmpl = list(tok.templates["caption"]["normal"])
+    suppress = (tok.answer_id,)
+
+    held = [0]
+
+    def replay_without_sync(kv):
+        """Replay once more the graphs keyed by kv's tensors (the loop just
+        ran on them: their addresses are live), a host sync an error."""
+        key = graphs.tensor_key(kv.k, kv.v, kv.ks, kv.vs)
+        mine = [e.graph for k, e in graphs.cache_of(model.text).entries.items()
+                if k[-1] == key and e.graph is not None]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for g in mine:
+                g.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        held[0] += len(mine)
+
+    def answer(graphed, temperature=0.0, seed=None):
+        kv = model.load_encoded_image(enc)
+        _, _, first, pos, _ = model._prefill_prompt(kv, tmpl, enc.pos, 0.0, 0.0)
+        bound = model._decode_bound(pos + 64 + 1)
+        gen = None if seed is None else torch.Generator(device=DEV).manual_seed(seed)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = generate_text(model.text, kv, first, pos, gen, temperature, 0.9, 64, -1,
+                            suppress, bound, graphed=graphed)
+        ms = sync_ms(t0)
+        check_launches(f"answer loop ({label}, graphed {graphed}), 64 steps", dict(LAUNCHES),
+                       expected_launches(cfg, 0, 0, 64, int4, prefills=0))
+        if graphed and temperature > 0:
+            replay_without_sync(kv)  # the greedy and the sampled graph of this cache
+        model._recycle_kv(kv)
+        return res.tokens, ms
+
+    ids, _ = answer(True)  # captures the graph of this key if no run has yet
+    runs = [(g, *answer(g)) for g in (False, True, True, False)]
+    if any(r[1] != ids for r in runs) or len(ids) != 64:
+        raise AssertionError(f"answer loop ({label}): graphed and eager ids differ")
+    tok_s = {g: statistics.median([64 / (ms / 1e3) for gg, _, ms in runs if gg == g])
+             for g in (False, True)}
+    sampled = [answer(g, 0.5, seed=SEED + 7)[0] for g in (False, True)]
+    if sampled[0] != sampled[1]:
+        raise AssertionError(f"sampled answer loop ({label}): graphed ids differ from eager "
+                             f"ones from the same seed: {sampled}")
+    print(f"2B answer loop ({label}) on {power}: graphed {tok_s[True]:.1f} tok/s, eager "
+          f"{tok_s[False]:.1f} tok/s ({tok_s[True] / tok_s[False]:.2f} x; 64 greedy tokens, "
+          f"batch 1, ids equal bit for bit; a sampled run equals eager from one seed)")
+
+    if lockstep:
+        encs = model.encode_images(batch_images)
+        greedy = {"temperature": 0.0, "max_tokens": 64}
+        step_ms, rows = {False: [], True: []}, []
+        for g in (True, False, True, True, False):
+            logits, _, kv, pos, length, bound = model._batched_prompt_prefill(
+                encs, tmpl, greedy, lambda pos, length, pad: pos + pad + 64 + 1)
+            first = sample_tokens_batched(logits, model.generator, 0.0, 0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = generate_text_batched(model.text, kv, first, pos + length, None, 0.0, 0.0, 64,
+                                        -1, suppress, bound, graphed=g)
+            out = (res.tokens.tolist(), res.counts.tolist())
+            step_ms[g].append(sync_ms(t0) / 64)
+            rows.append(out)
+            if g and len(rows) == 5 - 1:
+                replay_without_sync(kv)
+            model._recycle_kv(kv)
+        if any(r != rows[0] for r in rows):
+            raise AssertionError(f"lockstep ({label}): graphed and eager tokens differ")
+        ms = {g: statistics.median(v[-2:]) for g, v in step_ms.items()}
+        print(f"2B lockstep caption_batch ({label}, {len(encs)} rows) on {power}: graphed "
+              f"{ms[True]:.2f} ms per step, eager {ms[False]:.2f} ms per step "
+              f"({ms[False] / ms[True]:.2f} x), tokens equal bit for bit")
+
+    model.tokenizer = IdTokenizer()
+    for plabel, kind in pools:
+        res = {g: _pool_run(model, images, {**kind, "graphed": g}) for g in (False, True)}
+        checked = _pool_run(model, images, {**kind, "graphed": True}, sync_check=True)
+        if not res[True]["out"] == res[False]["out"] == checked["out"]:
+            raise AssertionError(f"pool {plabel}: graphed and eager ids differ")
+        chunk_ms = {g: statistics.median(r["step_ms"]) for g, r in res.items()}
+        print(f"2B pool {plabel} on {power}: graphed {chunk_ms[True]:.2f} ms per chunk, eager "
+              f"{chunk_ms[False]:.2f} ms per chunk (median step, 8 slots x 8 steps, token "
+              f"read-back included; {chunk_ms[False] / chunk_ms[True]:.2f} x), ids equal")
+
+    print(f"{held[0]} answer-loop graph replays of the {label} model with no host sync "
+          f"(the pools' chunks: their sync checks); " + _graph_captures(label))
+
+
 def main() -> None:
     power = card()
     print(power)
@@ -2009,6 +2221,9 @@ def main() -> None:
     kv8 = lambda cfg: dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
     runs = []
     launches, model = phase("4 2B bf16 caption/query", phase_main_path, img, power)
+    phase("4 2B bf16 graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
+          power, lockstep=True, pools=[("bf16 plain", {}), ("bf16 prefix-shared", {
+              "prefix_share": True, "prefix_entries": 4})])
     runs += [*launches, *phase("4 2B bf16 lockstep", phase_batch, model, batch_images, power),
              phase("4 2B bf16 pools", phase_pool, model, images, power, "bf16 plain", False),
              phase("4 2B bf16 pools", phase_pool, model, images, power,
@@ -2023,6 +2238,8 @@ def main() -> None:
     del model, enc
     launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(MOONDREAM_2B),
                             int4=True)
+    phase("4 2B int4 graphs", phase_graphs, model, model.encode_image(img), images,
+          batch_images, power, pools=[("int4 + kv_int8", {})])
     runs += [*launches,
              phase("4 2B int4", phase_pool, model, images, power,
                    "int4 + kv_int8 prefix-shared", True, prefix_share=True, prefix_entries=4)]
@@ -2032,6 +2249,8 @@ def main() -> None:
     runs += phase("4 2B int4 speculative", phase_spec, model, enc, power, int4=True)
     del model, enc
     launches, model = phase("4 2B GQA", phase_main_path, img, power, MOONDREAM_2B_GQA)
+    phase("4 2B GQA graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
+          power, lockstep=True)
     runs += [*launches, *phase("4 2B GQA", phase_batch, model, batch_images, power)]
     runs += phase("4 2B GQA", phase_structured, model, model.encode_image(img), img,
                   batch_images, power, full=False)
@@ -2039,6 +2258,8 @@ def main() -> None:
     del model
     launches, model = phase("4 2B GQA", phase_main_path, img, power, kv8(MOONDREAM_2B_GQA),
                             params=params)
+    phase("4 2B GQA graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
+          power)
     runs += [*launches]
     del model, params
     print("seconds per phase:", seconds, "total", round(sum(seconds.values()), 1))

@@ -11,6 +11,10 @@
 // cache layout. Query row i (i < Tq <= 16) sits at position pos + i and
 // attends column c under the unified mask
 //     c <= pos + i  OR  (pos + i < prefix AND c < prefix).
+// Every B entry takes pos as a host int (prompt spans) or as per-row int32
+// positions on the device that each block reads (a decode step captured in
+// a CUDA graph: the JAX package's fused decode loop keeps its position on
+// the device too); the device form plans its splits from the read bound.
 //
 // Kernel B's GQA entry, `decode_attn_stacked_gqa_bf16`: grouped-query
 // attention (Hq = rep * Hkv query heads, query head h reading KV head
@@ -118,7 +122,7 @@ struct Params {
   const float* pks;
   const float* pvs;
   bf16* o;
-  const int* pos_arr;  // per-slot positions (kernel C), or null
+  const int* pos_arr;  // per-row positions on the device (B's device form, C), or null
   const int* pids;
   float* ws;           // [pairs][n_split][Tq][D] partial sums, then [pairs][n_split][Tq][2] (m, l)
   int* tickets;        // [pairs]
@@ -219,8 +223,8 @@ __host__ __device__ inline size_t smem_bytes(int nq, int mq, int D, int e) {
 }
 
 // T is bf16 (scales unused) or int8_t. With pos_arr null, every block sits
-// at `pos` (kernel B); otherwise pair (b, h) reads pos_arr[b] (kernel C),
-// and with pk non-null also pids[b]. Block row r sits at position
+// at `pos` (kernel B); otherwise pair (b, h) reads pos_arr[b] (kernel B's
+// device form, kernel C), and with pk non-null also pids[b]. Block row r sits at position
 // p + r * ROW_STEP: 1 for a span of Tq query positions, 0 for GQA's rep
 // query heads of KV head h (their q and o rows are then heads, the strides
 // q_st / o_st a head's). ROW_STEP and NQ (Tq rounded up to a power of two)
@@ -663,9 +667,10 @@ cudaError_t run_rows(const Params& a, cudaStream_t stream) {
   return run<T, ROW_STEP, MAXQ>(a, stream);
 }
 
-// pos_arr null: kernel B at `pos`; else kernel C, with a prefix segment
-// when pk is non-null. The splits must cover the most columns a pair can
-// read: kernel B's exact count, kernel C's read bounds tk (+ the prefix's
+// pos_arr null: kernel B at `pos`; else positions on the device (kernel
+// B's device form, or kernel C), with a prefix segment when pk is non-null.
+// The splits must cover the most columns a pair can read: kernel B's exact
+// count at a host `pos`, else the read bounds tk (+ the prefix's
 // min(prefix_len, tp)), whatever the positions on the device hold.
 template <typename T>
 int launch(Params a, int L, int row_step, void* stream) {
@@ -734,15 +739,20 @@ Params params(const void* q, const void* k_cache, const void* v_cache, const voi
 // B * H int32 that are 0 before the launch and are 0 again after it.
 
 // Kernel B. tk: the read bound (kv_bound rounded up to 128, capped at T).
+// Every B entry takes the position in one of two forms: pos_arr null, the
+// host int `pos` (prompt spans); or pos_arr, B int32 positions on the device
+// that the blocks read (a decode step inside a CUDA graph, whose replays
+// must not freeze the position; the lockstep rows hold one value). With
+// pos_arr the splits must cover tk columns, as kernel C's.
 extern "C" int decode_attn_stacked_bf16(
     const void* q, const void* k_cache, const void* v_cache, void* o, int L,
     int B, int H, int T, int D, int Tq, int layer, int tk, long long q_sb,
     long long q_sh, long long q_st, long long o_sb, long long o_sh,
-    long long o_st, int pos, int prefix, float scale, int n_split, int split_cols,
-    void* ws, void* tickets, void* stream) {
+    long long o_st, int pos, const int* pos_arr, int prefix, float scale, int n_split,
+    int split_cols, void* ws, void* tickets, void* stream) {
   return launch<bf16>(
       params(q, k_cache, v_cache, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, o,
-             nullptr, nullptr, B, H, T, D, Tq, layer, tk, 1, 0, 0, 0, q_sb, q_sh, q_st,
+             pos_arr, nullptr, B, H, T, D, Tq, layer, tk, 1, 0, 0, 0, q_sb, q_sh, q_st,
              o_sb, o_sh, o_st, pos, prefix, 0, scale, n_split, split_cols, ws, tickets),
       L, 1, stream);
 }
@@ -753,11 +763,11 @@ extern "C" int decode_attn_stacked_int8(
     const void* k_scale, const void* v_scale, void* o, int L, int B, int H,
     int T, int D, int Tq, int layer, int tk, int g, long long q_sb,
     long long q_sh, long long q_st, long long o_sb, long long o_sh,
-    long long o_st, int pos, int prefix, float scale, int n_split, int split_cols,
-    void* ws, void* tickets, void* stream) {
+    long long o_st, int pos, const int* pos_arr, int prefix, float scale, int n_split,
+    int split_cols, void* ws, void* tickets, void* stream) {
   return launch<int8_t>(
       params(q, k_cache, v_cache, k_scale, v_scale, nullptr, nullptr, nullptr, nullptr, o,
-             nullptr, nullptr, B, H, T, D, Tq, layer, tk, g, 0, 0, 0, q_sb, q_sh, q_st,
+             pos_arr, nullptr, B, H, T, D, Tq, layer, tk, g, 0, 0, 0, q_sb, q_sh, q_st,
              o_sb, o_sh, o_st, pos, prefix, 0, scale, n_split, split_cols, ws, tickets),
       L, 1, stream);
 }
@@ -771,11 +781,12 @@ extern "C" int decode_attn_stacked_int8(
 extern "C" int decode_attn_stacked_gqa_bf16(
     const void* q, const void* k_cache, const void* v_cache, void* o, int L,
     int B, int Hkv, int T, int D, int rep, int layer, int tk, long long q_sb,
-    long long q_sh, long long o_sb, long long o_sh, int pos, int prefix,
-    float scale, int n_split, int split_cols, void* ws, void* tickets, void* stream) {
+    long long q_sh, long long o_sb, long long o_sh, int pos, const int* pos_arr,
+    int prefix, float scale, int n_split, int split_cols, void* ws, void* tickets,
+    void* stream) {
   return launch<bf16>(
       params(q, k_cache, v_cache, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, o,
-             nullptr, nullptr, B, Hkv, T, D, rep, layer, tk, 1, 0, 0, 0, q_sb, rep * q_sh,
+             pos_arr, nullptr, B, Hkv, T, D, rep, layer, tk, 1, 0, 0, 0, q_sb, rep * q_sh,
              q_sh, o_sb, rep * o_sh, o_sh, pos, prefix, 0, scale, n_split, split_cols, ws,
              tickets),
       L, 0, stream);

@@ -1,10 +1,11 @@
 """Batched logits and sampling, one row per serving slot or per image, and
 the lockstep batched engine (moondream_tpu/engine/batched.py:32-180).
 
-Sampling stays on the device: greedy rows take an argmax, sampled rows the
-nucleus draw of `sampling.sample_token`, with per-row uniforms from an
-explicit `torch.Generator`. Nothing is read back to the host, so a serving
-chunk can run many steps without a sync.
+Sampling stays on the device (`sampling.sample_tokens_batched`): greedy
+rows take an argmax, sampled rows the nucleus draw of
+`sampling.sample_token`, with per-row uniforms from an explicit
+`torch.Generator`. Nothing is read back to the host, so a serving chunk
+can run many steps without a sync.
 
 Lockstep batching runs B symmetric requests (the same prompt over B
 images) at one shared position with per-row EOS: `prefill_batched`,
@@ -14,59 +15,27 @@ images) at one shared position with per-row EOS: `prefill_batched`,
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..models.region import RegionModel
-from ..models.text import KVCache, TextModel, text_decoder, text_encoder
-from .generate import DONE_CHECK_EVERY, NEG_INF, PointsResult, _lm_logits, points_loop
-from .sampling import apply_top_p_mask
+from ..models.text import KVCache, TextModel, text_decoder
+from .generate import (
+    DONE_CHECK_EVERY,
+    PointsResult,
+    _lm_logits,
+    _record,
+    answer_loop,
+    points_loop,
+)
+from .sampling import sample_tokens_batched  # noqa: F401 (the pool's and lockstep's sampler)
 
 
 def lm_logits_batched(h: torch.Tensor, model: TextModel) -> torch.Tensor:
     """(S, D) hidden -> (S, V) fp32 logits: fp32 accumulation, rounded
     through bf16 (see generate._lm_logits)."""
     return _lm_logits(h, model)
-
-
-def _nucleus(logits, generator, temperature, top_p) -> torch.Tensor:
-    """One draw per row of (S, V) logits under per-row or shared settings,
-    as sample_token draws one."""
-    t = temperature[:, None] if isinstance(temperature, torch.Tensor) else temperature
-    p_lim = top_p[:, None] if isinstance(top_p, torch.Tensor) else top_p
-    safe_t = t.clamp_min(1e-6) if isinstance(t, torch.Tensor) else max(t, 1e-6)
-    probs = torch.softmax(logits / safe_t, dim=-1)
-    probs_desc, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    cdf = torch.cumsum(apply_top_p_mask(probs_desc, p_lim), dim=-1)
-    u = torch.rand(
-        (logits.shape[0], 1), generator=generator, device=logits.device
-    ) * cdf[:, -1:]
-    idx = torch.searchsorted(cdf, u).clamp_(max=cdf.shape[1] - 1)
-    return order.gather(1, idx)[:, 0]
-
-
-def sample_tokens_batched(
-    logits: torch.Tensor,
-    generator: torch.Generator,
-    temperature: Union[float, torch.Tensor],
-    top_p: Union[float, torch.Tensor],
-) -> torch.Tensor:
-    """(S,) int64 token ids from (S, V) logits. `temperature`/`top_p` are
-    Python floats (one setting for the pool: a greedy pool takes the argmax
-    with no vocabulary sort) or (S,) device tensors (per-request settings:
-    every row is drawn and greedy rows then take their argmax through a
-    per-row where, so they stay exact in a mixed pool)."""
-    logits = logits.float()
-    if not isinstance(temperature, torch.Tensor):
-        if temperature <= 0.0:
-            return torch.argmax(logits, dim=-1)
-        return _nucleus(logits, generator, temperature, top_p)
-    return torch.where(
-        temperature <= 0.0,
-        torch.argmax(logits, dim=-1),
-        _nucleus(logits, generator, temperature, top_p),
-    )
 
 
 def prefill_batched(
@@ -127,6 +96,7 @@ def generate_text_batched(
     eos_id: int,
     suppress_ids: Tuple[int, ...],
     kv_bound: Optional[int] = None,
+    graphed: bool = True,
 ) -> BatchedGenerateResult:
     """Lockstep generation from first_tokens (B,) at the shared `pos`, as
     the JAX package's loop runs it: while some row is not done and the
@@ -138,29 +108,29 @@ def generate_text_batched(
     reads the all-done flag once every DONE_CHECK_EVERY steps, so the loop
     may run up to DONE_CHECK_EVERY - 1 steps past the last row's EOS: those
     steps emit nothing (their token columns are 0 and no count moves), and
-    `pos` counts them."""
+    `pos` counts them. The steps are generate.answer_step's: on the card
+    each full run of them replays a CUDA graph; `graphed=False` runs them
+    eagerly."""
     limit = min(max_tokens, model.config.max_context - pos)
     if kv_bound is not None:
         limit = min(limit, kv_bound - pos)
     limit = max(limit, 0)
     bsz, dev = first_tokens.shape[0], first_tokens.device
+    st, run = answer_loop(model, kv, first_tokens, pos, generator, temperature, top_p,
+                          eos_id, suppress_ids, kv_bound, graphed, "generate_text_batched")
     toks = torch.zeros((bsz, limit), dtype=torch.long, device=dev)
-    counts = torch.zeros((bsz,), dtype=torch.long, device=dev)
-    cur = first_tokens.long()
-    done = cur == eos_id
-    steps = 0
-    while steps < limit and (steps % DONE_CHECK_EVERY or not bool(done.all())):
-        toks[:, steps] = cur.masked_fill(done, 0)
-        counts += (~done).long()
-        logits, _ = decode_step_batched(
-            model, kv, text_encoder(cur[:, None], model), pos + steps, kv_bound
-        )
-        if suppress_ids:
-            logits[:, list(suppress_ids)] = NEG_INF
-        cur = sample_tokens_batched(logits, generator, temperature, top_p)
-        done = done | (cur == eos_id)
-        steps += 1
-    return BatchedGenerateResult(tokens=toks[:, :steps], counts=counts, pos=pos + steps)
+    steps = reads = 0
+    while steps < limit:
+        reads += 1
+        if bool(st.done.all()):
+            break
+        n = min(DONE_CHECK_EVERY, limit - steps)
+        run(n)
+        toks[:, steps:steps + n] = st.run[:, :n]
+        steps += n
+    _record("generate_text_batched", steps, reads)
+    return BatchedGenerateResult(tokens=toks[:, :steps], counts=st.count.clone(),
+                                 pos=pos + steps)
 
 
 def generate_points_batched(

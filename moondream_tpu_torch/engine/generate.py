@@ -13,6 +13,10 @@ device and the host reads it once per run of DONE_CHECK_EVERY decode steps,
 in one transfer that also carries the run's results; it stops at the first
 read that finds the loop done, or at a limit the host knows. Steps run past
 the stop emit nothing and write K/V only at positions before that limit.
+The answer loop's state also holds its position on the device
+(`AnswerState`), so on the card each full run of its steps is one CUDA
+graph replay (engine/graphs.py); the other loops issue their steps from
+Python.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ from ..models import region as region_ops
 from ..models.region import RegionModel
 from ..models.text import KVCache, TextModel, text_decoder, text_encoder
 from ..ops.layers import layer_norm
+from . import graphs
 from .drafting import ngram_draft
-from .sampling import sample_token, target_probs
+from .graphs import tensor_key
+from .sampling import sample_token, sample_tokens_batched, target_probs
 
 NEG_INF = -1e30
 
@@ -117,6 +123,90 @@ class GenerateResult(NamedTuple):
     pos: int
 
 
+class AnswerState(NamedTuple):
+    """The device state of an answer loop (batch 1, or the lockstep batch)
+    between steps: B rows at one shared position. Every tensor keeps its
+    address for the loop's life, so a CUDA graph can capture a run of
+    `answer_step`s over it (engine/graphs.py)."""
+
+    tok: torch.Tensor  # (B,) int64: each row's next input token
+    done: torch.Tensor  # (B,) bool: the row sampled EOS
+    count: torch.Tensor  # (B,) int64: tokens emitted
+    pos: torch.Tensor  # (B,) int32: the next step's position, one value
+    run: torch.Tensor  # (B, DONE_CHECK_EVERY) int64: this run's tokens, 0 once done
+    suppress: torch.Tensor  # (n,) int64: ids masked from every step's logits
+    temperature: Optional[torch.Tensor]  # (B,) fp32 of a sampled loop; None: greedy
+    top_p: Optional[torch.Tensor]
+
+    @classmethod
+    def create(cls, bsz: int, dev, suppress_ids: Tuple[int, ...], sampled: bool
+               ) -> "AnswerState":
+        z = lambda dtype: torch.zeros((bsz,), dtype=dtype, device=dev)
+        return cls(tok=z(torch.long), done=z(torch.bool), count=z(torch.long),
+                   pos=z(torch.int32),
+                   run=torch.zeros((bsz, DONE_CHECK_EVERY), dtype=torch.long, device=dev),
+                   suppress=torch.tensor(suppress_ids, dtype=torch.long, device=dev),
+                   temperature=z(torch.float32) if sampled else None,
+                   top_p=z(torch.float32) if sampled else None)
+
+    def reset(self, first: torch.Tensor, pos: int, eos_id: int, temperature: float,
+              top_p: float) -> None:
+        """Start a loop from first tokens (B,) at `pos`, in place."""
+        self.tok.copy_(first.reshape(-1))
+        torch.eq(self.tok, eos_id, out=self.done)
+        self.count.zero_()
+        self.pos.fill_(pos)
+        if self.temperature is not None:
+            self.temperature.fill_(temperature)
+            self.top_p.fill_(top_p)
+
+
+def answer_step(model: TextModel, kv: KVCache, st: AnswerState, j: int, eos_id: int,
+                kv_bound: Optional[int], generator: Optional[torch.Generator]) -> None:
+    """One step of the answer loops (moondream_tpu/engine/generate.py:
+    139-170 at B 1, batched.py:140-180), in place on `st`: each live row
+    emits its token into run column j, one decode step runs at the shared
+    position on the device, the next token is sampled (the argmax for a
+    greedy state) and EOS marks the row done. It reads nothing on the host
+    and every tensor it writes keeps its address, so a run of steps is
+    what a CUDA graph captures."""
+    st.run[:, j] = st.tok.masked_fill(st.done, 0)
+    st.count.add_((~st.done).long())
+    emb = text_encoder(st.tok[:, None], model)
+    hidden = text_decoder(emb, model, kv, st.pos, 0, kv_bound)[:, 0]
+    logits = _lm_logits(hidden, model).index_fill_(-1, st.suppress, NEG_INF)
+    if st.temperature is None:
+        nxt = torch.argmax(logits, dim=-1)
+    else:
+        nxt = sample_tokens_batched(logits, generator, st.temperature, st.top_p)
+    st.tok.copy_(nxt)
+    st.done.logical_or_(nxt == eos_id)
+    st.pos.add_(1)
+
+
+def answer_loop(model: TextModel, kv: KVCache, first: torch.Tensor, pos: int,
+                generator: Optional[torch.Generator], temperature: float, top_p: float,
+                eos_id: int, suppress_ids: Tuple[int, ...], kv_bound: Optional[int],
+                graphed: bool, label: str):
+    """(state, run) of an answer loop over B = len(first) rows from `pos`:
+    run(n) advances it n steps of `answer_step`. On the card (unless
+    `graphed` is False) a full run of DONE_CHECK_EVERY steps replays a CUDA
+    graph keyed by the batch, kv_bound, the cache, eos, the suppressed ids
+    and greedy or sampled (engine/graphs.py); a shorter last run, which
+    must not step past the limit, runs eagerly."""
+    sampled = temperature > 0
+    bsz, dev = first.shape[0], first.device
+    key = (label, bsz, kv_bound, eos_id, tuple(suppress_ids),
+           id(generator) if sampled else None, tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+    gen = generator if sampled else None
+    st, run = graphs.loop(
+        model, key, lambda: AnswerState.create(bsz, dev, tuple(suppress_ids), sampled),
+        lambda st, j: answer_step(model, kv, st, j, eos_id, kv_bound, gen),
+        DONE_CHECK_EVERY, graphed and graphs.enabled(dev), label, gen)
+    st.reset(first, pos, eos_id, temperature, top_p)
+    return st, run
+
+
 def generate_text(
     model: TextModel,
     kv: KVCache,
@@ -129,6 +219,7 @@ def generate_text(
     eos_id: int,
     suppress_ids: Tuple[int, ...],
     kv_bound: Optional[int] = None,
+    graphed: bool = True,
 ) -> GenerateResult:
     """Answer generation from first_token (a 0-d device tensor) at pos, with
     the JAX package's semantics: while the token is not EOS and the limit
@@ -136,38 +227,59 @@ def generate_text(
 
     The limit is max_tokens, the context end or kv_bound; EOS is not
     emitted. `suppress_ids` are masked from every step's logits. Tokens,
-    the count and the done flag stay on the device; the host reads them
-    once per DONE_CHECK_EVERY steps and once at the limit. Steps after EOS
-    emit nothing (with temperature > 0 they still draw from `generator`);
-    `pos` counts emitted tokens only, as JAX's does."""
+    the count and the done flag stay on the device (`AnswerState`); the
+    host reads them once per DONE_CHECK_EVERY steps and once at the limit.
+    Steps after EOS emit nothing (with temperature > 0 they still draw from
+    `generator`); `pos` counts emitted tokens only, as JAX's does. On the
+    card each full run of steps replays a CUDA graph (`answer_loop`);
+    `graphed=False` runs the same steps eagerly."""
     limit = _limit(model, pos, max_tokens, kv_bound)
-    dev = first_token.device
-    toks = torch.zeros(limit, dtype=torch.long, device=dev)
-    count = torch.zeros((), dtype=torch.long, device=dev)
-    tok = first_token.reshape(()).long()
-    done = tok == eos_id
+    st, run = answer_loop(model, kv, first_token.reshape(1), pos, generator, temperature,
+                          top_p, eos_id, suppress_ids, kv_bound, graphed, "generate_text")
     out: List[int] = []
     steps = reads = 0
     while True:
-        # the flag, the count and this run's tokens in one transfer
-        host = torch.cat([done.view(1).long(), count.view(1),
-                          toks[len(out):steps]]).tolist()
+        # the flag, the count and the last run's tokens in one transfer
+        host = torch.cat([st.done.long(), st.count,
+                          st.run[0, :steps - len(out)]]).tolist()
         reads += 1
         out += host[2:]
         if host[0] or steps == limit:
             break
-        for _ in range(min(DONE_CHECK_EVERY, limit - steps)):
-            toks[steps] = tok
-            count += (~done).long()
-            emb = text_encoder(tok.view(1, 1), model)
-            logits, _ = decode_step(model, kv, emb, pos + steps, kv_bound)
-            suppress(logits, suppress_ids)
-            tok = sample_token(logits, generator, temperature, top_p)
-            done = done | (tok == eos_id)
-            steps += 1
+        n = min(DONE_CHECK_EVERY, limit - steps)
+        run(n)
+        steps += n
     _record("generate_text", steps, reads)
     n = host[1]
     return GenerateResult(tokens=out[:n], count=n, pos=pos + n)
+
+
+def stream_tokens(
+    model: TextModel,
+    kv: KVCache,
+    first_token: torch.Tensor,
+    pos: int,
+    generator: Optional[torch.Generator],
+    temperature: float,
+    top_p: float,
+    max_tokens: int,
+    eos_id: int,
+    suppress_ids: Tuple[int, ...],
+    kv_bound: Optional[int] = None,
+) -> Iterator[int]:
+    """The answer loop one token at a time, for streaming: yields each
+    emitted id as a host int, one eager `answer_step` and one host read per
+    token. The steps are generate_text's (the same kernels and split plans),
+    so a streamed answer equals the fused one."""
+    limit = _limit(model, pos, max_tokens, kv_bound)
+    st, run = answer_loop(model, kv, first_token.reshape(1), pos, generator, temperature,
+                          top_p, eos_id, suppress_ids, kv_bound, False, "stream")
+    for _ in range(limit):
+        tok = int(st.tok[0])
+        if tok == eos_id:
+            return
+        yield tok
+        run(1)
 
 
 def _spec_limit(model: TextModel, pos: int, max_tokens: int, spec_k: int,

@@ -1,0 +1,240 @@
+"""CUDA graphs of the decode loops' runs and of the serving pool's chunk:
+the port's counterpart of the JAX package's fused device loops
+(moondream_tpu/engine/generate.py:170, batched.py:175, serving.py:382),
+which run a whole generation or chunk as one compiled device program.
+
+The loops keep their state in device tensors of fixed address and read it
+on the host once per run of DONE_CHECK_EVERY steps (engine/generate.py). On
+the card such a run is one CUDA graph: captured the first time a full run
+of its key is needed and replayed from then on, one launch from the host
+where the eager steps issue ~1100 per bf16 decode step. The pool's plain
+chunk (`serving.serve_chunk`) is one graph per (chunk, sampling) of its
+engine. A key names everything a graph bakes in: the loop, the batch,
+kv_bound, the addresses of the cache tensors (and with them the cache
+format: bf16 or int8 KV, MHA or GQA; the weights, dense or int4, belong to
+the model that owns the cache of graphs), eos and suppressed ids, greedy
+or sampled and the generator.
+
+First use of a key: the run executes eagerly on a side stream (its
+warm-up: kernel modules load, that stream's decode workspace grows to the
+run's split plan, cuBLAS sets up), then the same run is captured on that
+stream (capture launches nothing) into a memory pool that the cache's
+graphs share. Replays go to the caller's current stream in order, never
+two at once, so sharing the pool is safe. An entry keeps what its graph
+reads or writes that nobody else holds: its static state, the decode
+workspace it captured, its generator.
+
+Launch counts: the kernel wrappers count in Python, which a replay does not
+run. Each capture records its graph's launches and takes them back from
+`build.LAUNCHES`; every replay adds them (`build.add_launches`), so the
+counts stay exact.
+
+There is no fallback: a capture or a replay that fails raises. The loops'
+`graphed=False` runs the same steps eagerly, for comparison; a CPU tensor
+always runs them eagerly.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels.attention import stream_workspace
+from ..kernels.build import LAUNCHES, add_launches, launches_since
+
+# Replays per graph label, and one record per capture (label, capture ms,
+# bytes the graphs' memory pool grew by, launches per replay), since
+# reset_graph_counts().
+REPLAYS: Dict[str, int] = {}
+CAPTURES: List[Dict[str, Any]] = []
+# Graphs (and their static state) a cache keeps, least recently used out.
+CACHE_ENTRIES = 16
+
+_lock = threading.RLock()  # one capture at a time: they share a stream
+_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def enabled(dev: torch.device) -> bool:
+    """Whether loops and pools on `dev` run through CUDA graphs: on the
+    card, always (unless a loop is asked to run eagerly)."""
+    return dev.type == "cuda"
+
+
+def reset_graph_counts() -> None:
+    REPLAYS.clear()
+    CAPTURES.clear()
+
+
+class StepGraph:
+    """A captured CUDA graph, the launches one replay makes and what it
+    holds."""
+
+    def __init__(self, graph, launches: Dict[str, int], label: str, keep: Tuple):
+        self.graph = graph
+        self.launches = launches
+        self.label = label
+        self.keep = keep
+
+    def replay(self) -> None:
+        self.graph.replay()
+        add_launches(self.launches)
+        REPLAYS[self.label] = REPLAYS.get(self.label, 0) + 1
+
+
+class Entry:
+    """A key's static device state and, once captured, its graph."""
+
+    def __init__(self, state: Any):
+        self.state = state
+        self.graph: Optional[StepGraph] = None
+
+
+class GraphCache:
+    """The graphs of one owner (a text model's loops, or one pool), least
+    recently used first out, over one shared memory pool."""
+
+    def __init__(self, capacity: int = CACHE_ENTRIES):
+        self.capacity = capacity
+        self.entries: "OrderedDict[Hashable, Entry]" = OrderedDict()
+        self.pool = None
+
+    def entry(self, key: Hashable, make_state: Callable[[], Any]) -> Entry:
+        with _lock:
+            entry = self.entries.get(key)
+            if entry is None:
+                entry = self.entries[key] = Entry(make_state())
+                while len(self.entries) > self.capacity:
+                    self.entries.popitem(last=False)
+            self.entries.move_to_end(key)
+            return entry
+
+
+def cache_of(owner: Any) -> GraphCache:
+    """The graph cache an object carries (created at first use)."""
+    cache = owner.__dict__.get("_cuda_graphs")
+    if cache is None:
+        cache = owner.__dict__["_cuda_graphs"] = GraphCache()
+    return cache
+
+
+def tensor_key(*tensors: Optional[torch.Tensor]) -> Tuple:
+    """Address, shape and dtype of each tensor a graph reads or writes in
+    place without holding it: a key that matches finds them where the graph
+    does."""
+    return tuple(None if t is None else (t.data_ptr(), tuple(t.shape), t.dtype)
+                 for t in tensors)
+
+
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    if dev not in _streams:
+        _streams[dev] = torch.cuda.Stream(dev)
+    return _streams[dev]
+
+
+def capture(cache: GraphCache, fn: Callable[[], Any], label: str,
+            generator: Optional[torch.Generator] = None) -> Tuple[StepGraph, Any, Any]:
+    """Run fn() eagerly on the side stream (the warm-up, a real run: its
+    result comes back), then capture fn() into a CUDA graph on that stream.
+    Returns (the graph, the warm-up's result, the captured run's result:
+    tensors of the graph's pool that each replay rewrites). `generator`: a
+    CUDA generator that fn draws from, registered with the graph so that
+    each replay advances it as the eager run does (the default generator
+    always is)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side, cur = _side_stream(dev), torch.cuda.current_stream(dev)
+    with _lock:
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            first = fn()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        if cache.pool is None:
+            cache.pool = torch.cuda.graph_pool_handle()
+        before, reserved = dict(LAUNCHES), torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=cache.pool, capture_error_mode="thread_local")
+            try:
+                out = fn()
+            except BaseException:
+                try:  # end the capture; the error inside it is the one to report
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            finally:
+                launches = launches_since(before)
+                LAUNCHES.update(before)
+            graph.capture_end()
+        cur.wait_stream(side)
+        CAPTURES.append({"label": label, "ms": (time.perf_counter() - t0) * 1e3,
+                         "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+                         "launches": sum(launches.values())})
+        keep = (stream_workspace(dev, side.cuda_stream), generator)
+        return StepGraph(graph, launches, label, keep), first, out
+
+
+class LoopRun:
+    """run(n): n steps of a loop over its device state. A full run (n ==
+    run_len) on the card replays the key's graph, captured by the first
+    full run; a shorter run, a CPU state or an eager loop runs the steps
+    one by one, through the same step function."""
+
+    def __init__(self, entry: Entry, step: Callable[[Any, int], None], run_len: int,
+                 cache: Optional[GraphCache], label: str,
+                 generator: Optional[torch.Generator]):
+        self.entry, self.step, self.run_len = entry, step, run_len
+        self.cache, self.label, self.generator = cache, label, generator
+
+    def _steps(self, n: int) -> None:
+        for j in range(n):
+            self.step(self.entry.state, j)
+
+    def __call__(self, n: int) -> None:
+        if self.cache is None or n != self.run_len:
+            self._steps(n)
+        elif self.entry.graph is None:
+            self.entry.graph, _, _ = capture(self.cache, lambda: self._steps(n), self.label,
+                                             self.generator)
+        else:
+            self.entry.graph.replay()
+
+
+def loop(owner: Any, key: Hashable, make_state: Callable[[], Any],
+         step: Callable[[Any, int], None], run_len: int, graphed: bool, label: str,
+         generator: Optional[torch.Generator] = None) -> Tuple[Any, LoopRun]:
+    """(state, run) of a decode loop: with `graphed`, the key's static
+    state in `owner`'s graph cache (its graph replays full runs); else a
+    fresh state whose runs are eager."""
+    if not graphed:
+        state = make_state()
+        return state, LoopRun(Entry(state), step, run_len, None, label, None)
+    cache = cache_of(owner)
+    entry = cache.entry(key, make_state)
+    return entry.state, LoopRun(entry, step, run_len, cache, label, generator)
+
+
+def chunk(cache: GraphCache, key: Hashable, fn: Callable[..., Any],
+          inputs: Sequence[torch.Tensor], label: str,
+          generator: Optional[torch.Generator] = None) -> Any:
+    """fn(*inputs) through the key's graph: the first call captures it over
+    static copies of `inputs` (and returns the warm-up's result); later
+    calls copy `inputs` into those copies, replay, and return a copy of the
+    graph's outputs (a NamedTuple of tensors and Nones), which the next
+    replay would overwrite."""
+    entry = cache.entry(key, lambda: [t.clone() for t in inputs])
+    if entry.graph is None:
+        static = entry.state
+        entry.graph, first, out = capture(cache, lambda: fn(*static), label, generator)
+        entry.state = (static, out)
+        return first
+    static, out = entry.state
+    for s, t in zip(static, inputs):
+        s.copy_(t)
+    entry.graph.replay()
+    return type(out)(*(t.clone() if isinstance(t, torch.Tensor) else t for t in out))

@@ -1,12 +1,17 @@
 """Greedy and temperature + nucleus (top-p) sampling on the device
-(moondream_tpu/engine/sampling.py).
+(moondream_tpu/engine/sampling.py), for one row or per row of a batch.
 
 Sort descending, keep tokens while the probability mass BEFORE each token is
 <= top_p, renormalise, draw in sorted space and map back through the sort
-order. Draws come from an explicit `torch.Generator`; no host sync.
+order. Draws come from an explicit `torch.Generator`; no host sync, and no
+host value inside a draw (temperature and top_p may be device tensors), so
+a CUDA graph can capture a sampled decode step; whether a row is greedy or
+sampled is the caller's host choice.
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
@@ -56,4 +61,43 @@ def sample_token(
     cdf = torch.cumsum(filtered, dim=-1)
     u = torch.rand((1,), generator=generator, device=logits.device) * cdf[-1]
     idx = torch.searchsorted(cdf, u).clamp_(max=cdf.shape[0] - 1)
-    return order[idx[0]]
+    return order.gather(0, idx).reshape(())
+
+
+def _nucleus(logits, generator, temperature, top_p) -> torch.Tensor:
+    """One draw per row of (S, V) logits under per-row or shared settings,
+    as sample_token draws one."""
+    t = temperature[:, None] if isinstance(temperature, torch.Tensor) else temperature
+    p_lim = top_p[:, None] if isinstance(top_p, torch.Tensor) else top_p
+    safe_t = t.clamp_min(1e-6) if isinstance(t, torch.Tensor) else max(t, 1e-6)
+    probs = torch.softmax(logits / safe_t, dim=-1)
+    probs_desc, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    cdf = torch.cumsum(apply_top_p_mask(probs_desc, p_lim), dim=-1)
+    u = torch.rand(
+        (logits.shape[0], 1), generator=generator, device=logits.device
+    ) * cdf[:, -1:]
+    idx = torch.searchsorted(cdf, u).clamp_(max=cdf.shape[1] - 1)
+    return order.gather(1, idx)[:, 0]
+
+
+def sample_tokens_batched(
+    logits: torch.Tensor,
+    generator: torch.Generator,
+    temperature: Union[float, torch.Tensor],
+    top_p: Union[float, torch.Tensor],
+) -> torch.Tensor:
+    """(S,) int64 token ids from (S, V) logits. `temperature`/`top_p` are
+    Python floats (one setting for the pool: a greedy pool takes the argmax
+    with no vocabulary sort) or (S,) device tensors (per-request settings:
+    every row is drawn and greedy rows then take their argmax through a
+    per-row where, so they stay exact in a mixed pool)."""
+    logits = logits.float()
+    if not isinstance(temperature, torch.Tensor):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        return _nucleus(logits, generator, temperature, top_p)
+    return torch.where(
+        temperature <= 0.0,
+        torch.argmax(logits, dim=-1),
+        _nucleus(logits, generator, temperature, top_p),
+    )

@@ -17,8 +17,8 @@ C, per-row EOS and budgets. Five chunks:
 The chunk's state stays in device tensors for all its steps: no step reads
 anything back to the host (no `.item()`, no `nonzero`, no boolean-mask
 indexing; JAX's dropped out-of-range scatters write to a spare column
-instead), so the host syncs once per chunk (models/serve.py) and a chunk
-can later be captured in a CUDA graph.
+instead), so the host syncs once per chunk (models/serve.py), and on the
+card the plain chunk is captured in a CUDA graph (engine/graphs.chunk).
 
 The caches and the draft histories are updated in place (the JAX package
 returns updated copies).
@@ -40,6 +40,7 @@ from ..models.text import (
     _split_qkv,
     quantize_kv,
     text_encoder,
+    write_rows,
 )
 from ..ops.attention import decode_attention_cached
 from ..ops.rope import apply_rotary_emb
@@ -48,17 +49,6 @@ from .drafting import ngram_draft_rows
 from .generate import greedy_accept, sampled_accept
 
 NEG_INF = -1e30
-
-
-def _write_rows(cache: torch.Tensor, layer: int, rows: torch.Tensor,
-                cols: torch.Tensor, x: torch.Tensor) -> None:
-    """cache[layer, rows[s], :, cols[s, i]] = x[s, :, i] in place, for
-    values (L, S, H, T, D) / x (S, H, Tq, D) and scales (L, S, H/g, T) /
-    x (S, H/g, Tq). Integer index tensors on the cache's device: no mask,
-    no nonzero, no sync."""
-    cache[layer].transpose(1, 2).index_put_(
-        (rows[:, None], cols), x.transpose(1, 2).to(cache.dtype)
-    )
 
 
 def _ragged_attn(
@@ -106,13 +96,13 @@ def _ragged_attn(
         g = kv.k.shape[2] // kv.ks.shape[2]
         kc, ksc = quantize_kv(k, g)
         vc, vsc = quantize_kv(v, g)
-        _write_rows(kv.k, layer, rows, cols, kc)
-        _write_rows(kv.v, layer, rows, cols, vc)
-        _write_rows(kv.ks, layer, rows, cols, ksc)
-        _write_rows(kv.vs, layer, rows, cols, vsc)
+        write_rows(kv.k, layer, rows, cols, kc)
+        write_rows(kv.v, layer, rows, cols, vc)
+        write_rows(kv.ks, layer, rows, cols, ksc)
+        write_rows(kv.vs, layer, rows, cols, vsc)
     else:
-        _write_rows(kv.k, layer, rows, cols, k)
-        _write_rows(kv.v, layer, rows, cols, v)
+        write_rows(kv.k, layer, rows, cols, k)
+        write_rows(kv.v, layer, rows, cols, v)
 
     segment = (None,) * 4 if pref is None else (pref.k, pref.v, pref.ks, pref.vs)
     out = decode_attention_cached(

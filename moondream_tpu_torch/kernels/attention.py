@@ -1,7 +1,8 @@
 """ctypes bindings of the attention kernels in `csrc/`: A (flash), and B
-(one position for the batch; its GQA entries over one layer of the stacked
-cache or over a single layer) and C (per-row positions, optionally over a
-shared prefix segment), two families of entry points of one decode kernel.
+(one position for the batch, as a host int or as positions on the device;
+its GQA entries over one layer of the stacked cache or over a single
+layer) and C (per-row positions, optionally over a shared prefix segment),
+two families of entry points of one decode kernel.
 
 Each wrapper checks device, dtype, shape, strides and alignment, allocates
 the output, launches on `torch.cuda.current_stream()` without
@@ -19,7 +20,7 @@ and the tickets that pick the block which merges them.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -59,10 +60,12 @@ def _decode_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.restype = _I
         split = [_I, _I, _P, _P, _P]  # n_split, split_cols, ws, tickets, stream
-        fn.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 6 + [_I, _I, _F] + split
+        # pos, pos_arr (null: the host pos), prefix, scale
+        where = [_I, _P, _I, _F]
+        fn.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 6 + where + split
         fn8 = lib.decode_attn_stacked_int8
         fn8.restype = _I
-        fn8.argtypes = [_P] * 6 + [_I] * 9 + [_L] * 6 + [_I, _I, _F] + split
+        fn8.argtypes = [_P] * 6 + [_I] * 9 + [_L] * 6 + where + split
         fnr = lib.decode_attn_ragged_bf16
         fnr.restype = _I
         fnr.argtypes = [_P] * 8 + [_I] * 11 + [_L] * 6 + [_I, _I, _F] + split
@@ -71,7 +74,7 @@ def _decode_lib() -> ctypes.CDLL:
         fnr8.argtypes = [_P] * 12 + [_I] * 12 + [_L] * 6 + [_I, _I, _F] + split
         fng = lib.decode_attn_stacked_gqa_bf16
         fng.restype = _I
-        fng.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 4 + [_I, _I, _F] + split
+        fng.argtypes = [_P] * 4 + [_I] * 8 + [_L] * 4 + where + split
     return lib
 
 
@@ -146,6 +149,9 @@ def plan_decode_splits(ncols: int, pairs: int, sms: int = H100_SMS) -> Tuple[int
 # decode step then allocates nothing and the addresses stay fixed (for a
 # CUDA graph). Launches on one stream run in order, so they may share one;
 # launches on two streams may run at once, so each stream has its own.
+# Growing replaces the pair: a CUDA graph that captured the old one keeps
+# a reference to it (engine/graphs.py), so its replays never read freed
+# memory.
 _WORKSPACE: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 _SMS: Dict[torch.device, int] = {}
 
@@ -160,6 +166,12 @@ def workspace(dev: torch.device, stream: int, floats: int, pairs: int):
         tickets = torch.zeros(pairs, dtype=torch.int32, device=dev)
     _WORKSPACE[(dev, stream)] = ws, tickets
     return ws, tickets
+
+
+def stream_workspace(dev: torch.device, stream: int) -> Tuple[torch.Tensor, ...]:
+    """The (workspace, tickets) that launches on `stream` use now (empty
+    before the first): what a CUDA graph captured on that stream holds."""
+    return _WORKSPACE.get((dev, stream), ())
 
 
 def _split_args(like: torch.Tensor, ncols: int, pairs: int, tq: int, d: int) -> tuple:
@@ -263,12 +275,27 @@ def _check_index(name: str, t: torch.Tensor, n: int, like: torch.Tensor) -> None
         )
 
 
+def _position(name: str, pos: Union[int, torch.Tensor], like: torch.Tensor, span: int,
+              prefix: int, tk: int) -> Tuple[int, Optional[int], int]:
+    """Kernel B's position in its host or device form: (host pos, device
+    positions pointer or None, columns the splits must cover). A host int
+    covers the columns its `span` rows attend, max(pos + span, prefix),
+    capped at tk; a (B,) int32 tensor on the device, which only the kernel
+    reads, the read bound tk."""
+    if isinstance(pos, torch.Tensor):
+        _check_index(name, pos, like.shape[0], like)
+        return 0, pos.data_ptr(), tk
+    if pos < 0:
+        raise ValueError(f"{name}: pos {pos}")
+    return int(pos), None, min(max(int(pos) + span, prefix), tk)
+
+
 def decode_attn_stacked(
     q: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     layer: int,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     prefix: int,
     tk: int,
     k_scale: Optional[torch.Tensor] = None,
@@ -277,18 +304,19 @@ def decode_attn_stacked(
     """Attention of q (B, H, Tq <= 16, D) over layer `layer` of the stacked
     (L, B, H, T, D) caches, reading at most the first `tk` slots. With
     k_scale/v_scale (L, B, H/g, T) fp32, the caches hold int8 codes and
-    head h reads scale row h // g."""
+    head h reads scale row h // g. `pos`: a host int, or (B,) int32
+    positions on the device (the form a CUDA graph's replays advance)."""
     int8 = k_scale is not None
     name = DECODE_INT8 if int8 else DECODE
     b, h, tq, d = q.shape
     n_layers, _, _, t_max, _ = k_cache.shape
     hg = _check_decode(name, q, k_cache, v_cache, k_scale, v_scale, b)
-    if not (0 <= layer < n_layers and 0 < tk <= t_max and pos >= 0):
-        raise ValueError(f"{name}: layer {layer}, tk {tk}, pos {pos}")
+    if not (0 <= layer < n_layers and 0 < tk <= t_max):
+        raise ValueError(f"{name}: layer {layer}, tk {tk}")
+    host_pos, pos_ptr, ncols = _position(name, pos, q, tq, prefix, tk)
     out = _head_major_out(b, h, tq, d, q)
     lib = _decode_lib()
-    ncols = min(max(pos + tq, prefix), tk)
-    tail = (*q.stride()[:3], *out.stride()[:3], int(pos), int(prefix),
+    tail = (*q.stride()[:3], *out.stride()[:3], host_pos, pos_ptr, int(prefix),
             float(d) ** -0.5, *_split_args(q, ncols, b * h, tq, d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if int8:
@@ -388,7 +416,7 @@ def decode_attn_gqa(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     prefix: int,
     layer: Optional[int] = None,
     tk: Optional[int] = None,
@@ -398,7 +426,8 @@ def decode_attn_gqa(
     k/v are the stacked bf16 (L, B, Hkv, T, D) caches, read at that layer
     up to the first `tk` slots; without, a single (B, Hkv, T, D) layer
     (the counterpart of `decode_attention`). Only a single token: as in the
-    JAX package, query spans need MHA."""
+    JAX package, query spans need MHA. `pos`: a host int, or (B,) int32
+    positions on the device."""
     name = DECODE_GQA if layer is not None else DECODE_GQA_LAYER
     if layer is None:  # a single layer: L = 1, layer 0, every slot
         k, v, layer = k[None], v[None], 0
@@ -414,15 +443,15 @@ def decode_attn_gqa(
         )
     _check_decode(name, q, k, v, None, None, b, rep)
     tk = t_max if tk is None else tk
-    if not (0 <= layer < n_layers and 0 < tk <= t_max and pos >= 0):
-        raise ValueError(f"{name}: layer {layer}, tk {tk}, pos {pos}")
+    if not (0 <= layer < n_layers and 0 < tk <= t_max):
+        raise ValueError(f"{name}: layer {layer}, tk {tk}")
+    host_pos, pos_ptr, ncols = _position(name, pos, q, 1, prefix, tk)
     out = _head_major_out(b, hq, 1, d, q)
     rc = _decode_lib().decode_attn_stacked_gqa_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         n_layers, b, hkv, t_max, d, rep, int(layer), int(tk),
-        q.stride(0), q.stride(1), out.stride(0), out.stride(1), int(pos),
-        int(prefix), float(d) ** -0.5,
-        *_split_args(q, min(max(pos + 1, prefix), tk), b * hkv, rep, d),
+        q.stride(0), q.stride(1), out.stride(0), out.stride(1), host_pos, pos_ptr,
+        int(prefix), float(d) ** -0.5, *_split_args(q, ncols, b * hkv, rep, d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(name, rc)

@@ -46,6 +46,20 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Launches counted since the snapshot `before` (a copy of LAUNCHES)."""
+    return {name: n - before.get(name, 0) for name, n in LAUNCHES.items()
+            if n != before.get(name, 0)}
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Count the launches a replayed CUDA graph makes: its wrappers counted
+    them in Python while it was captured (capture launches nothing, so the
+    capture takes them back), and a replay runs no Python."""
+    for name, n in delta.items():
+        LAUNCHES[name] += n
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):

@@ -19,6 +19,9 @@ caption_batch / query_batch / detect_batch / point_batch: one shared
 prompt over many images, decoded in lockstep.
 `models.serve.ContinuousBatchingEngine` prefills its requests through
 load_encoded_image (on recycled buffers) and _prefill_prompt.
+On the card the answer loops (caption, query, caption_batch, query_batch)
+replay CUDA graphs of their decode runs (engine/graphs.py); `compile()`
+builds the kernels and captures them ahead of the first request.
 """
 
 from __future__ import annotations
@@ -124,6 +127,7 @@ class MoondreamModel:
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
         device="cuda",
+        graphed: bool = True,
     ):
         """`params`: from `weights.params_from_jax`, `weights.load_params`
         or `weights.init_params` (int4 text blocks: `load_params(...,
@@ -132,11 +136,15 @@ class MoondreamModel:
         int8 KV cache comes from config.text.kv_int8. `device` is the card
         unless the caller asks for the CPU (device="cpu", the plain
         versions); without a card the default raises. On a CUDA device the
-        kernels take bf16 activations only."""
+        kernels take bf16 activations only. `graphed`: on the card the
+        answer loops replay CUDA graphs of their decode runs
+        (engine/graphs.py); False runs the same steps eagerly, for
+        comparison."""
         self.config = config
         self.dtype = dtype
         self.device = checked_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.graphed = graphed
         if params is None:
             params = init_params(config, self.generator, self.device, dtype)
         self.params = params
@@ -240,6 +248,43 @@ class MoondreamModel:
             self.text, kv, embeds, 0, seq, seq, kv_bound=self._kv_bound(seq)
         )
         return _snap_enc(kv, seq)
+
+    def compile(self, settings: Optional[Dict[str, Any]] = None) -> "MoondreamModel":
+        """Warm the hot paths (moondream_tpu/models/moondream.py:787-821):
+        one dummy request through encode, caption, query, query with
+        reasoning, detect, point and detect_gaze, greedy, with the JAX
+        package's defaults (max_tokens 768, max_objects 50, temperature 0,
+        top_p 0) where `settings` leaves them out. Returns self.
+
+        On the card it first builds every kernel (one compiler per source,
+        all at once), and the requests capture the CUDA graphs of the
+        answer loop (engine/graphs.py) for the kv_bound bucket that
+        max_tokens gives: warm with the settings real requests use, as the
+        JAX package's jit keys say. A sampled request captures its own
+        graph at its first full run; the serving pool captures its chunk's
+        at its first chunk and the lockstep batches theirs at the first
+        batch, as JAX compiles at its first batch. On the CPU it only runs
+        the requests."""
+        s = dict(settings or {})
+        s.setdefault("max_tokens", DEFAULT_MAX_TOKENS)
+        s.setdefault("max_objects", DEFAULT_MAX_OBJECTS)
+        s.setdefault("temperature", 0.0)
+        s.setdefault("top_p", 0.0)
+        if self.device.type == "cuda":
+            from ..kernels import attention as attn_kernels
+            from ..kernels import quant as quant_kernels
+            from ..kernels.build import build_parallel
+
+            build_parallel([*attn_kernels.LOADERS, *quant_kernels.LOADERS])
+        side = self.config.vision.crop_size
+        enc = self.encode_image(np.zeros((side, side, 3), dtype=np.uint8))
+        self.caption(enc, "normal", settings=s)
+        self.query(image=enc, question="?", settings=s)
+        self.query(image=enc, question="?", reasoning=True, settings=s)
+        self.detect(enc, "x", settings=s)
+        self.point(enc, "x", settings=s)
+        self.detect_gaze(enc, eye=(0.5, 0.5))
+        return self
 
     def _take_kv_buffer(self, batch: int = 1, slots: Optional[int] = None) -> KVCache:
         """A (batch, slots) cache buffer, recycled when the pool has one;
@@ -356,6 +401,7 @@ class MoondreamModel:
             return engine.generate_text(
                 self.text, kv, next_token, pos, self.generator, temperature, top_p,
                 max_tokens, eos, suppress, kv_bound=self._decode_bound(pos + max_tokens + 1),
+                graphed=self.graphed,
             ).tokens
         bound = self._decode_bound(pos + max_tokens + spec_k + 1)
         seed = self._spec_seed(prompt_tokens)
@@ -401,18 +447,9 @@ class MoondreamModel:
     def _step_tokens(self, kv, next_token, pos, max_tokens, eos, suppress, temperature,
                      top_p) -> Iterator[int]:
         """The answer's ids one decode step and one host sync at a time."""
-        max_ctx = self.config.text.max_context
-        bound = self._decode_bound(pos + max_tokens + 1)
-        tok = int(next_token)
-        generated = 0
-        while tok != eos and generated < max_tokens and pos < max_ctx:
-            yield tok
-            emb = text_encoder(torch.tensor([[tok]], device=self.device), self.text)
-            logits, _ = engine.decode_step(self.text, kv, emb, pos, bound)
-            engine.suppress(logits, suppress)
-            tok = int(sample_token(logits, self.generator, temperature, top_p))
-            pos += 1
-            generated += 1
+        return engine.stream_tokens(
+            self.text, kv, next_token, pos, self.generator, temperature, top_p, max_tokens,
+            eos, suppress, self._decode_bound(pos + max_tokens + 1))
 
     # -------------------------------------------------------------- query
     def query(
@@ -483,6 +520,7 @@ class MoondreamModel:
                 kv, next_token, pos, settings, prompt_tokens=answer_prompt)}
         tokens = self._generate_answer_tokens(kv, next_token, pos, settings,
                                               prompt_tokens=answer_prompt)
+        self._recycle_kv(kv)  # the next request decodes on it (and its graphs)
         return {**reasoning_dict,
                 "answer": "".join(stream_text(tokens, self._decode_tokens))}
 
@@ -540,6 +578,7 @@ class MoondreamModel:
         if not stream:
             tokens = self._generate_answer_tokens(kv, next_token, pos, settings,
                                                   prompt_tokens=prompt)
+            self._recycle_kv(kv)  # the next request decodes on it (and its graphs)
             return {"caption": "".join(stream_text(tokens, self._decode_tokens))}
         return {"caption": self._stream_answer(kv, next_token, pos, settings,
                                                prompt_tokens=prompt)}
@@ -712,7 +751,7 @@ class MoondreamModel:
         res = batched_engine.generate_text_batched(
             self.text, kv, first, pos + length, self.generator, temperature,
             top_p, max_tokens, self.config.tokenizer.eos_id,
-            (self.config.tokenizer.answer_id,), kv_bound=bound,
+            (self.config.tokenizer.answer_id,), kv_bound=bound, graphed=self.graphed,
         )
         rows = torch.cat([res.counts[:, None], res.tokens], dim=1).tolist()  # one read
         self._recycle_kv(kv)

@@ -36,7 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..engine import serving
+from ..engine import graphs, serving
 from ..utils.streaming import TokenStreamer, stream_text
 from .moondream import EncodedImage, MoondreamModel, _prompt_pad
 from .text import KVCache, slice_cache_span, slice_cache_span_from
@@ -105,6 +105,7 @@ class ContinuousBatchingEngine:
         eos_id: Optional[int] = None,
         prefix_share: bool = False,
         prefix_entries: Optional[int] = None,
+        graphed: bool = True,
     ):
         """`pipeline_depth` > 1 dispatches chunk i+1 before reading chunk
         i's tokens back, so the device does not wait on the host's
@@ -130,7 +131,12 @@ class ContinuousBatchingEngine:
         accept rate (`spec_accept_rate`) is below it after 8 spec chunks.
 
         `max_objects`: the most objects a detect or point request may ask
-        for (the size of each slot's box buffer)."""
+        for (the size of each slot's box buffer).
+
+        On the card the plain chunk (`serving.serve_chunk`) replays a CUDA
+        graph, one per (chunk, sampling) of this pool, captured at its first
+        chunk (engine/graphs.py); `graphed=False` runs it eagerly, for
+        comparison. The speculative and mixed chunks run eagerly."""
         if variants:
             raise _not_ported("multi-variant (LoRA) serving")
         tc = model.config.text
@@ -217,6 +223,7 @@ class ContinuousBatchingEngine:
         self.nobj = torch.zeros((S,), dtype=torch.int32, device=dev)
         self.is_box = torch.zeros((S,), dtype=torch.bool, device=dev)
 
+        self.graphs = graphs.GraphCache() if graphed and graphs.enabled(dev) else None
         self.slots = [_Slot() for _ in range(S)]
         self._slot_pid: List[Optional[int]] = [None] * S
         self.results: Dict[int, str] = {}
@@ -556,8 +563,7 @@ class ContinuousBatchingEngine:
                 text, *state, self.hist, self.hist_cnt, **shared, n_iter=self.chunk,
                 spec_k=self.spec_k, **kw)
         else:
-            res = serving.serve_chunk(text, *state, self.generator, temp, topp, **shared,
-                                      chunk=self.chunk, **kw)
+            res = self._plain_chunk(temp, topp, shared, kw)
         self.cur, self.pos = res.cur, res.pos
         self.active, self.budget = res.active, res.budget
         if res.hist_cnt is not None:
@@ -581,6 +587,25 @@ class ContinuousBatchingEngine:
         # be credited with the old rows
         owners = {i: s.req_id for i, s in enumerate(self.slots) if s.active}
         self._inflight.append((host, done, owners, res.tokens.shape[1], use_mixed, was_spec))
+
+    def _plain_chunk(self, temp, topp, shared: dict, kw: dict) -> serving.ServeChunkResult:
+        """serve_chunk on the pool's state; on the card through the graph of
+        its (chunk, sampling), which reads its inputs from static copies
+        and whose outputs are copied out before the next replay."""
+        sampled = isinstance(temp, torch.Tensor) or temp > 0
+
+        def run(cur, pos, active, budget):
+            return serving.serve_chunk(self.model.text, self.kv, cur, pos, active, budget,
+                                       self.generator, temp, topp, **shared,
+                                       chunk=self.chunk, **kw)
+
+        inputs = (self.cur, self.pos, self.active, self.budget)
+        if self.graphs is None:
+            return run(*inputs)
+        key = ("serve_chunk", self.chunk,
+               "per row" if isinstance(temp, torch.Tensor) else (temp, topp))
+        return graphs.chunk(self.graphs, key, run, inputs, "serve_chunk",
+                            self.generator if sampled else None)
 
     @property
     def spec_accept_rate(self) -> Optional[float]:

@@ -17,7 +17,7 @@ fc1 and fc2 are `Int4Linear`s; wte, lm_head, norms and biases stay dense.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -206,21 +206,37 @@ def _split_qkv(
     )
 
 
+def write_rows(cache: torch.Tensor, layer: int, rows: torch.Tensor,
+               cols: torch.Tensor, x: torch.Tensor) -> None:
+    """cache[layer, rows[s], :, cols[s, i]] = x[s, :, i] in place, for
+    values (L, S, H, T, D) / x (S, H, Tq, D) and scales (L, S, H/g, T) /
+    x (S, H/g, Tq). Integer index tensors on the cache's device: no mask,
+    no nonzero, no sync, and no host position (a CUDA graph may replay
+    it)."""
+    cache[layer].transpose(1, 2).index_put_(
+        (rows[:, None], cols), x.transpose(1, 2).to(cache.dtype)
+    )
+
+
 def attn_with_cache(
     x: torch.Tensor,
     block: TextBlock,
     freqs_cis: torch.Tensor,
     kv: KVCache,
     layer: int,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     prefix_len: int,
     config: TextConfig,
     kv_bound: Optional[int] = None,
 ) -> torch.Tensor:
     """One attention layer reading and updating the stacked cache.
 
-    x: (B, T, D) pre-normed input at positions pos..pos+T-1, routed as the
-    JAX package routes it (moondream_tpu/models/text.py:377-406):
+    x: (B, T, D) pre-normed input at positions pos..pos+T-1. `pos` is a
+    host int, or for one decode token a (B,) int32 device tensor whose rows
+    hold the loop's one position (the decode loops' steps, which a CUDA
+    graph replays: RoPE, the cache writes and kernel B then read it on the
+    device). Routed as the JAX package routes it
+    (moondream_tpu/models/text.py:377-406):
       * MHA spans of up to 16 rows (decode tokens, short prompt prefills),
         and GQA decode tokens over a bf16 cache, go to the stacked-cache
         decode attention;
@@ -231,30 +247,40 @@ def attn_with_cache(
         flash attention."""
     bsz, q_len, _ = x.shape
     q, k, v = _split_qkv(block.qkv(x), config)
-    position_ids = torch.arange(pos, pos + q_len, device=x.device)
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        if q_len != 1:
+            raise ValueError("a device position takes one decode token")
+        position_ids = pos.long()[:, None]  # (B, 1)
+    else:
+        position_ids = torch.arange(pos, pos + q_len, device=x.device)
     q = apply_rotary_emb(q, freqs_cis, position_ids, config.rope_dim)
     k = apply_rotary_emb(k, freqs_cis, position_ids, config.rope_dim)
 
     # In-place cache write at [layer, :, :, pos:pos+T] (the JAX package
-    # returns an updated copy through dynamic_update_slice instead).
-    span = slice(pos, pos + q_len)
+    # returns an updated copy through dynamic_update_slice instead); by
+    # index on the device for a device position.
     int8 = kv.ks is not None
     if int8:
         g = kv.k.shape[2] // kv.ks.shape[2]
         kc, ksc = quantize_kv(k, g)
         vc, vsc = quantize_kv(v, g)
-        kv.k[layer, :, :, span] = kc
-        kv.v[layer, :, :, span] = vc
-        kv.ks[layer, :, :, span] = ksc
-        kv.vs[layer, :, :, span] = vsc
+        writes = ((kv.k, kc), (kv.v, vc), (kv.ks, ksc), (kv.vs, vsc))
     else:
-        kv.k[layer, :, :, span] = k
-        kv.v[layer, :, :, span] = v
+        writes = ((kv.k, k), (kv.v, v))
+    if on_device:
+        rows = torch.arange(bsz, device=x.device)
+        for cache, val in writes:
+            write_rows(cache, layer, rows, position_ids, val)
+    else:
+        for cache, val in writes:
+            cache[layer, :, :, pos:pos + q_len] = val
 
     mha = config.n_kv_heads == config.n_heads
     if (q_len <= DECODE_SPAN_MAX and mha) or (q_len == 1 and not int8):
         out = decode_attention_cached(
-            q, kv.k, kv.v, layer, pos, prefix_len, kv_bound, kv.ks, kv.vs
+            q, kv.k, kv.v, layer, pos, prefix_len, kv_bound, kv.ks, kv.vs,
+            lockstep=on_device,
         )
     else:
         tk = kv.k.shape[3] if kv_bound is None else kv_bound
@@ -280,12 +306,13 @@ def text_decoder(
     x: torch.Tensor,
     model: TextModel,
     kv: KVCache,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     prefix_len: int,
     kv_bound: Optional[int] = None,
 ) -> torch.Tensor:
     """Run every block over x (B, T, D) at positions pos.., writing the cache
-    in place; returns the final hidden states (B, T, D)."""
+    in place; returns the final hidden states (B, T, D). `pos`: a host int,
+    or a (B,) int32 device tensor for one decode token (attn_with_cache)."""
     config = model.config
     for layer, block in enumerate(model.blocks):
         ln_in = block.ln(x)

@@ -111,11 +111,15 @@ def decode_attention_plain(q, k, v, pos: int, prefix: int) -> torch.Tensor:
     return flash_attention_plain(q, _repeat_kv(k, hq), _repeat_kv(v, hq), pos, prefix)
 
 
-def decode_attention(q, k, v, pos: int, prefix: int) -> torch.Tensor:
+def decode_attention(q, k, v, pos, prefix: int) -> torch.Tensor:
     """One query token q (B, Hq, 1, D) over a single (B, Hkv, T, D) layer,
     Hq a multiple of Hkv: the counterpart of `decode_attention` of the JAX
-    package, which the int8 cache's dequantized layer takes under GQA."""
+    package, which the int8 cache's dequantized layer takes under GQA.
+    `pos`: an int, or a (B,) int32 tensor of positions (kernel B's device
+    form: every row holds the decode loop's one position)."""
     if q.device.type == "cpu":
+        if isinstance(pos, torch.Tensor):
+            return decode_attention_ragged_plain(q, k[None], v[None], 0, pos, prefix)
         return decode_attention_plain(q, k, v, pos, prefix)
     from ..kernels.attention import decode_attn_gqa
 
@@ -203,6 +207,8 @@ def decode_attention_cached(
     pref_vs: Optional[torch.Tensor] = None,
     pids: Optional[torch.Tensor] = None,
     prefix_len: int = 0,
+    *,
+    lockstep: bool = False,
 ) -> torch.Tensor:
     """Attention for one token or a span over one layer of the whole stacked
     cache (<= 16 rows with one position for the batch; any span with per-row
@@ -214,12 +220,16 @@ def decode_attention_cached(
     `_decode_kernel_stacked_gqa`).
 
     An int `pos` places row i of every batch entry at pos + i (kernel B). A
-    1-D `pos` tensor (S,) gives each slot its own position, as in the
+    1-D int32 `pos` tensor (S,) gives each slot its own position, as in the
     serving pool (kernel C), optionally over a shared prefix segment
     (`pref_k`, ..., `pids`, `prefix_len`; see decode_attention_ragged_plain).
-    Positions and prefix ids stay on the device: nothing is read back."""
+    With `lockstep`, the (B,) tensor's rows hold one position (batch 1 and
+    the lockstep batch, whose decode steps keep it on the device for a CUDA
+    graph): kernel B's device form, MHA or GQA, and the kernel's splits
+    cover the read bound. Positions and prefix ids stay on the device:
+    nothing is read back."""
     ragged = isinstance(pos, torch.Tensor) and pos.dim() == 1
-    if not ragged and pref_k is not None:
+    if pref_k is not None and (not ragged or lockstep):
         raise ValueError("a shared prefix segment needs per-row positions")
     if q.device.type == "cpu":
         if ragged:
@@ -238,12 +248,12 @@ def decode_attention_cached(
 
     tk = read_bound(k_cache.shape[3], kv_bound)
     if q.shape[1] != k_cache.shape[2]:
-        if ragged or k_scale is not None:
+        if (ragged and not lockstep) or k_scale is not None:
             raise ValueError(
                 "GQA decode takes one position for the batch and a bf16 cache"
             )
         return decode_attn_gqa(q, k_cache, v_cache, pos, prefix, layer, tk)
-    if ragged:
+    if ragged and not lockstep:
         # kernel C takes at most RAGGED_SPAN_MAX rows: a longer span (a
         # speculative verify of k > 16) goes in pieces, piece j's rows at
         # pos + j * RAGGED_SPAN_MAX. Exact: the whole span's K/V are in the

@@ -2,22 +2,27 @@
 on one CUDA card.
 
     python3 -m moondream_tpu_torch.profile_caption [--tokens 64] [--top 12]
-        [--int4] [--kv-int8] [--pool plain|shared]
+        [--int4] [--kv-int8] [--gqa] [--pool plain|shared] [--eager]
 
 Builds MOONDREAM_2B with seeded random weights on the card (with --int4, the
-text blocks quantized to int4; with --kv-int8, an int8 KV cache) and runs the path
-once to warm it. Then it profiles, with torch.profiler, one `encode_image` of
-a seeded 756x1008 image (13 crops) and one greedy `caption` of up to
-`--tokens` tokens from that encoding. For each it prints the wall time (host
-clock, after synchronising; the profiler adds host time), the device's busy
-time (the union of its kernel and copy intervals), the idle share
-1 - busy / wall, and the device kernels that took the most time, with their
-launch counts.
+text blocks quantized to int4; with --kv-int8, an int8 KV cache; with --gqa,
+8 KV heads for the 32 query heads) and runs the path
+once to warm it (which captures the answer loop's CUDA graphs). Then it
+profiles, with torch.profiler, one `encode_image` of a seeded 756x1008 image
+(13 crops) and one greedy `caption` of up to `--tokens` tokens from that
+encoding, whose decode runs replay the graphs. For each it prints the wall
+time (host clock, after synchronising; the profiler adds host time), the
+device's busy time (the union of its kernel and copy intervals), the idle
+share 1 - busy / wall, the device launches it saw beside the CUDA graph
+replays (engine/graphs.py), and the device kernels that took the most time,
+with their launch counts. --eager runs the decode steps from Python instead
+(no graphs), for comparison.
 
 With --pool, it profiles instead one `step()` (one 8-step chunk, token
 read-back included) of a ContinuousBatchingEngine with 8 slots of 1024,
 every slot decoding a caption of that image (eos off), plain or
-prefix-shared (4 prefix entries), after a warm-up drain of the same pool.
+prefix-shared (4 prefix entries), after a warm-up chunk of the same pool
+(which captures the chunk's graph, replayed by the profiled one).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .config import MOONDREAM_2B
+from .engine import graphs
 from .models.moondream import MoondreamModel
 from .models.serve import ContinuousBatchingEngine
 from .models.text import quantize_text_params
@@ -54,6 +60,7 @@ def _busy_us(intervals) -> float:
 
 
 def report(label: str, fn, top: int) -> None:
+    replays = sum(graphs.REPLAYS.values())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -72,7 +79,8 @@ def report(label: str, fn, top: int) -> None:
         raise RuntimeError("torch.profiler recorded no device events")
     busy_ms = _busy_us(spans) / 1e3
     print(f"== {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}, device launches {len(spans)}")
+          f"idle share {1 - busy_ms / wall_ms:.3f}, device launches {len(spans)}, "
+          f"graph replays {sum(graphs.REPLAYS.values()) - replays}")
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (us, n) in ranked[:top]:
         print(f"  {us / 1e3:9.2f} ms  n={n:6d}  {name[:100]}")
@@ -84,8 +92,11 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--int4", action="store_true", help="int4 text block weights")
     ap.add_argument("--kv-int8", action="store_true", help="int8 KV cache")
+    ap.add_argument("--gqa", action="store_true", help="8 KV heads (GQA)")
     ap.add_argument("--pool", choices=("plain", "shared"),
                     help="profile one chunk of an 8-slot serving pool instead")
+    ap.add_argument("--eager", action="store_true",
+                    help="decode steps from Python, without CUDA graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_caption: needs a CUDA card")
@@ -95,14 +106,14 @@ def main() -> None:
     ).stdout.strip())
 
     cfg = MOONDREAM_2B
-    if args.kv_int8:
-        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, kv_int8=args.kv_int8, n_kv_heads=8 if args.gqa else cfg.text.n_kv_heads))
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
     if args.int4:
         quantize_text_params(params["text"])
     model = MoondreamModel(
         cfg, params, tokenizer=ByteTokenizer(), dtype=torch.bfloat16, seed=0,
-        device="cuda",
+        device="cuda", graphed=not args.eager,
     )
     img = np.random.default_rng(0).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
     greedy = {"temperature": 0.0, "max_tokens": args.tokens}
@@ -112,6 +123,7 @@ def main() -> None:
         eng = ContinuousBatchingEngine(
             model, n_slots=8, slot_len=1024, chunk=8, eos_id=-1,
             prefix_share=shared, prefix_entries=4 if shared else None,
+            graphed=not args.eager,
         )
         for max_tokens in (8, 32):  # a warm-up chunk, then the profiled pool
             for _ in range(8):
