@@ -16,8 +16,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      at Tq 8 and 16, and a 24-row span that the pool splits into two kernel
      C launches), kernel B's device-position form (bf16, int8, GQA stacked
      and single-layer, at the caption's and the lockstep batch's decode
-     step and at pos kv_bound - 1) with its device-only time beside the
-     host form's, with median times of both, each case's bound (bytes or
+     step and at pos kv_bound - 1; bf16 and int8 at the speculative verify
+     spans, Tq 8 and 16 at pos 730, 800 and 1016) with its device-only
+     time beside the host form's, with median times of both, each case's
+     bound (bytes or
      operations over the H100's peak rates) and the time of one PyTorch
      call computing the same function where there is one (SDPA; the
      int4-pack matmul);
@@ -60,7 +62,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      plain, prefix-shared and int4 + kv_int8 pools; ids must be equal bit
      for bit, every graph replays once more with a host sync an error, and
      it prints tok/s, ms per lockstep step and per pool chunk of both and
-     each capture's ms and graph pool bytes.
+     each capture's ms and graph pool bytes. A loop-graph phase does the
+     same for the other graphed loops, every replay under the sync
+     error mode and launch counts equal between graphed and eager: the
+     speculative caption (bf16 and int4 + kv_int8; a sampled one from one
+     seed), and on the bf16 model the reasoning loop and query, detect,
+     point, both gaze modes, detect_batch and the spec, spec-sampled,
+     mixed and mixed spec pools. A GQA speculative caption runs the eager
+     span loop (kernel A takes its spans) under its own loop label.
 
 Prints the card's name and power limit first, the seconds of each phase,
 a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
@@ -96,6 +105,8 @@ from moondream_tpu_torch.engine.generate import (  # noqa: E402
     decode_step,
     generate_reasoning,
     generate_text,
+    generate_text_spec,
+    generate_text_spec_sampled,
     reset_loop_counts,
 )
 from moondream_tpu_torch.engine import graphs  # noqa: E402
@@ -726,7 +737,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     dev_pos = lambda b, p: torch.full((b,), p, dtype=torch.int32, device=DEV)
     forms = []
     for b, pos, kvb, t in ((1, 735, 1024, 2048), (8, 800, 896, 1024), (1, 1023, 1024, 2048)):
-        at = f"batch{b} pos{pos} bound{kvb}"
+        at = f"batch{b} tq1 pos{pos} bound{kvb}"
         pt = dev_pos(b, pos)
         kc, vc = (garbage_tail(randn(24, b, 32, t, 64), pos + 1) for _ in range(2))
         diag = kc[13, :, :, pos:pos + 1].clone()
@@ -777,8 +788,47 @@ def phase_kernels(gen: torch.Generator) -> dict:
                  lambda: decode_attention(q, layer_k, layer_v, pt, 0))):
             forms.append((name, at, graph_ms(host_fn), graph_ms(dev_fn)))
         del kg, vg, layer_k, layer_v
+    # Kernel B's and B-int8's device form at the graphed speculative verify
+    # spans: Tq 8 and 16 rows at pos + i on a (24, 1, 32, 2048, 64) cache,
+    # layer 13, kv_bound 1536, prefix 0, at pos 730, 800 and 1016 (the
+    # last span that fits 1032 columns), x1000 garbage past the span,
+    # random and diagonal queries (row i's own key at pos + i); then the
+    # device-only time of each form at pos 800.
+    for tq in (8, 16):
+        for pos in (730, 800, 1016):
+            at = f"batch1 tq{tq} pos{pos} bound1536"
+            pt = dev_pos(1, pos)
+            kc, vc = (garbage_tail(randn(24, 1, 32, 2048, 64), pos + tq) for _ in range(2))
+            diag = kc[13, :, :, pos:pos + tq].clone()
+            for kind, q in (("random q", randn(1, 32, tq, 64)), ("diagonal q", diag)):
+                check(K.DECODE, f"device pos span stacked L24 layer13 {at}, {kind}",
+                      lambda: decode_attention_cached(q, kc, vc, 13, pt, 0, 1536, lockstep=True),
+                      lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, pos, 0, 1536),
+                      (q, kc, vc), timed=False)
+            (k8, ks), (v8, vs) = (quantize_kv(x.float().view(24, 32, 2048, 64), 2)
+                                  for x in (kc, vc))
+            k8, v8 = k8.view(24, 1, 32, 2048, 64), v8.view(24, 1, 32, 2048, 64)
+            ks, vs = ks.view(24, 1, 16, 2048), vs.view(24, 1, 16, 2048)
+            diag = dequantize_kv(k8[13, :, :, pos:pos + tq], ks[13, :, :, pos:pos + tq], BF16)
+            for kind, q in (("random q", randn(1, 32, tq, 64)), ("diagonal q", diag)):
+                check(K.DECODE, f"device pos span int8 stacked L24 layer13 {at}, {kind}",
+                      lambda: decode_attention_cached(q, k8, v8, 13, pt, 0, 1536, ks, vs,
+                                                      lockstep=True),
+                      lambda q: decode_attention_cached_plain(q, k8, v8, 13, pos, 0, 1536,
+                                                              ks, vs),
+                      (q,), timed=False)
+            if pos == 800:
+                q = randn(1, 32, tq, 64)
+                forms.append((K.DECODE, at, graph_ms(
+                    lambda: decode_attention_cached(q, kc, vc, 13, pos, 0, 1536)), graph_ms(
+                    lambda: decode_attention_cached(q, kc, vc, 13, pt, 0, 1536, lockstep=True))))
+                forms.append((K.DECODE_INT8, at, graph_ms(
+                    lambda: decode_attention_cached(q, k8, v8, 13, pos, 0, 1536, ks, vs)),
+                    graph_ms(lambda: decode_attention_cached(q, k8, v8, 13, pt, 0, 1536, ks, vs,
+                                                             lockstep=True))))
+            del kc, vc, k8, v8, ks, vs
     for name, at, host_ms, dev_ms in forms:
-        print(f"{name} device pos form {at} tq1: device only {dev_ms:.4f} ms, host pos form "
+        print(f"{name} device pos form {at}: device only {dev_ms:.4f} ms, host pos form "
               f"{host_ms:.4f} ms ({dev_ms / host_ms:.2f} x)")
 
     # Kernel C: a pool whose slots sit at 0, 1, 730 and the last column at
@@ -1658,7 +1708,7 @@ def phase_spec(model, enc, power: str, int4: bool = False) -> list:
     64 greedy tokens) on the encoded image, each a counted run: exact
     launches (every verify span of 8 rows takes kernel B on every layer,
     and four W4A16 launches per layer with int4 blocks) and host reads (one
-    per verify iteration plus one). Ids against the plain greedy call:
+    per run of 8 verify spans plus one). Ids against the plain greedy call:
     where they differ, batch-1's logit margin (at most 8 bf16 steps). Both
     timed on the host clock, prompt prefill included."""
     cfg = model.config
@@ -1686,8 +1736,9 @@ def phase_spec(model, enc, power: str, int4: bool = False) -> list:
         launches = dict(LAUNCHES)
         loop = dict(LOOP_COUNTS["generate_text_spec"])
         iters = spans[task] = loop["steps"]
-        if loop["calls"] != 1 or loop["reads"] != iters + 1:
-            raise AssertionError(f"spec {task}: {loop} (one read per iteration plus one)")
+        if loop["calls"] != 1 or loop["reads"] > math.ceil(iters / DONE_CHECK_EVERY) + 1:
+            raise AssertionError(f"spec {task}: {loop} (one read per run of "
+                                 f"{DONE_CHECK_EVERY} verify spans plus one)")
         check_launches(f"spec {task} ({label}), {len(spec)} tokens in {iters} verify spans",
                        launches, expected_launches(cfg, 0, 1 + iters, 0, int4))
         runs.append(launches)
@@ -1701,7 +1752,7 @@ def phase_spec(model, enc, power: str, int4: bool = False) -> list:
                f"first differs from plain greedy at token {diff[0]}, batch-1 margin "
                f"{diff[1][0]} ({diff[1][1]} bf16 steps)") + ")")
     # speculative sampling (the default temperature 0.5, top_p 0.3): the
-    # rejection test on the card, within max_tokens, one read per span;
+    # rejection test on the card, within max_tokens, one read per run;
     # then at top_p 0, where the target is one-hot at the argmax: the
     # sampled loop must give the greedy spec ids in as many spans
     greedy_caption = (_ids(tasks["caption"][1]({**GREEDY64, "speculative": SPEC_K})),
@@ -1715,7 +1766,8 @@ def phase_spec(model, enc, power: str, int4: bool = False) -> list:
         sampled = _ids(tasks["caption"][1](settings))
         ms = sync_ms(t0)
         loop = LOOP_COUNTS["generate_text_spec_sampled"]
-        if not 0 < len(sampled) <= 64 or loop["reads"] != loop["steps"] + 1:
+        if (not 0 < len(sampled) <= 64
+                or loop["reads"] > math.ceil(loop["steps"] / DONE_CHECK_EVERY) + 1):
             raise AssertionError(f"sampled spec caption: {len(sampled)} tokens, {loop}")
         if top_p == 0.0 and (sampled, loop["steps"]) != greedy_caption:
             raise AssertionError(f"sampled spec at top_p 0: {len(sampled)} tokens in "
@@ -1984,8 +2036,8 @@ def phase_structured(model, enc, img, batch_images, power: str, int4: bool = Fal
         "detect_gaze accuracy mode",
         lambda: model.detect_gaze(img, face=FACE, unstable_settings={"prioritize_accuracy": True}),
         lambda o: expected_launches(cfg, 2, 0, 1, long_spans=1, prefills=2))
-    if loops:
-        raise AssertionError(f"accuracy-mode gaze ran a decode loop: {loops}")
+    if loops != {"gaze_points_batched": {"calls": 1, "steps": 1, "reads": 1}}:
+        raise AssertionError(f"accuracy-mode gaze: one step and one read, got {loops}")
     gaze_acc = out["gaze"]
     for g in (gaze_eye, gaze_acc):
         if g is not None and not all(math.isfinite(v) for v in g.values()):
@@ -2097,8 +2149,8 @@ def phase_graphs(model, enc, images, batch_images, power: str, lockstep: bool = 
         """Replay once more the graphs keyed by kv's tensors (the loop just
         ran on them: their addresses are live), a host sync an error."""
         key = graphs.tensor_key(kv.k, kv.v, kv.ks, kv.vs)
-        mine = [e.graph for k, e in graphs.cache_of(model.text).entries.items()
-                if k[-1] == key and e.graph is not None]
+        mine = [g for k, e in graphs.cache_of(model.text).entries.items() if k[-1] == key
+                for g in e.graphs.values()]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2181,6 +2233,233 @@ def phase_graphs(model, enc, images, batch_images, power: str, lockstep: bool = 
           f"(the pools' chunks: their sync checks); " + _graph_captures(label))
 
 
+SPEC_TOKENS = 128  # the graphed speculative caption's tokens (eos off)
+
+
+def _mixed_run(model, encs, spec: int, graphed: bool) -> tuple:
+    """A mixed pool (8 slots of 1024, chunk 8, max_objects MIXED_OBJECTS,
+    the tokenizer's EOS, speculative `spec`) serving POOL_REQUESTS[:4]
+    beside a detect, a point and a gaze request, drained: (the results in
+    submission order, median ms per chunk with its read-back)."""
+    eng = ContinuousBatchingEngine(model, n_slots=8, slot_len=1024, chunk=8,
+                                   max_objects=MIXED_OBJECTS, speculative=spec, graphed=graphed)
+    rids = [eng.submit(encs[i], question=q, max_tokens=POOL_TOKENS) for i, q in POOL_REQUESTS[:4]]
+    rids += [eng.submit_detect(encs[0], "object"), eng.submit_point(encs[1], "object"),
+             eng.submit_gaze(encs[2], MIXED_EYE)]
+    step_ms = []
+    while any(s.active for s in eng.slots) or eng._inflight:
+        t0 = time.perf_counter()
+        eng.step()
+        step_ms.append(sync_ms(t0))
+    return [eng.results[r] for r in rids], statistics.median(step_ms)
+
+
+def phase_loop_graphs(model, enc, img, images, batch_images, power: str,
+                      full: bool = True) -> None:
+    """The speculative, reasoning and structured loops, the gaze step and
+    the spec and mixed pool chunks against the same steps run eagerly, in
+    turns in this call (a first graphed run that captures what it needs,
+    then eager, graphed, graphed, eager): the batch-1 speculative caption
+    (k 8, SPEC_TOKENS tokens, eos off; a sampled one from one seed,
+    eager against graphed), and with `full` the reasoning loop (64 steps,
+    the answer token off) and query(reasoning=True), detect (50 objects),
+    point, detect_gaze in eye and accuracy mode, detect_batch over
+    `batch_images`, and drained pools of each chunk kind that replays a
+    graph: speculative (k 8), speculative sampled (temperature
+    0.5, top_p 0.9, the pool's generator from seed 0), mixed and mixed
+    speculative (k 8). Every replay runs under
+    torch.cuda.set_sync_debug_mode("error"). Results must be equal bit for
+    bit, and so must the launch counts of every run (a replay adds its
+    capture's launches); a graphed run must replay at least one graph and
+    its loops read the device at most ceil(steps / 8) + 1 times per call.
+    Prints graphed and eager tok/s or ms, capture ms and graph pool bytes,
+    replays and reads per path."""
+    cfg, tok = model.config, model.config.tokenizer
+    int4 = isinstance(model.text.blocks[0].qkv, Int4Linear)
+    label = (" + ".join(["int4"] * int4 + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
+             + f", {cfg.text.n_kv_heads} KV heads")
+    model.tokenizer = IdTokenizer()
+    suppress = (tok.answer_id,)
+    caption = list(tok.templates["caption"]["normal"])
+    lines = []
+    replay = graphs.StepGraph.replay
+
+    def strict_replay(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    graphs.StepGraph.replay = strict_replay
+    try:
+        _loop_graph_paths(model, enc, img, images, batch_images, full, label, lines,
+                          suppress, caption)
+    finally:
+        graphs.StepGraph.replay = replay
+    print(f"2B loop graphs ({label}) on {power}; every replay under sync debug mode "
+          "\"error\", results and launch counts equal graphed and eager: " + "; ".join(lines))
+
+
+def _loop_graph_paths(model, enc, img, images, batch_images, full, label, lines, suppress,
+                      caption) -> None:
+    """phase_loop_graphs' paths, each through `turns`."""
+    tok = model.config.tokenizer
+
+    def turns(name, call, unit: str) -> None:
+        """call(graphed) -> (result, units, loop ms or None: the whole
+        call). units / ms per second for tok/s and images/s; ms alone for
+        a call or a pool chunk (units None)."""
+        runs = {False: [], True: []}
+        outs, first_capture = [], len(graphs.CAPTURES)
+        for g in (True, False, True, True, False):
+            model.graphed = g
+            reset_launch_counts()
+            reset_loop_counts()
+            replays = sum(graphs.REPLAYS.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, units, ms = call(g)
+            ms = sync_ms(t0) if ms is None else ms
+            loops = {k: dict(v) for k, v in LOOP_COUNTS.items()}
+            for loop, c in loops.items():
+                if c["reads"] > math.ceil(c["steps"] / DONE_CHECK_EVERY) + c["calls"]:
+                    raise AssertionError(f"{name}: {loop} read the device {c['reads']} times "
+                                         f"in {c['steps']} steps")
+            outs.append((out, dict(LAUNCHES)))
+            runs[g].append((ms, units, loops, sum(graphs.REPLAYS.values()) - replays))
+        model.graphed = True
+        if any(o != outs[0][0] for o, _ in outs):
+            raise AssertionError(f"{name} ({label}): graphed and eager results differ")
+        if any(n != outs[0][1] for _, n in outs):
+            raise AssertionError(f"{name} ({label}): launch counts differ: "
+                                 f"{[n for _, n in outs]}")
+        if not all(r[3] for r in runs[True][1:]) or any(r[3] for r in runs[False]):
+            raise AssertionError(f"{name} ({label}): replays {runs}")
+        caps = graphs.CAPTURES[first_capture:]
+        rate = {g: statistics.median(
+            [(u / (ms / 1e3)) if u is not None else ms for ms, u, _, _ in runs[g][-2:]])
+            for g in (False, True)}
+        ratio = rate[True] / rate[False] if unit != "ms" else rate[False] / rate[True]
+        lines.append(
+            f"{name}: graphed {rate[True]:.2f} {unit}, eager {rate[False]:.2f} {unit} "
+            f"({ratio:.2f} x); {len(caps)} captures "
+            f"({', '.join('%s %.1f ms' % (c['label'], c['ms']) for c in caps)}), graph pool bytes "
+            f"{sum(c['pool_bytes'] for c in caps)}, {runs[True][-1][3]} replays, loops "
+            f"{runs[True][-1][2]}")
+
+    def spec_caption(g, sampled=False):
+        kv = model.load_encoded_image(enc)
+        _, _, first, pos, _ = model._prefill_prompt(kv, caption, enc.pos, 0.0, 0.0)
+        bound = model._decode_bound(pos + SPEC_TOKENS + SPEC_K + 1)
+        seed = model._spec_seed(caption)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sampled:
+            gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+            res = generate_text_spec_sampled(model.text, kv, first, pos, gen, 0.5, 0.9,
+                                             SPEC_TOKENS, -1, suppress, SPEC_K, bound, seed,
+                                             graphed=g)
+        else:
+            res = generate_text_spec(model.text, kv, first, pos, SPEC_TOKENS, -1, suppress,
+                                     SPEC_K, bound, seed, graphed=g)
+        ms = sync_ms(t0)
+        model._recycle_kv(kv)
+        return res.tokens, res.count, ms
+
+    turns(f"spec caption k {SPEC_K}", spec_caption, "tok/s")
+    sampled = [spec_caption(g, sampled=True)[0] for g in (False, True)]
+    if sampled[0] != sampled[1]:
+        raise AssertionError(f"sampled spec caption ({label}): graphed ids differ from eager "
+                             "ones from one seed")
+    lines.append(f"sampled spec caption: graphed == eager from one seed ({len(sampled[0])} "
+                 "tokens)")
+    if full:
+        tmpl = tok.templates["query"]
+        r_prompt = (list(tmpl["prefix"]) + model._encode_text(POOL_QUESTION)
+                    + list(tmpl["suffix"]) + [tok.thinking_id])
+
+        def reasoning(g):
+            _, hid, first, pos, kv = model._prefill_prompt(
+                model.load_encoded_image(enc), r_prompt, enc.pos, 0.0, 0.0)
+            bound = model._decode_bound(pos + 65)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = generate_reasoning(model.text, model.region, kv, first, hid, pos, None, 0.0,
+                                     0.0, 64, -1, tok.coord_id, (tok.eos_id, tok.size_id),
+                                     bound, graphed=g)
+            ms = sync_ms(t0)
+            model._recycle_kv(kv)
+            return (res.tokens, res.is_coord, res.coord_vals), res.count, ms
+
+        turns("reasoning loop (64 steps, answer token off)", reasoning, "tok/s")
+        turns("query reasoning", lambda g: (model.query(
+            enc, POOL_QUESTION, reasoning=True, settings=GREEDY64), None, None), "ms")
+        turns("detect", lambda g: (model.detect(enc, "object"), None, None), "ms")
+        turns("point", lambda g: (model.point(enc, "object"), None, None), "ms")
+        turns("detect_gaze eye mode", lambda g: (
+            model.detect_gaze(enc, eye=MIXED_EYE), None, None), "ms")
+
+        def accuracy(g):
+            random.seed(SEED)
+            return model.detect_gaze(img, face=FACE, unstable_settings={
+                "prioritize_accuracy": True}), None, None
+
+        turns("detect_gaze accuracy mode (2 encodes, 20 rows)", accuracy, "ms")
+        encs = model.encode_images(batch_images)
+        turns(f"detect_batch of {len(encs)} encoded images", lambda g: (
+            model.detect_batch(encs, "object"), None, None), "ms")
+        pool_encs = [model.encode_image(im) for im in images]
+
+        def pool(kind):
+            def run(g):
+                # a sampled pool's admissions draw the first token from the
+                # model's generator: the same draws in every turn
+                model.generator.manual_seed(SEED)
+                res = _pool_run(model, images, {**kind, "graphed": g})
+                return res["out"], None, statistics.median(res["step_ms"])
+            return run
+
+        turns(f"spec pool k {SPEC_K} (ms per chunk)", pool({"speculative": SPEC_K}), "ms")
+        turns(f"spec sampled pool k {SPEC_K} (ms per chunk)", pool(
+            {"speculative": SPEC_K, "temperature": 0.5, "top_p": 0.9}), "ms")
+        for spec in (0, SPEC_K):
+            def mixed(g, spec=spec):
+                out, ms = _mixed_run(model, pool_encs, spec, g)
+                return out, None, ms
+
+            turns(f"mixed pool{' spec k %d' % spec if spec else ''} (ms per chunk)", mixed, "ms")
+
+
+def phase_spec_eager_route(model, enc, power: str) -> dict:
+    """Speculative decode on a GQA model (k 8, 64 greedy tokens): its verify
+    spans take kernel A at a host position, so the span loop runs eagerly
+    by configuration, under LOOP_COUNTS "generate_text_spec_eager", one
+    host read per span plus one, with exact launches (kernel A on every
+    layer for the prompt span and each verify span). Returns the launch
+    counts."""
+    cfg = model.config
+    model.tokenizer = IdTokenizer()
+    reset_launch_counts()
+    reset_loop_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = _ids(model.caption(enc, "normal", settings={**GREEDY64, "speculative": SPEC_K})[
+        "caption"])
+    ms = sync_ms(t0)
+    loops = {k: dict(v) for k, v in LOOP_COUNTS.items()}
+    c = loops.get("generate_text_spec_eager")
+    if list(loops) != ["generate_text_spec_eager"] or c["reads"] != c["steps"] + 1:
+        raise AssertionError(f"GQA speculative caption: loops {loops}")
+    launches = dict(LAUNCHES)
+    check_launches(f"GQA spec caption, {len(ids)} tokens in {c['steps']} verify spans",
+                   launches, expected_launches(cfg, 0, 1 + c["steps"], 0))
+    print(f"2B GQA speculative caption k {SPEC_K} on {power}: the eager span loop "
+          f"(generate_text_spec_eager), {len(ids) / (ms / 1e3):.1f} tok/s, {len(ids)} tokens "
+          f"in {c['steps']} spans, {c['reads']} host reads")
+    return launches
+
+
 def main() -> None:
     power = card()
     print(power)
@@ -2235,6 +2514,8 @@ def main() -> None:
     runs += phase("4 2B bf16 speculative", phase_spec, model, enc, power)
     runs += phase("4 2B bf16 spec pools", phase_spec_pools, model, images, power)
     runs += phase("4 2B bf16 mixed pools", phase_mixed_pools, model, images, power)
+    phase("4 2B bf16 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
+          power)
     del model, enc
     launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(MOONDREAM_2B),
                             int4=True)
@@ -2247,13 +2528,18 @@ def main() -> None:
     runs += phase("4 2B int4", phase_structured, model, enc, img, batch_images, power,
                   int4=True, full=False)
     runs += phase("4 2B int4 speculative", phase_spec, model, enc, power, int4=True)
+    phase("4 2B int4 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
+          power, full=False)
     del model, enc
     launches, model = phase("4 2B GQA", phase_main_path, img, power, MOONDREAM_2B_GQA)
     phase("4 2B GQA graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
           power, lockstep=True)
     runs += [*launches, *phase("4 2B GQA", phase_batch, model, batch_images, power)]
-    runs += phase("4 2B GQA", phase_structured, model, model.encode_image(img), img,
-                  batch_images, power, full=False)
+    enc = model.encode_image(img)
+    runs += phase("4 2B GQA", phase_structured, model, enc, img, batch_images, power,
+                  full=False)
+    runs.append(phase("4 2B GQA", phase_spec_eager_route, model, enc, power))
+    del enc
     params = model.params
     del model
     launches, model = phase("4 2B GQA", phase_main_path, img, power, kv8(MOONDREAM_2B_GQA),

@@ -144,11 +144,13 @@ def generate_points_batched(
     include_size: bool,
     max_objects: int,
     kv_bound: Optional[int] = None,
+    graphed: bool = True,
 ) -> PointsResult:
     """Lockstep structured decode (moondream_tpu/engine/batched.py:190-288):
     the same object over B images from their prompts' last hidden states
     (B, D) and greedy tokens (B,), per-row object counts and EOS; rows that
-    are done freeze until every row is (generate.points_loop). Returns
-    boxes (B, max_objects, 4) float64 and counts."""
+    are done freeze until every row is (generate.points_loop, graphed on
+    the card unless `graphed` is False). Returns boxes (B, max_objects, 4)
+    float64 and counts."""
     return points_loop(model, region, kv, first_hidden, first_tokens, pos, eos_id,
-                       include_size, max_objects, kv_bound, "generate_points_batched")
+                       include_size, max_objects, kv_bound, "generate_points_batched", graphed)

@@ -8,15 +8,20 @@ Mask model: row i (position pos+i) may attend column j iff j <= pos+i or
 and 0 for decode steps, which are causal.
 
 The JAX package runs each loop as one device-resident `lax.while_loop`.
-Here the loop state (token buffers, counts, a `done` flag) stays on the
-device and the host reads it once per run of DONE_CHECK_EVERY decode steps,
-in one transfer that also carries the run's results; it stops at the first
-read that finds the loop done, or at a limit the host knows. Steps run past
-the stop emit nothing and write K/V only at positions before that limit.
-The answer loop's state also holds its position on the device
-(`AnswerState`), so on the card each full run of its steps is one CUDA
-graph replay (engine/graphs.py); the other loops issue their steps from
-Python.
+Here each loop's state (token buffers, counts, a `done` flag, the
+position) stays in device tensors of fixed address and the host reads it
+once per run of DONE_CHECK_EVERY decode steps or verify spans, in one
+transfer that also carries the run's results; it stops at the first read
+that finds the loop done, or at a limit the host knows. Steps run past the
+stop emit nothing and write K/V only at positions nothing emitted attends.
+A step reads nothing on the host, so on the card each full run of steps is
+one CUDA graph replay (engine/graphs.py): the answer loop (`AnswerState`),
+the speculative loop (`SpecState`, verify spans at a device position), the
+reasoning loop (`ReasoningState`), the structured loop (`PointsState`, one
+graph per start phase) and the accuracy-mode gaze step (`GazeState`). The
+speculative stream replays a graph of one span per read; the plain token
+stream runs its steps eagerly, and speculative decode on a GQA model or
+with spec_k > 16 runs an eager span loop at a host position.
 """
 
 from __future__ import annotations
@@ -28,12 +33,12 @@ import torch
 
 from ..models import region as region_ops
 from ..models.region import RegionModel
-from ..models.text import KVCache, TextModel, text_decoder, text_encoder
+from ..models.text import DECODE_SPAN_MAX, KVCache, TextModel, text_decoder, text_encoder
 from ..ops.layers import layer_norm
 from . import graphs
-from .drafting import ngram_draft
+from .drafting import ngram_draft, ngram_draft_rows
 from .graphs import tensor_key
-from .sampling import sample_token, sample_tokens_batched, target_probs
+from .sampling import sample_tokens_batched, target_probs
 
 NEG_INF = -1e30
 
@@ -79,12 +84,6 @@ def decode_step(
     hidden = text_decoder(emb, model, kv, pos, 0, kv_bound)
     h = hidden[0, 0]
     return _lm_logits(h, model), h
-
-
-def suppress(logits: torch.Tensor, ids: Tuple[int, ...]) -> torch.Tensor:
-    if ids:
-        logits[list(ids)] = NEG_INF
-    return logits
 
 
 # The decode loops read the device once per run of this many steps (one
@@ -366,6 +365,132 @@ def sampled_accept(logits: torch.Tensor, draft: torch.Tensor,
     return emitted, _cut_at_eos(m, (emitted == eos_id) & (steps < m[..., None]))
 
 
+class SpecState(NamedTuple):
+    """The device state of the batch-1 speculative loop between verify
+    spans. Every tensor keeps its address for the loop's life, so a CUDA
+    graph can capture a run of `spec_step`s over it (engine/graphs.py)."""
+
+    tok: torch.Tensor  # (1,) int64: the current token
+    pos: torch.Tensor  # (1,) int32: the next verify span's position
+    count: torch.Tensor  # (1,) int64: tokens emitted
+    done: torch.Tensor  # (1,) bool: the token is EOS or the limit is reached
+    limit: torch.Tensor  # (1,) int64: tokens the loop may emit
+    hist: torch.Tensor  # (S0 + max_context + 1,) int64: [seed; emitted], then a spare
+    run: torch.Tensor  # (DONE_CHECK_EVERY, spec_k) int64: each span's [token; accepted]
+    run_m: torch.Tensor  # (DONE_CHECK_EVERY,) int64: tokens each span emitted
+    suppress: torch.Tensor  # (n,) int64: ids masked from every span's logits
+    temperature: Optional[torch.Tensor]  # (1,) fp32 of a sampled loop; None: greedy
+    top_p: Optional[torch.Tensor]
+
+    @classmethod
+    def create(cls, width: int, spec_k: int, dev, suppress_ids: Tuple[int, ...],
+               sampled: bool) -> "SpecState":
+        z = lambda *shape, dtype=torch.long: torch.zeros(shape, dtype=dtype, device=dev)
+        return cls(tok=z(1), pos=z(1, dtype=torch.int32), count=z(1),
+                   done=z(1, dtype=torch.bool), limit=z(1), hist=z(width + 1),
+                   run=z(DONE_CHECK_EVERY, spec_k), run_m=z(DONE_CHECK_EVERY),
+                   suppress=torch.tensor(suppress_ids, dtype=torch.long, device=dev),
+                   temperature=z(1, dtype=torch.float32) if sampled else None,
+                   top_p=z(1, dtype=torch.float32) if sampled else None)
+
+    def reset(self, first: torch.Tensor, pos: int, limit: int, seed: Optional[torch.Tensor],
+              eos_id: int, temperature: float, top_p: float) -> None:
+        """Start a loop from the first token at `pos`, in place."""
+        self.tok.copy_(first.reshape(1))
+        self.pos.fill_(pos)
+        self.count.zero_()
+        self.limit.fill_(limit)
+        torch.logical_or(self.tok == eos_id, self.limit <= 0, out=self.done)
+        self.hist.zero_()
+        if seed is not None:
+            self.hist[:seed.shape[0]] = seed
+        self.run_m.zero_()
+        if self.temperature is not None:
+            self.temperature.fill_(temperature)
+            self.top_p.fill_(top_p)
+
+
+def spec_step(model: TextModel, kv: KVCache, st: SpecState, j: int, s0: int, eos_id: int,
+              kv_bound: Optional[int], generator: Optional[torch.Generator]) -> None:
+    """One verify span of the speculative loop (moondream_tpu/engine/
+    generate.py:238-290 greedy, :367-414 sampled), in place on `st`: the
+    token joins the draft history at S0 + count, ngram_draft drafts
+    spec_k - 1 tokens from it, one forward verifies [token; draft] at the
+    device position (kernel B's device form), and the acceptance (greedy,
+    or the rejection test from `generator`) gives m, clamped to the limit.
+    Run row j records the span's [token; accepted] and m; the accepted
+    interior joins the history by a masked write (JAX's dropped scatter
+    lands on the spare last column). Once done, m is 0: position, count,
+    token and history freeze, and the span's K/V land at the frozen
+    position, which nothing emitted attends. It reads nothing on the host,
+    so a run of spans is what a CUDA graph captures."""
+    spare = st.hist.shape[0] - 1
+    k = st.run.shape[1]
+    live = ~st.done
+    at = s0 + st.count  # (1,): where the token joins the history
+    st.hist[torch.where(live, at, spare)] = st.tok
+    draft = ngram_draft_rows(st.hist[None, :spare], at + 1, st.tok, k)[0][0]
+    q_toks = torch.cat([st.tok, draft])
+    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, st.pos, 0, kv_bound)
+    logits = _lm_logits(hidden[0], model).index_fill_(-1, st.suppress, NEG_INF)
+    if st.temperature is None:
+        emitted = torch.argmax(logits, dim=-1)
+        m = greedy_accept(draft, emitted, eos_id)
+    else:
+        emitted, m = sampled_accept(logits, draft, generator, st.temperature, st.top_p, eos_id)
+    m = torch.where(live, torch.minimum(m.reshape(1), st.limit - st.count), 0)
+    st.run[j].copy_(torch.cat([st.tok, emitted[:-1]]))
+    st.run_m[j:j + 1].copy_(m)
+    steps = torch.arange(k - 1, device=m.device)
+    st.hist[torch.where(steps + 1 < m, at + 1 + steps, spare)] = emitted[:-1]
+    st.tok.copy_(torch.where(live, emitted[(m - 1).clamp(min=0)], st.tok))
+    st.pos.add_(m.to(st.pos.dtype))
+    st.count.add_(m)
+    st.done.logical_or_((st.tok == eos_id) | (st.count >= st.limit))
+
+
+def spec_on_device(model: TextModel, spec_k: int) -> bool:
+    """Whether the speculative loop runs on its device state (`spec_step`,
+    graphed on the card): MHA and spans of at most 16 rows, which kernel B
+    takes at a device position. A GQA model's spans, and spans of more
+    rows, take kernel A at a host position: the eager span loop
+    (`_host_spec_spans`), recorded under its own LOOP_COUNTS label."""
+    cfg = model.config
+    return cfg.n_kv_heads == cfg.n_heads and spec_k <= DECODE_SPAN_MAX
+
+
+def spec_loop(model: TextModel, kv: KVCache, first_token: torch.Tensor, pos: int, limit: int,
+              eos_id: int, suppress_ids: Tuple[int, ...], spec_k: int,
+              kv_bound: Optional[int], seed: Optional[torch.Tensor],
+              generator: Optional[torch.Generator], temperature: float, top_p: float,
+              graphed: bool, label: str, run_len: int = DONE_CHECK_EVERY):
+    """(state, run) of the speculative loop from `pos`: run(n) advances it
+    n verify spans of `spec_step`. On the card (unless `graphed` is False)
+    a full run of `run_len` spans (DONE_CHECK_EVERY; 1 for the stream)
+    replays a CUDA graph keyed by run_len, spec_k, the seed's width,
+    kv_bound, the cache, eos, the suppressed ids and greedy or sampled
+    (engine/graphs.py); a shorter run is eager."""
+    sampled = temperature > 0
+    dev = first_token.device
+    s0 = 0 if seed is None else seed.shape[0]
+    gen = generator if sampled else None
+    key = (label, run_len, spec_k, s0, kv_bound, eos_id, tuple(suppress_ids),
+           id(generator) if sampled else None, tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+    st, run = graphs.loop(
+        model, key,
+        lambda: SpecState.create(s0 + model.config.max_context, spec_k, dev,
+                                 tuple(suppress_ids), sampled),
+        lambda st, j: spec_step(model, kv, st, j, s0, eos_id, kv_bound, gen),
+        run_len, graphed and graphs.enabled(dev), label, gen)
+    st.reset(first_token, pos, limit, seed, eos_id, temperature, top_p)
+    return st, run
+
+
+def _spec_label(sampled: bool, on_device: bool) -> str:
+    return ("generate_text_spec_sampled" if sampled else "generate_text_spec") + (
+        "" if on_device else "_eager")
+
+
 def spec_spans(
     model: TextModel,
     kv: KVCache,
@@ -380,19 +505,49 @@ def spec_spans(
     generator: Optional[torch.Generator] = None,
     temperature: float = 0.0,
     top_p: float = 0.0,
+    graphed: bool = True,
 ) -> Iterator[List[int]]:
-    """The speculative answer loop, one verify span at a time: while the
-    token is not EOS and the limit is not reached, draft spec_k - 1 tokens
-    from [seed; emitted] (ngram_draft), verify [token; draft] in one forward
-    and advance by the m tokens the acceptance gives: greedy
-    (`greedy_accept`) at temperature 0, else the rejection test against the
-    target nucleus (`sampled_accept`). Yields each span's m emitted tokens
-    (the span's token and its accepted drafts) as host ints. The host reads
-    m and the span's tokens in one transfer per span (it needs m for the
-    next position), and the first token once before the loop; the reads are
-    recorded under LOOP_COUNTS "generate_text_spec" (or
-    "generate_text_spec_sampled") when the loop ends. The fused loops and
-    the speculative stream both run it."""
+    """The speculative answer loop one verify span at a time, for the
+    speculative stream: while the token is not EOS and the limit is not
+    reached, draft spec_k - 1 tokens from [seed; emitted] (ngram_draft),
+    verify [token; draft] in one forward and advance by the m tokens the
+    acceptance gives: greedy (`greedy_accept`) at temperature 0, else the
+    rejection test against the target nucleus (`sampled_accept`). Yields
+    each span's m emitted tokens (the span's token and its accepted
+    drafts) as host ints. The spans are the fused loops' `spec_step`s, one
+    host read each plus one before the first; on the card each span
+    replays a CUDA graph of one span (`graphed=False`: eager). The reads
+    are recorded under LOOP_COUNTS "generate_text_spec" (or
+    "generate_text_spec_sampled") when the loop ends. A GQA model or
+    spec_k > 16 takes the eager span loop at a host position instead."""
+    sampled = temperature > 0
+    if not spec_on_device(model, spec_k):
+        yield from _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id,
+                                    suppress_ids, spec_k, kv_bound, seed, generator,
+                                    temperature, top_p)
+        return
+    limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
+    label = _spec_label(sampled, True)
+    st, run = spec_loop(model, kv, first_token, pos, limit, eos_id, suppress_ids, spec_k,
+                        kv_bound, seed, generator, temperature, top_p, graphed, label, 1)
+    reads, spans = 1, 0
+    done = bool(st.done)
+    while not done:
+        run(1)
+        host = torch.cat([st.done.long(), st.run_m[:1], st.run[0]]).tolist()
+        reads += 1
+        spans += 1
+        done = bool(host[0])
+        yield host[2:2 + host[1]]
+    _record(label, spans, reads)
+
+
+def _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
+                     kv_bound, seed, generator, temperature, top_p) -> Iterator[List[int]]:
+    """spec_spans at a host position (GQA, or spec_k > 16: kernel A takes
+    the spans): the host reads m and the span's tokens once per span, plus
+    the first token once; recorded under "generate_text_spec_eager" (or
+    "generate_text_spec_sampled_eager")."""
     sampled = temperature > 0
 
     def accept(draft, q_toks, at):
@@ -426,7 +581,41 @@ def spec_spans(
         yield [t] + host[1:n]
         tok, t = emitted[n - 1], host[n]
         i += n
-    _record("generate_text_spec_sampled" if sampled else "generate_text_spec", iters, reads)
+    _record(_spec_label(sampled, False), iters, reads)
+
+
+def _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
+                kv_bound, seed, generator, temperature, top_p, graphed) -> "GenerateResult":
+    """The fused speculative loops: runs of DONE_CHECK_EVERY verify spans
+    over the device state, the host reading the done flag, the count and
+    the last run's spans once per run (and once before the first), so at
+    most ceil(spans / 8) + 1 times; on the card each full run replays a
+    CUDA graph. A run never steps past the limit: each live span emits at
+    least one token, so limit - count spans always reach it."""
+    sampled = temperature > 0
+    if not spec_on_device(model, spec_k):
+        return _collect(_host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id,
+                                         suppress_ids, spec_k, kv_bound, seed, generator,
+                                         temperature, top_p), pos)
+    limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
+    label = _spec_label(sampled, True)
+    st, run = spec_loop(model, kv, first_token, pos, limit, eos_id, suppress_ids, spec_k,
+                        kv_bound, seed, generator, temperature, top_p, graphed, label)
+    out: List[int] = []
+    spans = reads = n = 0
+    while True:
+        host = torch.cat([st.done.long(), st.count, st.run_m[:n],
+                          st.run[:n].flatten()]).tolist()
+        reads += 1
+        for i, m in enumerate(host[2:2 + n]):
+            out += host[2 + n + i * spec_k:2 + n + i * spec_k + m]
+        if host[0]:
+            break
+        n = min(DONE_CHECK_EVERY, limit - host[1])
+        run(n)
+        spans += n
+    _record(label, spans, reads)
+    return GenerateResult(tokens=out, count=len(out), pos=pos + len(out))
 
 
 def _collect(spans: Iterator[List[int]], pos: int) -> GenerateResult:
@@ -445,6 +634,7 @@ def generate_text_spec(
     spec_k: int = 8,
     kv_bound: Optional[int] = None,
     seed: Optional[torch.Tensor] = None,
+    graphed: bool = True,
 ) -> GenerateResult:
     """Speculative greedy generation (moondream_tpu/engine/generate.py:
     176-293): n-gram drafts verified in one spec_k-row forward per
@@ -456,9 +646,13 @@ def generate_text_spec(
     max_tokens + spec_k; the loop stops spec_k - 1 tokens before the
     context end or kv_bound. `seed`: a (S0,) prompt tail, left-padded with
     -1, ahead of the draft history (prompt lookup; it changes drafts only).
-    Reads the device once per iteration plus once (`spec_spans`)."""
-    return _collect(spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids,
-                               spec_k, kv_bound, seed), pos)
+    The spans are `spec_step`s over a device state (`SpecState`), read once
+    per run of DONE_CHECK_EVERY spans plus once; on the card each full run
+    replays a CUDA graph, and `graphed=False` runs the same spans eagerly.
+    A GQA model or spec_k > 16 runs the eager span loop at a host position
+    (one read per span), under LOOP_COUNTS "generate_text_spec_eager"."""
+    return _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
+                       kv_bound, seed, None, 0.0, 0.0, graphed)
 
 
 def generate_text_spec_sampled(
@@ -475,15 +669,18 @@ def generate_text_spec_sampled(
     spec_k: int = 8,
     kv_bound: Optional[int] = None,
     seed: Optional[torch.Tensor] = None,
+    graphed: bool = True,
 ) -> GenerateResult:
     """Speculative sampling at temperature > 0 (moondream_tpu/engine/
     generate.py:296-417): the drafts of generate_text_spec accepted by the
     rejection test against the target nucleus (`speculative_sample`), so
     the emitted sequence is distributed as the plain sampled loop's,
     though not draw for draw. The first EOS among an iteration's emitted
-    tokens is carried. Same limits, seed and reads as generate_text_spec."""
-    return _collect(spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids,
-                               spec_k, kv_bound, seed, generator, temperature, top_p), pos)
+    tokens is carried. Same limits, seed, reads and graphs as
+    generate_text_spec; the graph's replays advance `generator` as the
+    eager spans do."""
+    return _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
+                       kv_bound, seed, generator, temperature, top_p, graphed)
 
 
 class ReasoningResult(NamedTuple):
@@ -492,6 +689,78 @@ class ReasoningResult(NamedTuple):
     coord_vals: List[float]  # its decoded coordinate (0.0 where not)
     count: int
     pos: int
+
+
+class ReasoningState(NamedTuple):
+    """The device state of the reasoning loop between steps, at fixed
+    addresses (a CUDA graph captures a run of `reasoning_step`s)."""
+
+    tok: torch.Tensor  # (1,) int64: the next input token
+    hid: torch.Tensor  # (1, D): the last hidden state (a coordinate's source)
+    done: torch.Tensor  # (1,) bool: the answer token was sampled
+    count: torch.Tensor  # (1,) int64: tokens emitted
+    pos: torch.Tensor  # (1,) int32: the next step's position
+    run: torch.Tensor  # (1, DONE_CHECK_EVERY) int64: this run's tokens
+    run_coord: torch.Tensor  # (1, DONE_CHECK_EVERY) bool: token j was a coordinate
+    run_val: torch.Tensor  # (1, DONE_CHECK_EVERY) fp32: its value (0.0 where not)
+    suppress: torch.Tensor  # (n,) int64
+    temperature: Optional[torch.Tensor]  # (1,) fp32 of a sampled loop; None: greedy
+    top_p: Optional[torch.Tensor]
+
+    @classmethod
+    def create(cls, hidden: torch.Tensor, suppress_ids: Tuple[int, ...], sampled: bool
+               ) -> "ReasoningState":
+        dev = hidden.device
+        z = lambda *shape, dtype=torch.long: torch.zeros(shape, dtype=dtype, device=dev)
+        run = lambda dtype: z(1, DONE_CHECK_EVERY, dtype=dtype)
+        return cls(tok=z(1), hid=z(1, hidden.shape[-1], dtype=hidden.dtype),
+                   done=z(1, dtype=torch.bool), count=z(1), pos=z(1, dtype=torch.int32),
+                   run=run(torch.long), run_coord=run(torch.bool), run_val=run(torch.float32),
+                   suppress=torch.tensor(suppress_ids, dtype=torch.long, device=dev),
+                   temperature=z(1, dtype=torch.float32) if sampled else None,
+                   top_p=z(1, dtype=torch.float32) if sampled else None)
+
+    def reset(self, first: torch.Tensor, hidden: torch.Tensor, pos: int, answer_id: int,
+              temperature: float, top_p: float) -> None:
+        self.tok.copy_(first.reshape(1))
+        self.hid.copy_(hidden.reshape(1, -1))
+        torch.eq(self.tok, answer_id, out=self.done)
+        self.count.zero_()
+        self.pos.fill_(pos)
+        if self.temperature is not None:
+            self.temperature.fill_(temperature)
+            self.top_p.fill_(top_p)
+
+
+def reasoning_step(model: TextModel, region: RegionModel, kv: KVCache, st: ReasoningState,
+                   j: int, answer_id: int, coord_id: int, kv_bound: Optional[int],
+                   generator: Optional[torch.Generator]) -> None:
+    """One step of the reasoning loop (moondream_tpu/engine/generate.py:
+    548-581), in place on `st`: the token goes to run column j; a
+    `coord_id` token feeds enc(argmax(decode_coordinate(hidden)) / 1024) in
+    place of its embedding (both computed, one selected by torch.where:
+    JAX's `lax.cond`) and records the value; one decode step at the device
+    position; the next token sampled (the argmax for a greedy state), the
+    answer token marking the loop done. Reads nothing on the host."""
+    emb_dtype = model.wte.dtype
+    st.run[:, j] = st.tok
+    coord = st.tok == coord_id
+    val = region_ops.coordinate_value(region_ops.decode_coordinate(st.hid, region))
+    c_emb = region_ops.encode_coordinate(val[:, None].to(emb_dtype), region)
+    emb = torch.where(coord[:, None], c_emb, model.wte[st.tok].to(emb_dtype))
+    st.run_val[:, j] = torch.where(coord, val, 0.0)
+    st.run_coord[:, j] = coord
+    st.count.add_((~st.done).long())
+    hidden = text_decoder(emb[:, None], model, kv, st.pos, 0, kv_bound)[:, 0]
+    logits = _lm_logits(hidden, model).index_fill_(-1, st.suppress, NEG_INF)
+    if st.temperature is None:
+        nxt = torch.argmax(logits, dim=-1)
+    else:
+        nxt = sample_tokens_batched(logits, generator, st.temperature, st.top_p)
+    st.hid.copy_(hidden)
+    st.tok.copy_(nxt)
+    st.done.logical_or_(nxt == answer_id)
+    st.pos.add_(1)
 
 
 def generate_reasoning(
@@ -509,51 +778,44 @@ def generate_reasoning(
     coord_id: int,
     suppress_ids: Tuple[int, ...],
     kv_bound: Optional[int] = None,
+    graphed: bool = True,
 ) -> ReasoningResult:
     """The reasoning loop with inline grounding
     (moondream_tpu/engine/generate.py:516-591): as generate_text, with
     `answer_id` ending the phase, except that a `coord_id` token feeds
     enc(argmax(decode_coordinate(previous hidden)) / 1024) to the next
-    step in place of its token embedding. Both embeddings are computed
-    every step and one is selected on the device (JAX's `lax.cond`).
-    Records per token whether it was a coordinate and its value."""
+    step in place of its token embedding. Records per token whether it was
+    a coordinate and its value. The state stays on the device
+    (`ReasoningState`); the host reads it once per run of DONE_CHECK_EVERY
+    steps and once at the limit. On the card each full run replays a CUDA
+    graph keyed like the answer loop's plus the answer and coordinate ids;
+    `graphed=False` runs the same steps eagerly."""
     limit = _limit(model, pos, max_tokens, kv_bound)
+    sampled = temperature > 0
     dev = first_token.device
-    toks = torch.zeros(limit, dtype=torch.long, device=dev)
-    is_coord = torch.zeros(limit, dtype=torch.bool, device=dev)
-    coord_vals = torch.zeros(limit, dtype=torch.float32, device=dev)
-    count = torch.zeros((), dtype=torch.long, device=dev)
-    tok, hid = first_token.reshape(()).long(), first_hidden
-    done = tok == answer_id
-    emb_dtype = model.wte.dtype
+    gen = generator if sampled else None
+    key = ("generate_reasoning", kv_bound, answer_id, coord_id, tuple(suppress_ids), id(region),
+           id(generator) if sampled else None, tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+    st, run = graphs.loop(
+        model, key, lambda: ReasoningState.create(first_hidden, tuple(suppress_ids), sampled),
+        lambda st, j: reasoning_step(model, region, kv, st, j, answer_id, coord_id, kv_bound,
+                                     gen),
+        DONE_CHECK_EVERY, graphed and graphs.enabled(dev), "generate_reasoning", gen)
+    st.reset(first_token, first_hidden, pos, answer_id, temperature, top_p)
     out: List[List[float]] = [[], [], []]
     steps = reads = 0
     while True:
-        run = slice(len(out[0]), steps)
-        host = torch.cat([
-            torch.stack([done.double(), count.double()]),
-            toks[run].double(), is_coord[run].double(), coord_vals[run].double(),
-        ]).tolist()
+        k = steps - len(out[0])
+        host = torch.cat([st.done.double(), st.count.double(), st.run[0, :k].double(),
+                          st.run_coord[0, :k].double(), st.run_val[0, :k].double()]).tolist()
         reads += 1
-        k = steps - run.start
-        for j in range(3):
-            out[j] += host[2 + j * k:2 + (j + 1) * k]
+        for i in range(3):
+            out[i] += host[2 + i * k:2 + (i + 1) * k]
         if host[0] or steps == limit:
             break
-        for _ in range(min(DONE_CHECK_EVERY, limit - steps)):
-            toks[steps] = tok
-            coord = tok == coord_id
-            val = region_ops.coordinate_value(region_ops.decode_coordinate(hid, region))
-            c_emb = region_ops.encode_coordinate(val.view(1).to(emb_dtype), region)
-            emb = torch.where(coord, c_emb, model.wte[tok].to(emb_dtype))
-            coord_vals[steps] = torch.where(coord, val, 0.0)
-            is_coord[steps] = coord
-            count += (~done).long()
-            logits, hid = decode_step(model, kv, emb.view(1, 1, -1), pos + steps, kv_bound)
-            suppress(logits, suppress_ids)
-            tok = sample_token(logits, generator, temperature, top_p)
-            done = done | (tok == answer_id)
-            steps += 1
+        n = min(DONE_CHECK_EVERY, limit - steps)
+        run(n)
+        steps += n
     _record("generate_reasoning", steps, reads)
     n = int(host[1])
     return ReasoningResult(
@@ -575,6 +837,81 @@ class PointsResult(NamedTuple):
     counts: List[int]  # objects found per row
 
 
+class PointsState(NamedTuple):
+    """The device state of the structured loop between steps, B rows at one
+    shared position, at fixed addresses (a CUDA graph captures a run of
+    `points_step`s)."""
+
+    hid: torch.Tensor  # (B, D): the last hidden state
+    x: torch.Tensor  # (B,) fp32: the object's x, from its first step
+    y: torch.Tensor  # (B,) fp32: its y, from its second
+    boxes: torch.Tensor  # (B, max_objects, 4) fp32
+    n: torch.Tensor  # (B,) int64: objects found
+    done: torch.Tensor  # (B,) bool
+    pos: torch.Tensor  # (B,) int32: the next step's position, one value
+    slot: torch.Tensor  # (max_objects,) int64: 0 .. max_objects - 1
+
+    @classmethod
+    def create(cls, hidden: torch.Tensor, max_objects: int) -> "PointsState":
+        bsz, dev = hidden.shape[0], hidden.device
+        z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)
+        return cls(hid=z(*hidden.shape, dtype=hidden.dtype), x=z(bsz), y=z(bsz),
+                   boxes=z(bsz, max_objects, 4), n=z(bsz, dtype=torch.long),
+                   done=z(bsz, dtype=torch.bool), pos=z(bsz, dtype=torch.int32),
+                   slot=torch.arange(max_objects, device=dev))
+
+    def reset(self, hidden: torch.Tensor, first: torch.Tensor, pos: int, eos_id: int) -> None:
+        self.hid.copy_(hidden)
+        self.boxes.zero_()
+        self.n.zero_()
+        torch.eq(first.reshape(-1), eos_id, out=self.done)
+        self.pos.fill_(pos)
+
+
+def points_step(model: TextModel, region: RegionModel, kv: KVCache, st: PointsState,
+                phase: int, eos_id: int, include_size: bool, max_objects: int,
+                kv_bound: Optional[int]) -> None:
+    """One step of the structured loop, in place on `st`. Phase 0 decodes
+    x from the hidden state and feeds enc(x); phase 1 decodes y and feeds
+    enc(y); with sizes, phase 2 decodes the (w, h) log-bins and feeds
+    their encoding. The object's last phase records its row in each live
+    row's next box slot before the step and, after it, projects to the
+    vocabulary: EOS, or max_objects reached, marks the row done. `phase`
+    is a host int, static in a captured run (the run's start phase is in
+    its graph's key). Reads nothing on the host."""
+    spo = 3 if include_size else 2
+    emb_dtype = model.wte.dtype
+    if phase == 0:
+        x = region_ops.coordinate_value(region_ops.decode_coordinate(st.hid, region))
+        st.x.copy_(x)
+        emb = region_ops.encode_coordinate(x[:, None].to(emb_dtype), region)
+    elif phase == 1:
+        y = region_ops.coordinate_value(region_ops.decode_coordinate(st.hid, region))
+        st.y.copy_(y)
+        emb = region_ops.encode_coordinate(y[:, None].to(emb_dtype), region)
+        if not include_size:
+            zero = torch.zeros_like(y)
+            row = torch.stack([st.x, y, zero, zero], -1)
+    else:
+        bins = torch.argmax(region_ops.decode_size(st.hid, region), dim=-1)
+        wh = region_ops.size_bin_to_value(bins)
+        emb = region_ops.encode_size(wh.to(emb_dtype), region)
+        w, h = wh[:, 0], wh[:, 1]
+        row = torch.stack([st.x - w / 2, st.y - h / 2, st.x + w / 2, st.y + h / 2], -1)
+    last = phase == spo - 1
+    if last:
+        active = ~st.done
+        upd = (st.slot[None, :] == st.n[:, None]) & active[:, None]
+        st.boxes.copy_(torch.where(upd[..., None], row[:, None, :], st.boxes))
+        st.n.add_(active.long())
+    hidden = text_decoder(emb[:, None, :], model, kv, st.pos, 0, kv_bound)[:, 0]
+    st.hid.copy_(hidden)
+    if last:
+        tok = torch.argmax(_lm_logits(hidden, model), dim=-1)
+        st.done.logical_or_((tok == eos_id) | (st.n >= max_objects))
+    st.pos.add_(1)
+
+
 def points_loop(
     model: TextModel,
     region: RegionModel,
@@ -587,6 +924,7 @@ def points_loop(
     max_objects: int,
     kv_bound: Optional[int],
     loop: str,
+    graphed: bool = True,
 ) -> PointsResult:
     """The structured coordinate loop over B rows at a shared position
     (moondream_tpu/engine/generate.py:601-671 at B 1, and
@@ -598,54 +936,39 @@ def points_loop(
 
     Every object takes exactly steps_per_object (3 with sizes, else 2)
     decode steps, so the host knows how many objects fit before
-    pos_limit - 4 and runs the steps flat, reading the done flag, counts
-    and boxes once per DONE_CHECK_EVERY steps; only the last step of an
-    object projects to the vocabulary."""
+    pos_limit - 4 and runs the steps flat (`points_step` over a
+    `PointsState` on the device), reading the done flag, counts and boxes
+    once per DONE_CHECK_EVERY steps; only the last step of an object
+    projects to the vocabulary. A run's phases follow from its start
+    phase, steps % steps_per_object: on the card each run replays the CUDA
+    graph of its start phase (one for points, three for boxes) and, for
+    the last run of fewer steps, its length, keyed by the batch, sizes,
+    max_objects, eos, kv_bound and the cache; `graphed=False` runs the
+    same steps eagerly."""
     spo = 3 if include_size else 2
     pos_limit = model.config.max_context if kv_bound is None else kv_bound
     total = objects_that_fit(pos, pos_limit, spo, max_objects) * spo
     assert pos + total <= pos_limit - 2, (pos, total, pos_limit)
     bsz, dev = first_tokens.shape[0], first_tokens.device
-    emb_dtype = model.wte.dtype
-    boxes = torch.zeros((bsz, max_objects, 4), dtype=torch.float32, device=dev)
-    slot = torch.arange(max_objects, device=dev)
-    n = torch.zeros(bsz, dtype=torch.long, device=dev)
-    done = first_tokens.reshape(bsz) == eos_id
-    hid = first_hidden.reshape(bsz, -1)
+    hidden = first_hidden.reshape(bsz, -1)
+    key = (loop, bsz, include_size, max_objects, eos_id, kv_bound, id(region),
+           tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+    st, run = graphs.loop(
+        model, key, lambda: PointsState.create(hidden, max_objects),
+        lambda st, t: points_step(model, region, kv, st, t % spo, eos_id, include_size,
+                                  max_objects, kv_bound),
+        DONE_CHECK_EVERY, graphed and graphs.enabled(dev), loop, tails=True)
+    st.reset(hidden, first_tokens, pos, eos_id)
     steps = reads = 0
     while True:
-        host = torch.cat([done.all().view(1).float(), n.float(), boxes.flatten()])
+        host = torch.cat([st.done.all().view(1).float(), st.n.float(), st.boxes.flatten()])
         host = host.double().cpu().numpy()
         reads += 1
         if host[0] or steps == total:
             break
-        for _ in range(min(DONE_CHECK_EVERY, total - steps)):
-            phase = steps % spo
-            if phase == 0:
-                x = region_ops.coordinate_value(region_ops.decode_coordinate(hid, region))
-                emb = region_ops.encode_coordinate(x[:, None].to(emb_dtype), region)
-            elif phase == 1:
-                y = region_ops.coordinate_value(region_ops.decode_coordinate(hid, region))
-                emb = region_ops.encode_coordinate(y[:, None].to(emb_dtype), region)
-                if not include_size:
-                    row = torch.stack([x, y, torch.zeros_like(x), torch.zeros_like(x)], -1)
-            else:
-                bins = torch.argmax(region_ops.decode_size(hid, region), dim=-1)
-                wh = region_ops.size_bin_to_value(bins)
-                emb = region_ops.encode_size(wh.to(emb_dtype), region)
-                w, h = wh[:, 0], wh[:, 1]
-                row = torch.stack([x - w / 2, y - h / 2, x + w / 2, y + h / 2], -1)
-            last = phase == spo - 1
-            if last:
-                active = ~done
-                upd = (slot[None, :] == n[:, None]) & active[:, None]
-                boxes = torch.where(upd[..., None], row[:, None, :], boxes)
-                n = n + active.long()
-            hid = text_decoder(emb[:, None, :], model, kv, pos + steps, 0, kv_bound)[:, 0]
-            if last:
-                tok = torch.argmax(_lm_logits(hid, model), dim=-1)
-                done = done | (tok == eos_id) | (n >= max_objects)
-            steps += 1
+        n = min(DONE_CHECK_EVERY, total - steps)
+        run(n, steps % spo)
+        steps += n
     _record(loop, steps, reads)
     return PointsResult(boxes=host[1 + bsz:].reshape(bsz, max_objects, 4),
                         counts=[int(c) for c in host[1:1 + bsz]])
@@ -662,10 +985,60 @@ def generate_points(
     include_size: bool,
     max_objects: int,
     kv_bound: Optional[int] = None,
+    graphed: bool = True,
 ) -> np.ndarray:
     """Structured decode of one row from the prompt's last hidden state
     (D,) and its greedy token: the found boxes (count, 4) as float64
     ([x_min, y_min, x_max, y_max], or [x, y, 0, 0] without sizes)."""
     res = points_loop(model, region, kv, first_hidden, first_token.reshape(1), pos,
-                      eos_id, include_size, max_objects, kv_bound, "generate_points")
+                      eos_id, include_size, max_objects, kv_bound, "generate_points", graphed)
     return res.boxes[0, :res.counts[0]]
+
+
+class GazeState(NamedTuple):
+    """The device state of the accuracy-mode gaze step, B rows at one
+    shared position, at fixed addresses (a CUDA graph captures the step)."""
+
+    hid: torch.Tensor  # (B, D): the gaze prompts' last hidden states
+    x: torch.Tensor  # (B,) fp32
+    y: torch.Tensor  # (B,) fp32
+    pos: torch.Tensor  # (B,) int32: the step's position, one value
+
+
+def gaze_step(model: TextModel, region: RegionModel, kv: KVCache, st: GazeState,
+              kv_bound: Optional[int]) -> None:
+    """x from each row's prompt hidden state, one lockstep decode step on
+    enc(x) at the device position, y from its hidden state: the two ops
+    the structured loop runs for one point (moondream_tpu/models/
+    moondream.py:1748-1766). Reads nothing on the host."""
+    x = region_ops.coordinate_value(region_ops.decode_coordinate(st.hid, region))
+    emb = region_ops.encode_coordinate(x[:, None, None].to(model.wte.dtype), region)
+    hidden = text_decoder(emb, model, kv, st.pos, 0, kv_bound)[:, 0]
+    st.x.copy_(x)
+    st.y.copy_(region_ops.coordinate_value(region_ops.decode_coordinate(hidden, region)))
+
+
+def gaze_points_batched(model: TextModel, region: RegionModel, kv: KVCache,
+                        hidden: torch.Tensor, tokens: torch.Tensor, pos: int,
+                        kv_bound: Optional[int], graphed: bool = True) -> List[List[float]]:
+    """The accuracy-mode gaze rows (moondream_tpu/models/moondream.py:
+    1699-1782) after their batched prompt prefill: `gaze_step` over a
+    `GazeState`, then one host read of (token, x, y) per row. On the card
+    the step replays a CUDA graph keyed by the batch, kv_bound and the
+    cache; `graphed=False` runs it eagerly. Recorded under LOOP_COUNTS
+    "gaze_points_batched" (one step, one read)."""
+    bsz, dev = hidden.shape[0], hidden.device
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    key = ("gaze_points_batched", bsz, kv_bound, id(region), tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+    st, run = graphs.loop(
+        model, key,
+        lambda: GazeState(hid=torch.zeros_like(hidden), x=z(bsz), y=z(bsz),
+                          pos=torch.zeros((bsz,), dtype=torch.int32, device=dev)),
+        lambda st, j: gaze_step(model, region, kv, st, kv_bound),
+        1, graphed and graphs.enabled(dev), "gaze_points_batched")
+    st.hid.copy_(hidden)
+    st.pos.fill_(pos)
+    run(1)
+    rows = torch.stack([tokens.double(), st.x.double(), st.y.double()], dim=1).tolist()
+    _record("gaze_points_batched", 1, 1)
+    return rows

@@ -36,6 +36,7 @@ always runs them eagerly.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -86,11 +87,15 @@ class StepGraph:
 
 
 class Entry:
-    """A key's static device state and, once captured, its graph."""
+    """A key's static device state and, once captured, its graphs, all over
+    the one state: one per start phase of a loop whose steps differ by
+    their index (the structured loop's x, y and size steps; 0 for every
+    other loop and chunk), and one per (phase, length) of a shorter run
+    (LoopRun's `tails`)."""
 
     def __init__(self, state: Any):
         self.state = state
-        self.graph: Optional[StepGraph] = None
+        self.graphs: Dict[Hashable, StepGraph] = {}
 
 
 class GraphCache:
@@ -156,21 +161,31 @@ def capture(cache: GraphCache, fn: Callable[[], Any], label: str,
         if cache.pool is None:
             cache.pool = torch.cuda.graph_pool_handle()
         before, reserved = dict(LAUNCHES), torch.cuda.memory_reserved(dev)
+        # Python's collector must not run inside the capture: a graph it
+        # frees then (an evicted entry's) is destroyed mid-capture, which
+        # CUDA forbids and which invalidates the capture. Collect first.
+        gc.collect()
+        gc_enabled = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            graph.capture_begin(pool=cache.pool, capture_error_mode="thread_local")
-            try:
-                out = fn()
-            except BaseException:
-                try:  # end the capture; the error inside it is the one to report
-                    graph.capture_end()
-                except RuntimeError:
-                    pass
-                raise
-            finally:
-                launches = launches_since(before)
-                LAUNCHES.update(before)
-            graph.capture_end()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=cache.pool, capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                except BaseException:
+                    try:  # end the capture; the error inside it is the one to report
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                finally:
+                    launches = launches_since(before)
+                    LAUNCHES.update(before)
+                graph.capture_end()
+        finally:
+            if gc_enabled:
+                gc.enable()
         cur.wait_stream(side)
         CAPTURES.append({"label": label, "ms": (time.perf_counter() - t0) * 1e3,
                          "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
@@ -180,43 +195,51 @@ def capture(cache: GraphCache, fn: Callable[[], Any], label: str,
 
 
 class LoopRun:
-    """run(n): n steps of a loop over its device state. A full run (n ==
-    run_len) on the card replays the key's graph, captured by the first
-    full run; a shorter run, a CPU state or an eager loop runs the steps
+    """run(n, phase): n steps of a loop over its device state, step j
+    called as step(state, phase + j). A full run (n == run_len) on the card
+    replays the graph of the key and `phase`, captured by the first such
+    run; with `tails`, so does a shorter run, under its length too (the
+    structured loop, whose host knows every run's length in advance).
+    Otherwise a shorter run, a CPU state or an eager loop runs the steps
     one by one, through the same step function."""
 
     def __init__(self, entry: Entry, step: Callable[[Any, int], None], run_len: int,
                  cache: Optional[GraphCache], label: str,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], tails: bool = False):
         self.entry, self.step, self.run_len = entry, step, run_len
         self.cache, self.label, self.generator = cache, label, generator
+        self.tails = tails
 
-    def _steps(self, n: int) -> None:
+    def _steps(self, n: int, phase: int) -> None:
         for j in range(n):
-            self.step(self.entry.state, j)
+            self.step(self.entry.state, phase + j)
 
-    def __call__(self, n: int) -> None:
-        if self.cache is None or n != self.run_len:
-            self._steps(n)
-        elif self.entry.graph is None:
-            self.entry.graph, _, _ = capture(self.cache, lambda: self._steps(n), self.label,
-                                             self.generator)
+    def __call__(self, n: int, phase: int = 0) -> None:
+        if self.cache is None or n > self.run_len or (n < self.run_len and not self.tails):
+            self._steps(n, phase)
+            return
+        at = phase if n == self.run_len else (phase, n)
+        graph = self.entry.graphs.get(at)
+        if graph is None:
+            self.entry.graphs[at], _, _ = capture(
+                self.cache, lambda: self._steps(n, phase), self.label, self.generator)
         else:
-            self.entry.graph.replay()
+            graph.replay()
 
 
 def loop(owner: Any, key: Hashable, make_state: Callable[[], Any],
          step: Callable[[Any, int], None], run_len: int, graphed: bool, label: str,
-         generator: Optional[torch.Generator] = None) -> Tuple[Any, LoopRun]:
+         generator: Optional[torch.Generator] = None,
+         tails: bool = False) -> Tuple[Any, LoopRun]:
     """(state, run) of a decode loop: with `graphed`, the key's static
-    state in `owner`'s graph cache (its graph replays full runs); else a
-    fresh state whose runs are eager."""
+    state in `owner`'s graph cache (its graphs replay full runs, and with
+    `tails` shorter ones too); else a fresh state whose runs are eager."""
     if not graphed:
         state = make_state()
         return state, LoopRun(Entry(state), step, run_len, None, label, None)
     cache = cache_of(owner)
     entry = cache.entry(key, make_state)
-    return entry.state, LoopRun(entry, step, run_len, cache, label, generator)
+    return entry.state, LoopRun(entry, step, run_len, cache, label, generator, tails)
 
 
 def chunk(cache: GraphCache, key: Hashable, fn: Callable[..., Any],
@@ -228,13 +251,13 @@ def chunk(cache: GraphCache, key: Hashable, fn: Callable[..., Any],
     graph's outputs (a NamedTuple of tensors and Nones), which the next
     replay would overwrite."""
     entry = cache.entry(key, lambda: [t.clone() for t in inputs])
-    if entry.graph is None:
+    if not entry.graphs:
         static = entry.state
-        entry.graph, first, out = capture(cache, lambda: fn(*static), label, generator)
+        entry.graphs[0], first, out = capture(cache, lambda: fn(*static), label, generator)
         entry.state = (static, out)
         return first
     static, out = entry.state
     for s, t in zip(static, inputs):
         s.copy_(t)
-    entry.graph.replay()
+    entry.graphs[0].replay()
     return type(out)(*(t.clone() if isinstance(t, torch.Tensor) else t for t in out))

@@ -19,9 +19,11 @@ caption_batch / query_batch / detect_batch / point_batch: one shared
 prompt over many images, decoded in lockstep.
 `models.serve.ContinuousBatchingEngine` prefills its requests through
 load_encoded_image (on recycled buffers) and _prefill_prompt.
-On the card the answer loops (caption, query, caption_batch, query_batch)
-replay CUDA graphs of their decode runs (engine/graphs.py); `compile()`
-builds the kernels and captures them ahead of the first request.
+On the card the decode loops (caption and query, plain, speculative and
+with reasoning; detect, point, detect_gaze; the lockstep batches) replay
+CUDA graphs of their runs (engine/graphs.py); `compile()` builds the
+kernels and captures them ahead of the first request. Streams run their
+steps eagerly.
 """
 
 from __future__ import annotations
@@ -137,9 +139,10 @@ class MoondreamModel:
         unless the caller asks for the CPU (device="cpu", the plain
         versions); without a card the default raises. On a CUDA device the
         kernels take bf16 activations only. `graphed`: on the card the
-        answer loops replay CUDA graphs of their decode runs
-        (engine/graphs.py); False runs the same steps eagerly, for
-        comparison."""
+        decode loops (answer, speculative, reasoning, structured, the
+        lockstep batches and the accuracy-mode gaze step) replay CUDA
+        graphs of their runs (engine/graphs.py); False runs the same steps
+        eagerly, for comparison."""
         self.config = config
         self.dtype = dtype
         self.device = checked_device(device)
@@ -257,14 +260,19 @@ class MoondreamModel:
         top_p 0) where `settings` leaves them out. Returns self.
 
         On the card it first builds every kernel (one compiler per source,
-        all at once), and the requests capture the CUDA graphs of the
-        answer loop (engine/graphs.py) for the kv_bound bucket that
-        max_tokens gives: warm with the settings real requests use, as the
-        JAX package's jit keys say. A sampled request captures its own
-        graph at its first full run; the serving pool captures its chunk's
-        at its first chunk and the lockstep batches theirs at the first
-        batch, as JAX compiles at its first batch. On the CPU it only runs
-        the requests."""
+        all at once), and the requests capture the CUDA graphs of their
+        loops (engine/graphs.py: the answer loop, or the speculative one
+        when settings["speculative"] is set; the reasoning loop; the
+        structured loop of detect and point; the eye-mode gaze point) for
+        the kv_bound bucket that max_tokens and max_objects give: warm with
+        the settings real requests use, as the JAX package's jit keys say.
+        A graph is captured at its loop's first full run of 8 steps, so a
+        dummy request that stops inside its first run leaves it to the
+        first real one, as does a sampled request; the serving pool
+        captures its chunks' graphs at their first chunk, and the lockstep
+        batches and the accuracy-mode gaze step theirs at the first batch,
+        as JAX compiles at its first batch. On the CPU it only runs the
+        requests."""
         s = dict(settings or {})
         s.setdefault("max_tokens", DEFAULT_MAX_TOKENS)
         s.setdefault("max_objects", DEFAULT_MAX_OBJECTS)
@@ -408,20 +416,21 @@ class MoondreamModel:
         if temperature == 0:
             return engine.generate_text_spec(
                 self.text, kv, next_token, pos, max_tokens, eos, suppress, spec_k,
-                bound, seed,
+                bound, seed, graphed=self.graphed,
             ).tokens
         return engine.generate_text_spec_sampled(
             self.text, kv, next_token, pos, self.generator, temperature, top_p,
-            max_tokens, eos, suppress, spec_k, bound, seed,
+            max_tokens, eos, suppress, spec_k, bound, seed, graphed=self.graphed,
         ).tokens
 
     def _stream_answer(
         self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None,
     ) -> Iterator[str]:
-        """Incremental streaming, text flushed on word boundaries: one decode
-        step and one host sync per token, or with settings["speculative"]
-        the fused loop's verify spans (engine.spec_spans), one sync per
-        1..k tokens."""
+        """Incremental streaming, text flushed on word boundaries: one eager
+        decode step and one host sync per token, or with
+        settings["speculative"] the fused loop's verify spans
+        (engine.spec_spans, one CUDA graph replay each on the card), one
+        sync per 1..k tokens."""
         max_tokens, temperature, top_p = self._settings(settings)
         eos = eos_id if eos_id is not None else self.config.tokenizer.eos_id
         suppress = (self.config.tokenizer.answer_id,)
@@ -431,6 +440,7 @@ class MoondreamModel:
                 self.text, kv, next_token, pos, max_tokens, eos, suppress, spec_k,
                 self._decode_bound(pos + max_tokens + spec_k + 1),
                 self._spec_seed(prompt_tokens), self.generator, temperature, top_p,
+                graphed=self.graphed,
             ) for t in span)
         else:
             tokens = self._step_tokens(kv, next_token, pos, max_tokens, eos, suppress,
@@ -502,7 +512,7 @@ class MoondreamModel:
                 self.text, self.region, kv, next_token, hidden, pos, self.generator,
                 temperature, top_p, max_tokens, tok_cfg.answer_id, tok_cfg.coord_id,
                 (tok_cfg.eos_id, tok_cfg.size_id),
-                kv_bound=self._decode_bound(pos + max_tokens + 1),
+                kv_bound=self._decode_bound(pos + max_tokens + 1), graphed=self.graphed,
             )
             pos = res.pos
             reasoning_dict = {"reasoning": self._assemble_reasoning(
@@ -610,6 +620,7 @@ class MoondreamModel:
             self.text, self.region, kv, hidden, next_token, pos,
             self.config.tokenizer.eos_id, include_size, max_objects,
             kv_bound=self._decode_bound(pos + steps_per_object * max_objects + 2),
+            graphed=self.graphed,
         )
         self._recycle_kv(kv)
         return boxes
@@ -698,7 +709,7 @@ class MoondreamModel:
         res = batched_engine.generate_points_batched(
             self.text, self.region, kv, hidden, torch.argmax(logits, dim=-1),
             pos + length, self.config.tokenizer.eos_id, include_size, max_objects,
-            kv_bound=bound,
+            kv_bound=bound, graphed=self.graphed,
         )
         self._recycle_kv(kv)
         return [res.boxes[b, :n] for b, n in enumerate(res.counts)]
@@ -802,6 +813,7 @@ class MoondreamModel:
         pts = engine.generate_points(
             self.text, self.region, kv, hidden, next_token, pos,
             self.config.tokenizer.eos_id, False, 1, kv_bound=self._decode_bound(pos + 4),
+            graphed=self.graphed,
         )
         self._recycle_kv(kv)
         return {"x": float(pts[0][0]), "y": float(pts[0][1])} if len(pts) else None
@@ -812,9 +824,10 @@ class MoondreamModel:
     ) -> List[Optional[Dict[str, float]]]:
         """Every (image, eye position) row at once
         (moondream_tpu/models/moondream.py:1699-1782): one batched prefill
-        of the gaze prompts, x from its last hidden states, one lockstep
-        step on enc(x) for y, and one read of (token, x, y) per row; the
-        row math is `_detect_gaze`'s. A row whose greedy token (0 under
+        of the gaze prompts, then `engine.gaze_points_batched`: x from its
+        last hidden states, one lockstep step on enc(x) for y (a CUDA graph
+        on the card), and one read of (token, x, y) per row; the row math
+        is `_detect_gaze`'s. A row whose greedy token (0 under
         `force_detect`) is EOS gives None."""
         embeds, length = self._gaze_embeds(sources)
         pos = encs[0].pos
@@ -822,15 +835,11 @@ class MoondreamModel:
         kv = self._load_snapshot(_concat_enc_kv(encs), bound)
         logits, hidden = batched_engine.prefill_batched(
             self.text, kv, embeds, pos, length, self.config.text.prefix_attn, kv_bound=bound)
-        pos += length
-        x = region_ops.coordinate_value(region_ops.decode_coordinate(hidden, self.region))
-        emb = region_ops.encode_coordinate(x[:, None, None].to(self.dtype), self.region)
-        _, hidden_y = batched_engine.decode_step_batched(self.text, kv, emb, pos, bound)
-        y = region_ops.coordinate_value(region_ops.decode_coordinate(hidden_y, self.region))
         toks = torch.argmax(logits, dim=-1)
         if force_detect:
             toks = torch.zeros_like(toks)
-        rows = torch.stack([toks.double(), x.double(), y.double()], dim=1).tolist()  # one read
+        rows = engine.gaze_points_batched(self.text, self.region, kv, hidden, toks,
+                                          pos + length, bound, graphed=self.graphed)
         self._recycle_kv(kv)
         eos = self.config.tokenizer.eos_id
         return [None if int(t) == eos else {"x": xv, "y": yv} for t, xv, yv in rows]

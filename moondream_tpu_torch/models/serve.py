@@ -133,10 +133,12 @@ class ContinuousBatchingEngine:
         `max_objects`: the most objects a detect or point request may ask
         for (the size of each slot's box buffer).
 
-        On the card the plain chunk (`serving.serve_chunk`) replays a CUDA
-        graph, one per (chunk, sampling) of this pool, captured at its first
-        chunk (engine/graphs.py); `graphed=False` runs it eagerly, for
-        comparison. The speculative and mixed chunks run eagerly."""
+        On the card every chunk (plain, speculative greedy and sampled,
+        mixed, mixed speculative) replays a CUDA graph, one per (kind,
+        chunk, spec_k, max_objects, sampling) of this pool, captured at its
+        first chunk (engine/graphs.py; `spec_adaptive` falls back to the
+        plain chunk's graph); `graphed=False` runs them eagerly, for
+        comparison."""
         if variants:
             raise _not_ported("multi-variant (LoRA) serving")
         tc = model.config.text
@@ -536,34 +538,19 @@ class ContinuousBatchingEngine:
             temp, topp = self.temp_row, self.topp_row
         else:
             temp, topp = self.temperature, self.top_p
-        text = self.model.text
         use_mixed = any(s.active and s.structured for s in self.slots)
         use_mixed_spec = use_mixed and self.spec_k and not self._sampling_used
         was_spec = bool(self.spec_k) and (not use_mixed or use_mixed_spec)
-        shared = dict(pref=self.kv_pref, pids=self.pids)
-        kw = dict(eos_id=self.eos_id, suppress_ids=(self.model.config.tokenizer.answer_id,),
-                  kv_bound=self._suffix_slots, prefix_len=self.prefix_len)
-        state = (self.kv, self.cur, self.pos, self.active, self.budget)
-        struct = (self.mode, self.hidS, self.pending, self.xbuf, self.ybuf, self.sboxes,
-                  self.nobj, self.is_box)
         if use_mixed_spec:
-            res = serving.serve_chunk_mixed_spec(
-                text, self.model.region, *state, self.hist, self.hist_cnt, *struct, **shared,
-                n_iter=self.chunk, spec_k=self.spec_k, max_objects=self.max_objects, **kw)
+            res = self._chunk("serve_chunk_mixed_spec", temp, topp)
         elif use_mixed:
-            res = serving.serve_chunk_mixed(
-                text, self.model.region, *state, self.generator, temp, topp, *struct,
-                **shared, chunk=self.chunk, max_objects=self.max_objects, **kw)
+            res = self._chunk("serve_chunk_mixed", temp, topp)
         elif self.spec_k and self._sampling_used:
-            res = serving.serve_chunk_spec_sampled(
-                text, *state, self.hist, self.hist_cnt, self.generator, temp, topp, **shared,
-                n_iter=self.chunk, spec_k=self.spec_k, **kw)
+            res = self._chunk("serve_chunk_spec_sampled", temp, topp)
         elif self.spec_k:
-            res = serving.serve_chunk_spec(
-                text, *state, self.hist, self.hist_cnt, **shared, n_iter=self.chunk,
-                spec_k=self.spec_k, **kw)
+            res = self._chunk("serve_chunk_spec", temp, topp)
         else:
-            res = self._plain_chunk(temp, topp, shared, kw)
+            res = self._chunk("serve_chunk", temp, topp)
         self.cur, self.pos = res.cur, res.pos
         self.active, self.budget = res.active, res.budget
         if res.hist_cnt is not None:
@@ -588,23 +575,55 @@ class ContinuousBatchingEngine:
         owners = {i: s.req_id for i, s in enumerate(self.slots) if s.active}
         self._inflight.append((host, done, owners, res.tokens.shape[1], use_mixed, was_spec))
 
-    def _plain_chunk(self, temp, topp, shared: dict, kw: dict) -> serving.ServeChunkResult:
-        """serve_chunk on the pool's state; on the card through the graph of
-        its (chunk, sampling), which reads its inputs from static copies
-        and whose outputs are copied out before the next replay."""
+    def _chunk(self, kind: str, temp, topp) -> serving.ServeChunkResult:
+        """One chunk of `kind` (a function of engine.serving) on the pool's
+        state. On the card it goes through the CUDA graph of its (kind,
+        chunk, spec_k, max_objects, sampling), which reads the per-chunk
+        inputs (tokens, positions, active rows, budgets and, for spec
+        chunks, the history counts) from static copies and whose outputs
+        are copied out before the next replay. The draft histories, the
+        structured rows' state and the per-row sampling settings are this
+        pool's own buffers, allocated once and written in place, so the
+        graph reads and writes them where they are."""
         sampled = isinstance(temp, torch.Tensor) or temp > 0
+        spec, mixed = "spec" in kind, "mixed" in kind
+        text = self.model.text
+        region = self.model.region if mixed else None
+        kw = dict(eos_id=self.eos_id, suppress_ids=(self.model.config.tokenizer.answer_id,),
+                  kv_bound=self._suffix_slots, prefix_len=self.prefix_len,
+                  pref=self.kv_pref, pids=self.pids)
+        struct = (self.mode, self.hidS, self.pending, self.xbuf, self.ybuf, self.sboxes,
+                  self.nobj, self.is_box)
+        if spec:
+            kw.update(n_iter=self.chunk, spec_k=self.spec_k)
+        else:
+            kw.update(chunk=self.chunk)
+        if mixed:
+            kw.update(max_objects=self.max_objects)
 
-        def run(cur, pos, active, budget):
-            return serving.serve_chunk(self.model.text, self.kv, cur, pos, active, budget,
-                                       self.generator, temp, topp, **shared,
-                                       chunk=self.chunk, **kw)
+        def run(cur, pos, active, budget, hist_cnt=None):
+            state = (self.kv, cur, pos, active, budget)
+            sampling = (self.generator, temp, topp)
+            if kind == "serve_chunk":
+                return serving.serve_chunk(text, *state, *sampling, **kw)
+            if kind == "serve_chunk_spec":
+                return serving.serve_chunk_spec(text, *state, self.hist, hist_cnt, **kw)
+            if kind == "serve_chunk_spec_sampled":
+                return serving.serve_chunk_spec_sampled(text, *state, self.hist, hist_cnt,
+                                                        *sampling, **kw)
+            if kind == "serve_chunk_mixed":
+                return serving.serve_chunk_mixed(text, region, *state, *sampling, *struct, **kw)
+            return serving.serve_chunk_mixed_spec(text, region, *state, self.hist, hist_cnt,
+                                                  *struct, **kw)
 
-        inputs = (self.cur, self.pos, self.active, self.budget)
+        inputs = (self.cur, self.pos, self.active, self.budget) + (
+            (self.hist_cnt,) if spec else ())
         if self.graphs is None:
             return run(*inputs)
-        key = ("serve_chunk", self.chunk,
+        key = (kind, self.chunk, self.spec_k if spec else None,
+               self.max_objects if mixed else None,
                "per row" if isinstance(temp, torch.Tensor) else (temp, topp))
-        return graphs.chunk(self.graphs, key, run, inputs, "serve_chunk",
+        return graphs.chunk(self.graphs, key, run, inputs, kind,
                             self.generator if sampled else None)
 
     @property

@@ -232,11 +232,15 @@ def attn_with_cache(
     """One attention layer reading and updating the stacked cache.
 
     x: (B, T, D) pre-normed input at positions pos..pos+T-1. `pos` is a
-    host int, or for one decode token a (B,) int32 device tensor whose rows
-    hold the loop's one position (the decode loops' steps, which a CUDA
-    graph replays: RoPE, the cache writes and kernel B then read it on the
-    device). Routed as the JAX package routes it
-    (moondream_tpu/models/text.py:377-406):
+    host int, or a (B,) int32 device tensor whose rows hold the loop's one
+    position: for one decode token, or for a span of up to 16 rows over an
+    MHA cache (a speculative verify span). The decode loops' steps, which a
+    CUDA graph replays, take that form: RoPE, the cache writes and kernel B
+    then read it on the device. RoPE rows past the table are clamped to its
+    last row, and a span's write starts at min(pos, T - Tq), as JAX's
+    gather and dynamic_update_slice clamp them; such rows belong to a loop
+    that is done and are never attended. Routed as the JAX package routes
+    it (moondream_tpu/models/text.py:377-406):
       * MHA spans of up to 16 rows (decode tokens, short prompt prefills),
         and GQA decode tokens over a bf16 cache, go to the stacked-cache
         decode attention;
@@ -246,12 +250,23 @@ def attn_with_cache(
         dequantized for int8, with KV heads repeated under GQA, and go to
         flash attention."""
     bsz, q_len, _ = x.shape
+    mha = config.n_kv_heads == config.n_heads
     q, k, v = _split_qkv(block.qkv(x), config)
     on_device = isinstance(pos, torch.Tensor)
-    if on_device:
-        if q_len != 1:
-            raise ValueError("a device position takes one decode token")
+    write_ids = None
+    if on_device and q_len == 1:
         position_ids = pos.long()[:, None]  # (B, 1)
+    elif on_device:
+        if q_len > DECODE_SPAN_MAX or not mha:
+            raise ValueError(
+                f"a device position takes one decode token, or a span of at most "
+                f"{DECODE_SPAN_MAX} rows over an MHA cache; got {q_len} rows, "
+                f"{config.n_kv_heads} of {config.n_heads} KV heads"
+            )
+        steps = torch.arange(q_len, device=x.device)
+        # (B, Tq); rows past the RoPE table, and the write start, clamped
+        position_ids = (pos.long()[:, None] + steps).clamp(max=freqs_cis.shape[0] - 1)
+        write_ids = pos.long().clamp(max=kv.k.shape[3] - q_len)[:, None] + steps
     else:
         position_ids = torch.arange(pos, pos + q_len, device=x.device)
     q = apply_rotary_emb(q, freqs_cis, position_ids, config.rope_dim)
@@ -270,13 +285,13 @@ def attn_with_cache(
         writes = ((kv.k, k), (kv.v, v))
     if on_device:
         rows = torch.arange(bsz, device=x.device)
+        cols = position_ids if write_ids is None else write_ids
         for cache, val in writes:
-            write_rows(cache, layer, rows, position_ids, val)
+            write_rows(cache, layer, rows, cols, val)
     else:
         for cache, val in writes:
             cache[layer, :, :, pos:pos + q_len] = val
 
-    mha = config.n_kv_heads == config.n_heads
     if (q_len <= DECODE_SPAN_MAX and mha) or (q_len == 1 and not int8):
         out = decode_attention_cached(
             q, kv.k, kv.v, layer, pos, prefix_len, kv_bound, kv.ks, kv.vs,
@@ -312,7 +327,8 @@ def text_decoder(
 ) -> torch.Tensor:
     """Run every block over x (B, T, D) at positions pos.., writing the cache
     in place; returns the final hidden states (B, T, D). `pos`: a host int,
-    or a (B,) int32 device tensor for one decode token (attn_with_cache)."""
+    or a (B,) int32 device tensor for one decode token or an MHA span of
+    up to 16 rows (attn_with_cache)."""
     config = model.config
     for layer, block in enumerate(model.blocks):
         ln_in = block.ln(x)

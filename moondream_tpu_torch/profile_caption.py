@@ -1,8 +1,9 @@
-"""Where the time of the 2B caption path, or of one serving-pool chunk, goes
-on one CUDA card.
+"""Where the time of the 2B caption path, of another decode loop, or of one
+serving-pool chunk, goes on one CUDA card.
 
     python3 -m moondream_tpu_torch.profile_caption [--tokens 64] [--top 12]
-        [--int4] [--kv-int8] [--gqa] [--pool plain|shared] [--eager]
+        [--int4] [--kv-int8] [--gqa] [--loop spec|reasoning|detect]
+        [--pool plain|shared|spec|mixed] [--eager]
 
 Builds MOONDREAM_2B with seeded random weights on the card (with --int4, the
 text blocks quantized to int4; with --kv-int8, an int8 KV cache; with --gqa,
@@ -18,11 +19,18 @@ replays (engine/graphs.py), and the device kernels that took the most time,
 with their launch counts. --eager runs the decode steps from Python instead
 (no graphs), for comparison.
 
+With --loop, the profiled call after the encode is another loop's, warmed
+the same way: a speculative caption (k 8, up to --tokens tokens), a query
+with reasoning (up to --tokens tokens in each phase) or a detect of up to
+50 objects.
+
 With --pool, it profiles instead one `step()` (one 8-step chunk, token
 read-back included) of a ContinuousBatchingEngine with 8 slots of 1024,
-every slot decoding a caption of that image (eos off), plain or
-prefix-shared (4 prefix entries), after a warm-up chunk of the same pool
-(which captures the chunk's graph, replayed by the profiled one).
+after a warm-up chunk of the same pool (which captures the chunk's graph,
+replayed by the profiled one): every slot decoding a caption of that image
+(eos off), plain, prefix-shared (4 prefix entries) or speculative (k 8,
+`spec`); or (`mixed`) four caption rows beside two detect, a point and a
+gaze row (the mixed chunk).
 """
 
 from __future__ import annotations
@@ -93,7 +101,9 @@ def main() -> None:
     ap.add_argument("--int4", action="store_true", help="int4 text block weights")
     ap.add_argument("--kv-int8", action="store_true", help="int8 KV cache")
     ap.add_argument("--gqa", action="store_true", help="8 KV heads (GQA)")
-    ap.add_argument("--pool", choices=("plain", "shared"),
+    ap.add_argument("--loop", choices=("spec", "reasoning", "detect"),
+                    help="profile this loop's call instead of a plain caption")
+    ap.add_argument("--pool", choices=("plain", "shared", "spec", "mixed"),
                     help="profile one chunk of an 8-slot serving pool instead")
     ap.add_argument("--eager", action="store_true",
                     help="decode steps from Python, without CUDA graphs")
@@ -119,24 +129,39 @@ def main() -> None:
     greedy = {"temperature": 0.0, "max_tokens": args.tokens}
     enc = model.encode_image(img)
     if args.pool:
-        shared = args.pool == "shared"
+        shared, mixed = args.pool == "shared", args.pool == "mixed"
         eng = ContinuousBatchingEngine(
-            model, n_slots=8, slot_len=1024, chunk=8, eos_id=-1,
+            model, n_slots=8, slot_len=1024, chunk=8, eos_id=None if mixed else -1,
             prefix_share=shared, prefix_entries=4 if shared else None,
-            graphed=not args.eager,
+            speculative=8 if args.pool == "spec" else 0, graphed=not args.eager,
         )
         for max_tokens in (8, 32):  # a warm-up chunk, then the profiled pool
-            for _ in range(8):
+            for _ in range(4 if mixed else 8):
                 eng.submit(enc, max_tokens=max_tokens)
+            if mixed:
+                eng.submit_detect(enc, "object")
+                eng.submit_detect(enc, "thing")
+                eng.submit_point(enc, "object")
+                eng.submit_gaze(enc, (0.45, 0.3))
             eng.step()
+            if mixed and max_tokens == 8:
+                eng.drain()
         report(f"pool chunk ({args.pool}, 8 slots x 8 steps)", eng.step, args.top)
         eng.drain()
         return
-    model.caption(enc, "normal", settings=greedy)  # warm
+    calls = {
+        None: ("caption", lambda: model.caption(enc, "normal", settings=greedy)),
+        "spec": ("speculative caption (k 8)", lambda: model.caption(
+            enc, "normal", settings={**greedy, "speculative": 8})),
+        "reasoning": ("query with reasoning", lambda: model.query(
+            enc, "What is it?", reasoning=True, settings=greedy)),
+        "detect": ("detect (<= 50 objects)", lambda: model.detect(enc, "object")),
+    }
+    name, call = calls[args.loop]
+    call()  # warm
 
     report("encode_image", lambda: model.encode_image(img), args.top)
-    report(f"caption (greedy, <= {args.tokens} tokens)",
-           lambda: model.caption(enc, "normal", settings=greedy), args.top)
+    report(f"{name} (greedy, <= {args.tokens} tokens)", call, args.top)
 
 
 if __name__ == "__main__":
