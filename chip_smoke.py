@@ -1,6 +1,6 @@
 """Drive the PyTorch port's caption, query, lockstep-batch, serving,
-speculative and region-head (detect, point, gaze, reasoning, spatial refs)
-paths once on one CUDA card.
+speculative, region-head (detect, point, gaze, reasoning, spatial refs)
+and multi-image pipeline paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -70,6 +70,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      point, both gaze modes, detect_batch and the spec, spec-sampled,
      mixed and mixed spec pools. A GQA speculative caption runs the eager
      span loop (kernel A takes its spans) under its own loop label.
+     The multi-image pipelines on the bf16 model: BatchPipeline over 20
+     images of three sizes at batch 8 in turns with encode_images +
+     caption_batch (images/s, ids under the logit-margin rule, exact
+     launches, no new loop graph in a second run), BatchPipeline(
+     speculative=8) (kernel C over the lockstep verify spans; tok/s,
+     accept rate, reads), PooledPipeline plain and k 8 on cold engines
+     against serial submissions, and submit_many against 8 submit calls;
+     an int4 + kv_int8 PooledPipeline; then the 0.5B (MOONDREAM_05B)
+     caption path over a single-tile image. Phase 2 also holds kernel A at
+     the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
+     lockstep speculative verify, kernel B's device form at Tq 8 and 16
+     with bounds, and kernels A and B at the 0.5B's widths.
 
 Prints the card's name and power limit first, the seconds of each phase,
 a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
@@ -91,7 +103,8 @@ import torch
 if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
 
-from moondream_tpu_torch.config import MOONDREAM_2B, tiny_test_config  # noqa: E402
+from moondream_tpu_torch.config import MOONDREAM_05B, MOONDREAM_2B, tiny_test_config  # noqa: E402
+from moondream_tpu_torch.engine import batched as batched_engine  # noqa: E402
 from moondream_tpu_torch.engine.batched import (  # noqa: E402
     batched_steps,
     decode_step_batched,
@@ -110,6 +123,7 @@ from moondream_tpu_torch.engine.generate import (  # noqa: E402
     reset_loop_counts,
 )
 from moondream_tpu_torch.engine import graphs  # noqa: E402
+from moondream_tpu_torch.engine.pipeline import BatchPipeline, PooledPipeline  # noqa: E402
 from moondream_tpu_torch.engine.serving import (  # noqa: E402
     ragged_decode_step,
     ragged_verify_step,
@@ -831,6 +845,92 @@ def phase_kernels(gen: torch.Generator) -> dict:
         print(f"{name} device pos form {at}: device only {dev_ms:.4f} ms, host pos form "
               f"{host_ms:.4f} ms ({dev_ms / host_ms:.2f} x)")
 
+    # The device form at the spans of every graphed verify, pos 800, bound
+    # 1536 (Tq 8, and Tq 16: every k 16 span), timed with its bound, and
+    # bf16 beside SDPA; the attended columns are 0 .. pos + i.
+    for tq in (8, 16):
+        pos, pt = 800, dev_pos(1, 800)
+        kc, vc = (garbage_tail(randn(24, 1, 32, 2048, 64), pos + tq) for _ in range(2))
+        kl, vl = kc[13, :, :, :1536], vc[13, :, :, :1536]
+        mask = unified_mask(tq, 1536, pos, 0, DEV)
+        cols, attended = pos + tq, int(mask.sum())
+        q = randn(1, 32, tq, 64)
+        check(K.DECODE, f"device pos span stacked L24 layer13 batch1 tq{tq} pos{pos} bound1536",
+              lambda: decode_attention_cached(q, kc, vc, 13, pt, 0, 1536, lockstep=True),
+              lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, pos, 0, 1536),
+              (q, kc, vc), attn_work(q, kl[..., :cols, :], vl[..., :cols, :], attended),
+              sdpa(q, kl, vl, mask))
+        (k8, ks), (v8, vs) = (quantize_kv(x.float().view(24, 32, 2048, 64), 2) for x in (kc, vc))
+        k8, v8 = k8.view(24, 1, 32, 2048, 64), v8.view(24, 1, 32, 2048, 64)
+        ks, vs = ks.view(24, 1, 16, 2048), vs.view(24, 1, 16, 2048)
+        # codes and scales of the attended columns, q and the output
+        work = (2 * 32 * cols * 64 + 2 * 16 * cols * 4 + 2 * q.numel() * 2,
+                4 * 32 * 64 * attended)
+        check(K.DECODE, f"device pos span int8 stacked L24 layer13 batch1 tq{tq} pos{pos} "
+              "bound1536",
+              lambda: decode_attention_cached(q, k8, v8, 13, pt, 0, 1536, ks, vs, lockstep=True),
+              lambda q: decode_attention_cached_plain(q, k8, v8, 13, pos, 0, 1536, ks, vs),
+              (q,), work)
+        del kc, vc, kl, vl, k8, v8, ks, vs
+
+    # The pipelines' shapes. Kernel A at BatchPipeline's fused [BOS, image,
+    # caption prompt] prefill: 8 rows x 32 heads x 738 query rows (730 +
+    # the 5-token prompt padded to 8) at pos 0, prefix 730, over the 768
+    # columns of the layer view (kv_bound 768), x1000 garbage past row 738;
+    # the diagonal query is each row's own key.
+    kc, vc = (garbage_tail(randn(8, 32, 1024, 64), 738) for _ in range(2))
+    kl, vl = kc[:, :, :768], vc[:, :, :768]
+    mask = unified_mask(738, 768, 0, 730, DEV)
+    for kind, q in (("random q", randn(8, 32, 738, 64)), ("diagonal q", kl[:, :, :738].clone())):
+        check(K.FLASH, f"fused pipeline prefill batch8 32x738x768 prefix730, {kind}",
+              lambda: flash_attention(q, kl, vl, 0, 730),
+              lambda q, k, v: flash_attention_plain(q, k, v, 0, 730), (q, kl, vl),
+              attn_work(q, kl[..., :738, :], vl[..., :738, :], 8 * int(mask.sum())),
+              sdpa(q, kl, vl, mask))
+    del kc, vc, kl, vl
+    # Kernel C at the lockstep speculative verify (generate_text_spec_batched,
+    # k 8): 8 rows of one (24, 8, 32, 1024, 64) cache (kv_bound 1024),
+    # desynced at positions 738-800, no prefix segment; x1000 garbage past
+    # each row's span; the diagonal query is each row's own keys.
+    pos = [738, 745, 752, 760, 771, 780, 790, 800]
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+    kc, vc = randn(24, 8, 32, 1024, 64), randn(24, 8, 32, 1024, 64)
+    for b, p in enumerate(pos):
+        kc[:, b, :, p + 8:] *= 1000
+        vc[:, b, :, p + 8:] *= 1000
+    diag = torch.stack([kc[13, b, :, p:p + 8] for b, p in enumerate(pos)])
+    rows = pos_t.long()[:, None, None, None] + torch.arange(8, device=DEV)[:, None]
+    mask = torch.arange(1024, device=DEV) <= rows
+    kv_bytes = 2 * 32 * sum(p + 8 for p in pos) * 64 * 2
+    for kind, q in (("random q", randn(8, 32, 8, 64)), ("diagonal q", diag)):
+        check(K.RAGGED, f"lockstep spec verify 24x8x32x1024 layer13 tq8 pos738-800, {kind}",
+              lambda: decode_attention_cached(q, kc, vc, 13, pos_t, 0, 1024),
+              lambda q, k, v: decode_attention_ragged_plain(q, k, v, 13, pos_t, 0, 1024),
+              (q, kc, vc), (kv_bytes + 2 * q.numel() * 2, 4 * 32 * 64 * int(mask.sum())),
+              sdpa(q, kc[13], vc[13], mask))
+    del kc, vc, diag
+
+    # The 0.5B's widths (MOONDREAM_05B), held only: kernel A over a 2-crop
+    # ViT batch (10 heads, d 72) and the [BOS, image] prefill (16 heads,
+    # d 64), kernel B at a decode step of the (24, 1, 16, 2048, 64) cache.
+    qkv = randn(2, 768, 3 * 10 * 72)
+    q, k, v = (x.view(2, 768, 10, 72).transpose(1, 2) for x in qkv.split(720, -1))
+    check(K.FLASH, "0.5B vit 2x10x768x768 d72 prefix729",
+          lambda: flash_attention(q, k, v, 0, 729),
+          lambda q, k, v: flash_attention_plain(q, k, v, 0, 729), (q, k, v), timed=False)
+    kc, vc = (garbage_tail(randn(24, 1, 16, 2048, 64), 736) for _ in range(2))
+    q = randn(1, 16, 730, 64)
+    check(K.FLASH, "0.5B image prefill 16x730x768 d64 prefix730",
+          lambda: flash_attention(q, kc[13, :, :, :768], vc[13, :, :, :768], 0, 730),
+          lambda q, k, v: flash_attention_plain(q, k[13, :, :, :768], v[13, :, :, :768], 0, 730),
+          (q, kc, vc), timed=False)
+    for kind, q in (("random q", randn(1, 16, 1, 64)), ("diagonal q", kc[13, :, :, 735:736])):
+        check(K.DECODE, f"0.5B stacked L24 layer13 16 heads tq1 pos735 bound1024, {kind}",
+              lambda: decode_attention_cached(q, kc, vc, 13, 735, 730, 1024),
+              lambda q, k, v: decode_attention_cached_plain(q, k, v, 13, 735, 730, 1024),
+              (q, kc, vc), timed=False)
+    del kc, vc, qkv
+
     # Kernel C: a pool whose slots sit at 0, 1, 730 and the last column at
     # once, slot 4 idle at 0 (bf16 and int8, Tq 1 and 4); most of the
     # early slots' splits are empty.
@@ -1145,9 +1245,10 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
         quantize_text_params(params["text"])
         packed_bytes = _nbytes(*(t for lin in lins() for t in (lin.packed, lin.scale, lin.zero)))
     model = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    size = "0.5B" if cfg == MOONDREAM_05B else "2B"
     heads = f"{cfg.text.n_kv_heads} KV heads"
     label = " + ".join(["int4"] * int4 + ["kv_int8" if kv_int8 else "bf16"]) + f", {heads}"
-    print(f"2B model ({label}) on the card: {sync_ms(t0):.1f} ms")
+    print(f"{size} model ({label}) on the card: {sync_ms(t0):.1f} ms")
     greedy = {"temperature": 0.0, "max_tokens": 64}
 
     # The counted run: one encode and one caption through the entry points.
@@ -1224,10 +1325,10 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
 
     prefill_ms = min(r[1] for r in runs)
     tok_s = max(r[2] for r in runs)
-    print(f"2B caption path ({label}) on {power}: encode {encode_ms:.1f} ms "
+    print(f"{size} caption path ({label}) on {power}: encode {encode_ms:.1f} ms "
           f"(cold {cold_encode_ms:.1f} ms), prompt prefill {prefill_ms:.2f} ms, "
           f"decode {tok_s:.1f} tok/s over {len(runs[0][0])} tokens "
-          f"(greedy, batch 1, 13 crops); one query {query_ms:.1f} ms "
+          f"(greedy, batch 1, {len(model._crops(img)[0])} crops); one query {query_ms:.1f} ms "
           f"({len(answer)} tokens, encoded image)")
     kv = model.load_encoded_image(enc)
     if int4:
@@ -2460,6 +2561,291 @@ def phase_spec_eager_route(model, enc, power: str) -> dict:
     return launches
 
 
+PIPE_BATCH = 8  # BatchPipeline's batch: 20 images give batches of 8, 8 and 4 + 4 padded rows
+
+
+def _vit_groups(model, images) -> int:
+    """The ViT calls encode_images makes: one per (crop count, tiling)."""
+    return len({(c.shape[0], t) for c, t in map(model._crops, images)})
+
+
+def _batches(images, bsz: int, pad: bool) -> list:
+    """`images` in batches of `bsz`, the tail padded with its last image
+    (as BatchPipeline pads it) or not (a PooledPipeline wave)."""
+    out = []
+    for start in range(0, len(images), bsz):
+        chunk = images[start:start + bsz]
+        out.append(chunk + [chunk[-1]] * (bsz - len(chunk)) if pad else chunk)
+    return out
+
+
+def _pipeline_launches(cfg, groups: list, steps: int = 0, spans: int = 0) -> dict:
+    """Exact launches of BatchPipeline batches with `groups` ViT groups each:
+    the ViT per group and one fused prefill of kernel A per text layer per
+    batch, then `steps` lockstep decode steps (kernel B) or `spans`
+    lockstep verify spans (kernel C), summed over the batches."""
+    L = cfg.text.n_layers
+    want = {name: 0 for name in LAUNCHES}
+    want[K.FLASH] = sum(g * cfg.vision.enc_n_layers + L for g in groups)
+    want[K.DECODE] = L * steps
+    want[K.RAGGED] = L * spans
+    return want
+
+
+def phase_pipelines(model, images, power: str) -> list:
+    """BatchPipeline on the 2B bf16 model over `images` (three sizes) at
+    batch 8, 64 greedy tokens with eos off, in turns with encode_images +
+    caption_batch over the same batches (serial, pipeline, pipeline,
+    serial): images/s of both; every row's ids against caption_batch's
+    (cut at caption_batch's EOS) under _check_margin's rule; exact launch
+    counts and host reads of the counted pipeline run, and no new CUDA
+    graph capture in the second. Then BatchPipeline(speculative=8): its
+    rows against the plain pipeline's under the same rule, exact launches
+    (every verify span takes kernel C on every layer), reads at most one
+    per run of 8 spans plus one per batch, tok/s and the accept rate."""
+    cfg = model.config
+    eos, n_img = cfg.tokenizer.eos_id, len(images)
+    model.tokenizer = IdTokenizer()
+    tmpl = list(cfg.tokenizer.templates["caption"]["normal"])
+    groups = [_vit_groups(model, b) for b in _batches(images, PIPE_BATCH, pad=True)]
+    plain = BatchPipeline(model, batch_size=PIPE_BATCH, eos_id=-1)
+    ms = {"serial": [], "pipeline": []}
+    runs, captured = [], []
+    for turn in ("serial", "pipeline", "pipeline", "serial"):
+        reset_launch_counts()
+        reset_loop_counts()
+        before = len(graphs.CAPTURES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == "serial":
+            serial, encs = [], []
+            for chunk in _batches(images, PIPE_BATCH, pad=False):
+                encs += model.encode_images(chunk)
+                serial += [_ids(t) for t in model.caption_batch(encs[-len(chunk):], "normal",
+                                                                settings=GREEDY64)]
+        else:
+            piped = [_ids(t) for t in plain.caption(images, "normal", settings=GREEDY64)]
+        ms[turn].append(sync_ms(t0))
+        if turn == "pipeline":
+            captured.append(sum(c["label"] == "generate_text_batched"
+                                for c in graphs.CAPTURES[before:]))
+            loop = dict(LOOP_COUNTS["generate_text_batched"])
+            if len(captured) == 1:
+                check_launches(f"BatchPipeline (2B bf16), {n_img} images in batches of "
+                               f"{PIPE_BATCH}, ViT groups {groups}", dict(LAUNCHES),
+                               _pipeline_launches(cfg, groups, steps=loop["steps"]))
+                runs.append(dict(LAUNCHES))
+            if (loop["calls"] != len(groups) or loop["steps"] != 64 * len(groups)
+                    or loop["reads"] > math.ceil(loop["steps"] / DONE_CHECK_EVERY)
+                    + loop["calls"]):
+                raise AssertionError(f"BatchPipeline loop counts {loop}")
+    if captured[1] != 0 or captured[0] > 2:
+        raise AssertionError(f"BatchPipeline captured {captured} lockstep graphs in two runs "
+                             "(at most one per recycled cache buffer, then none)")
+    if len(piped) != n_img or any(len(r) != 64 for r in piped):
+        raise AssertionError(f"BatchPipeline rows {[len(r) for r in piped]}")
+    cut = lambda r: r[:r.index(eos)] if eos in r else r
+    diffs = [_check_margin(f"BatchPipeline row {i}", model, enc, tmpl, want, cut(got), 64)
+             for i, (enc, want, got) in enumerate(zip(encs, serial, piped))]
+    best = {turn: min(v) for turn, v in ms.items()}
+    print(f"2B BatchPipeline (bf16) on {power}: {n_img} images of three sizes, batch "
+          f"{PIPE_BATCH}, 64 tokens: {n_img / (best['pipeline'] / 1e3):.2f} images/s "
+          f"({ms['pipeline']} ms) vs encode_images + caption_batch "
+          f"{n_img / (best['serial'] / 1e3):.2f} images/s ({ms['serial']} ms); lockstep "
+          f"graph captures per pipeline run {captured}; vs caption_batch: "
+          f"{sum(d is None for d in diffs)} of {n_img} rows equal"
+          + "".join(f"; row {i} first differs at token {d[0]} (margin {d[1][0]}, {d[1][1]} "
+                    f"bf16 steps)" for i, d in enumerate(diffs) if d))
+
+    # BatchPipeline(speculative=8): the lockstep spec loop per batch
+    results = []
+    record = batched_engine.generate_text_spec_batched
+
+    def recorded(*args, **kw):
+        results.append(record(*args, **kw))
+        return results[-1]
+
+    spec = BatchPipeline(model, batch_size=PIPE_BATCH, eos_id=-1, speculative=SPEC_K)
+    spec_ms = []
+    batched_engine.generate_text_spec_batched = recorded
+    try:
+        for _ in range(2):
+            results.clear()
+            reset_launch_counts()
+            reset_loop_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            spec_ids = [_ids(t) for t in spec.caption(images, "normal", settings=GREEDY64)]
+            spec_ms.append(sync_ms(t0))
+    finally:
+        batched_engine.generate_text_spec_batched = record
+    loop = dict(LOOP_COUNTS["generate_text_spec_batched"])
+    check_launches(f"BatchPipeline(speculative={SPEC_K}) (2B bf16), {loop['steps']} verify spans",
+                   dict(LAUNCHES), _pipeline_launches(cfg, groups, spans=loop["steps"]))
+    runs.append(dict(LAUNCHES))
+    iters = sum(r.iters for r in results)
+    if (loop["calls"] != len(groups) or loop["reads"] > sum(
+            math.ceil(r.iters / DONE_CHECK_EVERY) + 1 for r in results)):
+        raise AssertionError(f"BatchPipeline(speculative) loop counts {loop}, {iters} iterations")
+    emitted = sum(int(r.counts.sum()) for r in results)
+    diffs = [_check_margin(f"BatchPipeline(speculative) row {i}", model, enc, tmpl, want, got, 64)
+             for i, (enc, want, got) in enumerate(zip(encs, piped, spec_ids))]
+    tok = lambda t: n_img * 64 / (t / 1e3)
+    print(f"2B BatchPipeline(speculative={SPEC_K}) (bf16) on {power}: {tok(min(spec_ms)):.1f} "
+          f"tok/s ({spec_ms} ms) vs plain {tok(best['pipeline']):.1f} tok/s, crops and ViT "
+          f"included; accept rate {emitted / (iters * PIPE_BATCH):.3f} tokens per row and "
+          f"iteration ({emitted} tokens, {iters} iterations x {PIPE_BATCH} rows), "
+          f"{loop['steps']} spans run, {loop['reads']} host reads; vs the plain pipeline: "
+          f"{sum(d is None for d in diffs)} of {n_img} rows equal"
+          + "".join(f"; row {i} first differs at token {d[0]} (margin {d[1][0]}, {d[1][1]} "
+                    f"bf16 steps)" for i, d in enumerate(diffs) if d))
+    return runs
+
+
+def _serial_pool_ids(model, encs, max_tokens: int) -> list:
+    """Each EncodedImage's caption through an 8-slot pool (1024, chunk 8,
+    eos off), submitted one by one as slots free."""
+    eng = ContinuousBatchingEngine(model, n_slots=8, slot_len=1024, chunk=8, eos_id=-1)
+    rids = []
+    for enc in encs:
+        while not eng.free_slots():
+            eng.step()
+        rids.append(eng.submit(enc, max_tokens=max_tokens))
+    out = eng.drain()
+    return [_ids(out[r]) for r in rids]
+
+
+def _pooled_pipeline_run(model, images, spec: int, label: str) -> tuple:
+    """A PooledPipeline of 8 slots of 1024 (chunk 8, eos off, waves of 4)
+    over `images` on a cold engine (its chunk graphs captured while the
+    producer encodes), 64 greedy tokens each: exact launch counts (per
+    wave one encode_images, per image a prompt span, per chunk 8 steps or
+    verify iterations of kernel C), one read-back per chunk. Returns (ids,
+    launches, ms, chunks)."""
+    cfg = model.config
+    L, quantized = cfg.text.n_layers, cfg.text.kv_int8
+    pipe = PooledPipeline(model, n_slots=8, slot_len=1024, chunk=8, speculative=spec,
+                          eos_id=-1)
+    eng = pipe.engine
+    counts = {"dispatch": 0, "read": 0}
+    for name, attr in (("dispatch", "_dispatch_chunk"), ("read", "_process_oldest")):
+        def counted(_fn=getattr(eng, attr), _name=name):
+            counts[_name] += 1
+            return _fn()
+        setattr(eng, attr, counted)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [_ids(t) for t in pipe.caption(images, "normal", settings=GREEDY64)]
+    ms = sync_ms(t0)
+    launches = dict(LAUNCHES)
+    chunks = counts["dispatch"]
+    want = {name: 0 for name in LAUNCHES}
+    want[K.FLASH] = sum(_vit_groups(model, w) * cfg.vision.enc_n_layers + L
+                        for w in _batches(images, 4, pad=False))
+    want[K.DECODE_INT8 if quantized else K.DECODE] = L * len(images)
+    want[K.RAGGED_INT8 if quantized else K.RAGGED] = L * 8 * -(-max(spec, 1) // 16) * chunks
+    if quantized:
+        want[KQ.W4A16] = 4 * L * (len(images) + 8 * chunks)
+    check_launches(f"PooledPipeline {label}, {len(images)} images, {chunks} chunks", launches,
+                   want)
+    if counts["read"] + len(eng._inflight) != chunks or any(len(r) != 64 for r in ids):
+        raise AssertionError(f"PooledPipeline {label}: {counts}, rows {[len(r) for r in ids]}")
+    return ids, launches, ms, chunks
+
+
+def phase_pooled_pipelines(model, images, power: str) -> list:
+    """PooledPipeline (8 slots of 1024, chunk 8) over `images`, plain and
+    speculative k 8, each on a cold engine, against serial submissions of
+    the same images to an 8-slot pool (ids under _check_margin's rule);
+    tokens/s. Then submit_many of 8 images against 8 submit calls: equal
+    ids where the submits take submit_many's encodes (encode_images), the
+    margin rule where they encode each image alone, and admission ms of
+    both."""
+    cfg = model.config
+    model.tokenizer = IdTokenizer()
+    tmpl = list(cfg.tokenizer.templates["caption"]["normal"])
+    encs = [model.encode_image(im) for im in images]
+    serial = _serial_pool_ids(model, encs, 64)
+    runs, lines = [], []
+    for spec in (0, SPEC_K):
+        label = f"(bf16, speculative {spec})"
+        ids, launches, ms, chunks = _pooled_pipeline_run(model, images, spec, label)
+        runs.append(launches)
+        diffs = [_check_margin(f"PooledPipeline {label} request {i}", model, enc, tmpl, want,
+                               got, 64, slots=1024)
+                 for i, (enc, want, got) in enumerate(zip(encs, serial, ids))]
+        lines.append(f"speculative {spec}: {len(images) * 64 / (ms / 1e3):.1f} tok/s "
+                     f"({ms:.1f} ms, {chunks} chunks, cold engine, encode included); "
+                     f"{sum(d is None for d in diffs)} of {len(images)} equal to serial "
+                     "submissions" + "".join(
+                         f"; request {i} first differs at token {d[0]} (margin {d[1][0]}, "
+                         f"{d[1][1]} bf16 steps)" for i, d in enumerate(diffs) if d))
+    print(f"2B PooledPipeline on {power}: " + "; ".join(lines))
+
+    # submit_many against 8 submit calls
+    burst = images[:8]
+    kw = dict(n_slots=8, slot_len=1024, chunk=8, eos_id=-1)
+    eng = ContinuousBatchingEngine(model, **kw)
+    reset_launch_counts()
+    chunks = [0]
+    dispatch = eng._dispatch_chunk
+
+    def counted():
+        chunks[0] += 1
+        dispatch()
+
+    eng._dispatch_chunk = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = eng.submit_many(burst, max_tokens=POOL_TOKENS)
+    many_ms = sync_ms(t0)
+    out = eng.drain()
+    many = [_ids(out[r]) for r in rids]
+    L = cfg.text.n_layers
+    want = {name: 0 for name in LAUNCHES}
+    want[K.FLASH] = _vit_groups(model, burst) * cfg.vision.enc_n_layers + L
+    want[K.DECODE] = L * len(burst)
+    want[K.RAGGED] = L * 8 * chunks[0]
+    check_launches(f"submit_many of {len(burst)} images, {chunks[0]} chunks", dict(LAUNCHES),
+                   want)
+    runs.append(dict(LAUNCHES))
+    same_encs = model.encode_images(burst)
+    eng = ContinuousBatchingEngine(model, **kw)
+    rids = [eng.submit(enc, max_tokens=POOL_TOKENS) for enc in same_encs]
+    out = eng.drain()
+    if [_ids(out[r]) for r in rids] != many:
+        raise AssertionError("submit_many ids differ from submit of its encodes")
+    eng = ContinuousBatchingEngine(model, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(im, max_tokens=POOL_TOKENS) for im in burst]
+    single_ms = sync_ms(t0)
+    out = eng.drain()
+    singles = [_ids(out[r]) for r in rids]
+    diffs = [_check_margin(f"submit request {i}", model, enc, tmpl, want, got, POOL_TOKENS,
+                           slots=1024)
+             for i, (enc, want, got) in enumerate(zip(encs, singles, many))]
+    print(f"2B submit_many (bf16) on {power}: {len(burst)} images admitted in {many_ms:.1f} ms "
+          f"(one encode_images, {len(burst)} prompt prefills and slot writes) vs "
+          f"{single_ms:.1f} ms for {len(burst)} submit calls; ids equal to submit of "
+          f"submit_many's encodes; vs submit of each image: "
+          f"{sum(d is None for d in diffs)} of {len(burst)} equal"
+          + "".join(f"; request {i} first differs at token {d[0]} (margin {d[1][0]}, "
+                    f"{d[1][1]} bf16 steps)" for i, d in enumerate(diffs) if d))
+    return runs
+
+
+def phase_int4_pooled_pipeline(model, images, power: str) -> list:
+    """One PooledPipeline on the int4 + kv_int8 2B (C-int8, W4A16) over
+    `images`, exact launches, tokens/s."""
+    model.tokenizer = IdTokenizer()
+    ids, launches, ms, chunks = _pooled_pipeline_run(model, images, 0, "(int4 + kv_int8)")
+    print(f"2B PooledPipeline (int4 + kv_int8) on {power}: {len(images) * 64 / (ms / 1e3):.1f} "
+          f"tok/s ({ms:.1f} ms, {len(images)} images, {chunks} chunks, cold engine)")
+    return [launches]
+
+
 def main() -> None:
     power = card()
     print(power)
@@ -2516,6 +2902,11 @@ def main() -> None:
     runs += phase("4 2B bf16 mixed pools", phase_mixed_pools, model, images, power)
     phase("4 2B bf16 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
           power)
+    # 20 images of three sizes for the pipelines: 13, 2 and 7 crops
+    pipe_images = [rng.integers(0, 256, shape, dtype=np.uint8)
+                   for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 7][:20]
+    runs += phase("4 2B bf16 pipelines", phase_pipelines, model, pipe_images, power)
+    runs += phase("4 2B bf16 pipelines", phase_pooled_pipelines, model, pipe_images[:16], power)
     del model, enc
     launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(MOONDREAM_2B),
                             int4=True)
@@ -2527,6 +2918,7 @@ def main() -> None:
     enc = model.encode_image(img)
     runs += phase("4 2B int4", phase_structured, model, enc, img, batch_images, power,
                   int4=True, full=False)
+    runs += phase("4 2B int4", phase_int4_pooled_pipeline, model, batch_images, power)
     runs += phase("4 2B int4 speculative", phase_spec, model, enc, power, int4=True)
     phase("4 2B int4 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
           power, full=False)
@@ -2548,6 +2940,11 @@ def main() -> None:
           power)
     runs += [*launches]
     del model, params
+    # the 0.5B (published widths, full depth) over one single-tile image
+    img05 = np.random.default_rng(SEED + 3).integers(0, 256, (378, 378, 3), dtype=np.uint8)
+    launches, model = phase("4 0.5B", phase_main_path, img05, power, MOONDREAM_05B)
+    runs += [*launches]
+    del model
     print("seconds per phase:", seconds, "total", round(sum(seconds.values()), 1))
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     launches[K.DECODE] += launches.pop(K.DECODE_INT8)

@@ -59,6 +59,14 @@ _lock = threading.RLock()  # one capture at a time: they share a stream
 _streams: Dict[torch.device, torch.cuda.Stream] = {}
 
 
+def lock() -> threading.RLock:
+    """The lock every capture holds. A thread that launches kernels beside
+    a capturing one (a pipeline's producer) holds it meanwhile, so that
+    none of its launches falls inside a capture: the capture would count
+    them as its graph's and take them back from the launch counts."""
+    return _lock
+
+
 def enabled(dev: torch.device) -> bool:
     """Whether loops and pools on `dev` run through CUDA graphs: on the
     card, always (unless a loop is asked to run eagerly)."""

@@ -62,6 +62,22 @@ PROMPT_PAD = 8
 # tokens, left-padded with -1 to this width (moondream_tpu/models/
 # moondream.py:276).
 SPEC_SEED_LEN = 64
+# The JAX package's settings for LoRA variants and steering
+# (moondream_tpu/models/moondream.py:840-855, :907-918), which the port
+# does not apply yet: every entry point that takes settings refuses them.
+UNPORTED_SETTINGS = ("variant", "variant_tree", "variant_label", "steer", "steer_scale")
+
+
+def _refuse_unported(settings: Optional[Dict[str, Any]]) -> None:
+    """Raise NotImplementedError when `settings` sets a LoRA variant or a
+    steering vector: answering as the base model instead would drop them
+    without a word (ROADMAP.md Queue 1 item 5 ports them)."""
+    for key in UNPORTED_SETTINGS:
+        if (settings or {}).get(key) is not None:
+            raise NotImplementedError(
+                f"settings[{key!r}] (LoRA variants and steering) is not ported to "
+                "moondream_tpu_torch yet (ROADMAP.md Queue 1 item 5)"
+            )
 
 
 @dataclass(frozen=True)
@@ -157,8 +173,10 @@ class MoondreamModel:
         # returns each prefilled request's buffer once its slot write is
         # done, so the next load_encoded_image costs only the snapshot
         # copy. Stale slots past a snapshot are overwritten before they are
-        # attended. Servers recycle from other threads: hence the lock.
-        self._kv_pool: Dict[Tuple[int, int], List[KVCache]] = {}
+        # attended. Servers and pipelines recycle from other threads (hence
+        # the lock) and streams: each buffer keeps an event recorded on the
+        # stream that returned it, which the stream taking it waits on.
+        self._kv_pool: Dict[Tuple[int, int], List[Tuple[KVCache, Any]]] = {}
         self._kv_pool_lock = threading.Lock()
 
     @property
@@ -213,7 +231,9 @@ class MoondreamModel:
         return out["crops"], tuple(out["tiling"])
 
     def _vision_features(self, crops: torch.Tensor) -> torch.Tensor:
-        """(N, 378, 378, 3) uint8 crops on the host -> (N, 729, enc_dim)."""
+        """(N, 378, 378, 3) uint8 crops -> (N, 729, enc_dim). Crops on the
+        host are copied to the device first; crops already there (the
+        pipeline's, copied on its side stream) are used where they are."""
         x = crops.to(self.device).to(self.dtype) / 255.0
         return vision_encoder((x - 0.5) / 0.5, self.vision)
 
@@ -228,6 +248,13 @@ class MoondreamModel:
         )
         return vision_projection(feats[..., 0, :, :], recon, self.vision)
 
+    def _embed_group(self, crops: torch.Tensor, n: int, tiling) -> torch.Tensor:
+        """(G, 729, text_dim) embeddings of G images with n crops each and
+        one tiling, from their crops (G * n, 378, 378, 3) in image order:
+        ONE ViT call for the group."""
+        feats = self._vision_features(crops)
+        return self._stitch_project(feats.reshape(-1, n, *feats.shape[1:]), tiling)
+
     def _run_vision_encoder(self, image) -> torch.Tensor:
         """PIL image or uint8 (H, W, 3) array -> (729, text_dim) image
         embedding, the ViT over the crops padded to a crop-count bucket."""
@@ -239,6 +266,7 @@ class MoondreamModel:
 
     def encode_image(self, image, settings: Optional[Dict[str, Any]] = None) -> EncodedImage:
         """Encode an image and prefill [BOS, image] through the text model."""
+        _refuse_unported(settings)
         if isinstance(image, EncodedImage):
             return image
         img_emb = self._run_vision_encoder(image)
@@ -273,6 +301,7 @@ class MoondreamModel:
         batches and the accuracy-mode gaze step theirs at the first batch,
         as JAX compiles at its first batch. On the CPU it only runs the
         requests."""
+        _refuse_unported(settings)
         s = dict(settings or {})
         s.setdefault("max_tokens", DEFAULT_MAX_TOKENS)
         s.setdefault("max_objects", DEFAULT_MAX_OBJECTS)
@@ -296,23 +325,32 @@ class MoondreamModel:
 
     def _take_kv_buffer(self, batch: int = 1, slots: Optional[int] = None) -> KVCache:
         """A (batch, slots) cache buffer, recycled when the pool has one;
-        its contents are stale."""
+        its contents are stale. The current stream waits until the stream
+        that recycled it is done with it."""
         slots = slots or self.config.text.max_context
         with self._kv_pool_lock:
             pool = self._kv_pool.get((batch, slots))
-            if pool:
-                return pool.pop()
-        return KVCache.create(self.config.text, batch, self.dtype, self.device, slots)
+            entry = pool.pop() if pool else None
+        if entry is None:
+            return KVCache.create(self.config.text, batch, self.dtype, self.device, slots)
+        kv, freed = entry
+        if freed is not None:
+            torch.cuda.current_stream(kv.k.device).wait_event(freed)
+        return kv
 
     def _recycle_kv(self, kv: Optional[KVCache]) -> None:
         """Return a buffer to the pool (at most two kept per batch and
         size); the caller must not use it afterwards."""
         if kv is None:
             return
+        freed = None
+        if kv.k.is_cuda:
+            freed = torch.cuda.Event()
+            freed.record(torch.cuda.current_stream(kv.k.device))
         with self._kv_pool_lock:
             pool = self._kv_pool.setdefault((int(kv.k.shape[1]), int(kv.k.shape[3])), [])
             if len(pool) < 2:
-                pool.append(kv)
+                pool.append((kv, freed))
 
     def _load_snapshot(self, snap: KVCache, slots: Optional[int]) -> KVCache:
         """A working cache holding `snap` (its batch rows) from column 0, on
@@ -479,6 +517,7 @@ class MoondreamModel:
         returned under "reasoning"), then the answer. `spatial_refs`
         ((x, y) points and (x_min, y_min, x_max, y_max) boxes, with an
         image only) go into the prompt as coordinate and size embeddings."""
+        _refuse_unported(settings)
         templates = self.config.tokenizer.templates["query"]
         if templates is None:
             raise NotImplementedError("Model does not support querying.")
@@ -572,6 +611,7 @@ class MoondreamModel:
         stream: bool = False,
         settings: Optional[Dict[str, Any]] = None,
     ):
+        _refuse_unported(settings)
         templates = self.config.tokenizer.templates["caption"]
         if templates is None:
             raise NotImplementedError("Model does not support captioning.")
@@ -628,11 +668,13 @@ class MoondreamModel:
     def detect(self, image, object: str, settings=None):
         """Bounding boxes of `object`, normalised to [0, 1]; settings may set
         max_objects (default 50)."""
+        _refuse_unported(settings)
         boxes = self._structured_decode(image, object, "detect", True, settings)
         return {"objects": [_box(b) for b in boxes]}
 
     def point(self, image, object: str, settings=None):
         """Centre points of `object`, normalised to [0, 1]."""
+        _refuse_unported(settings)
         pts = self._structured_decode(image, object, "point", False, settings)
         return {"points": [{"x": float(p[0]), "y": float(p[1])} for p in pts]}
 
@@ -642,15 +684,15 @@ class MoondreamModel:
         crops per image, ONE ViT call per (crop count, tiling) group over the
         group's concatenated crops, one stitch + projection per group, and
         ONE batched [BOS, image] prefill for all images."""
+        _refuse_unported(settings)
         prepped = [self._crops(im) for im in images]
         groups: Dict[Tuple[int, Tuple[int, int]], List[int]] = {}
         for i, (crops, tiling) in enumerate(prepped):
             groups.setdefault((crops.shape[0], tiling), []).append(i)
         img_embs: List[Optional[torch.Tensor]] = [None] * len(images)
         for (n, tiling), idxs in groups.items():
-            crops = torch.from_numpy(np.concatenate([prepped[i][0] for i in idxs]))
-            feats = self._vision_features(crops)
-            embs = self._stitch_project(feats.reshape(len(idxs), n, *feats.shape[1:]), tiling)
+            embs = self._embed_group(
+                torch.from_numpy(np.concatenate([prepped[i][0] for i in idxs])), n, tiling)
             for j, i in enumerate(idxs):
                 img_embs[i] = embs[j]
 
@@ -673,6 +715,7 @@ class MoondreamModel:
     ) -> List[str]:
         """Lockstep batched captioning: one prompt for every image, a shared
         position, per-row EOS."""
+        _refuse_unported(settings)
         return self._symmetric_batch_generate(
             images, list(self.config.tokenizer.templates["caption"][length]),
             settings,
@@ -682,6 +725,7 @@ class MoondreamModel:
         self, images, question: str, settings: Optional[Dict[str, Any]] = None
     ) -> List[str]:
         """Batched VQA: ONE question over every image, decoded in lockstep."""
+        _refuse_unported(settings)
         templates = self.config.tokenizer.templates["query"]
         prompt = (
             list(templates["prefix"])
@@ -716,11 +760,13 @@ class MoondreamModel:
 
     def detect_batch(self, images, object: str, settings=None) -> List[dict]:
         """`detect` of one object over many images, in lockstep."""
+        _refuse_unported(settings)
         return [{"objects": [_box(b) for b in boxes]} for boxes in
                 self._structured_decode_batch(images, object, "detect", True, settings)]
 
     def point_batch(self, images, object: str, settings=None) -> List[dict]:
         """`point` of one object over many images, in lockstep."""
+        _refuse_unported(settings)
         return [{"points": [{"x": float(p[0]), "y": float(p[1])} for p in pts]} for pts in
                 self._structured_decode_batch(images, object, "point", False, settings)]
 
@@ -859,6 +905,7 @@ class MoondreamModel:
         flipped left to right), all in one lockstep batch; fewer than 10
         detections give {"gaze": None}, else the mean of the detections
         that survive the outlier filter."""
+        _refuse_unported(unstable_settings)
         unstable_settings = unstable_settings or {}
         force_detect = unstable_settings.get("force_detect", False)
         if not unstable_settings.get("prioritize_accuracy", False):

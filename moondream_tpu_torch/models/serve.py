@@ -22,8 +22,10 @@ Detect, point and gaze requests (`submit_detect`, `submit_point`,
 `speculative=k` drafts and verifies k tokens per slot and iteration, also
 beside structured rows in a greedy pool.
 
+`submit_many` admits a burst of requests over one batched image encode.
+
 Not ported yet: LoRA variants (the arguments `variants` and `variant=`
-raise NotImplementedError) and `submit_many`. A GQA text config
+raise NotImplementedError). A GQA text config
 (n_kv_heads < n_heads) is refused: the pool's ragged decode is MHA only, as
 in the JAX package (moondream_tpu/ops/attention.py:608).
 """
@@ -86,6 +88,11 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to moondream_tpu_torch yet (ROADMAP.md)"
     )
+
+
+def _refuse_variant(variant: Optional[str]) -> None:
+    if variant is not None:
+        raise _not_ported("multi-variant (LoRA) serving")
 
 
 class ContinuousBatchingEngine:
@@ -317,21 +324,57 @@ class ContinuousBatchingEngine:
         Calls must be serialised among themselves and with other use of the
         model; the PreparedRequest holds a model buffer: admit or release
         it."""
-        if variant is not None:
-            raise _not_ported("multi-variant (LoRA) serving")
-        model = self.model
-        tok_cfg = model.config.tokenizer
-        temp = self.temperature if temperature is None else temperature
-        topp = self.top_p if top_p is None else top_p
+        _refuse_variant(variant)
+        prompt = self._text_prompt(question, caption_length)
+        temp, topp = self._sampling(temperature, top_p)
+        return self._prepare_encoded(self.model.encode_image(image), prompt, temp, topp)
+
+    def _text_prompt(self, question: Optional[str], caption_length: str) -> List[int]:
+        """A caption prompt, or a query prompt around `question`."""
+        tok_cfg = self.model.config.tokenizer
         if question is None:
-            prompt = list(tok_cfg.templates["caption"][caption_length])
-        else:
-            t = tok_cfg.templates["query"]
-            prompt = list(t["prefix"]) + model._encode_text(question) + list(t["suffix"])
-        enc = model.encode_image(image)
+            return list(tok_cfg.templates["caption"][caption_length])
+        t = tok_cfg.templates["query"]
+        return list(t["prefix"]) + self.model._encode_text(question) + list(t["suffix"])
+
+    def _sampling(self, temperature: Optional[float], top_p: Optional[float]):
+        """A request's (temperature, top_p): its own, else the pool's."""
+        return (self.temperature if temperature is None else temperature,
+                self.top_p if top_p is None else top_p)
+
+    def _prepare_encoded(self, enc: EncodedImage, prompt: List[int], temp: float,
+                         topp: float) -> PreparedRequest:
+        """Prefill `prompt` after an encoded image on a single-row buffer."""
         kv1 = self._prefill_buffer(enc, len(prompt))
-        _, _, next_token, pos, kv1 = model._prefill_prompt(kv1, prompt, enc.pos, temp, topp)
+        _, _, next_token, pos, kv1 = self.model._prefill_prompt(kv1, prompt, enc.pos, temp, topp)
         return PreparedRequest(kv1, next_token, pos, prompt, temp, topp, enc=enc)
+
+    def submit_many(
+        self,
+        images,
+        question: Optional[str] = None,
+        caption_length: str = "normal",
+        max_tokens: int = DEFAULT_MAX_TOKENS,
+        on_text=None,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+        variant: Optional[str] = None,
+    ) -> List[int]:
+        """Admit a burst of requests with one prompt kind over ONE batched
+        image encode (`encode_images`) instead of one ViT call each
+        (moondream_tpu/models/serve.py:626-678); each is then prefilled and
+        admitted as `submit` does. Raises RuntimeError when fewer slots are
+        free than there are images. Returns the req_ids in image order."""
+        _refuse_variant(variant)
+        images = list(images)
+        free = self.free_slots()
+        if len(free) < len(images):
+            raise RuntimeError(f"{len(images)} requests but only {len(free)} free slots")
+        prompt = self._text_prompt(question, caption_length)
+        temp, topp = self._sampling(temperature, top_p)
+        return [self.admit_prepared(self._prepare_encoded(enc, prompt, temp, topp),
+                                    max_tokens=max_tokens, on_text=on_text)
+                for enc in self.model.encode_images(images)]
 
     def _prefill_buffer(self, enc: EncodedImage, prompt_len: int) -> KVCache:
         """A single-row buffer holding `enc` with room for the prompt's
@@ -452,22 +495,28 @@ class ContinuousBatchingEngine:
             self.hist_cnt[slot] = len(seed)
         return req_id
 
-    def submit_detect(self, image, object: str, max_objects: Optional[int] = None) -> int:
+    def submit_detect(self, image, object: str, max_objects: Optional[int] = None,
+                      variant: Optional[str] = None) -> int:
         """Admit a detect request (boxes of `object`) into the pool beside
         text requests; its result is {"objects": [{x_min, y_min, x_max,
         y_max}, ...]}, as `MoondreamModel.detect` gives."""
+        _refuse_variant(variant)
         return self._submit_structured(image, object, "detect", True, max_objects)
 
-    def submit_point(self, image, object: str, max_objects: Optional[int] = None) -> int:
+    def submit_point(self, image, object: str, max_objects: Optional[int] = None,
+                     variant: Optional[str] = None) -> int:
         """Admit a point request; its result is {"points": [{x, y}, ...]}, as
         `MoondreamModel.point` gives."""
+        _refuse_variant(variant)
         return self._submit_structured(image, object, "point", False, max_objects)
 
-    def submit_gaze(self, image, eye, force_detect: bool = False) -> int:
+    def submit_gaze(self, image, eye, force_detect: bool = False,
+                    variant: Optional[str] = None) -> int:
         """Admit a gaze request for the eye at `eye` (x, y): the gaze prompt
         is prefilled once, then its one point rides the mixed chunks. The
         result is {"gaze": {"x", "y"} or None}, as `MoondreamModel.
         detect_gaze` gives in eye mode."""
+        _refuse_variant(variant)
         if not self.free_slots():
             raise RuntimeError("no free slot; step() or drain() first")
         return self.admit_prepared(self.prepare_gaze(image, eye, force_detect))

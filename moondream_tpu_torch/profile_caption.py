@@ -3,7 +3,7 @@ serving-pool chunk, goes on one CUDA card.
 
     python3 -m moondream_tpu_torch.profile_caption [--tokens 64] [--top 12]
         [--int4] [--kv-int8] [--gqa] [--loop spec|reasoning|detect]
-        [--pool plain|shared|spec|mixed] [--eager]
+        [--pool plain|shared|spec|mixed] [--pipeline] [--eager]
 
 Builds MOONDREAM_2B with seeded random weights on the card (with --int4, the
 text blocks quantized to int4; with --kv-int8, an int8 KV cache; with --gqa,
@@ -31,6 +31,11 @@ replayed by the profiled one): every slot decoding a caption of that image
 (eos off), plain, prefix-shared (4 prefix entries) or speculative (k 8,
 `spec`); or (`mixed`) four caption rows beside two detect, a point and a
 gaze row (the mixed chunk).
+
+With --pipeline, it profiles instead a BatchPipeline (engine/pipeline.py,
+batch 8, up to --tokens tokens) over 16 seeded images of three sizes
+(two batches), then the same images through encode_images + caption_batch
+per batch of 8, each after a warm-up run of itself.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .config import MOONDREAM_2B
 from .engine import graphs
+from .engine.pipeline import BatchPipeline
 from .models.moondream import MoondreamModel
 from .models.serve import ContinuousBatchingEngine
 from .models.text import quantize_text_params
@@ -105,6 +111,8 @@ def main() -> None:
                     help="profile this loop's call instead of a plain caption")
     ap.add_argument("--pool", choices=("plain", "shared", "spec", "mixed"),
                     help="profile one chunk of an 8-slot serving pool instead")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="profile a BatchPipeline run against encode_images + caption_batch")
     ap.add_argument("--eager", action="store_true",
                     help="decode steps from Python, without CUDA graphs")
     args = ap.parse_args()
@@ -127,6 +135,23 @@ def main() -> None:
     )
     img = np.random.default_rng(0).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
     greedy = {"temperature": 0.0, "max_tokens": args.tokens}
+    if args.pipeline:
+        rng = np.random.default_rng(1)
+        images = [rng.integers(0, 256, shape, dtype=np.uint8)
+                  for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 6][:16]
+        pipe = BatchPipeline(model, batch_size=8)  # the model's EOS, as caption_batch
+
+        def serial():
+            for start in range(0, len(images), 8):
+                model.caption_batch(model.encode_images(images[start:start + 8]), "normal",
+                                    settings=greedy)
+
+        for name, call in ((f"BatchPipeline, 16 images, batch 8, {args.tokens} tokens",
+                            lambda: pipe.caption(images, "normal", settings=greedy)),
+                           ("encode_images + caption_batch, the same batches", serial)):
+            call()  # warm
+            report(name, call, args.top)
+        return
     enc = model.encode_image(img)
     if args.pool:
         shared, mixed = args.pool == "shared", args.pool == "mixed"

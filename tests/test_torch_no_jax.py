@@ -5,9 +5,10 @@ greedy caption on the CPU, dense and with int4 text blocks and an int8 KV
 cache, serve two requests on one image through a prefix-shared pool, caption
 two images in one lockstep batch, caption with a GQA text config, run
 the region-head paths: detect, point, both gaze modes, query with reasoning
-and spatial refs, detect_batch and point_batch, and the speculative paths:
+and spatial refs, detect_batch and point_batch, the speculative paths:
 a speculative caption, a drafting call, and a speculative pool serving a
-caption beside a detect."""
+caption beside a detect, and the multi-image paths: BatchPipeline plain and
+speculative, PooledPipeline and the pool's submit_many."""
 
 import os
 import subprocess
@@ -75,6 +76,15 @@ seng = ContinuousBatchingEngine(model, n_slots=2, slot_len=1024, chunk=2, specul
 rids = [seng.submit(img, max_tokens=4), seng.submit_detect(img, "cat")]
 served = seng.drain()
 assert isinstance(served[rids[0]], str) and len(served[rids[1]]["objects"]) <= 2
+from moondream_tpu_torch.engine.pipeline import BatchPipeline, PooledPipeline
+for spec in (0, 3):
+    texts = BatchPipeline(model, batch_size=2, speculative=spec).caption(
+        [img, img[:200], img], settings=greedy)
+    assert len(texts) == 3 and all(isinstance(t, str) for t in texts)
+assert len(PooledPipeline(model, n_slots=2, chunk=4).caption([img, img[:200]], settings=greedy)) == 2
+beng = ContinuousBatchingEngine(model, n_slots=2, chunk=4)
+rids = beng.submit_many([img, img[:200]], max_tokens=4)
+assert sorted(beng.drain()) == rids
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))
