@@ -1,14 +1,14 @@
 """Drive the PyTorch port's caption, query, lockstep-batch, serving,
-speculative, region-head (detect, point, gaze, reasoning, spatial refs)
-and multi-image pipeline paths once on one CUDA card.
+speculative, region-head (detect, point, gaze, reasoning, spatial refs),
+multi-image pipeline and int8 w8a8 paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. build: nvcc-build the attention kernels (A, and the decode kernel with
-     its B, B-GQA and C entries, bf16 and int8) and the W4A16 kernel from
-     moondream_tpu_torch/csrc and g++-build the native crop library, all at
-     once, into moondream_tpu_torch/_build;
+     its B, B-GQA and C entries, bf16 and int8), the W4A16 and the w8a8
+     kernels from moondream_tpu_torch/csrc and g++-build the native crop
+     library, all at once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
      on the same inputs, TF32 off) at the main paths' shapes (the gaze
      batch's B 20 span and step, the speculative verify spans: kernel B and
@@ -22,7 +22,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      bound (bytes or
      operations over the H100's peak rates) and the time of one PyTorch
      call computing the same function where there is one (SDPA; the
-     int4-pack matmul);
+     int4-pack matmul); the w8a8 kernel bit for bit against its plain
+     version at every shape of the int8 paths (phase_w8a8_kernels);
   3. small references: the tiny config in bf16 on the card and in bf16 on
      the CPU (plain versions), each against fp32 on the CPU, same weights:
      the caption path dense, then with int4 text blocks and an int8 KV
@@ -34,7 +35,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the CPU's; the speculative verify forwards (pool k 8 and 24, plain and
      prefix-shared; batch-1 spans of 8 and 24 rows), and a batch-1
      speculative caption, a speculative pool, a mixed pool and a mixed
-     speculative pool, whose ids and boxes must equal the CPU's;
+     speculative pool, whose ids and boxes must equal the CPU's; the
+     caption path with int8 text blocks and a static int8 ViT;
   4. the main paths at MOONDREAM_2B widths and depth with seeded random
      weights, each with exact kernel launch counts (reset just before the
      path, read just after): the bf16 model (caption, query, lockstep
@@ -77,8 +79,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      speculative=8) (kernel C over the lockstep verify spans; tok/s,
      accept rate, reads), PooledPipeline plain and k 8 on cold engines
      against serial submissions, and submit_many against 8 submit calls;
-     an int4 + kv_int8 PooledPipeline; then the 0.5B (MOONDREAM_05B)
-     caption path over a single-tile image. Phase 2 also holds kernel A at
+     an int4 + kv_int8 PooledPipeline; the 2B with int8 w8a8 text blocks
+     and a static int8 ViT calibrated on the smoke's normalized crops
+     (caption, query, encode against its dynamic int8 and bf16 ViT in
+     turns, the graphed answer loop against eager, a pool, speculative
+     decode, 96 w8a8 launches per decode token and 108 per ViT call);
+     then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
      with bounds, and kernels A and B at the 0.5B's widths.
@@ -89,6 +95,7 @@ a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -144,7 +151,15 @@ from moondream_tpu_torch.models.text import (  # noqa: E402
     dequantize_kv,
     quantize_kv,
     quantize_text_params,
+    quantize_text_params_int8,
+    quantize_weight_int8,
     text_encoder,
+)
+from moondream_tpu_torch.models.vision import (  # noqa: E402
+    collect_vision_act_stats,
+    normalize_crops,
+    quantize_vision_params,
+    vision_encoder,
 )
 from moondream_tpu_torch.ops.attention import (  # noqa: E402
     decode_attention,
@@ -157,6 +172,15 @@ from moondream_tpu_torch.ops.attention import (  # noqa: E402
     unified_mask,
 )
 from moondream_tpu_torch.ops.image_crops import load_native  # noqa: E402
+from moondream_tpu_torch.ops.layers import (  # noqa: E402
+    Int8Linear,
+    int8_linear,
+    int8_linear_fp64,
+    int8_linear_plain,
+    pack_int8_weight,
+    q8_act,
+    q8_static,
+)
 from moondream_tpu_torch.ops.quant import (  # noqa: E402
     quantize_weight_torch,
     quantized_matmul,
@@ -190,6 +214,8 @@ SEED = 0
 # this run's inputs at the kernel's headline shape.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+# dense int8 tensor-core operations per second (the w8a8 kernel's bound)
+PEAK_INT8_OP_S = 1979e12
 # The 2B with 8 KV heads for its 32 query heads (GQA, rep 4): the published
 # widths otherwise.
 MOONDREAM_2B_GQA = dataclasses.replace(
@@ -251,10 +277,11 @@ def phase_build() -> None:
     print("build seconds:", {k: round(v, 2) for k, v in build_seconds.items()})
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak_ops: float = PEAK_BF16_FLOP_S) -> dict:
     """The least time the card could take for work that moves `nbytes` and
-    does `flops` bf16 operations, and which of the two sets it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOP_S * 1e3
+    does `flops` operations at `peak_ops` (bf16 unless given), and which of
+    the two sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak_ops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -1034,8 +1061,139 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return summary
 
 
+# (label, K, N) of the 2B's text and ViT block linears and the 0.5B ViT's MLP
+TEXT_2B = (("qkv", 2048, 6144), ("proj", 2048, 2048), ("fc1", 2048, 8192), ("fc2", 8192, 2048))
+VIT_2B = (("qkv", 1152, 3456), ("proj", 1152, 1152), ("fc1", 1152, 4304), ("fc2", 4304, 1152))
+VIT_05B = (("fc1", 720, 2690), ("fc2", 2690, 720))
+
+
+def phase_w8a8_kernels(gen: torch.Generator) -> dict:
+    """The w8a8 kernel against its plain version (`int8_linear_plain`, run on
+    the card on the same bf16 inputs) at the main path's shapes: the 2B text
+    linears at M 1 (decode), 8 (lockstep, a pool step), 16 (a prompt or
+    verify span), 64 and 730 (the image prefill), the GQA qkv (N 3072), the
+    2B ViT's linears at M 9984 (13 crops x 768 rows), static and dynamic,
+    and the 0.5B ViT's MLP (K or N 2690) at 2 crops; N(0, 1) rows, some
+    with one outlier channel (x 60); edge cases (M 65, K 36 and 100) and
+    rows of rounding ties at both tilings. The bf16 outputs must equal the plain
+    version's bit for bit, except where its float64 emulation of the fused
+    multiply-add rounds twice (the float64 value an exact fp32 tie), there
+    within 1 bf16 ulp; the count of differing outputs is printed. The
+    kernel also writes out the activation codes and row scales, which must
+    equal q8_act's / q8_static's. Every case is timed (launch and device
+    only) beside its bound (bytes, or int8 operations at 1979 TOPS); the
+    headline case, the ViT qkv static, also the plain version and
+    torch._int_mm on the same codes (the int32 product alone: a yardstick
+    that favours the library). Returns the kernel's summary."""
+    s = {"err": 0.0, "differing": 0, "elements": 0}
+
+    def weights(k, n, static):
+        w = torch.randn(k, n, generator=gen, device=DEV) * k ** -0.5
+        codes, scale = quantize_weight_int8(w)
+        b = (torch.randn(n, generator=gen, device=DEV) * 0.1).to(BF16)
+        inv_a = None
+        if static:  # ~25-32 codes per unit: |x| > ~4 clips
+            inv_a = torch.zeros(-(-k // 64) * 64, device=DEV)
+            inv_a[:k] = 127.0 / (4.0 + torch.rand(k, generator=gen, device=DEV))
+        return pack_int8_weight(codes), scale, b, inv_a
+
+    def case(label, m, k, n, static=False, outlier=False, headline=False, ties=False):
+        wq, scale, b, inv_a = weights(k, n, static)
+        x = torch.randn(m, k, generator=gen, device=DEV)
+        if outlier:
+            x[:, k // 3] *= 60.0
+        if ties:  # rows of half-integers up to |126.5| and an amax of 127: x / a and
+            # x * inv_a (1) sit on or a hair past rounding ties
+            x[:] = (torch.arange(k, device=DEV) % 254 - 127).float() + 0.5
+            x[:, 0] = 127.0
+            if inv_a is not None:
+                inv_a[:k] = 1.0
+        x = x.to(BF16)
+        codes = torch.empty(m, wq.shape[1], dtype=torch.int8, device=DEV)
+        a = None if static else torch.empty(m, device=DEV)
+        got = KQ.w8a8_linear(x, wq, scale, b, inv_a, codes, a)
+        want = int8_linear_plain(x, wq, scale, b, inv_a)
+        diff = got.view(torch.int16) != want.view(torch.int16)
+        n_diff = int(diff.sum())
+        if n_diff:
+            ulps = (got.view(torch.int16)[diff].int() - want.view(torch.int16)[diff].int()).abs()
+            y64 = int8_linear_fp64(x, wq, scale, b, inv_a)[diff]
+            near = y64.float().double()
+            other = 2 * y64 - near  # the other fp32 neighbour when y64 is a tie
+            tie = (y64 != near) & (other.float().double() == other)
+            if ulps.max().item() > 1 or not tie.all():
+                raise AssertionError(f"{KQ.W8A8} {label}: {n_diff} outputs differ, at most "
+                                     f"{ulps.max().item()} bf16 ulps, not all double roundings")
+        want_codes = q8_static(x, inv_a[:k]) if static else q8_act(x)[0]
+        if not torch.equal(codes[:, :k], want_codes) or codes[:, k:].any():
+            raise AssertionError(f"{KQ.W8A8} {label}: activation codes differ")
+        if not static and not torch.equal(a, q8_act(x)[1][:, 0]):
+            raise AssertionError(f"{KQ.W8A8} {label}: row scales differ")
+        s["err"] = max(s["err"], (got.float() - want.float()).abs().max().item())
+        s["differing"] += n_diff
+        s["elements"] += got.numel()
+        run = lambda: int8_linear(x, wq, scale, b, inv_a)
+        ms, dev_ms = median_ms(run), graph_ms(run)
+        work = (_nbytes(x, wq, scale, b, *([] if inv_a is None else [inv_a])) + 2 * m * n,
+                2 * m * k * n)
+        bd = bound(*work, PEAK_INT8_OP_S)
+        line = (f"{KQ.W8A8} {label} M{m} K{k} N{n} {'static' if static else 'dynamic'}"
+                f"{', outlier channel' if outlier else ''}: {n_diff} of {got.numel()} bf16 "
+                f"outputs differ from the plain version's, codes"
+                f"{'' if static else ' and row scales'} equal; kernel {ms:.4f} ms, device only "
+                f"{dev_ms:.4f} ms, bound {bd['bound_ms']:.5f} ms by {bd['bound_by']} "
+                f"({bd['bytes']:.4g} bytes, {bd['flops']:.4g} int8 op; "
+                f"{dev_ms / bd['bound_ms']:.1f} x bound)")
+        if headline:
+            plain_ms = median_ms(lambda: int8_linear_plain(x, wq, scale, b, inv_a), reps=5)
+            xc, wt = want_codes.contiguous(), wq[:, :k].t().contiguous()
+            lib = lambda: torch._int_mm(xc, wt)
+            acc = (xc.double() @ wt.double()).to(torch.int32)
+            if not torch.equal(lib(), acc):
+                raise AssertionError(f"{KQ.W8A8}: torch._int_mm disagrees with the int32 product")
+            lib_ms, lib_dev_ms = median_ms(lib), graph_ms(lib)
+            line += (f"; plain {plain_ms:.4f} ms; torch._int_mm on the same codes (product "
+                     f"only) {lib_ms:.4f} ms, device only {lib_dev_ms:.4f} ms, kernel "
+                     f"{dev_ms / lib_dev_ms:.2f} x library")
+            s.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
+                     library_device_ms=lib_dev_ms, **bd)
+        print(line)
+
+    for i, (name, k, n) in enumerate(VIT_2B):  # the headline first: the main path's ViT
+        case(f"2B ViT {name}", 13 * 768, k, n, static=True, headline=i == 0)
+        case(f"2B ViT {name}", 13 * 768, k, n, outlier=name == "qkv")
+    for name, k, n in TEXT_2B:
+        for m in (1, 8, 16, 64, 730):
+            case(f"2B text {name}", m, k, n, outlier=m == 8)
+    for m in (1, 8):
+        case("2B GQA qkv", m, 2048, 3072, outlier=m == 1)
+    # a row's bits depend only on that row and the weight, whatever M and
+    # whichever tiling: rows of M 1, 8, 16 and 64 (the small-M kernel) equal
+    # the same rows of M 730 (the tiled one), static and dynamic
+    for static in (False, True):
+        wq, scale, b, inv_a = weights(2048, 6144, static)
+        x = torch.randn(730, 2048, generator=gen, device=DEV).to(BF16)
+        full = int8_linear(x, wq, scale, b, inv_a)
+        for m in (1, 8, 16, 64):
+            if not torch.equal(int8_linear(x[:m].clone(), wq, scale, b, inv_a), full[:m]):
+                raise AssertionError(f"{KQ.W8A8}: rows of M {m} differ from M 730's")
+    print(f"{KQ.W8A8} 2B text qkv: rows of M 1 / 8 / 16 / 64 equal those of M 730 bit for bit "
+          "(static and dynamic)")
+    for name, k, n in VIT_05B:
+        case(f"0.5B ViT {name}", 2 * 768, k, n, static=True, outlier=True)
+        case(f"0.5B ViT {name}", 2 * 768, k, n)
+    for m, k, n, static in ((65, 2048, 96, False), (3, 36, 24, True), (17, 100, 40, False)):
+        case("edge", m, k, n, static=static)
+    for m, static in ((4, False), (4, True), (200, False), (200, True)):
+        case("edge ties", m, 512, 64, static=static, ties=True)
+    torch.cuda.synchronize()
+    print(f"{KQ.W8A8}: {s['differing']} of {s['elements']} bf16 outputs differ from the plain "
+          f"version's over all cases (each a double-rounding tie of its float64 fma, 1 ulp)")
+    return s
+
+
 def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = False,
-                          n_kv_heads: int = 2) -> None:
+                          n_kv_heads: int = 2, int8: bool = False) -> None:
     """Tiny config on one set of bf16-valued weights: bf16 on the card (the
     kernels) and bf16 on the CPU (the plain versions), each against fp32 on
     the CPU, as a fraction of the fp32 run's largest magnitude: the KV
@@ -1043,19 +1201,32 @@ def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = F
     `int4`, every run quantizes the text blocks to int4 from those weights
     (the same codes on both devices, checked); with `kv_int8` the KV cache
     is int8 and its snapshot is compared dequantized; `n_kv_heads` 1 is GQA
-    (one KV head for the two query heads)."""
+    (one KV head for the two query heads). With `int8`, every run quantizes
+    the text blocks to int8 w8a8 and the ViT blocks to static int8 with one
+    set of activation statistics (the fp32 CPU model's, over the image's
+    normalized crops), the same codes on both devices, checked."""
     cfg = tiny_test_config()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(
         cfg.text, kv_int8=kv_int8, n_kv_heads=n_kv_heads))
     state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
     state = {n: t.to(BF16).float() for n, t in state.items()}
     tmpl = list(cfg.tokenizer.templates["caption"]["normal"])
+    stats = None
+    if int8:
+        params = build_params(cfg, "cpu", torch.float32)
+        params.load_state_dict(state)
+        stats = collect_vision_act_stats(
+            normalized_crops(MoondreamModel(cfg, params, ByteTokenizer(), torch.float32,
+                                            device="cpu"), [img]), params["vision"])
 
     def run(device, dtype) -> dict:
         params = build_params(cfg, device, dtype)
         params.load_state_dict(state)
         if int4:
             quantize_text_params(params["text"])
+        if int8:
+            quantize_text_params_int8(params["text"])
+            quantize_vision_params(params["vision"], stats)
         m = MoondreamModel(cfg, params, ByteTokenizer(), dtype, device=device)
         enc = m.encode_image(img)
         kv = m.load_encoded_image(enc)
@@ -1063,6 +1234,10 @@ def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = F
         emb = text_encoder(torch.tensor([[300]], device=device), m.text)
         step = decode_step(m.text, kv, emb, pos, m._decode_bound(pos + 8))[0]
         out = {"logits": logits, "decode logits": step}
+        if int8:
+            out["codes"] = torch.cat([t.flatten().cpu() for b in params["text"].blocks
+                                      for t in (b.qkv.wq, b.mlp.fc2.wq)]
+                                     + [b.qkv.wq.flatten().cpu() for b in params["vision"].blocks])
         if not kv_int8:
             return {"k": enc.k, "v": enc.v, **out}
         out.update(k=dequantize_kv(enc.k, enc.ks, torch.float32),
@@ -1077,13 +1252,14 @@ def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = F
 
     def rel(out) -> dict:
         if codes is not None and not torch.equal(out.pop("codes"), codes):
-            raise AssertionError("int4 codes differ from the fp32 CPU run's")
+            raise AssertionError("int4 / int8 codes differ from the fp32 CPU run's")
         return {n: ((out[n].float().cpu() - ref[n]).abs().max()
                     / ref[n].abs().max()).item() for n in ref}
 
     card, cpu = rel(run(DEV, BF16)), rel(run("cpu", BF16))
     r5 = lambda d: {n: round(e, 5) for n, e in d.items()}
     what = " + ".join(["GQA"] * (n_kv_heads == 1) + ["int4 text blocks"] * int4
+                      + ["int8 text blocks + static int8 ViT"] * int8
                       + ["int8 KV cache" if kv_int8 else "bf16"])
     print(f"small reference (tiny config, {what}, vs fp32 on the cpu), rel max err: "
           f"card bf16 {r5(card)}, cpu bf16 {r5(cpu)}, tol {SMALL_REF_FACTOR} x cpu bf16")
@@ -1190,9 +1366,33 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def linear_kinds(model) -> dict:
+    """The block linears' runtime formats, as expected_launches takes them."""
+    text, vit = type(model.text.blocks[0].qkv), type(model.vision.blocks[0].qkv)
+    return {"int4": text is Int4Linear, "int8": text is Int8Linear, "int8_vit": vit is Int8Linear}
+
+
+def format_label(model) -> str:
+    """int4 / int8 text blocks, the int8 ViT's kind, the KV cache and heads."""
+    k, cfg = linear_kinds(model), model.config
+    vit = ("static int8 ViT" if model.vision.blocks[0].qkv.inv_a is not None
+           else "dynamic int8 ViT") if k["int8_vit"] else None
+    return (" + ".join(["int4"] * k["int4"] + ["int8"] * k["int8"] + [vit] * bool(vit)
+                       + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
+            + f", {cfg.text.n_kv_heads} KV heads")
+
+
+def normalized_crops(model, images) -> torch.Tensor:
+    """The crops of `images` on the model's device, normalized to [-1, 1] as
+    the runtime feeds the ViT: what static int8 calibration must see."""
+    crops = np.concatenate([model._crops(im)[0] for im in images])
+    return normalize_crops(torch.from_numpy(crops).to(model.device), model.dtype)
+
+
 def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = False,
                       batch_prefill: bool = False, long_spans: int = 0,
-                      prefills: int = None) -> dict:
+                      prefills: int = None, int8: bool = False,
+                      int8_vit: bool = False) -> dict:
     """Exact launch counts of a path: `n_vit` ViT calls (kernel A per
     vision block), `prefills` [BOS, image] prefills (kernel A per text
     block; by default one when the path encodes, or one batched), `spans`
@@ -1203,7 +1403,9 @@ def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = Fals
     decode steps take kernel B (bf16 or int8 entry) under MHA and kernel B's
     GQA entries under GQA (the stacked one, or the single-layer one over the
     dequantized int8 layer). int4 blocks add four W4A16 launches per layer
-    per span or step."""
+    per span or step (the prefills' 730 rows take a dense product); int8
+    text blocks four w8a8 launches per layer per prefill, span or step, and
+    int8 ViT blocks four per ViT block per ViT call."""
     tc = cfg.text
     L_txt, mha = tc.n_layers, tc.n_kv_heads == tc.n_heads
     if prefills is None:
@@ -1217,6 +1419,10 @@ def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = Fals
         want[K.DECODE_GQA_LAYER if tc.kv_int8 else K.DECODE_GQA] = L_txt * steps
     if int4:
         want[KQ.W4A16] = 4 * L_txt * (spans + long_spans + steps)
+    if int8:
+        want[KQ.W8A8] += 4 * L_txt * (prefills + spans + long_spans + steps)
+    if int8_vit:
+        want[KQ.W8A8] += 4 * cfg.vision.enc_n_layers * n_vit
     return want
 
 
@@ -1231,8 +1437,9 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
     """The 2B caption and query paths through the entry points, on `cfg`
     (its kv_int8 and n_kv_heads choose the cache and MHA or GQA). `int4`:
     seeded weights with the text blocks quantized to int4 on the card;
-    `params`: reuse a model's parameters. Returns (launch counts of the
-    caption run, of the query run), the model."""
+    `params`: reuse a model's parameters (int8 text or ViT blocks among
+    them are counted as such). Returns (launch counts of the caption run,
+    of the query run), the model."""
     L_txt = cfg.text.n_layers
     kv_int8 = cfg.text.kv_int8
     graphs.reset_graph_counts()  # phase_graphs prints this model's captures
@@ -1246,8 +1453,7 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
         packed_bytes = _nbytes(*(t for lin in lins() for t in (lin.packed, lin.scale, lin.zero)))
     model = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
     size = "0.5B" if cfg == MOONDREAM_05B else "2B"
-    heads = f"{cfg.text.n_kv_heads} KV heads"
-    label = " + ".join(["int4"] * int4 + ["kv_int8" if kv_int8 else "bf16"]) + f", {heads}"
+    label, kinds = format_label(model), linear_kinds(model)
     print(f"{size} model ({label}) on the card: {sync_ms(t0):.1f} ms")
     greedy = {"temperature": 0.0, "max_tokens": 64}
 
@@ -1299,7 +1505,7 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
     # the 730-row image prefill's linears take the dense route (M >= 512)
     steps = batched_steps(len(ids), greedy["max_tokens"])
     check_launches(f"main path ({label}), {len(ids)} tokens, {steps} steps", launches,
-                   expected_launches(cfg, 1, 1, steps, int4))
+                   expected_launches(cfg, 1, 1, steps, **kinds))
     if model.caption(enc, "normal", settings=greedy)["caption"] != text:
         raise AssertionError("second greedy caption differs")
     streamed = "".join(model.caption(enc, "normal", stream=True, settings=greedy)["caption"])
@@ -1318,7 +1524,7 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
     query_launches = dict(LAUNCHES)
     steps = batched_steps(len(answer), greedy["max_tokens"])
     check_launches(f"query ({label}), {len(answer)} tokens, {steps} steps", query_launches,
-                   expected_launches(cfg, 0, 1, steps, int4))
+                   expected_launches(cfg, 0, 1, steps, **kinds))
     streamed = "".join(model.query(enc, POOL_QUESTION, stream=True, settings=greedy)["answer"])
     if _ids(streamed) != answer:
         raise AssertionError("streamed answer differs from the plain one")
@@ -1334,10 +1540,78 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
     if int4:
         print(f"bytes: text block linears int4 {packed_bytes} (packed + scale/zero) "
               f"vs bf16 {dense_bytes}")
+    if kinds["int8"]:
+        lins = [t for b in model.text.blocks for lin in (b.qkv, b.proj, b.mlp.fc1, b.mlp.fc2)
+                for t in (lin.wq, lin.scale)]
+        print(f"bytes: text block linears int8 {_nbytes(*lins)} (codes + scales)")
     print(f"bytes: KV cache ({label}) "
           f"{_nbytes(*(t for t in (kv.k, kv.v, kv.ks, kv.vs) if t is not None))}")
     model._recycle_kv(kv)
     return (launches, query_launches), model
+
+
+def phase_int8_main_path(img: np.ndarray, images: list, power: str) -> tuple:
+    """The 2B (published widths, full depth) with int8 w8a8 text blocks and a
+    statically calibrated int8 ViT, on seeded random weights quantized on
+    the card: the ViT is calibrated (collect_vision_act_stats) on the
+    normalized crops of the smoke's own images, and a copy of it is
+    quantized with dynamic activation codes. Then phase_main_path's caption
+    and query with exact launch counts (w8a8: 96 per decode token, span or
+    image prefill, 108 per ViT call). Returns (launch counts of the caption
+    run, of the query run), the model and its three ViTs by name."""
+    t0 = time.perf_counter()
+    params = init_params(MOONDREAM_2B, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
+    dense_bytes = _nbytes(*(lin.w for b in params["text"].blocks
+                            for lin in (b.qkv, b.proj, b.mlp.fc1, b.mlp.fc2)))
+    quantize_text_params_int8(params["text"])
+    probe = MoondreamModel(MOONDREAM_2B, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    vits = {"bf16": params["vision"], "dynamic": copy.deepcopy(params["vision"]),
+            "static": copy.deepcopy(params["vision"])}
+    crops = normalized_crops(probe, [img, *images])
+    stats = collect_vision_act_stats(crops, vits["static"])
+    quantize_vision_params(vits["dynamic"])
+    quantize_vision_params(vits["static"], stats)
+    params["vision"] = vits["static"]
+    del probe
+    print(f"2B int8 weights on the card: text quantized, ViT calibrated on {crops.shape[0]} "
+          f"normalized crops ({crops.shape[0] // 16 * 16} used, chunks of 16) and quantized "
+          f"static and dynamic: {sync_ms(t0):.1f} ms; text block linears bf16 {dense_bytes} "
+          f"bytes")
+    launches, model = phase_main_path(img, power, MOONDREAM_2B, params=params)
+    return launches, model, vits
+
+
+def phase_int8_encode(model, img: np.ndarray, vits: dict, power: str) -> None:
+    """encode_image with the static int8, the dynamic int8 and the bf16 ViT
+    of one set of weights, in turns (static, dynamic, bf16, bf16, dynamic,
+    static, twice over), each counted (w8a8: 108 launches per ViT call with
+    an int8 ViT, 96 for the int8 text blocks' image prefill). Prints the
+    median encode ms of each and the int8 ViTs' agreement with bf16 (the
+    smallest cosine similarity of a token's features)."""
+    cfg = model.config
+    x = normalized_crops(model, [img])
+    feats, times = {}, {name: [] for name in vits}
+    for name in ("static", "dynamic", "bf16", "bf16", "dynamic", "static") * 2:
+        model.params["vision"] = vits[name]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        model.encode_image(img)
+        times[name].append(sync_ms(t0))
+        check_launches(f"encode_image ({name} ViT, int8 text)", dict(LAUNCHES),
+                       expected_launches(cfg, 1, 0, 0, int8=True, int8_vit=name != "bf16"))
+        if name not in feats:
+            feats[name] = vision_encoder(x, vits[name]).float()
+    model.params["vision"] = vits["static"]
+    cos = {name: torch.nn.functional.cosine_similarity(feats[name], feats["bf16"], dim=-1)
+           .min().item() for name in ("static", "dynamic")}
+    if not all(math.isfinite(c) and c > 0.9 for c in cos.values()):
+        raise AssertionError(f"int8 ViT features far from bf16's: {cos}")
+    ms = {name: statistics.median(t) for name, t in times.items()}
+    print(f"2B encode_image (int8 text, 13 crops) on {power}, median of 4 in turns: static int8 "
+          f"ViT {ms['static']:.1f} ms, dynamic int8 ViT {ms['dynamic']:.1f} ms, bf16 ViT "
+          f"{ms['bf16']:.1f} ms; ViT features vs bf16, smallest token cosine: static "
+          f"{cos['static']:.5f}, dynamic {cos['dynamic']:.5f}")
 
 
 class IdTokenizer(ByteTokenizer):
@@ -1421,16 +1695,15 @@ def _pool_run(model, images, kind: dict, sync_check: bool = False) -> dict:
             "plain_bytes": slots_bytes * eng.slot_len // eng.kv.k.shape[3]}
 
 
-def phase_pool(model, images, power: str, label: str, quantized: bool,
-               **kind) -> dict:
+def phase_pool(model, images, power: str, label: str, **kind) -> dict:
     """One 2B continuous-batching pool (n_slots 8, slot_len 1024, chunk 8,
     greedy, eos -1 so every request decodes POOL_TOKENS tokens) driven
     through the engine's entry points. The counted run checks exact launch
     counts and one prefix entry per image, and is timed; a second run
     checks no host sync inside a chunk and identical ids. Where a request's
     ids differ from batch-1's, batch-1's logit margin there is printed."""
-    cfg = model.config
-    L_txt, L_vit = cfg.text.n_layers, cfg.vision.enc_n_layers
+    cfg, kinds = model.config, linear_kinds(model)
+    L_txt, L_vit, kv8 = cfg.text.n_layers, cfg.vision.enc_n_layers, cfg.text.kv_int8
     model.tokenizer = IdTokenizer()
     reset_launch_counts()
     run = _pool_run(model, images, kind)
@@ -1439,10 +1712,14 @@ def phase_pool(model, images, power: str, label: str, quantized: bool,
     n_req, n_img = len(POOL_REQUESTS), len(images)
     want = {name: 0 for name in LAUNCHES}
     want[K.FLASH] = n_img * (L_vit + L_txt)  # each encode: ViT + image prefill
-    want[K.DECODE_INT8 if quantized else K.DECODE] = n_req * L_txt  # prompts
-    want[K.RAGGED_INT8 if quantized else K.RAGGED] = L_txt * 8 * run["chunks"]
-    if quantized:
+    want[K.DECODE_INT8 if kv8 else K.DECODE] = n_req * L_txt  # prompts
+    want[K.RAGGED_INT8 if kv8 else K.RAGGED] = L_txt * 8 * run["chunks"]
+    if kinds["int4"]:  # the image prefills' 730 rows take a dense product
         want[KQ.W4A16] = 4 * L_txt * (n_req + 8 * run["chunks"])
+    if kinds["int8"]:
+        want[KQ.W8A8] += 4 * L_txt * (n_img + n_req + 8 * run["chunks"])
+    if kinds["int8_vit"]:
+        want[KQ.W8A8] += 4 * L_vit * n_img
     check_launches(f"pool {label}, {run['chunks']} chunks", launches, want)
     if kind.get("prefix_share") and run["entries"] != n_img:
         raise AssertionError(f"{run['entries']} prefix entries for {n_img} images")
@@ -1804,16 +2081,17 @@ def _check_margin(label: str, model, enc, prompt, single, other, max_tokens, slo
     return n, m
 
 
-def phase_spec(model, enc, power: str, int4: bool = False) -> list:
+def phase_spec(model, enc, power: str) -> list:
     """The 2B speculative caption and query (settings["speculative"] = 8,
     64 greedy tokens) on the encoded image, each a counted run: exact
     launches (every verify span of 8 rows takes kernel B on every layer,
-    and four W4A16 launches per layer with int4 blocks) and host reads (one
+    and four W4A16 or w8a8 launches per layer with int4 or int8 blocks) and
+    host reads (one
     per run of 8 verify spans plus one). Ids against the plain greedy call:
     where they differ, batch-1's logit margin (at most 8 bf16 steps). Both
     timed on the host clock, prompt prefill included."""
     cfg = model.config
-    label = " + ".join(["int4"] * int4 + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
+    label, kinds = format_label(model), linear_kinds(model)
     model.tokenizer = IdTokenizer()
     tmpl = cfg.tokenizer.templates
     tasks = {
@@ -1841,7 +2119,7 @@ def phase_spec(model, enc, power: str, int4: bool = False) -> list:
             raise AssertionError(f"spec {task}: {loop} (one read per run of "
                                  f"{DONE_CHECK_EVERY} verify spans plus one)")
         check_launches(f"spec {task} ({label}), {len(spec)} tokens in {iters} verify spans",
-                       launches, expected_launches(cfg, 0, 1 + iters, 0, int4))
+                       launches, expected_launches(cfg, 0, 1 + iters, 0, **kinds))
         runs.append(launches)
         diff = _check_margin(f"spec {task} ({label})", model, enc, prompt, plain, spec, 64)
         tok_s = lambda ids, ms: len(ids) / (ms / 1e3)
@@ -2238,9 +2516,7 @@ def phase_graphs(model, enc, images, batch_images, power: str, lockstep: bool = 
     sync). Prints tok/s, ms per lockstep step and per pool chunk of both,
     and each capture's ms and graph pool bytes."""
     cfg, tok = model.config, model.config.tokenizer
-    int4 = isinstance(model.text.blocks[0].qkv, Int4Linear)
-    label = (" + ".join(["int4"] * int4 + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
-             + f", {cfg.text.n_kv_heads} KV heads")
+    label, kinds = format_label(model), linear_kinds(model)
     tmpl = list(tok.templates["caption"]["normal"])
     suppress = (tok.answer_id,)
 
@@ -2274,7 +2550,7 @@ def phase_graphs(model, enc, images, batch_images, power: str, lockstep: bool = 
                             suppress, bound, graphed=graphed)
         ms = sync_ms(t0)
         check_launches(f"answer loop ({label}, graphed {graphed}), 64 steps", dict(LAUNCHES),
-                       expected_launches(cfg, 0, 0, 64, int4, prefills=0))
+                       expected_launches(cfg, 0, 0, 64, prefills=0, **kinds))
         if graphed and temperature > 0:
             replay_without_sync(kv)  # the greedy and the sampled graph of this cache
         model._recycle_kv(kv)
@@ -2375,10 +2651,8 @@ def phase_loop_graphs(model, enc, img, images, batch_images, power: str,
     its loops read the device at most ceil(steps / 8) + 1 times per call.
     Prints graphed and eager tok/s or ms, capture ms and graph pool bytes,
     replays and reads per path."""
-    cfg, tok = model.config, model.config.tokenizer
-    int4 = isinstance(model.text.blocks[0].qkv, Int4Linear)
-    label = (" + ".join(["int4"] * int4 + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
-             + f", {cfg.text.n_kv_heads} KV heads")
+    tok = model.config.tokenizer
+    label = format_label(model)
     model.tokenizer = IdTokenizer()
     suppress = (tok.answer_id,)
     caption = list(tok.templates["caption"]["normal"])
@@ -2867,10 +3141,12 @@ def main() -> None:
 
     phase("1 build", phase_build)
     summary = phase("2 kernels", phase_kernels, gen)
+    summary[KQ.W8A8] = phase("2 kernels", phase_w8a8_kernels, gen)
     phase("3 small references", phase_small_reference, img)
     phase("3 small references", phase_small_reference, img, int4=True, kv_int8=True)
     phase("3 small references", phase_small_reference, img, n_kv_heads=1)
     phase("3 small references", phase_small_reference, img, kv_int8=True, n_kv_heads=1)
+    phase("3 small references", phase_small_reference, img, int8=True)
     rng = np.random.default_rng(SEED + 2)
     images = [rng.integers(0, 256, shape, dtype=np.uint8)
               for shape in ((756, 1008, 3), (378, 378, 3), (600, 800, 3))]
@@ -2890,9 +3166,9 @@ def main() -> None:
           power, lockstep=True, pools=[("bf16 plain", {}), ("bf16 prefix-shared", {
               "prefix_share": True, "prefix_entries": 4})])
     runs += [*launches, *phase("4 2B bf16 lockstep", phase_batch, model, batch_images, power),
-             phase("4 2B bf16 pools", phase_pool, model, images, power, "bf16 plain", False),
+             phase("4 2B bf16 pools", phase_pool, model, images, power, "bf16 plain"),
              phase("4 2B bf16 pools", phase_pool, model, images, power,
-                   "bf16 prefix-shared depth 2", False, prefix_share=True, prefix_entries=4,
+                   "bf16 prefix-shared depth 2", prefix_share=True, prefix_entries=4,
                    pipeline_depth=2)]
     enc = model.encode_image(img)
     runs += phase("4 2B bf16 structured", phase_structured, model, enc, img, batch_images,
@@ -2914,15 +3190,22 @@ def main() -> None:
           batch_images, power, pools=[("int4 + kv_int8", {})])
     runs += [*launches,
              phase("4 2B int4", phase_pool, model, images, power,
-                   "int4 + kv_int8 prefix-shared", True, prefix_share=True, prefix_entries=4)]
+                   "int4 + kv_int8 prefix-shared", prefix_share=True, prefix_entries=4)]
     enc = model.encode_image(img)
     runs += phase("4 2B int4", phase_structured, model, enc, img, batch_images, power,
                   int4=True, full=False)
     runs += phase("4 2B int4", phase_int4_pooled_pipeline, model, batch_images, power)
-    runs += phase("4 2B int4 speculative", phase_spec, model, enc, power, int4=True)
+    runs += phase("4 2B int4 speculative", phase_spec, model, enc, power)
     phase("4 2B int4 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
           power, full=False)
     del model, enc
+    launches, model, vits = phase("4 2B int8", phase_int8_main_path, img, images, power)
+    phase("4 2B int8", phase_int8_encode, model, img, vits, power)
+    enc = model.encode_image(img)
+    phase("4 2B int8 graphs", phase_graphs, model, enc, images, batch_images, power)
+    runs += [*launches, phase("4 2B int8", phase_pool, model, images, power, "int8 plain")]
+    runs += phase("4 2B int8 speculative", phase_spec, model, enc, power)
+    del model, enc, vits
     launches, model = phase("4 2B GQA", phase_main_path, img, power, MOONDREAM_2B_GQA)
     phase("4 2B GQA graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
           power, lockstep=True)
@@ -2965,6 +3248,8 @@ def main() -> None:
                              "moondream_tpu/ops/attention.py:380"),
         KQ.W4A16: ("moondream_tpu_torch/csrc/w4a16_matmul.cu",
                    "moondream_tpu/ops/quant.py:147; moondream_tpu/ops/quant.py:116"),
+        KQ.W8A8: ("moondream_tpu_torch/csrc/w8a8_matmul.cu",
+                  "moondream_tpu/ops/layers.py:38-71 (XLA int8 dot_general, no Pallas kernel)"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms")

@@ -1,10 +1,13 @@
-"""ctypes binding of the W4A16 kernel in `csrc/w4a16_matmul.cu`.
+"""ctypes bindings of the W4A16 kernel in `csrc/w4a16_matmul.cu` and of the
+w8a8 kernel in `csrc/w8a8_matmul.cu` (the int8 weight formats' fused
+activation quantization, int8 tensor-core product and epilogue).
 
-The wrapper checks device, dtype, shape, contiguity and alignment, allocates
+Each wrapper checks device, dtype, shape, contiguity and alignment, allocates
 the output, launches on `torch.cuda.current_stream()` without
 synchronising, raises when the C entry point reports a CUDA error, and adds
-one to `build.LAUNCHES[W4A16]` for each launch. The plain version lives
-beside its dispatch in `moondream_tpu_torch.ops.quant`.
+one to its entry in `build.LAUNCHES` for each launch. The plain versions
+live beside their dispatch: W4A16 in `moondream_tpu_torch.ops.quant`, w8a8
+in `moondream_tpu_torch.ops.layers`.
 
 The kernel splits K across the blocks of a thread-block cluster and merges
 the splits inside the launch: `plan_w4a16_splits` (pure Python, no card
@@ -17,14 +20,15 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .build import LAUNCHES, load_cuda_library
 
 W4A16 = "w4a16_matmul"
-LAUNCHES[W4A16] = 0
+W8A8 = "w8a8_matmul"
+LAUNCHES.update({W4A16: 0, W8A8: 0})
 
 # The kernel's tiles: 64 output columns per block for M tiles of up to 16
 # rows (N must be a multiple of 32: the last tile may be half full), 8 warps
@@ -80,7 +84,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-LOADERS = (_lib,)
+def _w8a8_lib() -> ctypes.CDLL:
+    lib = load_cuda_library(W8A8, ["w8a8_matmul.cu"])
+    fn = lib.w8a8_matmul_bf16
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return lib
+
+
+LOADERS = (_lib, _w8a8_lib)
 
 
 def w4a16_matmul(
@@ -126,4 +139,61 @@ def w4a16_matmul(
             f"{W4A16} launch failed: CUDA error {rc} ({torch.cuda.get_device_name(dev)})"
         )
     LAUNCHES[W4A16] += 1
+    return out
+
+
+# The w8a8 kernel reads the codes' rows in 64-byte chunks: Kp, the padded
+# input dim of wq (N, Kp), is a multiple of this.
+W8A8_K_ALIGN = 64
+
+
+def w8a8_linear(
+    x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+    b: Optional[torch.Tensor] = None, inv_a: Optional[torch.Tensor] = None,
+    codes_out: Optional[torch.Tensor] = None, a_out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """x (M, K) bf16 -> (M, N) bf16 through the w8a8 kernel, one launch:
+    x's int8 codes (dynamic per row, or static with `inv_a` (Kp,) fp32),
+    their int32 product with the codes wq (N, Kp) int8 on the tensor cores,
+    and the epilogue with `scale` (N,) fp32 and the bias `b` (N,) bf16 or
+    None, as `ops.layers.int8_linear_plain` computes them. `codes_out`
+    (M, Kp) int8 and `a_out` (M,) fp32 (dynamic only), when given, receive
+    the activation codes and row scales, for checks."""
+    dev = x.device
+    if dev.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise ValueError(f"{W8A8}: x must be a 2-D CUDA bf16 tensor")
+    m, k = x.shape
+    if wq.dim() != 2 or wq.dtype != torch.int8:
+        raise ValueError(f"{W8A8}: wq must be int8 (N, Kp)")
+    n, kp = wq.shape
+    if m == 0 or k == 0 or kp % W8A8_K_ALIGN or not k <= kp < k + W8A8_K_ALIGN:
+        raise ValueError(f"{W8A8}: M={m}, K={k} do not fit wq {tuple(wq.shape)}")
+    if scale.dtype != torch.float32 or scale.shape != (n,):
+        raise ValueError(f"{W8A8}: scale must be fp32 ({n},)")
+    if b is not None and (b.dtype != torch.bfloat16 or b.shape != (n,)):
+        raise ValueError(f"{W8A8}: b must be bf16 ({n},)")
+    if inv_a is not None and (inv_a.dtype != torch.float32 or inv_a.shape != (kp,)):
+        raise ValueError(f"{W8A8}: inv_a must be fp32 ({kp},)")
+    if codes_out is not None and (codes_out.dtype != torch.int8 or codes_out.shape != (m, kp)):
+        raise ValueError(f"{W8A8}: codes_out must be int8 ({m}, {kp})")
+    if a_out is not None and (inv_a is not None or a_out.dtype != torch.float32
+                              or a_out.shape != (m,)):
+        raise ValueError(f"{W8A8}: a_out must be fp32 ({m},), dynamic codes only")
+    aligned = (wq, scale, b, inv_a, codes_out, a_out)
+    for t in (x, *aligned):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{W8A8}: operands must be contiguous on {dev}")
+    if any(t is not None and t.data_ptr() % 16 for t in aligned) or x.data_ptr() % 2:
+        raise ValueError(f"{W8A8}: wq, scale, b, inv_a and outputs must be 16-byte aligned")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _w8a8_lib().w8a8_matmul_bf16(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), ptr(b), ptr(inv_a), out.data_ptr(),
+        ptr(codes_out), ptr(a_out), m, k, kp, n, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"{W8A8} launch failed: CUDA error {rc} ({torch.cuda.get_device_name(dev)})"
+        )
+    LAUNCHES[W8A8] += 1
     return out

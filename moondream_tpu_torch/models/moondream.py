@@ -47,7 +47,7 @@ from ..utils.streaming import TokenStreamer, stream_text
 from ..weights import checked_device, init_params
 from . import region as region_ops
 from .text import KVCache, text_encoder
-from .vision import vision_encoder, vision_projection
+from .vision import normalize_crops, vision_encoder, vision_projection
 
 DEFAULT_MAX_TOKENS = 768
 DEFAULT_TEMPERATURE = 0.5
@@ -148,10 +148,19 @@ class MoondreamModel:
         graphed: bool = True,
     ):
         """`params`: from `weights.params_from_jax`, `weights.load_params`
-        or `weights.init_params` (int4 text blocks: `load_params(...,
-        runtime_int4=True)`, or `models.text.quantize_text_params` on
-        dense ones); None draws random weights on `device` from `seed`. An
-        int8 KV cache comes from config.text.kv_int8. `device` is the card
+        or `weights.init_params`; None draws random weights on `device`
+        from `seed`. Runtime weight formats, applied to the parameters
+        before they come here: int4 text blocks (`load_params(...,
+        runtime_int4=True)`, or `models.text.quantize_text_params` on dense
+        ones); int8 w8a8 text blocks (`load_params(..., runtime_int8=True)`
+        or `models.text.quantize_text_params_int8`); int8 ViT blocks,
+        dynamic or statically calibrated
+        (`models.vision.quantize_vision_params`, with the statistics of
+        `collect_vision_act_stats` on normalized crops for static). Every
+        path, the CUDA graphs and the serving pool included, takes these
+        blocks as they are: the int8 linears launch one fused kernel each,
+        which allocates only its output and never syncs. An int8 KV cache
+        comes from config.text.kv_int8. `device` is the card
         unless the caller asks for the CPU (device="cpu", the plain
         versions); without a card the default raises. On a CUDA device the
         kernels take bf16 activations only. `graphed`: on the card the
@@ -234,8 +243,7 @@ class MoondreamModel:
         """(N, 378, 378, 3) uint8 crops -> (N, 729, enc_dim). Crops on the
         host are copied to the device first; crops already there (the
         pipeline's, copied on its side stream) are used where they are."""
-        x = crops.to(self.device).to(self.dtype) / 255.0
-        return vision_encoder((x - 0.5) / 0.5, self.vision)
+        return vision_encoder(normalize_crops(crops.to(self.device), self.dtype), self.vision)
 
     def _stitch_project(self, feats: torch.Tensor, tiling) -> torch.Tensor:
         """(..., n, 729, enc_dim) features of each image's global crop and n - 1

@@ -11,7 +11,10 @@ scale granularity is: one scale per token per cache row, and a cache row
 of the JAX package holds `kv_scale_group` adjacent heads.
 
 With int4 runtime weights (`quantize_text_params`), each block's qkv, proj,
-fc1 and fc2 are `Int4Linear`s; wte, lm_head, norms and biases stay dense.
+fc1 and fc2 are `Int4Linear`s; with int8 w8a8 weights
+(`quantize_text_params_int8`) they are `ops.layers.Int8Linear`s
+(per-output-channel codes, activations quantized per row at run time).
+wte, lm_head, norms and biases stay dense either way.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from torch import nn
 
 from ..config import TextConfig
 from ..ops.attention import decode_attention, decode_attention_cached, flash_attention
-from ..ops.layers import MLP, LayerNorm, Linear
+from ..ops.layers import _INV127, MLP, Int8Linear, LayerNorm, Linear
 from ..ops.quant import quantize_weight_torch, quantized_matmul
 from ..ops.rope import apply_rotary_emb, precompute_freqs_cis
 
@@ -183,6 +186,39 @@ def quantize_text_params(model: TextModel) -> TextModel:
         blk.proj = Int4Linear.from_linear(blk.proj)
         blk.mlp.fc1 = Int4Linear.from_linear(blk.mlp.fc1)
         blk.mlp.fc2 = Int4Linear.from_linear(blk.mlp.fc2)
+    return model
+
+
+@torch.no_grad()
+def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 codes of a dense (K, N) weight, on
+    its device, bit-identical to the jitted quantizer of the JAX package's
+    `quantize_text_params_int8` (moondream_tpu/models/text.py:254-259):
+    s = max(column amax, 1e-8) * fp32(1/127) (XLA's form of the division
+    by 127), codes = round_half_even(w / s). Returns (codes (K, N) int8,
+    scale (N,) fp32)."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=0)
+    s = amax.clamp_min(1e-8) * torch.full_like(amax, _INV127)
+    return torch.round(wf / s).to(torch.int8), s
+
+
+def _int8_from_linear(lin: Linear) -> Int8Linear:
+    codes, scale = quantize_weight_int8(lin.w)
+    return Int8Linear(codes, scale, lin.b)
+
+
+@torch.no_grad()
+def quantize_text_params_int8(model: TextModel) -> TextModel:
+    """Convert the blocks' qkv, proj, fc1 and fc2 to the int8 w8a8 format in
+    place, on their device, with the JAX package's codes and scales
+    (moondream_tpu/models/text.py:235-262); returns the model. wte,
+    lm_head, norms and biases stay dense, as do the region heads."""
+    for blk in model.blocks:
+        blk.qkv = _int8_from_linear(blk.qkv)
+        blk.proj = _int8_from_linear(blk.proj)
+        blk.mlp.fc1 = _int8_from_linear(blk.mlp.fc1)
+        blk.mlp.fc2 = _int8_from_linear(blk.mlp.fc2)
     return model
 
 

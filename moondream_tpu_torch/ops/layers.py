@@ -1,18 +1,24 @@
 """Primitive layers: linear, layer norm, tanh-GELU, MLP and the ViT
-attention body (moondream_tpu/ops/layers.py:25-185).
+attention body (moondream_tpu/ops/layers.py:25-185), and the int8 w8a8
+linear (`Int8Linear`, moondream_tpu/ops/layers.py:30-75).
 
 Weights keep the JAX package's (in, out) layout, so activations multiply as
 `x @ w`. Matrix products accumulate in fp32 and return the input dtype;
-layer-norm statistics are fp32.
+layer-norm statistics are fp32. The int8 codes are the one exception: they
+are kept transposed, (out, in), the layout the int8 tensor-core product
+reads (`pack_int8_weight`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.quant import W8A8_K_ALIGN
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
@@ -91,3 +97,136 @@ def attn_core(
     prefix = seq if n_real is None else n_real
     out = flash_attention(q, k, v, pos=0, prefix=prefix)
     return out.transpose(1, 2).reshape(bsz, seq, d_model)
+
+
+# ------------------------------------------------------------------ w8a8
+
+# 1/127 rounded once to fp32: under jit, XLA turns the JAX package's
+# division by 127.0 into a product with this constant.
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def q8_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row symmetric int8 quantization (the jitted `_q8_act`,
+    moondream_tpu/ops/layers.py:30-35): a = max(row amax, 1e-6) * fp32(1/127),
+    codes = round_half_even(x / a), no clip. Returns (codes int8, a fp32
+    (..., 1))."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    a = amax.clamp_min(1e-6) * torch.full_like(amax, _INV127)
+    return torch.round(xf / a).to(torch.int8), a
+
+
+def q8_static(x: torch.Tensor, inv_a: torch.Tensor) -> torch.Tensor:
+    """Static int8 codes clip(round_half_even(x * inv_a), -127, 127), the
+    activation scale and the SmoothQuant equaliser folded into `inv_a` (K,)
+    (moondream_tpu/ops/layers.py:56-59)."""
+    return torch.round(x.float() * inv_a).clamp(-127, 127).to(torch.int8)
+
+
+def pack_int8_weight(wq: torch.Tensor) -> torch.Tensor:
+    """JAX's int8 codes (K, N) -> the kernel's layout (N, Kp): transposed,
+    K zero-padded to a multiple of W8A8_K_ALIGN (the kernel reads whole
+    64-byte chunks of a code row). The codes are unchanged."""
+    k, n = wq.shape
+    kp = -(-k // W8A8_K_ALIGN) * W8A8_K_ALIGN
+    out = torch.zeros((n, kp), dtype=torch.int8, device=wq.device)
+    out[:, :k] = wq.t()
+    return out
+
+
+def int8_linear_fp64(
+    x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+    b: Optional[torch.Tensor], inv_a: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """int8_linear_plain's result before its last two roundings: (M, N)
+    float64, x's leading axes flattened. Where it lies exactly halfway
+    between two fp32 values, the plain version's emulated fma may round
+    twice."""
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    if inv_a is None:
+        codes, a = q8_act(x2)
+    else:
+        codes = q8_static(x2, inv_a[:k])
+    acc = (codes.double() @ wq[:, :k].double().t()).float()
+    if inv_a is None:
+        y = (acc * scale).double() * a.double()
+    else:
+        y = acc.double() * scale.double()
+    return y if b is None else y + b.double()
+
+
+def int8_linear_plain(
+    x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+    b: Optional[torch.Tensor], inv_a: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of the w8a8 kernel: x (..., K) against the codes wq (N,
+    Kp) (`pack_int8_weight`), per-channel `scale` (N,), bias `b` (N,) or
+    None; `inv_a` (>= K,) selects static activation codes, else dynamic per
+    row. Returns x.dtype, rounded once, as the jitted JAX `linear`
+    (moondream_tpu/ops/layers.py:38-71), whose epilogue XLA contracts to
+    one fused multiply-add:
+
+        dynamic: y = fma(float(acc) * scale[n], a[m], b[n])
+        static:  y = fma(float(acc), scale[n], b[n])
+
+    acc, the int32 product, is exact in float64 (K * 127^2 < 2^53). The fma
+    is emulated in float64 from fp32 operands (the product exact, the sum
+    rounded to float64, then to fp32): it can differ from a true fma only
+    where that sum rounds twice (`int8_linear_fp64`)."""
+    y = int8_linear_fp64(x, wq, scale, b, inv_a)
+    return y.float().to(x.dtype).reshape(*x.shape[:-1], wq.shape[0])
+
+
+def int8_linear(
+    x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+    b: Optional[torch.Tensor], inv_a: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The w8a8 linear (see int8_linear_plain): a tensor on the CPU goes to
+    the plain version, a CUDA tensor to the fused quantize + int8
+    tensor-core kernel (`kernels.quant.w8a8_linear`), one launch, which
+    raises on what it cannot take; any other device raises."""
+    if x.device.type == "cpu":
+        return int8_linear_plain(x, wq, scale, b, inv_a)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_linear: no route for a tensor on {x.device}")
+    from ..kernels.quant import w8a8_linear
+
+    lead = x.shape[:-1]
+    y = w8a8_linear(x.reshape(-1, x.shape[-1]), wq, scale, b, inv_a)
+    return y.reshape(*lead, wq.shape[0])
+
+
+class Int8Linear(nn.Module):
+    """A linear with int8 w8a8 weights (the JAX package's {"wq", "scale",
+    "b"[, "inv_a"]} leaves): buffers `wq` int8 (N, Kp) (JAX's (K, N) codes
+    through `pack_int8_weight`), `scale` fp32 (N,), `inv_a` fp32 (Kp,) or
+    None (dynamic activation codes), and the bias `b`, added inside the
+    fp32 epilogue and rounded once with the product, as JAX's `linear`
+    does. The buffers must stay as they are: do not cast the module with
+    `.to(dtype)`."""
+
+    def __init__(self, wq: torch.Tensor, scale: torch.Tensor, b: torch.Tensor,
+                 inv_a: Optional[torch.Tensor] = None):
+        """`wq` (K, N) int8 codes in JAX's layout, `scale` (N,) (or JAX's
+        (1, N)), `inv_a` (K,) (or (1, K)) or None."""
+        super().__init__()
+        k, n = wq.shape
+        self.in_features = k
+        packed = pack_int8_weight(wq)
+        self.register_buffer("wq", packed)
+        self.register_buffer("scale", scale.reshape(n).float().contiguous())
+        if inv_a is not None:
+            pad = torch.zeros(packed.shape[1], dtype=torch.float32, device=wq.device)
+            pad[:k] = inv_a.reshape(k)
+            inv_a = pad
+        self.register_buffer("inv_a", inv_a)
+        self.b = nn.Parameter(b, requires_grad=False)
+
+    def codes(self) -> torch.Tensor:
+        """The codes in JAX's (K, N) layout."""
+        return self.wq[:, :self.in_features].t()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_linear(x, self.wq, self.scale, self.b, self.inv_a)

@@ -2,12 +2,16 @@
 serving-pool chunk, goes on one CUDA card.
 
     python3 -m moondream_tpu_torch.profile_caption [--tokens 64] [--top 12]
-        [--int4] [--kv-int8] [--gqa] [--loop spec|reasoning|detect]
+        [--int4 | --int8-text] [--int8-vision dynamic|static] [--kv-int8]
+        [--gqa] [--loop spec|reasoning|detect]
         [--pool plain|shared|spec|mixed] [--pipeline] [--eager]
 
 Builds MOONDREAM_2B with seeded random weights on the card (with --int4, the
-text blocks quantized to int4; with --kv-int8, an int8 KV cache; with --gqa,
-8 KV heads for the 32 query heads) and runs the path
+text blocks quantized to int4; with --int8-text, to the int8 w8a8 format;
+with --int8-vision, the ViT blocks to int8 with dynamic activation codes,
+or static ones calibrated on the normalized crops of the profiled image;
+with --kv-int8, an int8 KV cache; with --gqa, 8 KV heads for the 32 query
+heads) and runs the path
 once to warm it (which captures the answer loop's CUDA graphs). Then it
 profiles, with torch.profiler, one `encode_image` of a seeded 756x1008 image
 (13 crops) and one greedy `caption` of up to `--tokens` tokens from that
@@ -56,7 +60,8 @@ from .engine import graphs
 from .engine.pipeline import BatchPipeline
 from .models.moondream import MoondreamModel
 from .models.serve import ContinuousBatchingEngine
-from .models.text import quantize_text_params
+from .models.text import quantize_text_params, quantize_text_params_int8
+from .models.vision import collect_vision_act_stats, normalize_crops, quantize_vision_params
 from .tokenizer import ByteTokenizer
 from .weights import init_params
 
@@ -104,7 +109,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tokens", type=int, default=64)
     ap.add_argument("--top", type=int, default=12)
-    ap.add_argument("--int4", action="store_true", help="int4 text block weights")
+    fmt = ap.add_mutually_exclusive_group()
+    fmt.add_argument("--int4", action="store_true", help="int4 text block weights")
+    fmt.add_argument("--int8-text", action="store_true", help="int8 w8a8 text block weights")
+    ap.add_argument("--int8-vision", choices=("dynamic", "static"),
+                    help="int8 ViT blocks, dynamic or calibrated static activation codes")
     ap.add_argument("--kv-int8", action="store_true", help="int8 KV cache")
     ap.add_argument("--gqa", action="store_true", help="8 KV heads (GQA)")
     ap.add_argument("--loop", choices=("spec", "reasoning", "detect"),
@@ -129,11 +138,19 @@ def main() -> None:
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
     if args.int4:
         quantize_text_params(params["text"])
+    elif args.int8_text:
+        quantize_text_params_int8(params["text"])
     model = MoondreamModel(
         cfg, params, tokenizer=ByteTokenizer(), dtype=torch.bfloat16, seed=0,
         device="cuda", graphed=not args.eager,
     )
     img = np.random.default_rng(0).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
+    if args.int8_vision:
+        stats = None
+        if args.int8_vision == "static":
+            crops = torch.from_numpy(model._crops(img)[0]).to("cuda")
+            stats = collect_vision_act_stats(normalize_crops(crops, torch.bfloat16), model.vision)
+        quantize_vision_params(model.vision, stats)
     greedy = {"temperature": 0.0, "max_tokens": args.tokens}
     if args.pipeline:
         rng = np.random.default_rng(1)

@@ -1,5 +1,6 @@
 """Parameters of the port: `params_from_jax` maps the JAX package's parameter
-pytree (dense, or with int4 text blocks) onto the port's modules,
+pytree (dense, with int4 or int8 text blocks, with int8 ViT blocks) onto
+the port's modules,
 `load_params` reads a safetensors or torch checkpoint, and `init_params`
 makes seeded random weights of any configuration directly on the device.
 
@@ -13,7 +14,7 @@ maps to one module per block here.
 The checkpoint loader is the JAX package's (moondream_tpu/weights.py:45-346):
 both naming schemes, `model.`/`._orig_mod` prefixes, and the reference's
 int4 group-128 checkpoints, dequantized at load time. Region weights stay
-dense under runtime_int4.
+dense under runtime_int4 and runtime_int8.
 """
 
 from __future__ import annotations
@@ -27,9 +28,14 @@ from torch import nn
 
 from .config import MoondreamConfig
 from .models.region import RegionModel
-from .models.text import Int4Linear, TextModel, quantize_text_params
+from .models.text import (
+    Int4Linear,
+    TextModel,
+    quantize_text_params,
+    quantize_text_params_int8,
+)
 from .models.vision import VisionModel
-from .ops.layers import MLP, LayerNorm, Linear
+from .ops.layers import MLP, Int8Linear, LayerNorm, Linear
 
 
 def checked_device(device) -> torch.device:
@@ -131,6 +137,17 @@ def _int4_linear(qw: dict, bias, layer: int, device, dtype) -> Int4Linear:
     )
 
 
+def _int8_linear(tree: dict, layer: int, device, dtype) -> Int8Linear:
+    """Layer `layer` of a stacked JAX int8 tree {wq (L, K, N), scale (L, 1,
+    N), b[, inv_a (L, 1, K)]}, the codes carried over as they are."""
+    part = lambda name, dt: torch.from_numpy(
+        np.array(np.asarray(tree[name])[layer], dtype=dt)
+    ).to(device)
+    inv_a = part("inv_a", np.float32) if "inv_a" in tree else None
+    return Int8Linear(part("wq", np.int8), part("scale", np.float32),
+                      part("b", np.float32).to(dtype), inv_a)
+
+
 @torch.no_grad()
 def params_from_jax(
     tree: dict, config: MoondreamConfig, device=None, dtype=torch.float32
@@ -140,19 +157,29 @@ def params_from_jax(
     numpy or jax arrays) as the port's modules; a tree whose "region" is
     missing or None gives no region heads. A text tree from the JAX
     `quantize_text_params` (stacked `blocks_q` {packed, scale, zero},
-    biases in `blocks`) gives int4 blocks with the same codes."""
+    biases in `blocks`) gives int4 blocks with the same codes; one from
+    `quantize_text_params_int8` (`blocks` linears {wq, scale, b}) int8
+    blocks. A vision tree from `quantize_vision_params` (`blocks_q` with
+    ln1 / ln2 and {wq, scale, b[, inv_a]} linears, no `blocks`) gives
+    int8 ViT blocks, dynamic or static, with the same codes."""
     rt = tree.get("region")
     params = build_params(config, device, dtype, region=rt is not None)
     vt, vis = tree["vision"], params["vision"]
     _put_linear(vis.patch_emb, vt["patch_emb"])
     _put(vis.pos_emb, vt["pos_emb"])
+    vq = vt.get("blocks_q")
     for i, blk in enumerate(vis.blocks):
-        b = vt["blocks"]
+        b = vq if vq is not None else vt["blocks"]
         _put_ln(blk.ln1, b["ln1"], i)
-        _put_linear(blk.qkv, b["attn"]["qkv"], i)
-        _put_linear(blk.proj, b["attn"]["proj"], i)
         _put_ln(blk.ln2, b["ln2"], i)
-        _put_mlp(blk.mlp, b["mlp"], i)
+        if vq is None:
+            _put_linear(blk.qkv, b["attn"]["qkv"], i)
+            _put_linear(blk.proj, b["attn"]["proj"], i)
+            _put_mlp(blk.mlp, b["mlp"], i)
+            continue
+        q = lambda mod, name: _int8_linear(b[mod][name], i, device, dtype)
+        blk.qkv, blk.proj = q("attn", "qkv"), q("attn", "proj")
+        blk.mlp.fc1, blk.mlp.fc2 = q("mlp", "fc1"), q("mlp", "fc2")
     _put_ln(vis.post_ln, vt["post_ln"])
     _put_mlp(vis.proj_mlp, vt["proj_mlp"])
 
@@ -162,14 +189,17 @@ def params_from_jax(
     for i, blk in enumerate(txt.blocks):
         b = tt["blocks"]
         _put_ln(blk.ln, b["ln"], i)
-        if bq is None:
+        if bq is None and "wq" in b["attn"]["qkv"]:
+            q = lambda mod, name: _int8_linear(b[mod][name], i, device, dtype)
+        elif bq is None:
             _put_linear(blk.qkv, b["attn"]["qkv"], i)
             _put_linear(blk.proj, b["attn"]["proj"], i)
             _put_mlp(blk.mlp, b["mlp"], i)
             continue
-        q = lambda mod, name: _int4_linear(
-            bq[mod][name], b[mod][name]["b"], i, device, dtype
-        )
+        else:
+            q = lambda mod, name: _int4_linear(
+                bq[mod][name], b[mod][name]["b"], i, device, dtype
+            )
         blk.qkv, blk.proj = q("attn", "qkv"), q("attn", "proj")
         blk.mlp.fc1, blk.mlp.fc2 = q("mlp", "fc1"), q("mlp", "fc2")
     _put_ln(txt.post_ln, tt["post_ln"])
@@ -380,17 +410,26 @@ def _put_ckpt_region(reg: RegionModel, flat: dict) -> None:
 
 def load_params(
     path: str, config: MoondreamConfig, dtype=torch.bfloat16,
-    runtime_int4: bool = False, device="cuda",
+    runtime_int4: bool = False, device="cuda", runtime_int8: bool = False,
 ) -> nn.ModuleDict:
     """Load a checkpoint into the port's vision, text and region modules, in
     `dtype` on `device` (the card unless the caller asks for the CPU;
     raises without one). runtime_int4=True then quantizes the text blocks'
     qkv, proj, fc1 and fc2 from those `dtype` weights into the runtime int4
-    format (`models.text.quantize_text_params`), as the JAX package's
-    `load_params(..., runtime_int4=True)` does; an int4 checkpoint goes
-    through the load-time dequant first."""
+    format (`models.text.quantize_text_params`); runtime_int8=True into the
+    int8 w8a8 format instead (`models.text.quantize_text_params_int8`:
+    per-output-channel codes, activations quantized per row at run time),
+    as the JAX package's `load_params` does with the same flags, which are
+    exclusive (ValueError). An int4 checkpoint goes through the load-time
+    dequant first. The int8 ViT formats are a step of their own:
+    `models.vision.quantize_vision_params`, after an optional calibration
+    (`collect_vision_act_stats`)."""
+    if runtime_int4 and runtime_int8:
+        raise ValueError("runtime_int4 and runtime_int8 are exclusive")
     device = checked_device(device)
     params = params_from_flat(load_flat(path), config, device, dtype)
     if runtime_int4:
         quantize_text_params(params["text"])
+    elif runtime_int8:
+        quantize_text_params_int8(params["text"])
     return params

@@ -7,8 +7,9 @@ two images in one lockstep batch, caption with a GQA text config, run
 the region-head paths: detect, point, both gaze modes, query with reasoning
 and spatial refs, detect_batch and point_batch, the speculative paths:
 a speculative caption, a drafting call, and a speculative pool serving a
-caption beside a detect, and the multi-image paths: BatchPipeline plain and
-speculative, PooledPipeline and the pool's submit_many."""
+caption beside a detect, the multi-image paths: BatchPipeline plain and
+speculative, PooledPipeline and the pool's submit_many, and a greedy
+caption with int8 text blocks and a statically calibrated int8 ViT."""
 
 import os
 import subprocess
@@ -85,6 +86,16 @@ assert len(PooledPipeline(model, n_slots=2, chunk=4).caption([img, img[:200]], s
 beng = ContinuousBatchingEngine(model, n_slots=2, chunk=4)
 rids = beng.submit_many([img, img[:200]], max_tokens=4)
 assert sorted(beng.drain()) == rids
+from moondream_tpu_torch.models.text import quantize_text_params_int8
+from moondream_tpu_torch.models.vision import collect_vision_act_stats, quantize_vision_params
+p8 = init_params(tiny_test_config(), torch.Generator().manual_seed(1), "cpu", torch.float32)
+quantize_text_params_int8(p8["text"])
+calib = torch.rand(2, 378, 378, 3, generator=torch.Generator().manual_seed(2)) * 2 - 1
+quantize_vision_params(p8["vision"], collect_vision_act_stats(calib, p8["vision"]))
+m8 = MoondreamModel(tiny_test_config(), params=p8, dtype=torch.float32, device="cpu")
+assert m8.vision.blocks[0].qkv.inv_a is not None and m8.text.blocks[0].qkv.inv_a is None
+c8 = m8.caption(img, settings=greedy)["caption"]
+assert isinstance(c8, str) and c8 == m8.caption(img, settings=greedy)["caption"]
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))

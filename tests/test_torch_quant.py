@@ -10,7 +10,9 @@ atol 2e-4, rtol 1e-3, the tolerance of tests/test_quant.py:64 (fp32 sums
 in another order).
 
 Tests marked `cuda` hold the W4A16 kernel against the plain version on the
-card; on a machine without jax they run with
+card, and the w8a8 kernel against its plain version (`ops.layers.
+int8_linear_plain`) bit for bit, with its activation codes and row scales;
+on a machine without jax they run with
 `python -m pytest --noconftest -m cuda tests/test_torch_quant.py`.
 """
 
@@ -201,3 +203,92 @@ def test_w4a16_kernel_refuses_fp32(cuda):
     tq = {name: torch.from_numpy(v).to(cuda) for name, v in qw.items()}
     with pytest.raises(ValueError):
         quantized_matmul(torch.from_numpy(x).to(cuda), tq)
+
+
+# (M, K, N, static): decode, lockstep and span rows over the 2B text linears,
+# a 730-row prefill, K and N tails (the 0.5B ViT's 2690), the M 64 / 65
+# edge between the kernel's two tilings
+W8A8_CASES = [(1, 2048, 6144, False), (8, 8192, 2048, False), (16, 2048, 8192, False),
+              (64, 2048, 2048, False), (65, 720, 2690, True), (730, 2048, 6144, False),
+              (5, 2690, 720, True), (300, 1152, 3456, True), (3, 36, 24, False)]
+
+
+def _w8a8_case(seed, m, k, n, static, device):
+    from moondream_tpu_torch.ops.layers import pack_int8_weight
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    x[:, k // 3] *= 40.0  # an outlier channel
+    wq = pack_int8_weight(torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)))
+    scale = torch.from_numpy((rng.random(n) * 1e-3 + 1e-4).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(torch.bfloat16)
+    inv_a = None
+    if static:
+        inv_a = torch.zeros(wq.shape[1])
+        inv_a[:k] = torch.from_numpy((rng.random(k) * 40 + 5).astype(np.float32))
+    to = lambda t: None if t is None else t.to(device)
+    return (torch.from_numpy(x).to(device, torch.bfloat16), to(wq), to(scale), to(b), to(inv_a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,static", W8A8_CASES)
+def test_w8a8_kernel_equals_plain_bit_for_bit(cuda, m, k, n, static):
+    from moondream_tpu_torch.kernels.quant import w8a8_linear
+    from moondream_tpu_torch.ops.layers import int8_linear_plain, q8_act, q8_static
+
+    x, wq, scale, b, inv_a = _w8a8_case(m * k + n, m, k, n, static, cuda)
+    codes = torch.empty(m, wq.shape[1], dtype=torch.int8, device=cuda)
+    a = None if static else torch.empty(m, device=cuda)
+    got = w8a8_linear(x, wq, scale, b, inv_a, codes, a)
+    assert torch.equal(got.view(torch.int16),
+                       int8_linear_plain(x, wq, scale, b, inv_a).view(torch.int16))
+    if static:
+        assert torch.equal(codes[:, :k], q8_static(x, inv_a[:k]))
+    else:
+        want_codes, want_a = q8_act(x)
+        assert torch.equal(codes[:, :k], want_codes) and torch.equal(a, want_a[:, 0])
+    assert not codes[:, k:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+def test_w8a8_kernel_rows_do_not_depend_on_m(cuda, static):
+    """A row's bits depend only on that row and the weight: rows of M 1, 8,
+    16 and 64 (the small-M kernel) equal the first rows of M 300 (the tiled
+    one)."""
+    from moondream_tpu_torch.ops.layers import int8_linear
+
+    x, wq, scale, b, inv_a = _w8a8_case(7, 300, 2048, 256, static, cuda)
+    full = int8_linear(x, wq, scale, b, inv_a)
+    for m in (1, 8, 16, 64):
+        assert torch.equal(int8_linear(x[:m].clone(), wq, scale, b, inv_a), full[:m]), m
+
+
+@pytest.mark.cuda
+def test_int8_quantizers_same_bits_on_the_card(cuda):
+    from moondream_tpu_torch.models.text import quantize_weight_int8
+    from moondream_tpu_torch.models.vision import _quantize_vision_linear
+    from moondream_tpu_torch.ops.layers import Linear
+
+    w = torch.from_numpy(_weight(4, (1152, 256)))
+    for cpu, card in zip(quantize_weight_int8(w), quantize_weight_int8(w.to(cuda))):
+        assert torch.equal(cpu, card.cpu())
+    amax = torch.from_numpy(np.random.default_rng(5).random(1152).astype(np.float32) * 9)
+    lins = []
+    for dev in ("cpu", cuda):
+        lin = Linear(1152, 256, dev, torch.float32)
+        with torch.no_grad():
+            lin.w.copy_(w)
+            lin.b.zero_()
+        lins.append(_quantize_vision_linear(lin, amax.to(dev), 0.5))
+    for name in ("wq", "scale", "inv_a"):
+        assert torch.equal(getattr(lins[0], name), getattr(lins[1], name).cpu()), name
+
+
+@pytest.mark.cuda
+def test_w8a8_kernel_refuses_fp32(cuda):
+    from moondream_tpu_torch.ops.layers import int8_linear
+
+    x, wq, scale, b, _ = _w8a8_case(0, 4, 64, 32, False, cuda)
+    with pytest.raises(ValueError):
+        int8_linear(x.float(), wq, scale, b)
