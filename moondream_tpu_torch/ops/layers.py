@@ -135,6 +135,21 @@ def pack_int8_weight(wq: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def q8_codes_plain(
+    x: torch.Tensor, inv_a: Optional[torch.Tensor], kp: int
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of the w8a8 quantize pass: x (M, K) -> (codes (M, Kp)
+    int8, zero past K; a (M,) fp32, the dynamic row scales, or None when
+    `inv_a` (>= K,) selects static codes)."""
+    k = x.shape[-1]
+    codes = torch.zeros((x.shape[0], kp), dtype=torch.int8, device=x.device)
+    if inv_a is None:
+        codes[:, :k], a = q8_act(x)
+        return codes, a[:, 0]
+    codes[:, :k] = q8_static(x, inv_a[:k])
+    return codes, None
+
+
 def int8_linear_fp64(
     x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     b: Optional[torch.Tensor], inv_a: Optional[torch.Tensor] = None,
@@ -143,15 +158,10 @@ def int8_linear_fp64(
     float64, x's leading axes flattened. Where it lies exactly halfway
     between two fp32 values, the plain version's emulated fma may round
     twice."""
-    k = x.shape[-1]
-    x2 = x.reshape(-1, k)
+    codes, a = q8_codes_plain(x.reshape(-1, x.shape[-1]), inv_a, wq.shape[1])
+    acc = (codes.double() @ wq.double().t()).float()
     if inv_a is None:
-        codes, a = q8_act(x2)
-    else:
-        codes = q8_static(x2, inv_a[:k])
-    acc = (codes.double() @ wq[:, :k].double().t()).float()
-    if inv_a is None:
-        y = (acc * scale).double() * a.double()
+        y = (acc * scale).double() * a.double()[:, None]
     else:
         y = acc.double() * scale.double()
     return y if b is None else y + b.double()
@@ -184,9 +194,10 @@ def int8_linear(
     b: Optional[torch.Tensor], inv_a: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The w8a8 linear (see int8_linear_plain): a tensor on the CPU goes to
-    the plain version, a CUDA tensor to the fused quantize + int8
-    tensor-core kernel (`kernels.quant.w8a8_linear`), one launch, which
-    raises on what it cannot take; any other device raises."""
+    the plain version, a CUDA tensor to the w8a8 kernels
+    (`kernels.quant.w8a8_linear`: the quantize pass where its plan asks
+    for it, then one int8 tensor-core product with its epilogue), which
+    raise on what they cannot take; any other device raises."""
     if x.device.type == "cpu":
         return int8_linear_plain(x, wq, scale, b, inv_a)
     if x.device.type != "cuda":

@@ -10,8 +10,9 @@ atol 2e-4, rtol 1e-3, the tolerance of tests/test_quant.py:64 (fp32 sums
 in another order).
 
 Tests marked `cuda` hold the W4A16 kernel against the plain version on the
-card, and the w8a8 kernel against its plain version (`ops.layers.
-int8_linear_plain`) bit for bit, with its activation codes and row scales;
+card, and the w8a8 kernels (the quantize pass and the product kernels)
+against their plain version (`ops.layers.int8_linear_plain`) bit for bit,
+with the pass's activation codes and row scales;
 on a machine without jax they run with
 `python -m pytest --noconftest -m cuda tests/test_torch_quant.py`.
 """
@@ -206,11 +207,14 @@ def test_w4a16_kernel_refuses_fp32(cuda):
 
 
 # (M, K, N, static): decode, lockstep and span rows over the 2B text linears,
-# a 730-row prefill, K and N tails (the 0.5B ViT's 2690), the M 64 / 65
-# edge between the kernel's two tilings
+# a 730-row prefill, K and N tails (the 0.5B ViT's 2690), the M 32 / 33 / 64
+# / 65 edges between the two product kernels, a pool's verify rows (M 72)
+# and M 200 (kernel L splitting K), and the ViT qkv's 13 crops (M 9984)
 W8A8_CASES = [(1, 2048, 6144, False), (8, 8192, 2048, False), (16, 2048, 8192, False),
               (64, 2048, 2048, False), (65, 720, 2690, True), (730, 2048, 6144, False),
-              (5, 2690, 720, True), (300, 1152, 3456, True), (3, 36, 24, False)]
+              (5, 2690, 720, True), (300, 1152, 3456, True), (3, 36, 24, False),
+              (32, 2048, 2048, True), (33, 2048, 6144, False), (72, 2048, 6144, False),
+              (200, 8192, 2048, True), (9984, 1152, 3456, True), (9984, 1152, 3456, False)]
 
 
 def _w8a8_case(seed, m, k, n, static, device):
@@ -254,14 +258,21 @@ def test_w8a8_kernel_equals_plain_bit_for_bit(cuda, m, k, n, static):
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
 def test_w8a8_kernel_rows_do_not_depend_on_m(cuda, static):
     """A row's bits depend only on that row and the weight: rows of M 1, 8,
-    16 and 64 (the small-M kernel) equal the first rows of M 300 (the tiled
-    one)."""
+    16, 32, 64, 65, 72 and 200, through every route that takes them
+    (kernel S up to M 32; kernel L at tile width 64 and 128, K split or
+    not), equal the first rows of M 300."""
+    from moondream_tpu_torch.kernels.quant import SMALL_MAX_M, plan_w8a8, w8a8_linear
     from moondream_tpu_torch.ops.layers import int8_linear
 
     x, wq, scale, b, inv_a = _w8a8_case(7, 300, 2048, 256, static, cuda)
     full = int8_linear(x, wq, scale, b, inv_a)
-    for m in (1, 8, 16, 64):
-        assert torch.equal(int8_linear(x[:m].clone(), wq, scale, b, inv_a), full[:m]), m
+    for m in (1, 8, 16, 32, 64, 65, 72, 200):
+        plans = {plan_w8a8(m, 2048, 256, route="large", bn=bn) for bn in (64, 128)}
+        if m <= SMALL_MAX_M:
+            plans.add(plan_w8a8(m, 2048, 256, route="small"))
+        for plan in plans:
+            got = w8a8_linear(x[:m].clone(), wq, scale, b, inv_a, plan=plan)
+            assert torch.equal(got, full[:m]), (m, plan)
 
 
 @pytest.mark.cuda
