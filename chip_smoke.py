@@ -1,6 +1,7 @@
 """Drive the PyTorch port's caption, query, lockstep-batch, serving,
 speculative, region-head (detect, point, gaze, reasoning, spatial refs),
-multi-image pipeline and int8 w8a8 paths once on one CUDA card.
+multi-image pipeline, int8 w8a8 and finetuning paths once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -90,7 +91,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
-     with bounds, and kernels A and B at the 0.5B's widths.
+     with bounds, and kernels A and B at the 0.5B's widths. Phase 3 also
+     holds one text and one region training step of the tiny config (loss
+     and every gradient, bf16 on the card against fp32 on the CPU);
+  5. finetuning at MOONDREAM_2B widths and depth (phase_finetune): the
+     text finetune over four synthetic images at grad-accum 2 (two
+     updates) and the region finetune over two boxes, through the CLIs'
+     functions, with exact kernel A launches, ms per mini-step and per
+     update, training tokens/s and peak memory; the frozen trees bit for
+     bit unchanged, wte moved by weight decay alone, the saved .pt
+     reloaded equal, and the graphed caption (graphs captured before the
+     training) equal to an eager one on the trained weights.
 
 Prints the card's name and power limit first, the seconds of each phase,
 a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
@@ -105,6 +116,7 @@ import math
 import random
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -133,6 +145,9 @@ from moondream_tpu_torch.engine.generate import (  # noqa: E402
     reset_loop_counts,
 )
 from moondream_tpu_torch.engine import graphs  # noqa: E402
+from moondream_tpu_torch.finetune import finetune_region, finetune_text  # noqa: E402
+from moondream_tpu_torch.finetune import trainer as finetune_trainer  # noqa: E402
+from moondream_tpu_torch.finetune.optim import named_leaves, trainable  # noqa: E402
 from moondream_tpu_torch.engine.pipeline import BatchPipeline, PooledPipeline  # noqa: E402
 from moondream_tpu_torch.engine.serving import (  # noqa: E402
     ragged_decode_step,
@@ -152,6 +167,7 @@ from moondream_tpu_torch.models.text import (  # noqa: E402
     Int4Linear,
     KVCache,
     dequantize_kv,
+    produce_hidden,
     quantize_kv,
     quantize_text_params,
     quantize_text_params_int8,
@@ -191,7 +207,7 @@ from moondream_tpu_torch.ops.quant import (  # noqa: E402
 )
 from moondream_tpu_torch.tokenizer import ByteTokenizer  # noqa: E402
 from moondream_tpu_torch.utils.streaming import stream_text  # noqa: E402
-from moondream_tpu_torch.weights import build_params, init_params  # noqa: E402
+from moondream_tpu_torch.weights import build_params, init_params, load_params  # noqa: E402
 
 DEV = torch.device("cuda")
 BF16 = torch.bfloat16
@@ -3160,6 +3176,272 @@ def phase_int4_pooled_pipeline(model, images, power: str) -> list:
     return [launches]
 
 
+# ------------------------------------------------------------- finetuning
+
+# The smoke's text finetune LR: large enough that a bf16 weight moves by
+# a few ulps per update (the CLI's 3e-6 moves almost none), so the graphed
+# caption after training reads visibly trained weights.
+FT_TEXT_LR = 1e-3
+
+
+def _grad_vector(leaves) -> torch.Tensor:
+    """Every leaf's gradient (None as zeros) as one fp32 CPU vector."""
+    return torch.cat([(t.grad if t.grad is not None else torch.zeros_like(t)).float().cpu().ravel()
+                      for _, t in leaves])
+
+
+def phase_finetune_reference(img: np.ndarray) -> None:
+    """One text and one region training step of the tiny config on one set
+    of bf16-valued weights and one example (built in fp32 on the CPU): bf16
+    on the card and bf16 on the CPU, each against fp32 on the CPU. The
+    card's loss and gradient vector (L2, every leaf, the RoPE table
+    included) may stray at most SMALL_REF_FACTOR times as far as the CPU's
+    bf16 run does."""
+    cfg = tiny_test_config()
+    state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
+    state = {n: t.to(BF16).float() for n, t in state.items()}
+    ref_model = MoondreamModel(cfg, build_params(cfg, "cpu", torch.float32), ByteTokenizer(),
+                               torch.float32, device="cpu")
+    ref_model.params.load_state_dict(state)
+    example = finetune_text.build_example(ref_model, img, finetune_text.QUESTION,
+                                          "a small test" + finetune_text.ANSWER_EOS)
+    emb = ref_model._run_vision_encoder(img)
+    rex = finetune_region.build_class_example(ref_model, emb, "thing", [[0.4, 0.5, 0.3, 0.2]])
+
+    def run(device, dtype) -> dict:
+        params = build_params(cfg, device, dtype)
+        params.load_state_dict(state)
+        out = {}
+        for part in ("text", "region"):
+            leaves = named_leaves(params[part])
+            with trainable(leaves):
+                if part == "text":
+                    loss = finetune_trainer.text_loss(
+                        params["text"], example["inputs_embeds"].to(device, dtype),
+                        example["labels"].to(device), example["label_mask"].to(device))
+                else:
+                    with torch.no_grad():
+                        hidden = produce_hidden(rex["inputs_embeds"].to(device, dtype),
+                                                params["text"])
+                    loss = finetune_trainer.region_loss(
+                        params["region"], hidden, rex["labels"].to(device),
+                        rex["c_idx"].to(device), rex["s_idx"].to(device))
+                loss.backward()
+            out[part] = (loss.item(), _grad_vector(leaves))
+        return out
+
+    ref, cpu, gpu = run("cpu", torch.float32), run("cpu", BF16), run(DEV, BF16)
+    for part in ("text", "region"):
+        (l_ref, g_ref), (l_cpu, g_cpu), (l_gpu, g_gpu) = ref[part], cpu[part], gpu[part]
+        if not (math.isfinite(l_gpu) and torch.isfinite(g_gpu).all()):
+            raise AssertionError(f"finetune reference ({part}): non-finite loss or gradient")
+        rel = lambda g: float((g - g_ref).norm() / g_ref.norm())
+        loss_err = {"card": abs(l_gpu - l_ref), "cpu bf16": abs(l_cpu - l_ref)}
+        grad_err = {"card": rel(g_gpu), "cpu bf16": rel(g_cpu)}
+        print(f"finetune reference ({part}, tiny, bf16 vs CPU fp32): loss {l_ref:.5f}, "
+              f"|loss err| {loss_err}, gradient L2 rel err {grad_err}")
+        for name, err in (("loss", loss_err), ("gradient", grad_err)):
+            if err["card"] > SMALL_REF_FACTOR * err["cpu bf16"] + 1e-6:
+                raise AssertionError(f"finetune reference ({part}) {name}: card {err['card']} "
+                                     f"> {SMALL_REF_FACTOR} x CPU bf16 {err['cpu bf16']}")
+
+
+def _timed_updates(optimizer) -> list:
+    """Wrap optimizer.update so that each call's device ms (synchronized)
+    and whether it updated the weights are recorded; returns the record."""
+    record, inner = [], optimizer.update
+
+    def update(state, leaves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emitted = inner(state, leaves)
+        record.append((sync_ms(t0), emitted))
+        return emitted
+
+    optimizer.update = update
+    return record
+
+
+def _train_flops(cfg, seq: int) -> float:
+    """Matrix-product operations of one text training step (forward and
+    backward, 3x the forward) at `seq` positions: the block linears and
+    the lm head, 2 per weight per position, and the attention's two
+    products over seq^2 positions per head."""
+    tc = cfg.text
+    per_layer = tc.dim * tc.qkv_dim + tc.dim * tc.dim + 2 * tc.dim * tc.ff_dim
+    weights = tc.n_layers * per_layer + tc.dim * tc.vocab_size
+    attn = tc.n_layers * 4 * seq * seq * tc.dim
+    return 3 * (2 * seq * weights + attn)
+
+
+def _snapshot(model, parts) -> dict:
+    return {p: [t.detach().clone() for _, t in named_leaves(model.params[p])] for p in parts}
+
+
+def _unchanged(model, snap: dict, label: str) -> None:
+    for part, saved in snap.items():
+        for (name, t), old in zip(named_leaves(model.params[part]), saved):
+            if not torch.equal(t, old):
+                raise AssertionError(f"{label}: {part}.{name} changed")
+
+
+def phase_finetune(power: str) -> list:
+    """Finetuning at MOONDREAM_2B's published widths and depth on seeded
+    random bf16 weights, through the CLIs' functions (build_example /
+    build_class_example, cli_optimizer, the training steps): the text
+    finetune over four synthetic 378x378 images (finetune_text.
+    synthetic_dataset) at grad-accum 2, two updates at FT_TEXT_LR; the
+    region finetune over two samples with one box each at grad-accum 1
+    (the CLI's LR). A greedy caption captures its CUDA graphs before the
+    training; after it the graphed caption (no new capture) must equal an
+    eager one on the same weights. Checks: finite losses; vision and region
+    bit for bit unchanged by the text finetune, text and vision by the
+    region one; wte moved by weight decay alone (zero moments, the decay
+    arithmetic); the saved .pt reloads through load_params to equal
+    tensors; exact kernel A launches (27 per ViT call). Prints ms per
+    mini-step (forward + backward) and per optimizer call, training
+    tokens/s and peak memory. Returns the launch counts of the text
+    finetune, the region finetune and the post-training caption."""
+    cfg = MOONDREAM_2B
+    graphs.reset_graph_counts()
+    model = MoondreamModel(cfg, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    greedy = {"temperature": 0.0, "max_tokens": 32}
+    probe = finetune_text.synthetic_dataset(1)[0]["image"]
+    model.tokenizer = IdTokenizer()  # the training examples' ids are the same
+    before = model.caption(probe, settings=greedy)["caption"]
+    runs = []
+
+    # -- text
+    dataset = finetune_text.synthetic_dataset(4)
+    grad_accum, epochs = 2, 1
+    optimizer = finetune_trainer.cli_optimizer(FT_TEXT_LR, epochs * len(dataset) // grad_accum,
+                                               grad_accum)
+    updates = _timed_updates(optimizer)
+    state = finetune_trainer.init_train_state(model.text, optimizer)
+    train_step = finetune_trainer.make_train_step(optimizer)
+    frozen = _snapshot(model, ("vision", "region"))
+    wte0 = model.text.wte.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    steps, seqs, losses = [], [], []
+    for sample in dataset:
+        batch = finetune_text.build_example(model, sample["image"], finetune_text.QUESTION,
+                                            f"{sample['description']}{finetune_text.ANSWER_EOS}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = train_step(state, batch)
+        steps.append(sync_ms(t0))
+        seqs.append(batch["inputs_embeds"].shape[1])
+        losses.append(loss.item())
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("text finetune (4 ViT calls)", launches,
+                   expected_launches(cfg, len(dataset), 0, 0, prefills=0))
+    runs.append(launches)
+    if not all(math.isfinite(x) for x in losses) or state.opt_state.count != 2:
+        raise AssertionError(f"text finetune: losses {losses}, updates {state.opt_state.count}")
+    _unchanged(model, frozen, "text finetune")
+    # wte: zero moments, and exactly the decay arithmetic of both updates
+    i_wte = [n for n, _ in named_leaves(model.text)].index("wte")
+    if state.opt_state.mu[i_wte].any() or state.opt_state.nu[i_wte].any():
+        raise AssertionError("text finetune: wte has nonzero moments")
+    as_bf16 = lambda x: torch.tensor(x, dtype=torch.float64).to(BF16).item()
+    want = wte0
+    for count in range(2):  # g = 0: mu = nu = 0, so the update is lr * (wd * p)
+        lr = float(optimizer.learning_rate(count))
+        want = want + (want * as_bf16(optimizer.weight_decay)) * as_bf16(-lr)
+    if not torch.equal(model.text.wte, want):
+        raise AssertionError("text finetune: wte moved otherwise than by weight decay")
+    mini = [s - u for s, (u, _) in zip(steps, updates)]
+    upd = [u for u, emitted in updates if emitted]
+    flops = _train_flops(cfg, seqs[0])
+    print(f"text finetune (2B bf16, {len(dataset)} examples of {seqs[0]} positions, grad-accum "
+          f"{grad_accum}, 2 updates, lr {FT_TEXT_LR}) on {power}: losses "
+          f"{[round(x, 4) for x in losses]}; ms per mini-step (forward + backward) "
+          f"{[round(x, 1) for x in mini]}; ms per optimizer update {[round(x, 1) for x in upd]} "
+          f"(accumulate-only calls {[round(u, 1) for u, e in updates if not e]}); training "
+          f"tokens/s {sum(seqs) / (sum(mini) / 1e3):.0f} (padded positions, forward + backward); "
+          f"bf16 operations bound per mini-step {flops / PEAK_BF16_FLOP_S * 1e3:.2f} ms; "
+          f"max_memory_allocated {peak} bytes; wte elements moved "
+          f"{int((model.text.wte != wte0).sum())} of {wte0.numel()}")
+
+    # -- region
+    rdata = finetune_region.synthetic_dataset(2)
+    roptimizer = finetune_trainer.cli_optimizer(finetune_region.LR, len(rdata), 1)
+    rupdates = _timed_updates(roptimizer)
+    rstate = finetune_trainer.init_train_state(model.region, roptimizer)
+    rstep = finetune_region.make_train_step(roptimizer, model.text)
+    frozen = _snapshot(model, ("vision", "text"))
+    region0 = _snapshot(model, ("region",))["region"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rsteps, rseqs, rlosses = [], [], []
+    for sample in rdata:
+        with torch.no_grad():
+            emb = model._run_vision_encoder(sample["image"])
+        batch = finetune_region.build_class_example(model, emb, sample["labels"][0],
+                                                    sample["boxes"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rstate, loss = rstep(rstate, batch)
+        rsteps.append(sync_ms(t0))
+        rseqs.append(batch["inputs_embeds"].shape[1])
+        rlosses.append(loss.item())
+    launches = dict(LAUNCHES)
+    rpeak = torch.cuda.max_memory_allocated()
+    check_launches("region finetune (2 ViT calls)", launches,
+                   expected_launches(cfg, len(rdata), 0, 0, prefills=0))
+    runs.append(launches)
+    if not all(math.isfinite(x) for x in rlosses) or rstate.opt_state.count != 2:
+        raise AssertionError(f"region finetune: losses {rlosses}")
+    _unchanged(model, frozen, "region finetune")
+    rmoved = {name: int((t != old).sum()) for (name, t), old in
+              zip(named_leaves(model.region), region0)}
+    if not all(rmoved[f"{d}.fc2.w"] for d in ("coord_decoder", "size_decoder")):
+        raise AssertionError(f"region finetune: the decoders did not move {rmoved}")
+    rmini = [s - u for s, (u, _) in zip(rsteps, rupdates)]
+    print(f"region finetune (2B bf16, {len(rdata)} examples of {rseqs} positions, grad-accum 1, "
+          f"lr {finetune_region.LR}) on {power}: losses {[round(x, 4) for x in rlosses]}; ms per "
+          f"mini-step (text forward without gradients + region forward and backward) "
+          f"{[round(x, 1) for x in rmini]}; ms per optimizer update "
+          f"{[round(u, 2) for u, _ in rupdates]}; max_memory_allocated {rpeak} bytes; region "
+          f"elements moved {rmoved}")
+
+    # -- save and reload
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/finetuned.pt"
+        t0 = time.perf_counter()
+        finetune_text.save_params(path, model)
+        save_s = time.perf_counter() - t0
+        loaded = load_params(path, cfg, BF16, device=DEV)
+    for (name, a), (_, b) in zip(loaded.named_parameters(), model.params.named_parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"saved .pt reloads {name} differently")
+    del loaded
+
+    # -- the graphed caption on the trained weights
+    captures, replays = len(graphs.CAPTURES), sum(graphs.REPLAYS.values())
+    reset_launch_counts()
+    after = model.caption(probe, settings=greedy)["caption"]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if len(graphs.CAPTURES) != captures or sum(graphs.REPLAYS.values()) == replays:
+        raise AssertionError("the post-training caption did not replay the earlier graphs")
+    steps = batched_steps(len(_ids(after)), greedy["max_tokens"])
+    check_launches(f"caption after finetuning, {steps} steps", launches,
+                   expected_launches(cfg, 1, 1, steps))
+    runs.append(launches)
+    eager = MoondreamModel(cfg, model.params, IdTokenizer(), BF16, device=DEV, graphed=False)
+    if eager.caption(probe, settings=greedy)["caption"] != after:
+        raise AssertionError("graphed caption after training differs from the eager one")
+    print(f"after finetuning on {power}: save_params .pt {save_s:.1f} s, reloads equal; the "
+          f"graphed caption (graphs captured before training, replayed) equals the eager one; "
+          f"caption ids changed by training: {after != before} "
+          f"({len(_ids(before))} -> {len(_ids(after))} tokens)")
+    return runs
+
+
 def main() -> None:
     power = card()
     print(power)
@@ -3195,6 +3477,8 @@ def main() -> None:
     phase("3 small references", phase_serving_reference)
     phase("3 small references", phase_structured_reference, img)
     phase("3 spec reference", phase_spec_reference, img)
+    phase("3 finetune reference", phase_finetune_reference,
+          finetune_text.synthetic_dataset(1)[0]["image"])
     # 8 images of three sizes for the lockstep batches: 13, 2 and 7 crops
     batch_images = [rng.integers(0, 256, shape, dtype=np.uint8)
                     for shape in [(756, 1008, 3)] * 3 + [(378, 378, 3)] * 3
@@ -3268,6 +3552,7 @@ def main() -> None:
     launches, model = phase("4 0.5B", phase_main_path, img05, power, MOONDREAM_05B)
     runs += [*launches]
     del model
+    runs += phase("5 2B finetune", phase_finetune, power)
     print("seconds per phase:", seconds, "total", round(sum(seconds.values()), 1))
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     launches[K.DECODE] += launches.pop(K.DECODE_INT8)

@@ -10,6 +10,7 @@ heads are.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -109,12 +110,35 @@ class TokenizerConfig:
     )
 
 
+# Text fields of the JAX package's config that the port does not read.
+_UNPORTED_TEXT_FIELDS = ("group_size", "xla_attn")
+
+
 @dataclass(frozen=True)
 class MoondreamConfig:
     text: TextConfig = field(default_factory=TextConfig)
     vision: VisionConfig = field(default_factory=VisionConfig)
     region: RegionConfig = field(default_factory=RegionConfig)
     tokenizer: TokenizerConfig = field(default_factory=TokenizerConfig)
+
+    @classmethod
+    def from_dict(cls, config_dict: dict) -> "MoondreamConfig":
+        """moondream_tpu.config.MoondreamConfig.from_dict; the text fields
+        the port does not read (`group_size`, `xla_attn`) are dropped, any
+        other unknown field raises TypeError."""
+        text = {k: v for k, v in config_dict.get("text", {}).items()
+                if k not in _UNPORTED_TEXT_FIELDS}
+        return cls(
+            text=TextConfig(**text),
+            vision=VisionConfig(**config_dict.get("vision", {})),
+            region=RegionConfig(**config_dict.get("region", {})),
+            tokenizer=TokenizerConfig(**config_dict.get("tokenizer", {})),
+        )
+
+    @classmethod
+    def from_json(cls, path: str) -> "MoondreamConfig":
+        with open(path, "r") as f:
+            return cls.from_dict(json.load(f))
 
 
 # Published model sizes, as in moondream_tpu.config.

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..config import TextConfig
 from ..ops.attention import decode_attention, decode_attention_cached, flash_attention
-from ..ops.layers import _INV127, MLP, Int8Linear, LayerNorm, Linear
+from ..ops.layers import _INV127, MLP, Int8Linear, LayerNorm, Linear, sdpa
 from ..ops.quant import quantize_weight_torch, quantized_matmul
 from ..ops.rope import apply_rotary_emb, precompute_freqs_cis
 
@@ -374,3 +374,87 @@ def text_decoder(
         )
         x = x + attn_out + block.mlp(ln_in)
     return x
+
+
+# ------------------------------------------------------------- training
+
+
+def prefix_attn_mask(q_len: int, prefix: int, device=None) -> torch.Tensor:
+    """Training mask: bidirectional over the first `prefix` positions, causal
+    after (moondream_tpu/models/text.py:516-523). (1, 1, q_len, q_len)
+    bool, True = attend."""
+    rows = torch.arange(q_len, device=device)[:, None]
+    cols = torch.arange(q_len, device=device)[None, :]
+    causal = cols <= rows
+    prefix_block = (rows < prefix) & (cols < prefix)
+    return (causal | prefix_block)[None, None]
+
+
+def _require_dense(model: TextModel, op: str) -> None:
+    """The cache-free training and capture paths read the dense block
+    weights, which quantize_text_params / quantize_text_params_int8 replace
+    with quantized runtime formats (moondream_tpu/models/text.py:526-536)."""
+    if not all(type(blk.qkv) is Linear for blk in model.blocks):
+        raise ValueError(
+            f"{op} is not supported with quantized runtime text params: the "
+            "dense block weights were replaced by packed int4 / int8 codes. "
+            "Load the checkpoint with runtime_int4=False / runtime_int8=False "
+            "for finetuning / hidden-state capture."
+        )
+
+
+def attn_uncached(
+    x: torch.Tensor, block: TextBlock, freqs_cis: torch.Tensor,
+    attn_mask: torch.Tensor, config: TextConfig,
+) -> torch.Tensor:
+    """Cache-free attention of the training path at positions 0..T-1
+    (moondream_tpu/models/text.py:420-450), through the plain `sdpa`; under
+    GQA each KV head is repeated for its query heads. Differentiable."""
+    bsz, q_len, _ = x.shape
+    q, k, v = _split_qkv(block.qkv(x), config)
+    position_ids = torch.arange(q_len, device=x.device)
+    q = apply_rotary_emb(q, freqs_cis, position_ids, config.rope_dim)
+    k = apply_rotary_emb(k, freqs_cis, position_ids, config.rope_dim)
+    if config.n_kv_heads != config.n_heads:
+        rep = config.n_heads // config.n_kv_heads
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    out = sdpa(q, k, v, attn_mask)
+    return block.proj(out.transpose(1, 2).reshape(bsz, q_len, config.dim))
+
+
+def _uncached_blocks(inputs_embeds: torch.Tensor, model: TextModel):
+    """The residual stream after each block of the cache-free forward."""
+    config = model.config
+    mask = prefix_attn_mask(inputs_embeds.shape[1], config.prefix_attn, inputs_embeds.device)
+    h = inputs_embeds
+    for block in model.blocks:
+        ln_in = block.ln(h)
+        h = h + attn_uncached(ln_in, block, model.freqs_cis, mask, config) + block.mlp(ln_in)
+        yield h
+
+
+def produce_hidden(inputs_embeds: torch.Tensor, model: TextModel) -> torch.Tensor:
+    """Full-sequence cache-free forward for training, (B, T, D) -> (B, T, D)
+    (moondream_tpu/models/text.py:539-564): every block under
+    prefix_attn_mask(T, config.prefix_attn). Differentiable by autograd;
+    raises ValueError for int4 or int8 text blocks."""
+    _require_dense(model, "produce_hidden")
+    h = inputs_embeds
+    for h in _uncached_blocks(inputs_embeds, model):
+        pass
+    return h
+
+
+def produce_hidden_layers(inputs_embeds: torch.Tensor, model: TextModel) -> torch.Tensor:
+    """The cache-free forward's residual stream after EVERY block, (n_layers,
+    B, T, D) (moondream_tpu/models/text.py:567-592): hidden-state capture in
+    one full-sequence pass."""
+    _require_dense(model, "produce_hidden_layers")
+    return torch.stack(list(_uncached_blocks(inputs_embeds, model)))
+
+
+def lm_head_full(hidden: torch.Tensor, model: TextModel) -> torch.Tensor:
+    """Full-sequence logits for training, in the weights' dtype
+    (moondream_tpu/models/text.py:601-603)."""
+    return model.lm_head(model.post_ln(hidden))

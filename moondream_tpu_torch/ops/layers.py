@@ -78,6 +78,26 @@ class MLP(nn.Module):
         return self.fc2(gelu_approx(self.fc1(x)))
 
 
+def sdpa(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain scaled dot-product attention over (..., heads, seq, head_dim),
+    differentiable by autograd: the training path's attention, which the
+    JAX package also computes outside any Pallas kernel
+    (moondream_tpu/ops/layers.py:120-147). q.k^T from fp32 copies of q and
+    k (a bf16 value is exact in fp32 and TF32), the -1e30 fill where the
+    boolean `mask` is False, an fp32 softmax, the probabilities rounded to
+    v's dtype, the PV product accumulated in fp32 and the result cast to
+    q's dtype. GQA: the caller repeats the K/V heads."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
 def attn_core(
     x: torch.Tensor, qkv: Linear, n_heads: int, n_real: Optional[int] = None
 ) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Parameters of the port: `params_from_jax` maps the JAX package's parameter
 pytree (dense, with int4 or int8 text blocks, with int8 ViT blocks) onto
-the port's modules,
-`load_params` reads a safetensors or torch checkpoint, and `init_params`
-makes seeded random weights of any configuration directly on the device.
+the port's modules and `params_to_jax` carries dense modules back into that
+pytree (finetuning saves through it), `load_params` reads a safetensors or
+torch checkpoint, and `init_params` makes seeded random weights of any
+configuration directly on the device.
 
 The port's parameters are an `nn.ModuleDict` with "vision"
 (`models.vision.VisionModel`), "text" (`models.text.TextModel`) and
@@ -213,6 +214,77 @@ def params_from_jax(
         _put_linear(reg.size_encoder, rt["size_encoder"])
         _put_mlp(reg.size_decoder, rt["size_decoder"])
     return params
+
+
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _lin_tree(lin: Linear) -> dict:
+    return {"w": _np32(lin.w), "b": _np32(lin.b)}
+
+
+def _ln_tree(ln: LayerNorm) -> dict:
+    return {"weight": _np32(ln.weight), "bias": _np32(ln.bias)}
+
+
+def _mlp_tree(m: MLP) -> dict:
+    return {"fc1": _lin_tree(m.fc1), "fc2": _lin_tree(m.fc2)}
+
+
+def _stack_trees(trees: list):
+    """Per-layer trees -> one tree whose leaves stack on a leading layer axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_jax(params: nn.ModuleDict) -> dict:
+    """The port's dense modules as the JAX package's parameter pytree, the
+    inverse of params_from_jax: {"vision", "text", "region"} (region only
+    where the parameters have region heads), block leaves stacked on a
+    leading layer axis, linears (in, out), the text tree's `freqs_cis`
+    included; every leaf fp32 numpy. Raises ValueError for int4 or int8
+    blocks, which have no dense weights to carry back."""
+    vis, txt = params["vision"], params["text"]
+    if not all(type(b.qkv) is Linear for b in [*vis.blocks, *txt.blocks]):
+        raise ValueError("params_to_jax takes dense parameters, not int4 / int8 blocks")
+    tree = {
+        "vision": {
+            "patch_emb": _lin_tree(vis.patch_emb),
+            "pos_emb": _np32(vis.pos_emb),
+            "blocks": _stack_trees([{
+                "ln1": _ln_tree(b.ln1),
+                "attn": {"qkv": _lin_tree(b.qkv), "proj": _lin_tree(b.proj)},
+                "ln2": _ln_tree(b.ln2),
+                "mlp": _mlp_tree(b.mlp),
+            } for b in vis.blocks]),
+            "post_ln": _ln_tree(vis.post_ln),
+            "proj_mlp": _mlp_tree(vis.proj_mlp),
+        },
+        "text": {
+            "wte": _np32(txt.wte),
+            "blocks": _stack_trees([{
+                "ln": _ln_tree(b.ln),
+                "attn": {"qkv": _lin_tree(b.qkv), "proj": _lin_tree(b.proj)},
+                "mlp": _mlp_tree(b.mlp),
+            } for b in txt.blocks]),
+            "post_ln": _ln_tree(txt.post_ln),
+            "lm_head": _lin_tree(txt.lm_head),
+            "freqs_cis": _np32(txt.freqs_cis),
+        },
+    }
+    if "region" in params:
+        reg = params["region"]
+        tree["region"] = {
+            "coord_features": _np32(reg.coord_features),
+            "coord_encoder": _lin_tree(reg.coord_encoder),
+            "coord_decoder": _mlp_tree(reg.coord_decoder),
+            "size_features": _np32(reg.size_features),
+            "size_encoder": _lin_tree(reg.size_encoder),
+            "size_decoder": _mlp_tree(reg.size_decoder),
+        }
+    return tree
 
 
 # ------------------------------------------------------------- checkpoints

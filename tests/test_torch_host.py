@@ -23,6 +23,10 @@ from moondream_tpu_torch import config, tokenizer
 from moondream_tpu_torch.engine import drafting, serving
 from moondream_tpu_torch.models import moondream
 from moondream_tpu_torch.utils import points, streaming
+from moondream_tpu.finetune import finetune_region as jax_ft_region
+from moondream_tpu.finetune import finetune_text as jax_ft_text
+from moondream_tpu_torch.finetune import finetune_region as ft_region
+from moondream_tpu_torch.finetune import finetune_text as ft_text
 
 CONFIGS = {
     "2b": (config.MOONDREAM_2B, jax_config.MOONDREAM_2B),
@@ -109,6 +113,30 @@ def test_remove_outlier_points_matches_jax(name):
     ("MODE_XN", serving.MODE_XN, jax_serving.MODE_XN),
     ("MODE_Y", serving.MODE_Y, jax_serving.MODE_Y),
     ("MODE_SIZE", serving.MODE_SIZE, jax_serving.MODE_SIZE),
+    *((f"finetune_text.{n}", getattr(ft_text, n), getattr(jax_ft_text, n))
+      for n in ("ANSWER_EOS", "LR", "EPOCHS", "GRAD_ACCUM_STEPS", "SEQ_BUCKET")),
+    *((f"finetune_region.{n}", getattr(ft_region, n), getattr(jax_ft_region, n))
+      for n in ("LR", "EPOCHS", "GRAD_ACCUM_STEPS")),
 ])
 def test_copied_constants_match_jax(name, ours, theirs):
     assert ours == theirs, name
+
+
+@pytest.mark.parametrize("spec", [None, "", "2b", "05b", "tiny", "json"])
+def test_resolve_config_matches_jax(spec, tmp_path):
+    """finetune.resolve_config, also for a JSON file the JAX package wrote
+    (its to_dict, with the text fields the port does not read)."""
+    import json
+
+    from moondream_tpu.finetune import resolve_config as jax_resolve
+    from moondream_tpu_torch.finetune import resolve_config
+
+    if spec == "json":
+        spec = str(tmp_path / "cfg.json")
+        with open(spec, "w") as f:
+            json.dump(jax_config.tiny_test_config().to_dict(), f)
+    ours, theirs = resolve_config(spec), jax_resolve(spec)
+    for part in DERIVED:
+        mine, ref = getattr(ours, part), getattr(theirs, part)
+        for f in dataclasses.fields(mine):
+            assert getattr(mine, f.name) == getattr(ref, f.name), (spec, part, f.name)

@@ -8,8 +8,9 @@ the region-head paths: detect, point, both gaze modes, query with reasoning
 and spatial refs, detect_batch and point_batch, the speculative paths:
 a speculative caption, a drafting call, and a speculative pool serving a
 caption beside a detect, the multi-image paths: BatchPipeline plain and
-speculative, PooledPipeline and the pool's submit_many, and a greedy
-caption with int8 text blocks and a statically calibrated int8 ViT."""
+speculative, PooledPipeline and the pool's submit_many, a greedy
+caption with int8 text blocks and a statically calibrated int8 ViT, and
+finetuning: one text training step and one region training step."""
 
 import os
 import subprocess
@@ -96,6 +97,21 @@ m8 = MoondreamModel(tiny_test_config(), params=p8, dtype=torch.float32, device="
 assert m8.vision.blocks[0].qkv.inv_a is not None and m8.text.blocks[0].qkv.inv_a is None
 c8 = m8.caption(img, settings=greedy)["caption"]
 assert isinstance(c8, str) and c8 == m8.caption(img, settings=greedy)["caption"]
+from moondream_tpu_torch.finetune import finetune_region, finetune_text, trainer
+ftm = MoondreamModel(tiny_test_config(), dtype=torch.float32, seed=2, device="cpu")
+opt = trainer.cli_optimizer(1e-3, 1, 1)
+state = trainer.init_train_state(ftm.text, opt)
+example = finetune_text.build_example(ftm, img, finetune_text.QUESTION, "a cat")
+w0 = ftm.text.blocks[0].qkv.w.clone()
+state, loss = trainer.make_train_step(opt)(state, example)
+assert torch.isfinite(loss) and state.opt_state.count == 1
+assert not torch.equal(ftm.text.blocks[0].qkv.w, w0)  # updated in place
+ropt = trainer.cli_optimizer(1e-3, 1, 1)
+rstate = trainer.init_train_state(ftm.region, ropt)
+emb = ftm._run_vision_encoder(img)
+rex = finetune_region.build_class_example(ftm, emb, "cat", [[0.5, 0.5, 0.2, 0.3]])
+rstate, rloss = finetune_region.make_train_step(ropt, ftm.text)(rstate, rex)
+assert torch.isfinite(rloss) and rstate.opt_state.count == 1
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))
