@@ -39,7 +39,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      prefix-shared; batch-1 spans of 8 and 24 rows), and a batch-1
      speculative caption, a speculative pool, a mixed pool and a mixed
      speculative pool, whose ids and boxes must equal the CPU's; the
-     caption path with int8 text blocks and a static int8 ViT;
+     caption path with int8 text blocks and a static int8 ViT; the caption
+     path under a rank-4 LoRA variant (a seeded adapter file);
   4. the main paths at MOONDREAM_2B widths and depth with seeded random
      weights, each with exact kernel launch counts (reset just before the
      path, read just after): the bf16 model (caption, query, lockstep
@@ -88,6 +89,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      turns, the graphed answer loop against eager, a pool, speculative
      decode, 96 w8a8 launches per decode token and 108 per ViT call, each
      after one launch of the quantize pass);
+     LoRA variants ("4 2B variants"): two seeded rank-16 adapters at the 2B
+     widths, written as .pt files and loaded through settings["variant"]:
+     the zero-B one gives the base model's prompt logits and greedy ids bit
+     for bit, the nonzero one changes them; under it the graphed answer
+     loop equals eager with exact launches, base / variant / base capture
+     one new graph, the graphs replay with a host sync an error, base and
+     variant tok/s, ms per graphed step and device launches per step
+     (torch.profiler) are printed, and one detect and one BatchPipeline
+     run; the int4 + kv_int8 and the int8 w8a8 models caption under it,
+     graphed equal to eager (W4A16 and the w8a8 kernels on the adapter's
+     route);
      then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
@@ -116,6 +128,7 @@ import math
 import random
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -1247,7 +1260,8 @@ def phase_w8a8_kernels(gen: torch.Generator) -> dict:
 
 
 def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = False,
-                          n_kv_heads: int = 2, int8: bool = False) -> None:
+                          n_kv_heads: int = 2, int8: bool = False,
+                          variant: str = None) -> None:
     """Tiny config on one set of bf16-valued weights: bf16 on the card (the
     kernels) and bf16 on the CPU (the plain versions), each against fp32 on
     the CPU, as a fraction of the fp32 run's largest magnitude: the KV
@@ -1258,7 +1272,9 @@ def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = F
     (one KV head for the two query heads). With `int8`, every run quantizes
     the text blocks to int8 w8a8 and the ViT blocks to static int8 with one
     set of activation statistics (the fp32 CPU model's, over the image's
-    normalized crops), the same codes on both devices, checked."""
+    normalized crops), the same codes on both devices, checked. With
+    `variant` (a bf16-valued adapter file at the tiny widths), every run
+    encodes, prefills and decodes under that LoRA variant."""
     cfg = tiny_test_config()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(
         cfg.text, kv_int8=kv_int8, n_kv_heads=n_kv_heads))
@@ -1282,11 +1298,13 @@ def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = F
             quantize_text_params_int8(params["text"])
             quantize_vision_params(params["vision"], stats)
         m = MoondreamModel(cfg, params, ByteTokenizer(), dtype, device=device)
-        enc = m.encode_image(img)
+        s = None if variant is None else {"variant": variant}
+        lora = m._variant(s)
+        enc = m.encode_image(img, settings=s)
         kv = m.load_encoded_image(enc)
-        logits, _, _, pos, kv = m._prefill_prompt(kv, tmpl, enc.pos, 0.0, 0.0)
+        logits, _, _, pos, kv = m._prefill_prompt(kv, tmpl, enc.pos, 0.0, 0.0, lora=lora)
         emb = text_encoder(torch.tensor([[300]], device=device), m.text)
-        step = decode_step(m.text, kv, emb, pos, m._decode_bound(pos + 8))[0]
+        step = decode_step(m.text, kv, emb, pos, m._decode_bound(pos + 8), lora=lora)[0]
         out = {"logits": logits, "decode logits": step}
         if int8:
             out["codes"] = torch.cat([t.flatten().cpu() for b in params["text"].blocks
@@ -1314,7 +1332,8 @@ def phase_small_reference(img: np.ndarray, int4: bool = False, kv_int8: bool = F
     r5 = lambda d: {n: round(e, 5) for n, e in d.items()}
     what = " + ".join(["GQA"] * (n_kv_heads == 1) + ["int4 text blocks"] * int4
                       + ["int8 text blocks + static int8 ViT"] * int8
-                      + ["int8 KV cache" if kv_int8 else "bf16"])
+                      + ["int8 KV cache" if kv_int8 else "bf16"]
+                      + ["a rank 4 LoRA variant"] * (variant is not None))
     print(f"small reference (tiny config, {what}, vs fp32 on the cpu), rel max err: "
           f"card bf16 {r5(card)}, cpu bf16 {r5(cpu)}, tol {SMALL_REF_FACTOR} x cpu bf16")
     if not all(card[n] <= SMALL_REF_FACTOR * cpu[n] for n in ref):
@@ -3176,6 +3195,234 @@ def phase_int4_pooled_pipeline(model, images, power: str) -> list:
     return [launches]
 
 
+# --------------------------------------------------------------- variants
+
+VARIANT_RANK = 16  # the 2B adapters' rank
+
+
+def write_adapter(path: str, cfg, rank: int, b_scale: float, seed: int) -> str:
+    """A seeded LoRA adapter at `cfg`'s text widths, saved as a .pt state
+    dict in the training checkpoint's legacy names (text_model.transformer.
+    h.{i}.mixer.Wqkv.A, ...), as tests/test_lora.py writes one. A ~ N(0, 1)
+    / sqrt(in), B ~ N(0, 1) x b_scale (b_scale 0: the no-op adapter); every
+    value bf16-valued, so a bf16 model and an fp32 one hold the same
+    factors."""
+    tc = cfg.text
+    rng = np.random.default_rng(seed)
+    sites = {"mixer.Wqkv": (tc.dim, tc.qkv_dim), "mixer.out_proj": (tc.dim, tc.dim),
+             "mlp.fc1": (tc.dim, tc.ff_dim), "mlp.fc2": (tc.ff_dim, tc.dim)}
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(BF16).float()
+    state = {}
+    for i in range(tc.n_layers):
+        for site, (fin, fout) in sites.items():
+            key = f"text_model.transformer.h.{i}.{site}"
+            state[f"{key}.A"] = bf(rng.standard_normal((rank, fin)) / math.sqrt(fin))
+            state[f"{key}.B"] = bf(rng.standard_normal((fout, rank)) * b_scale)
+    torch.save(state, path)
+    return path
+
+
+def _device_launches(fn):
+    """(fn()'s result, the device kernels and copies torch.profiler saw
+    during it), graph replays included (CUPTI traces the kernels inside a
+    replay)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    if not n:
+        raise AssertionError("torch.profiler recorded no device events")
+    return out, n
+
+
+def phase_variants(model, img, images, power: str, adapters: dict) -> list:
+    """LoRA variants on the 2B bf16 model (published widths, full depth),
+    the adapters rank 16 at the 2B widths, loaded through
+    settings["variant"] from their .pt files: `adapters["zero"]` (B = 0)
+    and `adapters["real"]` (B nonzero). The no-op adapter gives the base
+    model's first-step (prompt) logits and a 64-token greedy caption's ids
+    bit for bit; the nonzero one changes the logits. Under it the graphed
+    answer loop (64 greedy steps, eos off) equals eager at every id, with
+    exact kernel launches (the adapter adds cuBLAS products and elementwise
+    ops, no kernel of the port); its graphs, and the base model's, replay
+    once more under torch.cuda.set_sync_debug_mode("error"); base, adapter,
+    base and adapter again capture one new graph, the adapter's. Prints
+    base and variant tok/s and ms per graphed step in turns, and the device
+    launches per graphed decode step of both (torch.profiler). Then one
+    detect and one BatchPipeline run of 4 images under the adapter, with
+    exact launches. Returns the launch counts of the counted runs."""
+    cfg, tok = model.config, model.config.tokenizer
+    kinds = linear_kinds(model)
+    model.tokenizer = IdTokenizer()
+    tmpl = list(tok.templates["caption"]["normal"])
+    suppress = (tok.answer_id,)
+    real = {"variant": adapters["real"]}
+    zero = {"variant": adapters["zero"]}
+    t0 = time.perf_counter()
+    lora = model._variant(real)
+    if model._variant(real) is not lora or lora["mlp"]["fc2"]["A"].dtype != BF16:
+        raise AssertionError("variant_state_dict: the cached bf16 adapter expected")
+    load_ms = sync_ms(t0)
+    runs = []
+
+    def prompt(s):
+        """The encode and the prompt prefill under settings s: (logits,
+        first token, position, cache)."""
+        enc = model.encode_image(img, settings=s)
+        kv = model.load_encoded_image(enc)
+        logits, _, first, pos, _ = model._prefill_prompt(kv, tmpl, enc.pos, 0.0, 0.0,
+                                                         lora=model._variant(s))
+        return logits, first, pos, kv
+
+    def answer(s, graphed, count=False, profiled=False):
+        """64 greedy steps (eos off) after the prompt: (ids, ms), or with
+        `profiled` (ids, device launches of the 64 steps)."""
+        _, first, pos, kv = prompt(s)
+        run = lambda: generate_text(model.text, kv, first, pos, None, 0.0, 0.0, 64, -1,
+                                    suppress, model._decode_bound(pos + 65), graphed=graphed,
+                                    lora=model._variant(s))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res, ms = _device_launches(run) if profiled else (run(), None)
+        ms = sync_ms(t0) if ms is None else ms
+        if count:
+            check_launches(f"answer loop under a variant (graphed {graphed}), 64 steps",
+                           dict(LAUNCHES), expected_launches(cfg, 0, 0, 64, prefills=0, **kinds))
+            runs.append(dict(LAUNCHES))
+        model._recycle_kv(kv)
+        return res.tokens, ms
+
+    # the no-op adapter: the base model's bits; the real one: other logits
+    logits = {name: prompt(s)[0] for name, s in (("base", None), ("zero", zero), ("real", real))}
+    if not torch.equal(logits["zero"], logits["base"]):
+        raise AssertionError("a zero-B adapter changed the prompt logits")
+    if torch.equal(logits["real"], logits["base"]):
+        raise AssertionError("the nonzero adapter left the prompt logits unchanged")
+    moved = (logits["real"] - logits["base"]).abs().max().item()
+    base_caption = model.caption(img, settings=GREEDY64)["caption"]
+    if model.caption(img, settings={**GREEDY64, **zero})["caption"] != base_caption:
+        raise AssertionError("a zero-B adapter changed the greedy caption")
+
+    # base, adapter, base, adapter: one new capture, the adapter's
+    captured, ids, ms = [], {}, {"base": [], "real": []}
+    for name in ("base", "real", "base", "real"):
+        before = len(graphs.CAPTURES)
+        ids_, t = answer(None if name == "base" else real, True)
+        captured.append(len(graphs.CAPTURES) - before)
+        if ids.setdefault(name, ids_) != ids_:
+            raise AssertionError(f"graphed answer loop ({name}): ids differ between runs")
+        ms[name].append(t)
+    if captured[1:] != [1, 0, 0]:
+        raise AssertionError(f"captures per run base, variant, base, variant: {captured}")
+    if ids["real"] == ids["base"]:
+        raise AssertionError("the nonzero adapter left the greedy ids unchanged")
+    eager, eager_ms = answer(real, False, count=True)
+    if eager != ids["real"]:
+        raise AssertionError("answer loop under a variant: graphed ids differ from eager")
+    answer(real, True, count=True)
+    for name in ("base", "real", "real", "base"):  # timed turns
+        ms[name].append(answer(None if name == "base" else real, True)[1])
+
+    # the adapter's and the base's graphs of this cache once more, no host sync
+    _, _, _, kv = prompt(real)
+    key = graphs.tensor_key(kv.k, kv.v, kv.ks, kv.vs)
+    mine = [g for k, e in graphs.cache_of(model.text).entries.items()
+            if k[-1] == key and k[0] == "generate_text" for g in e.graphs.values()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in mine:
+            g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    model._recycle_kv(kv)
+    if len(mine) < 2:
+        raise AssertionError(f"{len(mine)} answer-loop graphs of this cache, 2 expected")
+
+    per_step = {name: answer(None if name == "base" else real, True, profiled=True)[1]
+                for name in ("base", "real")}
+    tok_s = {n: statistics.median([64 / (t / 1e3) for t in v[-2:]]) for n, v in ms.items()}
+    step_ms = {n: statistics.median(v[-2:]) / 64 for n, v in ms.items()}
+    print(f"2B variants (bf16, rank {VARIANT_RANK}, adapter loaded in {load_ms:.1f} ms) on "
+          f"{power}: zero-B adapter == base bit for bit (prompt logits, 64-token caption); "
+          f"nonzero adapter moves the prompt logits by up to {moved:.4f}; graphed answer loop "
+          f"base {tok_s['base']:.1f} tok/s ({step_ms['base']:.3f} ms per step), variant "
+          f"{tok_s['real']:.1f} tok/s ({step_ms['real']:.3f} ms per step), in turns; eager "
+          f"variant {64 / (eager_ms / 1e3):.1f} tok/s; graphed == eager ids; captures per run "
+          f"base, variant, base, variant {captured}; {len(mine)} graphs replayed with no host "
+          f"sync; device launches per graphed decode step (torch.profiler, one 64-step "
+          f"call / 64): base {per_step['base'] / 64:.1f}, variant {per_step['real'] / 64:.1f}")
+
+    # one detect and one BatchPipeline run under the adapter
+    enc = model.encode_image(img, settings=real)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.detect(enc, "object", settings={**real, "max_objects": 8})
+    detect_ms = sync_ms(t0)
+    rows = out["objects"]
+    check_launches("detect under a variant", dict(LAUNCHES),
+                   expected_launches(cfg, 0, 1, batched_steps(3 * len(rows), 3 * 8), **kinds))
+    runs.append(dict(LAUNCHES))
+    if len(rows) > 8 or not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"detect under a variant: {rows[:3]}")
+    pipe_images = images[:3] + images[:1]
+    groups = [_vit_groups(model, pipe_images)]
+    reset_launch_counts()
+    reset_loop_counts()
+    t0 = time.perf_counter()
+    piped = BatchPipeline(model, batch_size=4, eos_id=-1).caption(
+        pipe_images, "normal", settings={**GREEDY64, **real})
+    pipe_ms = sync_ms(t0)
+    loop = LOOP_COUNTS["generate_text_batched"]
+    check_launches("BatchPipeline under a variant", dict(LAUNCHES),
+                   _pipeline_launches(cfg, groups, steps=loop["steps"]))
+    runs.append(dict(LAUNCHES))
+    if [len(_ids(t)) for t in piped] != [64] * 4:
+        raise AssertionError(f"BatchPipeline under a variant: {[len(_ids(t)) for t in piped]}")
+    print(f"2B variants (bf16) on {power}: detect {detect_ms:.1f} ms ({len(rows)} objects of "
+          f"at most 8); BatchPipeline of 4 images, 64 tokens each, {pipe_ms:.1f} ms")
+    return runs
+
+
+def phase_variant_caption(model, img, power: str, adapters: dict) -> list:
+    """One greedy caption (32 tokens, the prompt's EOS kept) under the
+    nonzero adapter on a quantized 2B (int4 + kv_int8: W4A16 and B-int8;
+    int8 w8a8: the w8a8 kernels), graphed and eager in turns, ids equal,
+    exact launches. Returns the launch counts of the graphed run."""
+    cfg = model.config
+    label, kinds = format_label(model), linear_kinds(model)
+    model.tokenizer = IdTokenizer()
+    s = {"temperature": 0.0, "max_tokens": 32, "variant": adapters["real"]}
+    enc = model.encode_image(img, settings=s)
+    out, ms = {}, {}
+    for graphed in (True, False, True):
+        model.graphed = graphed
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            text = model.caption(enc, "normal", settings=s)["caption"]
+            ms[graphed] = sync_ms(t0)
+        finally:
+            model.graphed = True
+        if out.setdefault(graphed, text) != text:
+            raise AssertionError(f"caption under a variant ({label}): ids differ between runs")
+    if out[True] != out[False] or not out[True]:
+        raise AssertionError(f"caption under a variant ({label}): graphed ids differ from eager")
+    steps = batched_steps(len(_ids(out[True])), 32)
+    check_launches(f"caption under a variant ({label}), {steps} steps", dict(LAUNCHES),
+                   expected_launches(cfg, 0, 1, steps, **kinds))
+    n = len(_ids(out[True]))
+    print(f"2B variants ({label}) on {power}: caption under the adapter, {n} tokens, graphed "
+          f"{ms[True]:.1f} ms, eager {ms[False]:.1f} ms, ids equal")
+    return [dict(LAUNCHES)]
+
+
 # ------------------------------------------------------------- finetuning
 
 # The smoke's text finetune LR: large enough that a bf16 weight moves by
@@ -3469,6 +3716,10 @@ def main() -> None:
     phase("3 small references", phase_small_reference, img, n_kv_heads=1)
     phase("3 small references", phase_small_reference, img, kv_int8=True, n_kv_heads=1)
     phase("3 small references", phase_small_reference, img, int8=True)
+    # LoRA adapters, written from seeds (nothing is downloaded)
+    adapter_dir = tempfile.TemporaryDirectory()
+    tiny_adapter = write_adapter(f"{adapter_dir.name}/tiny.pt", tiny_test_config(), 4, 0.5, SEED)
+    phase("3 small references", phase_small_reference, img, variant=tiny_adapter)
     rng = np.random.default_rng(SEED + 2)
     images = [rng.integers(0, 256, shape, dtype=np.uint8)
               for shape in ((756, 1008, 3), (378, 378, 3), (600, 800, 3))]
@@ -3502,6 +3753,10 @@ def main() -> None:
     runs += phase("4 2B bf16 mixed pools", phase_mixed_pools, model, images, power)
     phase("4 2B bf16 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
           power)
+    adapters = {name: write_adapter(f"{adapter_dir.name}/2b-{name}.pt", MOONDREAM_2B,
+                                    VARIANT_RANK, scale, SEED + 5)
+                for name, scale in (("zero", 0.0), ("real", 0.02))}
+    runs += phase("4 2B variants", phase_variants, model, img, images, power, adapters)
     # 20 images of three sizes for the pipelines: 13, 2 and 7 crops
     pipe_images = [rng.integers(0, 256, shape, dtype=np.uint8)
                    for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 7][:20]
@@ -3520,6 +3775,7 @@ def main() -> None:
                   int4=True, full=False)
     runs += phase("4 2B int4", phase_int4_pooled_pipeline, model, batch_images, power)
     runs += phase("4 2B int4 speculative", phase_spec, model, enc, power)
+    runs += phase("4 2B variants", phase_variant_caption, model, img, power, adapters)
     phase("4 2B int4 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
           power, full=False)
     del model, enc
@@ -3529,6 +3785,8 @@ def main() -> None:
     phase("4 2B int8 graphs", phase_graphs, model, enc, images, batch_images, power)
     runs += [*launches, phase("4 2B int8", phase_pool, model, images, power, "int8 plain")]
     runs += phase("4 2B int8 speculative", phase_spec, model, enc, power)
+    runs += phase("4 2B variants", phase_variant_caption, model, img, power, adapters)
+    adapter_dir.cleanup()
     del model, enc, vits
     launches, model = phase("4 2B GQA", phase_main_path, img, power, MOONDREAM_2B_GQA)
     phase("4 2B GQA graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
@@ -3609,5 +3867,46 @@ def main() -> None:
     }}))
 
 
+def main_variants() -> None:
+    """The LoRA variant phases alone (`python3 chip_smoke.py --variants`):
+    the build, the tiny variant reference, then "4 2B variants" on fresh
+    2B models (bf16; int4 + kv_int8; int8 w8a8 text). Prints the card and
+    the phases' seconds; no kernels line."""
+    power = card()
+    print(power)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    img = np.random.default_rng(SEED).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
+    rng = np.random.default_rng(SEED + 2)
+    images = [rng.integers(0, 256, shape, dtype=np.uint8)
+              for shape in ((756, 1008, 3), (378, 378, 3), (600, 800, 3))]
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_build()
+    seconds["1 build"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_small_reference(img, variant=write_adapter(f"{tmp}/tiny.pt", tiny_test_config(),
+                                                         4, 0.5, SEED))
+        adapters = {name: write_adapter(f"{tmp}/2b-{name}.pt", MOONDREAM_2B, VARIANT_RANK,
+                                        scale, SEED + 5)
+                    for name, scale in (("zero", 0.0), ("real", 0.02))}
+        model = MoondreamModel(MOONDREAM_2B, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+        phase_variants(model, img, images, power, adapters)
+        del model
+        kv8 = dataclasses.replace(MOONDREAM_2B, text=dataclasses.replace(
+            MOONDREAM_2B.text, kv_int8=True))
+        for cfg, quantize in ((kv8, quantize_text_params), (MOONDREAM_2B,
+                                                            quantize_text_params_int8)):
+            params = init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
+            quantize(params["text"])
+            model = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+            phase_variant_caption(model, img, power, adapters)
+            del model, params
+    torch.cuda.synchronize()
+    seconds["4 2B variants"] = round(time.perf_counter() - t0, 1)
+    print("seconds per phase:", seconds)
+
+
 if __name__ == "__main__":
-    main()
+    main_variants() if sys.argv[1:] == ["--variants"] else main()

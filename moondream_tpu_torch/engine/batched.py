@@ -12,6 +12,8 @@ images) at one shared position with per-row EOS: `prefill_batched`,
 `decode_step_batched`, `generate_text_batched`, the structured
 `generate_points_batched` and the speculative `generate_text_spec_batched`,
 whose rows start at one position and desync as their drafts are accepted.
+All but the speculative loop take an optional LoRA adapter, `lora`, as
+the JAX package's do (moondream_tpu/engine/batched.py:78-223).
 """
 
 from __future__ import annotations
@@ -52,11 +54,12 @@ def prefill_batched(
     length: int,
     prefix_len: int,
     kv_bound: Optional[int] = None,
+    lora: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill right-padded spans embeds (B, T_pad, D) at a shared `pos`, of
     which the first `length` rows are real, writing `kv` in place. Returns
     ((B, V) logits, (B, D) hidden) of the last real row."""
-    hidden = text_decoder(embeds, model, kv, pos, prefix_len, kv_bound)
+    hidden = text_decoder(embeds, model, kv, pos, prefix_len, kv_bound, lora)
     h_last = hidden[:, length - 1]
     return lm_logits_batched(h_last, model), h_last
 
@@ -67,10 +70,11 @@ def decode_step_batched(
     emb: torch.Tensor,
     pos: int,
     kv_bound: Optional[int] = None,
+    lora: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One lockstep decode step for emb (B, 1, D) at the shared `pos`.
     Returns ((B, V) logits, (B, D) hidden)."""
-    hidden = text_decoder(emb, model, kv, pos, 0, kv_bound)
+    hidden = text_decoder(emb, model, kv, pos, 0, kv_bound, lora)
     h = hidden[:, 0]
     return lm_logits_batched(h, model), h
 
@@ -103,6 +107,7 @@ def generate_text_batched(
     suppress_ids: Tuple[int, ...],
     kv_bound: Optional[int] = None,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> BatchedGenerateResult:
     """Lockstep generation from first_tokens (B,) at the shared `pos`, as
     the JAX package's loop runs it: while some row is not done and the
@@ -123,7 +128,7 @@ def generate_text_batched(
     limit = max(limit, 0)
     bsz, dev = first_tokens.shape[0], first_tokens.device
     st, run = answer_loop(model, kv, first_tokens, pos, generator, temperature, top_p,
-                          eos_id, suppress_ids, kv_bound, graphed, "generate_text_batched")
+                          eos_id, suppress_ids, kv_bound, graphed, "generate_text_batched", lora)
     toks = torch.zeros((bsz, limit), dtype=torch.long, device=dev)
     steps = reads = 0
     while steps < limit:
@@ -151,6 +156,7 @@ def generate_points_batched(
     max_objects: int,
     kv_bound: Optional[int] = None,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> PointsResult:
     """Lockstep structured decode (moondream_tpu/engine/batched.py:190-288):
     the same object over B images from their prompts' last hidden states
@@ -159,7 +165,8 @@ def generate_points_batched(
     the card unless `graphed` is False). Returns boxes (B, max_objects, 4)
     float64 and counts."""
     return points_loop(model, region, kv, first_hidden, first_tokens, pos, eos_id,
-                       include_size, max_objects, kv_bound, "generate_points_batched", graphed)
+                       include_size, max_objects, kv_bound, "generate_points_batched", graphed,
+                       lora)
 
 
 class BatchedSpecState(NamedTuple):

@@ -22,6 +22,12 @@ graph per start phase) and the accuracy-mode gaze step (`GazeState`). The
 speculative stream replays a graph of one span per read; the plain token
 stream runs its steps eagerly, and speculative decode on a GQA model or
 with spec_k > 16 runs an eager span loop at a host position.
+
+Every forward takes an optional stacked LoRA adapter, `lora`
+(`lora.variant_state_dict`), applied in every block as the JAX package
+threads it (moondream_tpu/engine/generate.py:60-125, :176, :296,
+:420-460, :516, :601); a loop's graph key names its factors
+(`graphs.adapter_key`).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from ..models.text import DECODE_SPAN_MAX, KVCache, TextModel, text_decoder, tex
 from ..ops.layers import layer_norm
 from . import graphs
 from .drafting import ngram_draft, ngram_draft_rows
-from .graphs import tensor_key
+from .graphs import adapter_key, tensor_key
 from .sampling import sample_tokens_batched, target_probs
 
 NEG_INF = -1e30
@@ -63,12 +69,13 @@ def prefill(
     length: int,
     prefix_len: int,
     kv_bound: Optional[int] = None,
+    lora: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill a right-padded span embeds (1, T_pad, D) at pos, of which the
     first `length` rows are real. Padding rows write K/V past pos+length;
     those slots are overwritten before they are ever attended. Returns
     (logits (V,) and hidden (D,) of the last real row)."""
-    hidden = text_decoder(embeds, model, kv, pos, prefix_len, kv_bound)
+    hidden = text_decoder(embeds, model, kv, pos, prefix_len, kv_bound, lora)
     h_last = hidden[0, length - 1]
     return _lm_logits(h_last, model), h_last
 
@@ -79,9 +86,10 @@ def decode_step(
     emb: torch.Tensor,
     pos: int,
     kv_bound: Optional[int] = None,
+    lora: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step for emb (1, 1, D) at pos. Returns (logits, hidden)."""
-    hidden = text_decoder(emb, model, kv, pos, 0, kv_bound)
+    hidden = text_decoder(emb, model, kv, pos, 0, kv_bound, lora)
     h = hidden[0, 0]
     return _lm_logits(h, model), h
 
@@ -161,7 +169,8 @@ class AnswerState(NamedTuple):
 
 
 def answer_step(model: TextModel, kv: KVCache, st: AnswerState, j: int, eos_id: int,
-                kv_bound: Optional[int], generator: Optional[torch.Generator]) -> None:
+                kv_bound: Optional[int], generator: Optional[torch.Generator],
+                lora: Optional[dict] = None) -> None:
     """One step of the answer loops (moondream_tpu/engine/generate.py:
     139-170 at B 1, batched.py:140-180), in place on `st`: each live row
     emits its token into run column j, one decode step runs at the shared
@@ -172,7 +181,7 @@ def answer_step(model: TextModel, kv: KVCache, st: AnswerState, j: int, eos_id: 
     st.run[:, j] = st.tok.masked_fill(st.done, 0)
     st.count.add_((~st.done).long())
     emb = text_encoder(st.tok[:, None], model)
-    hidden = text_decoder(emb, model, kv, st.pos, 0, kv_bound)[:, 0]
+    hidden = text_decoder(emb, model, kv, st.pos, 0, kv_bound, lora)[:, 0]
     logits = _lm_logits(hidden, model).index_fill_(-1, st.suppress, NEG_INF)
     if st.temperature is None:
         nxt = torch.argmax(logits, dim=-1)
@@ -186,21 +195,22 @@ def answer_step(model: TextModel, kv: KVCache, st: AnswerState, j: int, eos_id: 
 def answer_loop(model: TextModel, kv: KVCache, first: torch.Tensor, pos: int,
                 generator: Optional[torch.Generator], temperature: float, top_p: float,
                 eos_id: int, suppress_ids: Tuple[int, ...], kv_bound: Optional[int],
-                graphed: bool, label: str):
+                graphed: bool, label: str, lora: Optional[dict] = None):
     """(state, run) of an answer loop over B = len(first) rows from `pos`:
     run(n) advances it n steps of `answer_step`. On the card (unless
     `graphed` is False) a full run of DONE_CHECK_EVERY steps replays a CUDA
-    graph keyed by the batch, kv_bound, the cache, eos, the suppressed ids
-    and greedy or sampled (engine/graphs.py); a shorter last run, which
-    must not step past the limit, runs eagerly."""
+    graph keyed by the batch, kv_bound, the adapter, the cache, eos, the
+    suppressed ids and greedy or sampled (engine/graphs.py); a shorter last
+    run, which must not step past the limit, runs eagerly."""
     sampled = temperature > 0
     bsz, dev = first.shape[0], first.device
     key = (label, bsz, kv_bound, eos_id, tuple(suppress_ids),
-           id(generator) if sampled else None, tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+           id(generator) if sampled else None, adapter_key(lora),
+           tensor_key(kv.k, kv.v, kv.ks, kv.vs))
     gen = generator if sampled else None
     st, run = graphs.loop(
         model, key, lambda: AnswerState.create(bsz, dev, tuple(suppress_ids), sampled),
-        lambda st, j: answer_step(model, kv, st, j, eos_id, kv_bound, gen),
+        lambda st, j: answer_step(model, kv, st, j, eos_id, kv_bound, gen, lora),
         DONE_CHECK_EVERY, graphed and graphs.enabled(dev), label, gen)
     st.reset(first, pos, eos_id, temperature, top_p)
     return st, run
@@ -219,6 +229,7 @@ def generate_text(
     suppress_ids: Tuple[int, ...],
     kv_bound: Optional[int] = None,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> GenerateResult:
     """Answer generation from first_token (a 0-d device tensor) at pos, with
     the JAX package's semantics: while the token is not EOS and the limit
@@ -234,7 +245,7 @@ def generate_text(
     `graphed=False` runs the same steps eagerly."""
     limit = _limit(model, pos, max_tokens, kv_bound)
     st, run = answer_loop(model, kv, first_token.reshape(1), pos, generator, temperature,
-                          top_p, eos_id, suppress_ids, kv_bound, graphed, "generate_text")
+                          top_p, eos_id, suppress_ids, kv_bound, graphed, "generate_text", lora)
     out: List[int] = []
     steps = reads = 0
     while True:
@@ -265,6 +276,7 @@ def stream_tokens(
     eos_id: int,
     suppress_ids: Tuple[int, ...],
     kv_bound: Optional[int] = None,
+    lora: Optional[dict] = None,
 ) -> Iterator[int]:
     """The answer loop one token at a time, for streaming: yields each
     emitted id as a host int, one eager `answer_step` and one host read per
@@ -272,7 +284,7 @@ def stream_tokens(
     so a streamed answer equals the fused one."""
     limit = _limit(model, pos, max_tokens, kv_bound)
     st, run = answer_loop(model, kv, first_token.reshape(1), pos, generator, temperature,
-                          top_p, eos_id, suppress_ids, kv_bound, False, "stream")
+                          top_p, eos_id, suppress_ids, kv_bound, False, "stream", lora)
     for _ in range(limit):
         tok = int(st.tok[0])
         if tok == eos_id:
@@ -293,13 +305,14 @@ def _spec_limit(model: TextModel, pos: int, max_tokens: int, spec_k: int,
 
 
 def _verify_logits(model: TextModel, kv: KVCache, q_toks: torch.Tensor, pos: int,
-                   kv_bound: Optional[int], suppress_ids: Tuple[int, ...]) -> torch.Tensor:
+                   kv_bound: Optional[int], suppress_ids: Tuple[int, ...],
+                   lora: Optional[dict] = None) -> torch.Tensor:
     """One verify forward: the (k,) span q_toks = [current, draft...] at
     positions pos..pos+k-1, written to the cache in place. Returns the
     span's (k, V) logits with `suppress_ids` masked. Rows past what the
     loop accepts leave K/V at positions the next span overwrites before
     anything attends them."""
-    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, pos, 0, kv_bound)
+    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, pos, 0, kv_bound, lora)
     logits = _lm_logits(hidden[0], model)
     if suppress_ids:
         logits[:, list(suppress_ids)] = NEG_INF
@@ -411,7 +424,8 @@ class SpecState(NamedTuple):
 
 
 def spec_step(model: TextModel, kv: KVCache, st: SpecState, j: int, s0: int, eos_id: int,
-              kv_bound: Optional[int], generator: Optional[torch.Generator]) -> None:
+              kv_bound: Optional[int], generator: Optional[torch.Generator],
+              lora: Optional[dict] = None) -> None:
     """One verify span of the speculative loop (moondream_tpu/engine/
     generate.py:238-290 greedy, :367-414 sampled), in place on `st`: the
     token joins the draft history at S0 + count, ngram_draft drafts
@@ -431,7 +445,8 @@ def spec_step(model: TextModel, kv: KVCache, st: SpecState, j: int, s0: int, eos
     st.hist[torch.where(live, at, spare)] = st.tok
     draft = ngram_draft_rows(st.hist[None, :spare], at + 1, st.tok, k)[0][0]
     q_toks = torch.cat([st.tok, draft])
-    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, st.pos, 0, kv_bound)
+    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, st.pos, 0, kv_bound,
+                          lora)
     logits = _lm_logits(hidden[0], model).index_fill_(-1, st.suppress, NEG_INF)
     if st.temperature is None:
         emitted = torch.argmax(logits, dim=-1)
@@ -463,24 +478,26 @@ def spec_loop(model: TextModel, kv: KVCache, first_token: torch.Tensor, pos: int
               eos_id: int, suppress_ids: Tuple[int, ...], spec_k: int,
               kv_bound: Optional[int], seed: Optional[torch.Tensor],
               generator: Optional[torch.Generator], temperature: float, top_p: float,
-              graphed: bool, label: str, run_len: int = DONE_CHECK_EVERY):
+              graphed: bool, label: str, run_len: int = DONE_CHECK_EVERY,
+              lora: Optional[dict] = None):
     """(state, run) of the speculative loop from `pos`: run(n) advances it
     n verify spans of `spec_step`. On the card (unless `graphed` is False)
     a full run of `run_len` spans (DONE_CHECK_EVERY; 1 for the stream)
     replays a CUDA graph keyed by run_len, spec_k, the seed's width,
-    kv_bound, the cache, eos, the suppressed ids and greedy or sampled
-    (engine/graphs.py); a shorter run is eager."""
+    kv_bound, the adapter, the cache, eos, the suppressed ids and greedy or
+    sampled (engine/graphs.py); a shorter run is eager."""
     sampled = temperature > 0
     dev = first_token.device
     s0 = 0 if seed is None else seed.shape[0]
     gen = generator if sampled else None
     key = (label, run_len, spec_k, s0, kv_bound, eos_id, tuple(suppress_ids),
-           id(generator) if sampled else None, tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+           id(generator) if sampled else None, adapter_key(lora),
+           tensor_key(kv.k, kv.v, kv.ks, kv.vs))
     st, run = graphs.loop(
         model, key,
         lambda: SpecState.create(s0 + model.config.max_context, spec_k, dev,
                                  tuple(suppress_ids), sampled),
-        lambda st, j: spec_step(model, kv, st, j, s0, eos_id, kv_bound, gen),
+        lambda st, j: spec_step(model, kv, st, j, s0, eos_id, kv_bound, gen, lora),
         run_len, graphed and graphs.enabled(dev), label, gen)
     st.reset(first_token, pos, limit, seed, eos_id, temperature, top_p)
     return st, run
@@ -506,6 +523,7 @@ def spec_spans(
     temperature: float = 0.0,
     top_p: float = 0.0,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> Iterator[List[int]]:
     """The speculative answer loop one verify span at a time, for the
     speculative stream: while the token is not EOS and the limit is not
@@ -524,12 +542,13 @@ def spec_spans(
     if not spec_on_device(model, spec_k):
         yield from _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id,
                                     suppress_ids, spec_k, kv_bound, seed, generator,
-                                    temperature, top_p)
+                                    temperature, top_p, lora)
         return
     limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
     label = _spec_label(sampled, True)
     st, run = spec_loop(model, kv, first_token, pos, limit, eos_id, suppress_ids, spec_k,
-                        kv_bound, seed, generator, temperature, top_p, graphed, label, 1)
+                        kv_bound, seed, generator, temperature, top_p, graphed, label, 1,
+                        lora)
     reads, spans = 1, 0
     done = bool(st.done)
     while not done:
@@ -543,7 +562,8 @@ def spec_spans(
 
 
 def _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
-                     kv_bound, seed, generator, temperature, top_p) -> Iterator[List[int]]:
+                     kv_bound, seed, generator, temperature, top_p,
+                     lora=None) -> Iterator[List[int]]:
     """spec_spans at a host position (GQA, or spec_k > 16: kernel A takes
     the spans): the host reads m and the span's tokens once per span, plus
     the first token once; recorded under "generate_text_spec_eager" (or
@@ -551,7 +571,7 @@ def _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_i
     sampled = temperature > 0
 
     def accept(draft, q_toks, at):
-        logits = _verify_logits(model, kv, q_toks, at, kv_bound, suppress_ids)
+        logits = _verify_logits(model, kv, q_toks, at, kv_bound, suppress_ids, lora)
         if sampled:
             return sampled_accept(logits, draft, generator, temperature, top_p, eos_id)
         g = torch.argmax(logits, dim=-1)
@@ -585,7 +605,8 @@ def _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_i
 
 
 def _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
-                kv_bound, seed, generator, temperature, top_p, graphed) -> "GenerateResult":
+                kv_bound, seed, generator, temperature, top_p, graphed,
+                lora=None) -> "GenerateResult":
     """The fused speculative loops: runs of DONE_CHECK_EVERY verify spans
     over the device state, the host reading the done flag, the count and
     the last run's spans once per run (and once before the first), so at
@@ -596,11 +617,12 @@ def _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, s
     if not spec_on_device(model, spec_k):
         return _collect(_host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id,
                                          suppress_ids, spec_k, kv_bound, seed, generator,
-                                         temperature, top_p), pos)
+                                         temperature, top_p, lora), pos)
     limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
     label = _spec_label(sampled, True)
     st, run = spec_loop(model, kv, first_token, pos, limit, eos_id, suppress_ids, spec_k,
-                        kv_bound, seed, generator, temperature, top_p, graphed, label)
+                        kv_bound, seed, generator, temperature, top_p, graphed, label,
+                        lora=lora)
     out: List[int] = []
     spans = reads = n = 0
     while True:
@@ -635,6 +657,7 @@ def generate_text_spec(
     kv_bound: Optional[int] = None,
     seed: Optional[torch.Tensor] = None,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> GenerateResult:
     """Speculative greedy generation (moondream_tpu/engine/generate.py:
     176-293): n-gram drafts verified in one spec_k-row forward per
@@ -652,7 +675,7 @@ def generate_text_spec(
     A GQA model or spec_k > 16 runs the eager span loop at a host position
     (one read per span), under LOOP_COUNTS "generate_text_spec_eager"."""
     return _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
-                       kv_bound, seed, None, 0.0, 0.0, graphed)
+                       kv_bound, seed, None, 0.0, 0.0, graphed, lora)
 
 
 def generate_text_spec_sampled(
@@ -670,6 +693,7 @@ def generate_text_spec_sampled(
     kv_bound: Optional[int] = None,
     seed: Optional[torch.Tensor] = None,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> GenerateResult:
     """Speculative sampling at temperature > 0 (moondream_tpu/engine/
     generate.py:296-417): the drafts of generate_text_spec accepted by the
@@ -680,7 +704,7 @@ def generate_text_spec_sampled(
     generate_text_spec; the graph's replays advance `generator` as the
     eager spans do."""
     return _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
-                       kv_bound, seed, generator, temperature, top_p, graphed)
+                       kv_bound, seed, generator, temperature, top_p, graphed, lora)
 
 
 class ReasoningResult(NamedTuple):
@@ -734,7 +758,7 @@ class ReasoningState(NamedTuple):
 
 def reasoning_step(model: TextModel, region: RegionModel, kv: KVCache, st: ReasoningState,
                    j: int, answer_id: int, coord_id: int, kv_bound: Optional[int],
-                   generator: Optional[torch.Generator]) -> None:
+                   generator: Optional[torch.Generator], lora: Optional[dict] = None) -> None:
     """One step of the reasoning loop (moondream_tpu/engine/generate.py:
     548-581), in place on `st`: the token goes to run column j; a
     `coord_id` token feeds enc(argmax(decode_coordinate(hidden)) / 1024) in
@@ -751,7 +775,7 @@ def reasoning_step(model: TextModel, region: RegionModel, kv: KVCache, st: Reaso
     st.run_val[:, j] = torch.where(coord, val, 0.0)
     st.run_coord[:, j] = coord
     st.count.add_((~st.done).long())
-    hidden = text_decoder(emb[:, None], model, kv, st.pos, 0, kv_bound)[:, 0]
+    hidden = text_decoder(emb[:, None], model, kv, st.pos, 0, kv_bound, lora)[:, 0]
     logits = _lm_logits(hidden, model).index_fill_(-1, st.suppress, NEG_INF)
     if st.temperature is None:
         nxt = torch.argmax(logits, dim=-1)
@@ -779,6 +803,7 @@ def generate_reasoning(
     suppress_ids: Tuple[int, ...],
     kv_bound: Optional[int] = None,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> ReasoningResult:
     """The reasoning loop with inline grounding
     (moondream_tpu/engine/generate.py:516-591): as generate_text, with
@@ -795,11 +820,12 @@ def generate_reasoning(
     dev = first_token.device
     gen = generator if sampled else None
     key = ("generate_reasoning", kv_bound, answer_id, coord_id, tuple(suppress_ids), id(region),
-           id(generator) if sampled else None, tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+           id(generator) if sampled else None, adapter_key(lora),
+           tensor_key(kv.k, kv.v, kv.ks, kv.vs))
     st, run = graphs.loop(
         model, key, lambda: ReasoningState.create(first_hidden, tuple(suppress_ids), sampled),
         lambda st, j: reasoning_step(model, region, kv, st, j, answer_id, coord_id, kv_bound,
-                                     gen),
+                                     gen, lora),
         DONE_CHECK_EVERY, graphed and graphs.enabled(dev), "generate_reasoning", gen)
     st.reset(first_token, first_hidden, pos, answer_id, temperature, top_p)
     out: List[List[float]] = [[], [], []]
@@ -870,7 +896,7 @@ class PointsState(NamedTuple):
 
 def points_step(model: TextModel, region: RegionModel, kv: KVCache, st: PointsState,
                 phase: int, eos_id: int, include_size: bool, max_objects: int,
-                kv_bound: Optional[int]) -> None:
+                kv_bound: Optional[int], lora: Optional[dict] = None) -> None:
     """One step of the structured loop, in place on `st`. Phase 0 decodes
     x from the hidden state and feeds enc(x); phase 1 decodes y and feeds
     enc(y); with sizes, phase 2 decodes the (w, h) log-bins and feeds
@@ -904,7 +930,7 @@ def points_step(model: TextModel, region: RegionModel, kv: KVCache, st: PointsSt
         upd = (st.slot[None, :] == st.n[:, None]) & active[:, None]
         st.boxes.copy_(torch.where(upd[..., None], row[:, None, :], st.boxes))
         st.n.add_(active.long())
-    hidden = text_decoder(emb[:, None, :], model, kv, st.pos, 0, kv_bound)[:, 0]
+    hidden = text_decoder(emb[:, None, :], model, kv, st.pos, 0, kv_bound, lora)[:, 0]
     st.hid.copy_(hidden)
     if last:
         tok = torch.argmax(_lm_logits(hidden, model), dim=-1)
@@ -925,6 +951,7 @@ def points_loop(
     kv_bound: Optional[int],
     loop: str,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> PointsResult:
     """The structured coordinate loop over B rows at a shared position
     (moondream_tpu/engine/generate.py:601-671 at B 1, and
@@ -952,11 +979,11 @@ def points_loop(
     bsz, dev = first_tokens.shape[0], first_tokens.device
     hidden = first_hidden.reshape(bsz, -1)
     key = (loop, bsz, include_size, max_objects, eos_id, kv_bound, id(region),
-           tensor_key(kv.k, kv.v, kv.ks, kv.vs))
+           adapter_key(lora), tensor_key(kv.k, kv.v, kv.ks, kv.vs))
     st, run = graphs.loop(
         model, key, lambda: PointsState.create(hidden, max_objects),
         lambda st, t: points_step(model, region, kv, st, t % spo, eos_id, include_size,
-                                  max_objects, kv_bound),
+                                  max_objects, kv_bound, lora),
         DONE_CHECK_EVERY, graphed and graphs.enabled(dev), loop, tails=True)
     st.reset(hidden, first_tokens, pos, eos_id)
     steps = reads = 0
@@ -986,12 +1013,14 @@ def generate_points(
     max_objects: int,
     kv_bound: Optional[int] = None,
     graphed: bool = True,
+    lora: Optional[dict] = None,
 ) -> np.ndarray:
     """Structured decode of one row from the prompt's last hidden state
     (D,) and its greedy token: the found boxes (count, 4) as float64
     ([x_min, y_min, x_max, y_max], or [x, y, 0, 0] without sizes)."""
     res = points_loop(model, region, kv, first_hidden, first_token.reshape(1), pos,
-                      eos_id, include_size, max_objects, kv_bound, "generate_points", graphed)
+                      eos_id, include_size, max_objects, kv_bound, "generate_points", graphed,
+                      lora)
     return res.boxes[0, :res.counts[0]]
 
 
@@ -1025,7 +1054,8 @@ def gaze_points_batched(model: TextModel, region: RegionModel, kv: KVCache,
     1699-1782) after their batched prompt prefill: `gaze_step` over a
     `GazeState`, then one host read of (token, x, y) per row. On the card
     the step replays a CUDA graph keyed by the batch, kv_bound and the
-    cache; `graphed=False` runs it eagerly. Recorded under LOOP_COUNTS
+    cache; `graphed=False` runs it eagerly. It runs no LoRA adapter, as the
+    JAX package's detect_gaze runs none. Recorded under LOOP_COUNTS
     "gaze_points_batched" (one step, one read)."""
     bsz, dev = hidden.shape[0], hidden.device
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)

@@ -12,8 +12,9 @@ chunk (`serving.serve_chunk`) is one graph per (chunk, sampling) of its
 engine. A key names everything a graph bakes in: the loop, the batch,
 kv_bound, the addresses of the cache tensors (and with them the cache
 format: bf16 or int8 KV, MHA or GQA; the weights, dense or int4, belong to
-the model that owns the cache of graphs), eos and suppressed ids, greedy
-or sampled and the generator.
+the model that owns the cache of graphs), the LoRA adapter's factors
+(`adapter_key`), eos and suppressed ids, greedy or sampled and the
+generator.
 
 First use of a key: the run executes eagerly on a side stream (its
 warm-up: kernel modules load, that stream's decode workspace grows to the
@@ -46,6 +47,7 @@ import torch
 
 from ..kernels.attention import stream_workspace
 from ..kernels.build import LAUNCHES, add_launches, launches_since
+from ..models.text import LORA_SITES
 
 # Replays per graph label, and one record per capture (label, capture ms,
 # bytes the graphs' memory pool grew by, launches per replay), since
@@ -140,6 +142,17 @@ def tensor_key(*tensors: Optional[torch.Tensor]) -> Tuple:
     does."""
     return tuple(None if t is None else (t.data_ptr(), tuple(t.shape), t.dtype)
                  for t in tensors)
+
+
+def adapter_key(lora: Optional[dict]) -> Optional[Tuple]:
+    """tensor_key of a stacked LoRA adapter's factors (qkv, proj, fc1, fc2;
+    A then B; an absent site as None), or None without an adapter. A graph
+    bakes in the factors' addresses, so a key that names the cache names
+    the adapter too: two adapters, or one and none, never share a graph."""
+    if lora is None:
+        return None
+    pairs = [(lora.get(grp) or {}).get(name) for grp, name in LORA_SITES]
+    return tensor_key(*(None if p is None else p[f] for p in pairs for f in ("A", "B")))
 
 
 def _side_stream(dev: torch.device) -> torch.cuda.Stream:

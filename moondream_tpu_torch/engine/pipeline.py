@@ -112,7 +112,9 @@ class BatchPipeline:
         each batch with the lockstep speculative loop
         (batched.generate_text_spec_batched, prompt-seeded histories, the
         plain loop's greedy ids); MHA only: on a GQA model a greedy run
-        raises a ValueError. Sampled settings take the plain loop."""
+        raises a ValueError. Sampled settings, and a LoRA variant (which the
+        speculative loop does not take, as in the JAX package), take the
+        plain loop."""
         self.model = model
         self.batch_size = batch_size
         self.prefetch = prefetch
@@ -134,12 +136,14 @@ class BatchPipeline:
         """Caption or answer every image with ONE shared prompt; returns the
         texts in input order. The tail batch is padded with the last image
         (its padded rows decode, their outputs are dropped), so every batch
-        has the same shapes and graph keys."""
+        has the same shapes and graph keys. A settings variant applies in
+        the fused prefill and the decode loop."""
         _refuse_unported(settings)
         images = list(images)
         if not images:
             return []
         sampling = self.model._settings(settings)
+        lora = self.model._variant(settings)
         work: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         producer = threading.Thread(target=self._produce, args=(images, work, stop),
@@ -154,7 +158,7 @@ class BatchPipeline:
                     raise item
                 if item is None:
                     break
-                res = self._dispatch(item, prompt_tokens, *sampling)
+                res = self._dispatch(item, prompt_tokens, *sampling, lora)
                 if pending is not None:
                     texts.extend(self._collect(*pending))
                 pending = (res, item.n_images)
@@ -192,7 +196,7 @@ class BatchPipeline:
             work.put(e)
 
     def _dispatch(self, batch: _Batch, prompt_tokens: List[int], max_tokens: int,
-                  temperature: float, top_p: float):
+                  temperature: float, top_p: float, lora: Optional[dict] = None):
         """The batch's ViT per group, ONE fused [BOS, image, prompt]
         prefill into the decode-sized cache, the first tokens and the
         decode loop (moondream_tpu/engine/pipeline.py:190-275). Returns
@@ -218,10 +222,10 @@ class BatchPipeline:
         # and are rewritten before anything attends them
         logits, _ = batched_engine.prefill_batched(
             model.text, kv, embeds, 0, seq + length, cfg.text.prefix_attn,
-            kv_bound=model._kv_bound(seq + pad))
+            kv_bound=model._kv_bound(seq + pad), lora=lora)
         first = batched_engine.sample_tokens_batched(logits, model.generator, temperature, top_p)
         suppress = (cfg.tokenizer.answer_id,)
-        if self.spec_k and temperature <= 0:
+        if self.spec_k and temperature <= 0 and lora is None:
             seed = torch.tensor(ids[-(cfg.text.max_context // 2):], device=model.device)
             res = batched_engine.generate_text_spec_batched(
                 model.text, kv, first, seq + length, max_tokens, self.eos_id, suppress,
@@ -229,7 +233,8 @@ class BatchPipeline:
         else:
             res = batched_engine.generate_text_batched(
                 model.text, kv, first, seq + length, model.generator, temperature, top_p,
-                max_tokens, self.eos_id, suppress, kv_bound=bound, graphed=model.graphed)
+                max_tokens, self.eos_id, suppress, kv_bound=bound, graphed=model.graphed,
+                lora=lora)
         return res, kv
 
     def _collect(self, dispatched, n_real: int) -> List[str]:
@@ -270,8 +275,9 @@ class PooledPipeline:
 
     def run(self, images, question: Optional[str] = None, length: str = "normal",
             settings: Optional[Dict[str, Any]] = None) -> List[str]:
-        """Every image's text, in input order."""
-        _refuse_unported(settings)
+        """Every image's text, in input order. LoRA variants are refused
+        until the pool takes them (ROADMAP.md Queue 1 item 5)."""
+        _refuse_unported(settings, variants=True)
         eng = self.engine
         model = eng.model
         images = list(images)

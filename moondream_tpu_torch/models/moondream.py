@@ -24,6 +24,14 @@ with reasoning; detect, point, detect_gaze; the lockstep batches) replay
 CUDA graphs of their runs (engine/graphs.py); `compile()` builds the
 kernels and captures them ahead of the first request. Streams run their
 steps eagerly.
+LoRA variants: settings["variant"] (a local adapter file,
+`lora.variant_state_dict`) or settings["variant_tree"] (an adapter
+already loaded) puts the adapter in every text forward of a request, the
+[BOS, image] prefill included; settings["variant_label"] names it. An
+EncodedImage records the label it was encoded under, and a request under
+another label refuses it (moondream_tpu/models/moondream.py:79-90,
+:755-784, :840-855). detect_gaze runs no adapter, as the JAX package's
+runs none, and refuses these settings.
 """
 
 from __future__ import annotations
@@ -62,17 +70,21 @@ PROMPT_PAD = 8
 # tokens, left-padded with -1 to this width (moondream_tpu/models/
 # moondream.py:276).
 SPEC_SEED_LEN = 64
-# The JAX package's settings for LoRA variants and steering
-# (moondream_tpu/models/moondream.py:840-855, :907-918), which the port
-# does not apply yet: every entry point that takes settings refuses them.
-UNPORTED_SETTINGS = ("variant", "variant_tree", "variant_label", "steer", "steer_scale")
+# The JAX package's LoRA-variant settings (moondream_tpu/models/
+# moondream.py:79-90, :840-855), applied by every entry point but
+# detect_gaze and the serving pool's.
+VARIANT_SETTINGS = ("variant", "variant_tree", "variant_label")
+# Its steering settings (:907-918), which the port does not apply yet:
+# every entry point that takes settings refuses them.
+UNPORTED_SETTINGS = ("steer", "steer_scale")
 
 
-def _refuse_unported(settings: Optional[Dict[str, Any]]) -> None:
-    """Raise NotImplementedError when `settings` sets a LoRA variant or a
-    steering vector: answering as the base model instead would drop them
-    without a word (ROADMAP.md Queue 1 item 5 ports them)."""
-    for key in UNPORTED_SETTINGS:
+def _refuse_unported(settings: Optional[Dict[str, Any]], variants: bool = False) -> None:
+    """Raise NotImplementedError when `settings` sets a steering vector, or
+    with `variants` a LoRA variant (detect_gaze, the serving pool):
+    answering as the base model instead would drop them without a word
+    (ROADMAP.md Queue 1 item 5 ports them)."""
+    for key in UNPORTED_SETTINGS + (VARIANT_SETTINGS if variants else ()):
         if (settings or {}).get(key) is not None:
             raise NotImplementedError(
                 f"settings[{key!r}] (LoRA variants and steering) is not ported to "
@@ -80,28 +92,46 @@ def _refuse_unported(settings: Optional[Dict[str, Any]]) -> None:
             )
 
 
+def _variant_label(settings: Optional[Dict[str, Any]]) -> Optional[str]:
+    """The variant a request asks for, by name: settings["variant_label"],
+    else settings["variant"] when it is a string, else None (the base
+    weights) (moondream_tpu/models/moondream.py:79-90)."""
+    if not settings:
+        return None
+    label = settings.get("variant_label")
+    if label is not None:
+        return label
+    v = settings.get("variant")
+    return v if isinstance(v, str) else None
+
+
 @dataclass(frozen=True)
 class EncodedImage:
     """KV snapshot after prefilling [BOS, image]: k/v (L, 1, H_kv, pos, Dh).
     With config.text.kv_int8, k/v hold int8 codes and ks/vs the fp32
-    scales (L, 1, H_kv/g, pos) (models.text.KVCache)."""
+    scales (L, 1, H_kv/g, pos) (models.text.KVCache). `variant`: the label
+    of the LoRA variant the prefill ran under (None: the base weights); a
+    request under another label refuses the snapshot."""
 
     pos: int
     k: torch.Tensor
     v: torch.Tensor
     ks: Optional[torch.Tensor] = None
     vs: Optional[torch.Tensor] = None
+    variant: Optional[str] = None
 
     def as_cache(self) -> KVCache:
         return KVCache(k=self.k, v=self.v, ks=self.ks, vs=self.vs)
 
 
-def _snap_enc(kv: KVCache, pos: int, b: Optional[int] = None) -> EncodedImage:
+def _snap_enc(kv: KVCache, pos: int, b: Optional[int] = None,
+              variant: Optional[str] = None) -> EncodedImage:
     """The snapshot [0, pos) of batch row b of a cache (of its only row when
-    b is None)."""
+    b is None), labelled with `variant`."""
     rows = slice(None) if b is None else slice(b, b + 1)
     cut = lambda a: None if a is None else a[:, rows, :, :pos].clone()
-    return EncodedImage(pos=pos, k=cut(kv.k), v=cut(kv.v), ks=cut(kv.ks), vs=cut(kv.vs))
+    return EncodedImage(pos=pos, k=cut(kv.k), v=cut(kv.v), ks=cut(kv.ks), vs=cut(kv.vs),
+                        variant=variant)
 
 
 def _concat_enc_kv(encs: List[EncodedImage]) -> KVCache:
@@ -273,10 +303,22 @@ class MoondreamModel:
         return self._stitch_project(self._vision_features(x)[:n], tiling)
 
     def encode_image(self, image, settings: Optional[Dict[str, Any]] = None) -> EncodedImage:
-        """Encode an image and prefill [BOS, image] through the text model."""
+        """Encode an image and prefill [BOS, image] through the text model,
+        under the settings' LoRA variant. An EncodedImage is returned as it
+        is when it was encoded under the request's variant label; under
+        another label it raises ValueError (the adapter changes the image
+        prefill too)."""
         _refuse_unported(settings)
+        want = _variant_label(settings)
         if isinstance(image, EncodedImage):
+            if image.variant != want:
+                raise ValueError(
+                    f"EncodedImage was encoded under variant {image.variant!r} but this "
+                    f"request uses {want!r}; the adapter applies to the image prefill, so "
+                    "re-encode the image under the request's variant"
+                )
             return image
+        lora = self._variant(settings)
         img_emb = self._run_vision_encoder(image)
         bos = self.config.tokenizer.bos_id
         bos_emb = text_encoder(torch.tensor([[bos]], device=self.device), self.text)
@@ -284,9 +326,32 @@ class MoondreamModel:
         seq = embeds.shape[1]
         kv = KVCache.create(self.config.text, 1, self.dtype, self.device)
         engine.prefill(
-            self.text, kv, embeds, 0, seq, seq, kv_bound=self._kv_bound(seq)
+            self.text, kv, embeds, 0, seq, seq, kv_bound=self._kv_bound(seq), lora=lora
         )
-        return _snap_enc(kv, seq)
+        return _snap_enc(kv, seq, variant=want)
+
+    def _variant(self, settings: Optional[Dict[str, Any]]) -> Optional[dict]:
+        """The stacked LoRA adapter of a request (moondream_tpu/models/
+        moondream.py:840-855): settings["variant_tree"] as given (on the
+        model's device), else settings["variant"] loaded from its local
+        file in the model's dtype on its device (`lora.variant_state_dict`,
+        cached), else None."""
+        if not settings:
+            return None
+        tree = settings.get("variant_tree")
+        if tree is not None:
+            kinds = {pair[f].device.type for sites in tree.values() for pair in sites.values()
+                     for f in ("A", "B")}
+            if kinds != {self.device.type}:
+                raise ValueError(f"settings['variant_tree'] lies on {sorted(kinds)}, the model "
+                                 f"on {self.device}: the adapter runs where the model runs")
+            return tree
+        if settings.get("variant") is None:
+            return None
+        from ..lora import variant_state_dict
+
+        return variant_state_dict(settings["variant"], self.config.text.n_layers, self.dtype,
+                                  self.device)
 
     def compile(self, settings: Optional[Dict[str, Any]] = None) -> "MoondreamModel":
         """Warm the hot paths (moondream_tpu/models/moondream.py:787-821):
@@ -308,7 +373,11 @@ class MoondreamModel:
         captures its chunks' graphs at their first chunk, and the lockstep
         batches and the accuracy-mode gaze step theirs at the first batch,
         as JAX compiles at its first batch. On the CPU it only runs the
-        requests."""
+        requests. The dummy image is encoded under `settings` too, so that a
+        variant's graphs are the ones warmed (the JAX package encodes it
+        without settings, and its caption then refuses the snapshot of
+        another variant); detect_gaze, which runs no adapter, warms on a
+        base encoding."""
         _refuse_unported(settings)
         s = dict(settings or {})
         s.setdefault("max_tokens", DEFAULT_MAX_TOKENS)
@@ -322,13 +391,15 @@ class MoondreamModel:
 
             build_parallel([*attn_kernels.LOADERS, *quant_kernels.LOADERS])
         side = self.config.vision.crop_size
-        enc = self.encode_image(np.zeros((side, side, 3), dtype=np.uint8))
+        dummy = np.zeros((side, side, 3), dtype=np.uint8)
+        enc = self.encode_image(dummy, settings=s)
         self.caption(enc, "normal", settings=s)
         self.query(image=enc, question="?", settings=s)
         self.query(image=enc, question="?", reasoning=True, settings=s)
         self.detect(enc, "x", settings=s)
         self.point(enc, "x", settings=s)
-        self.detect_gaze(enc, eye=(0.5, 0.5))
+        base = any(s.get(k) is not None for k in VARIANT_SETTINGS)
+        self.detect_gaze(self.encode_image(dummy) if base else enc, eye=(0.5, 0.5))
         return self
 
     def _take_kv_buffer(self, batch: int = 1, slots: Optional[int] = None) -> KVCache:
@@ -384,13 +455,14 @@ class MoondreamModel:
     def _prefill_prompt(
         self, kv: KVCache, prompt_tokens: List[int], pos: int,
         temperature: float, top_p: float, spatial_refs=None,
-        prefix_len: Optional[int] = None,
+        prefix_len: Optional[int] = None, lora: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int, KVCache]:
-        """Embed and prefill a prompt into `kv` (in place), sample the first
-        token. `spatial_refs` (points and boxes) replace the embeddings at
-        the prompt's coord_id and size_id tokens, in order. Returns
-        (logits, hidden, next_token (0-d device tensor), new_pos, kv), as
-        the JAX package does."""
+        """Embed and prefill a prompt into `kv` (in place), under the
+        adapter `lora` when given, and sample the first token.
+        `spatial_refs` (points and boxes) replace the embeddings at the
+        prompt's coord_id and size_id tokens, in order. Returns (logits,
+        hidden, next_token (0-d device tensor), new_pos, kv), as the JAX
+        package does."""
         tok_cfg = self.config.tokenizer
         ids = list(prompt_tokens)
         length = len(ids)
@@ -407,7 +479,7 @@ class MoondreamModel:
             prefix_len = self.config.text.prefix_attn
         logits, hidden = engine.prefill(
             self.text, kv, emb, pos, length, prefix_len,
-            kv_bound=self._kv_bound(pos + pad),
+            kv_bound=self._kv_bound(pos + pad), lora=lora,
         )
         next_token = sample_token(logits, self.generator, temperature, top_p)
         return logits, hidden, next_token, pos + length, kv
@@ -440,7 +512,7 @@ class MoondreamModel:
         return torch.tensor([-1] * (SPEC_SEED_LEN - len(tail)) + tail, device=self.device)
 
     def _generate_answer_tokens(
-        self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None,
+        self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None, lora=None,
     ) -> List[int]:
         """The answer's ids. With settings["speculative"] (k 8 for True):
         n-gram drafts, seeded by the prompt's tail, verified k rows at a
@@ -455,22 +527,22 @@ class MoondreamModel:
             return engine.generate_text(
                 self.text, kv, next_token, pos, self.generator, temperature, top_p,
                 max_tokens, eos, suppress, kv_bound=self._decode_bound(pos + max_tokens + 1),
-                graphed=self.graphed,
+                graphed=self.graphed, lora=lora,
             ).tokens
         bound = self._decode_bound(pos + max_tokens + spec_k + 1)
         seed = self._spec_seed(prompt_tokens)
         if temperature == 0:
             return engine.generate_text_spec(
                 self.text, kv, next_token, pos, max_tokens, eos, suppress, spec_k,
-                bound, seed, graphed=self.graphed,
+                bound, seed, graphed=self.graphed, lora=lora,
             ).tokens
         return engine.generate_text_spec_sampled(
             self.text, kv, next_token, pos, self.generator, temperature, top_p,
-            max_tokens, eos, suppress, spec_k, bound, seed, graphed=self.graphed,
+            max_tokens, eos, suppress, spec_k, bound, seed, graphed=self.graphed, lora=lora,
         ).tokens
 
     def _stream_answer(
-        self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None,
+        self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None, lora=None,
     ) -> Iterator[str]:
         """Incremental streaming, text flushed on word boundaries: one eager
         decode step and one host sync per token, or with
@@ -486,11 +558,11 @@ class MoondreamModel:
                 self.text, kv, next_token, pos, max_tokens, eos, suppress, spec_k,
                 self._decode_bound(pos + max_tokens + spec_k + 1),
                 self._spec_seed(prompt_tokens), self.generator, temperature, top_p,
-                graphed=self.graphed,
+                graphed=self.graphed, lora=lora,
             ) for t in span)
         else:
             tokens = self._step_tokens(kv, next_token, pos, max_tokens, eos, suppress,
-                                       temperature, top_p)
+                                       temperature, top_p, lora)
         streamer = TokenStreamer(self._decode_tokens)
         for tok in tokens:
             chunk = streamer.feed(tok)
@@ -501,11 +573,11 @@ class MoondreamModel:
             yield tail
 
     def _step_tokens(self, kv, next_token, pos, max_tokens, eos, suppress, temperature,
-                     top_p) -> Iterator[int]:
+                     top_p, lora=None) -> Iterator[int]:
         """The answer's ids one decode step and one host sync at a time."""
         return engine.stream_tokens(
             self.text, kv, next_token, pos, self.generator, temperature, top_p, max_tokens,
-            eos, suppress, self._decode_bound(pos + max_tokens + 1))
+            eos, suppress, self._decode_bound(pos + max_tokens + 1), lora=lora)
 
     # -------------------------------------------------------------- query
     def query(
@@ -524,7 +596,8 @@ class MoondreamModel:
         the thinking token (the reasoning loop, its text and grounding
         returned under "reasoning"), then the answer. `spatial_refs`
         ((x, y) points and (x_min, y_min, x_max, y_max) boxes, with an
-        image only) go into the prompt as coordinate and size embeddings."""
+        image only) go into the prompt as coordinate and size embeddings.
+        A settings variant applies in every text forward."""
         _refuse_unported(settings)
         templates = self.config.tokenizer.templates["query"]
         if templates is None:
@@ -534,6 +607,7 @@ class MoondreamModel:
         if spatial_refs and image is None:
             raise ValueError("spatial_refs can only be used with an image.")
         tok_cfg = self.config.tokenizer
+        lora = self._variant(settings)
         if image is not None:
             enc = self.encode_image(image, settings)
             kv, pos = self.load_encoded_image(enc), enc.pos
@@ -553,13 +627,14 @@ class MoondreamModel:
             r_prompt = prompt + list(templates["suffix"]) + [tok_cfg.thinking_id]
             _, hidden, next_token, pos, kv = self._prefill_prompt(
                 kv, r_prompt, pos, temperature, top_p, spatial_refs,
-                prefix_len=prefix_len,
+                prefix_len=prefix_len, lora=lora,
             )
             res = engine.generate_reasoning(
                 self.text, self.region, kv, next_token, hidden, pos, self.generator,
                 temperature, top_p, max_tokens, tok_cfg.answer_id, tok_cfg.coord_id,
                 (tok_cfg.eos_id, tok_cfg.size_id),
                 kv_bound=self._decode_bound(pos + max_tokens + 1), graphed=self.graphed,
+                lora=lora,
             )
             pos = res.pos
             reasoning_dict = {"reasoning": self._assemble_reasoning(
@@ -570,13 +645,13 @@ class MoondreamModel:
 
         _, _, next_token, pos, kv = self._prefill_prompt(
             kv, answer_prompt, pos, temperature, top_p,
-            None if reasoning else spatial_refs, prefix_len=prefix_len,
+            None if reasoning else spatial_refs, prefix_len=prefix_len, lora=lora,
         )
         if stream:
             return {**reasoning_dict, "answer": self._stream_answer(
-                kv, next_token, pos, settings, prompt_tokens=answer_prompt)}
+                kv, next_token, pos, settings, prompt_tokens=answer_prompt, lora=lora)}
         tokens = self._generate_answer_tokens(kv, next_token, pos, settings,
-                                              prompt_tokens=answer_prompt)
+                                              prompt_tokens=answer_prompt, lora=lora)
         self._recycle_kv(kv)  # the next request decodes on it (and its graphs)
         return {**reasoning_dict,
                 "answer": "".join(stream_text(tokens, self._decode_tokens))}
@@ -626,20 +701,21 @@ class MoondreamModel:
         if length not in templates:
             raise ValueError(f"Model does not support caption length '{length}'.")
 
+        lora = self._variant(settings)
         enc = self.encode_image(image, settings)
         _, temperature, top_p = self._settings(settings)
         kv = self.load_encoded_image(enc)
         prompt = list(templates[length])
         _, _, next_token, pos, kv = self._prefill_prompt(
-            kv, prompt, enc.pos, temperature, top_p
+            kv, prompt, enc.pos, temperature, top_p, lora=lora
         )
         if not stream:
             tokens = self._generate_answer_tokens(kv, next_token, pos, settings,
-                                                  prompt_tokens=prompt)
+                                                  prompt_tokens=prompt, lora=lora)
             self._recycle_kv(kv)  # the next request decodes on it (and its graphs)
             return {"caption": "".join(stream_text(tokens, self._decode_tokens))}
         return {"caption": self._stream_answer(kv, next_token, pos, settings,
-                                               prompt_tokens=prompt)}
+                                               prompt_tokens=prompt, lora=lora)}
 
     # ------------------------------------------------------ detect / point
     def _max_objects(self, settings) -> int:
@@ -659,16 +735,18 @@ class MoondreamModel:
         (moondream_tpu/models/moondream.py:1326-1360). Returns the boxes
         (count, 4) as float64."""
         prompt = self._structured_prompt(template_key, object)
+        lora = self._variant(settings)
         enc = self.encode_image(image, settings)
         kv = self.load_encoded_image(enc)
-        _, hidden, next_token, pos, kv = self._prefill_prompt(kv, prompt, enc.pos, 0.0, 0.0)
+        _, hidden, next_token, pos, kv = self._prefill_prompt(kv, prompt, enc.pos, 0.0, 0.0,
+                                                              lora=lora)
         max_objects = self._max_objects(settings)
         steps_per_object = 3 if include_size else 2
         boxes = engine.generate_points(
             self.text, self.region, kv, hidden, next_token, pos,
             self.config.tokenizer.eos_id, include_size, max_objects,
             kv_bound=self._decode_bound(pos + steps_per_object * max_objects + 2),
-            graphed=self.graphed,
+            graphed=self.graphed, lora=lora,
         )
         self._recycle_kv(kv)
         return boxes
@@ -691,8 +769,10 @@ class MoondreamModel:
         """Batched encode (moondream_tpu/models/moondream.py:1401-1452): host
         crops per image, ONE ViT call per (crop count, tiling) group over the
         group's concatenated crops, one stitch + projection per group, and
-        ONE batched [BOS, image] prefill for all images."""
+        ONE batched [BOS, image] prefill for all images, under the settings'
+        variant (each snapshot labelled with it)."""
         _refuse_unported(settings)
+        lora = self._variant(settings)
         prepped = [self._crops(im) for im in images]
         groups: Dict[Tuple[int, Tuple[int, int]], List[int]] = {}
         for i, (crops, tiling) in enumerate(prepped):
@@ -710,8 +790,10 @@ class MoondreamModel:
         bsz, seq, _ = embeds.shape
         bound = self._kv_bound(seq)
         kv = self._take_kv_buffer(bsz, bound)
-        batched_engine.prefill_batched(self.text, kv, embeds, 0, seq, seq, kv_bound=bound)
-        encs = [_snap_enc(kv, seq, b) for b in range(bsz)]
+        batched_engine.prefill_batched(self.text, kv, embeds, 0, seq, seq, kv_bound=bound,
+                                       lora=lora)
+        want = _variant_label(settings)
+        encs = [_snap_enc(kv, seq, b, variant=want) for b in range(bsz)]
         self._recycle_kv(kv)
         return encs
 
@@ -761,7 +843,7 @@ class MoondreamModel:
         res = batched_engine.generate_points_batched(
             self.text, self.region, kv, hidden, torch.argmax(logits, dim=-1),
             pos + length, self.config.tokenizer.eos_id, include_size, max_objects,
-            kv_bound=bound, graphed=self.graphed,
+            kv_bound=bound, graphed=self.graphed, lora=self._variant(settings),
         )
         self._recycle_kv(kv)
         return [res.boxes[b, :n] for b, n in enumerate(res.counts)]
@@ -784,9 +866,13 @@ class MoondreamModel:
         EncodedImages (one encode_images for the fresh ones), the batched
         cache loaded to the session's bound (`session_end(pos, length, pad)`
         is the last position the session can write), the shared prompt
-        broadcast to every row, and ONE batched prefill. Returns (logits,
-        hidden, kv, pos, length, bound)."""
+        broadcast to every row, and ONE batched prefill, all under the
+        settings' variant (an EncodedImage of another variant label raises
+        ValueError). Returns (logits, hidden, kv, pos, length, bound)."""
         encs = [im if isinstance(im, EncodedImage) else None for im in images]
+        for e in encs:
+            if e is not None:
+                self.encode_image(e, settings)  # the variant label's check
         to_encode = [im for im, e in zip(images, encs) if e is None]
         if to_encode:
             fresh = iter(self.encode_images(to_encode, settings))
@@ -800,7 +886,7 @@ class MoondreamModel:
         emb = text_encoder(ids_t, self.text).to(self.dtype).repeat(len(encs), 1, 1)
         logits, hidden = batched_engine.prefill_batched(
             self.text, kv, emb, pos, length, self.config.text.prefix_attn,
-            kv_bound=self._kv_bound(pos + pad),
+            kv_bound=self._kv_bound(pos + pad), lora=self._variant(settings),
         )
         return logits, hidden, kv, pos, length, bound
 
@@ -817,6 +903,7 @@ class MoondreamModel:
             self.text, kv, first, pos + length, self.generator, temperature,
             top_p, max_tokens, self.config.tokenizer.eos_id,
             (self.config.tokenizer.answer_id,), kv_bound=bound, graphed=self.graphed,
+            lora=self._variant(settings),
         )
         rows = torch.cat([res.counts[:, None], res.tokens], dim=1).tolist()  # one read
         self._recycle_kv(kv)
@@ -839,15 +926,16 @@ class MoondreamModel:
         pad = _prompt_pad(length)
         return torch.nn.functional.pad(embeds, (0, 0, 0, pad - length)), length
 
-    def _gaze_prefill(self, kv: KVCache, pos: int, embeds: torch.Tensor, length: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    def _gaze_prefill(self, kv: KVCache, pos: int, embeds: torch.Tensor, length: int,
+                      lora: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """Prefill one eye position's gaze prompt (`_gaze_embeds`, (1, pad,
-        D) of `length` rows) onto `kv` at pos (moondream_tpu/models/
-        moondream.py:1644-1674). Returns (the last hidden state (D,), its
-        greedy token (0-d), the position after it)."""
+        D) of `length` rows) onto `kv` at pos, under the adapter `lora` when
+        given (moondream_tpu/models/moondream.py:1644-1674). Returns (the
+        last hidden state (D,), its greedy token (0-d), the position after
+        it)."""
         logits, hidden = engine.prefill(
             self.text, kv, embeds, pos, length, self.config.text.prefix_attn,
-            kv_bound=self._kv_bound(pos + embeds.shape[1]),
+            kv_bound=self._kv_bound(pos + embeds.shape[1]), lora=lora,
         )
         return hidden, torch.argmax(logits, dim=-1), pos + length
 
@@ -912,8 +1000,10 @@ class MoondreamModel:
         image and 10 over its mirror image ("flip_enc_img", or the image
         flipped left to right), all in one lockstep batch; fewer than 10
         detections give {"gaze": None}, else the mean of the detections
-        that survive the outlier filter."""
-        _refuse_unported(unstable_settings)
+        that survive the outlier filter. It runs no LoRA adapter, as the JAX
+        package's detect_gaze runs none, and refuses the variant settings
+        rather than drop them."""
+        _refuse_unported(unstable_settings, variants=True)
         unstable_settings = unstable_settings or {}
         force_detect = unstable_settings.get("force_detect", False)
         if not unstable_settings.get("prioritize_accuracy", False):

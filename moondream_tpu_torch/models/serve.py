@@ -1,5 +1,5 @@
 """ContinuousBatchingEngine: the host-side scheduler over the slot pool
-(moondream_tpu/models/serve.py, without LoRA variants).
+(moondream_tpu/models/serve.py, without per-slot LoRA variants).
 
 Requests with different images, prompts and lengths are admitted whenever
 a slot is free, prefilled one by one, and advanced together by fused
@@ -84,15 +84,14 @@ class PreparedRequest:
     n_objects: int = 0
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to moondream_tpu_torch yet (ROADMAP.md)"
-    )
-
-
-def _refuse_variant(variant: Optional[str]) -> None:
+def _refuse_variant(variant) -> None:
+    """The pool serves the base weights only until it takes per-slot LoRA
+    variants: a non-None `variant` (or `variants`) raises."""
     if variant is not None:
-        raise _not_ported("multi-variant (LoRA) serving")
+        raise NotImplementedError(
+            "multi-variant (LoRA) serving is not ported to moondream_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 5)"
+        )
 
 
 class ContinuousBatchingEngine:
@@ -146,8 +145,7 @@ class ContinuousBatchingEngine:
         first chunk (engine/graphs.py; `spec_adaptive` falls back to the
         plain chunk's graph); `graphed=False` runs them eagerly, for
         comparison."""
-        if variants:
-            raise _not_ported("multi-variant (LoRA) serving")
+        _refuse_variant(variants or None)
         tc = model.config.text
         if tc.n_kv_heads != tc.n_heads:
             raise ValueError(
@@ -500,15 +498,13 @@ class ContinuousBatchingEngine:
         """Admit a detect request (boxes of `object`) into the pool beside
         text requests; its result is {"objects": [{x_min, y_min, x_max,
         y_max}, ...]}, as `MoondreamModel.detect` gives."""
-        _refuse_variant(variant)
-        return self._submit_structured(image, object, "detect", True, max_objects)
+        return self._submit_structured(image, object, "detect", True, max_objects, variant)
 
     def submit_point(self, image, object: str, max_objects: Optional[int] = None,
                      variant: Optional[str] = None) -> int:
         """Admit a point request; its result is {"points": [{x, y}, ...]}, as
         `MoondreamModel.point` gives."""
-        _refuse_variant(variant)
-        return self._submit_structured(image, object, "point", False, max_objects)
+        return self._submit_structured(image, object, "point", False, max_objects, variant)
 
     def submit_gaze(self, image, eye, force_detect: bool = False,
                     variant: Optional[str] = None) -> int:
@@ -519,11 +515,14 @@ class ContinuousBatchingEngine:
         _refuse_variant(variant)
         if not self.free_slots():
             raise RuntimeError("no free slot; step() or drain() first")
-        return self.admit_prepared(self.prepare_gaze(image, eye, force_detect))
+        return self.admit_prepared(self.prepare_gaze(image, eye, force_detect, variant))
 
-    def prepare_gaze(self, image, eye, force_detect: bool = False) -> PreparedRequest:
+    def prepare_gaze(self, image, eye, force_detect: bool = False,
+                     variant: Optional[str] = None) -> PreparedRequest:
         """Encode and prefill a gaze request without touching the pool (the
-        same contract as prepare())."""
+        same contract as prepare()). `variant` must be None until the pool
+        takes LoRA variants."""
+        _refuse_variant(variant)
         model = self.model
         enc = model.encode_image(image)
         embeds, length = model._gaze_embeds([tuple(eye)])
@@ -535,19 +534,23 @@ class ContinuousBatchingEngine:
                                structured="gaze", hidden=hidden, n_objects=1)
 
     def _submit_structured(self, image, object: str, template_key: str,
-                           include_size: bool, max_objects: Optional[int]) -> int:
+                           include_size: bool, max_objects: Optional[int],
+                           variant: Optional[str] = None) -> int:
+        _refuse_variant(variant)
         if not self.free_slots():
             raise RuntimeError("no free slot; step() or drain() first")
         return self.admit_prepared(self.prepare_structured(
-            image, object, template_key, include_size, max_objects))
+            image, object, template_key, include_size, max_objects, variant))
 
     def prepare_structured(self, image, object: str, template_key: str,
-                           include_size: bool,
-                           max_objects: Optional[int] = None) -> PreparedRequest:
+                           include_size: bool, max_objects: Optional[int] = None,
+                           variant: Optional[str] = None) -> PreparedRequest:
         """Encode and prefill a detect (`template_key` "detect", with
         sizes) or point request without touching the pool (the same
         contract as prepare()). Raises ValueError when `max_objects`
-        exceeds the pool's."""
+        exceeds the pool's; `variant` must be None until the pool takes
+        LoRA variants."""
+        _refuse_variant(variant)
         n_obj = self.max_objects if max_objects is None else int(max_objects)
         if n_obj > self.max_objects:
             raise ValueError(

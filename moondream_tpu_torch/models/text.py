@@ -15,6 +15,14 @@ fc1 and fc2 are `Int4Linear`s; with int8 w8a8 weights
 (`quantize_text_params_int8`) they are `ops.layers.Int8Linear`s
 (per-output-channel codes, activations quantized per row at run time).
 wte, lm_head, norms and biases stay dense either way.
+
+A LoRA adapter (`lora.variant_state_dict`'s stacked layout, `lora=` of
+`text_decoder` and `produce_hidden`) adds (x @ A^T) @ B^T at qkv, proj,
+fc1 and fc2 of every block, on every weight format: the delta in fp32,
+rounded to the activation dtype, added to the linear's rounded output
+(moondream_tpu/models/text.py:194-198, :324-331, :411-416, :484-505). The
+proj adapter reads the block's input (the LayerNorm output), not the
+attention output.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from torch import nn
 
 from ..config import TextConfig
 from ..ops.attention import decode_attention, decode_attention_cached, flash_attention
-from ..ops.layers import _INV127, MLP, Int8Linear, LayerNorm, Linear, sdpa
+from ..ops.layers import _INV127, MLP, Int8Linear, LayerNorm, Linear, lora_add, lora_linear, sdpa
 from ..ops.quant import quantize_weight_torch, quantized_matmul
 from ..ops.rope import apply_rotary_emb, precompute_freqs_cis
 
@@ -254,6 +262,27 @@ def write_rows(cache: torch.Tensor, layer: int, rows: torch.Tensor,
     )
 
 
+# The adapter's sites: (group, name) in the stacked tree's layout.
+LORA_SITES = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2"))
+
+
+def layer_adapters(lora: Optional[dict], n_layers: int) -> list:
+    """Per layer, the adapter's pairs {name: {"A": (r, in), "B": (out, r)}}
+    of a stacked tree (A (L, r, in), B (L, out, r); a group or site may be
+    absent, as in `lora.merge_variant`'s residual), or None for every layer
+    without an adapter. The factors are cast to fp32 once per forward, not
+    once per layer and site; each layer's pair is a view of that copy."""
+    if lora is None:
+        return [None] * n_layers
+    sites = {}
+    for grp, name in LORA_SITES:
+        pair = (lora.get(grp) or {}).get(name)
+        if pair is not None:
+            sites[name] = (pair["A"].float(), pair["B"].float())
+    return [{name: {"A": a[layer], "B": b[layer]} for name, (a, b) in sites.items()}
+            for layer in range(n_layers)]
+
+
 def attn_with_cache(
     x: torch.Tensor,
     block: TextBlock,
@@ -264,6 +293,7 @@ def attn_with_cache(
     prefix_len: int,
     config: TextConfig,
     kv_bound: Optional[int] = None,
+    lora: Optional[dict] = None,
 ) -> torch.Tensor:
     """One attention layer reading and updating the stacked cache.
 
@@ -284,10 +314,12 @@ def attn_with_cache(
         [0, kv_bound) span and goes to the single-layer decode attention;
       * longer spans (and GQA spans) read cache[layer][:, :, :kv_bound],
         dequantized for int8, with KV heads repeated under GQA, and go to
-        flash attention."""
+        flash attention.
+    `lora`: this layer's adapter pairs (`layer_adapters`), or None."""
     bsz, q_len, _ = x.shape
     mha = config.n_kv_heads == config.n_heads
-    q, k, v = _split_qkv(block.qkv(x), config)
+    lora = lora or {}
+    q, k, v = _split_qkv(lora_linear(x, block.qkv, lora.get("qkv")), config)
     on_device = isinstance(pos, torch.Tensor)
     write_ids = None
     if on_device and q_len == 1:
@@ -350,7 +382,9 @@ def attn_with_cache(
                 k_l = k_l.repeat_interleave(rep, dim=1)
                 v_l = v_l.repeat_interleave(rep, dim=1)
             out = flash_attention(q, k_l, v_l, pos, prefix_len)
-    return block.proj(out.transpose(1, 2).reshape(bsz, q_len, config.dim))
+    out = block.proj(out.transpose(1, 2).reshape(bsz, q_len, config.dim))
+    # the proj adapter reads the block input x, not the attention output
+    return lora_add(out, x, lora.get("proj"))
 
 
 def text_decoder(
@@ -360,19 +394,22 @@ def text_decoder(
     pos: Union[int, torch.Tensor],
     prefix_len: int,
     kv_bound: Optional[int] = None,
+    lora: Optional[dict] = None,
 ) -> torch.Tensor:
     """Run every block over x (B, T, D) at positions pos.., writing the cache
     in place; returns the final hidden states (B, T, D). `pos`: a host int,
     or a (B,) int32 device tensor for one decode token or an MHA span of
-    up to 16 rows (attn_with_cache)."""
+    up to 16 rows (attn_with_cache). `lora`: a stacked adapter tree
+    (`lora.variant_state_dict`), layer l's factors applied in block l."""
     config = model.config
+    adapters = layer_adapters(lora, len(model.blocks))
     for layer, block in enumerate(model.blocks):
         ln_in = block.ln(x)
         attn_out = attn_with_cache(
             ln_in, block, model.freqs_cis, kv, layer, pos, prefix_len, config,
-            kv_bound,
+            kv_bound, adapters[layer],
         )
-        x = x + attn_out + block.mlp(ln_in)
+        x = x + attn_out + block.mlp(ln_in, adapters[layer])
     return x
 
 
@@ -405,13 +442,15 @@ def _require_dense(model: TextModel, op: str) -> None:
 
 def attn_uncached(
     x: torch.Tensor, block: TextBlock, freqs_cis: torch.Tensor,
-    attn_mask: torch.Tensor, config: TextConfig,
+    attn_mask: torch.Tensor, config: TextConfig, lora: Optional[dict] = None,
 ) -> torch.Tensor:
     """Cache-free attention of the training path at positions 0..T-1
     (moondream_tpu/models/text.py:420-450), through the plain `sdpa`; under
-    GQA each KV head is repeated for its query heads. Differentiable."""
+    GQA each KV head is repeated for its query heads. Differentiable.
+    `lora`: this layer's qkv and proj adapter pairs, or None."""
     bsz, q_len, _ = x.shape
-    q, k, v = _split_qkv(block.qkv(x), config)
+    lora = lora or {}
+    q, k, v = _split_qkv(lora_linear(x, block.qkv, lora.get("qkv")), config)
     position_ids = torch.arange(q_len, device=x.device)
     q = apply_rotary_emb(q, freqs_cis, position_ids, config.rope_dim)
     k = apply_rotary_emb(k, freqs_cis, position_ids, config.rope_dim)
@@ -420,28 +459,34 @@ def attn_uncached(
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
     out = sdpa(q, k, v, attn_mask)
-    return block.proj(out.transpose(1, 2).reshape(bsz, q_len, config.dim))
+    out = block.proj(out.transpose(1, 2).reshape(bsz, q_len, config.dim))
+    return lora_add(out, x, lora.get("proj"))
 
 
-def _uncached_blocks(inputs_embeds: torch.Tensor, model: TextModel):
+def _uncached_blocks(inputs_embeds: torch.Tensor, model: TextModel,
+                     lora: Optional[dict] = None):
     """The residual stream after each block of the cache-free forward."""
     config = model.config
     mask = prefix_attn_mask(inputs_embeds.shape[1], config.prefix_attn, inputs_embeds.device)
+    adapters = layer_adapters(lora, len(model.blocks))
     h = inputs_embeds
-    for block in model.blocks:
+    for block, ad in zip(model.blocks, adapters):
         ln_in = block.ln(h)
-        h = h + attn_uncached(ln_in, block, model.freqs_cis, mask, config) + block.mlp(ln_in)
+        h = (h + attn_uncached(ln_in, block, model.freqs_cis, mask, config, ad)
+             + block.mlp(ln_in, ad))
         yield h
 
 
-def produce_hidden(inputs_embeds: torch.Tensor, model: TextModel) -> torch.Tensor:
+def produce_hidden(inputs_embeds: torch.Tensor, model: TextModel,
+                   lora: Optional[dict] = None) -> torch.Tensor:
     """Full-sequence cache-free forward for training, (B, T, D) -> (B, T, D)
     (moondream_tpu/models/text.py:539-564): every block under
-    prefix_attn_mask(T, config.prefix_attn). Differentiable by autograd;
+    prefix_attn_mask(T, config.prefix_attn), with an optional stacked
+    adapter tree at qkv, proj, fc1 and fc2. Differentiable by autograd;
     raises ValueError for int4 or int8 text blocks."""
     _require_dense(model, "produce_hidden")
     h = inputs_embeds
-    for h in _uncached_blocks(inputs_embeds, model):
+    for h in _uncached_blocks(inputs_embeds, model, lora):
         pass
     return h
 

@@ -1,6 +1,6 @@
-"""Primitive layers: linear, layer norm, tanh-GELU, MLP and the ViT
-attention body (moondream_tpu/ops/layers.py:25-185), and the int8 w8a8
-linear (`Int8Linear`, moondream_tpu/ops/layers.py:30-75).
+"""Primitive layers: linear, layer norm, tanh-GELU, the LoRA delta, MLP
+and the ViT attention body (moondream_tpu/ops/layers.py:25-185), and the
+int8 w8a8 linear (`Int8Linear`, moondream_tpu/ops/layers.py:30-75).
 
 Weights keep the JAX package's (in, out) layout, so activations multiply as
 `x @ w`. Matrix products accumulate in fp32 and return the input dtype;
@@ -66,6 +66,31 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias)
 
 
+def lora_delta(x: torch.Tensor, pair: dict) -> torch.Tensor:
+    """The low-rank residual (x @ A^T) @ B^T in fp32
+    (moondream_tpu/ops/layers.py:78-85): A (r, in) and B (out, r) in
+    torch's (out, in) layout. Both products run in fp32 on fp32 copies of
+    x and the factors (a bf16 value is exact in fp32; TF32 must stay off),
+    as XLA's dots with fp32 accumulation do; the result stays fp32."""
+    a = torch.matmul(x.float(), pair["A"].float().t())
+    return torch.matmul(a, pair["B"].float().t())
+
+
+def lora_add(y: torch.Tensor, x: torch.Tensor, pair: Optional[dict]) -> torch.Tensor:
+    """y + lora_delta(x, pair) rounded to y's dtype first, as the JAX
+    package adds it to a linear's rounded output; y itself without a pair."""
+    if pair is None:
+        return y
+    return y + lora_delta(x, pair).to(y.dtype)
+
+
+def lora_linear(x: torch.Tensor, lin: nn.Module, pair: Optional[dict]) -> torch.Tensor:
+    """A linear (dense, int4 or int8: its output rounded, bias included)
+    plus an optional adapter on the same input
+    (moondream_tpu/ops/layers.py:88-93)."""
+    return lora_add(lin(x), x, pair)
+
+
 class MLP(nn.Module):
     """fc1 -> tanh-GELU -> fc2."""
 
@@ -74,8 +99,13 @@ class MLP(nn.Module):
         self.fc1 = Linear(dim, hidden, device, dtype)
         self.fc2 = Linear(hidden, out, device, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_approx(self.fc1(x)))
+    def forward(self, x: torch.Tensor, lora: Optional[dict] = None) -> torch.Tensor:
+        """`lora`: optional {"fc1": pair, "fc2": pair} adapters (either may be
+        absent): fc1's reads x, fc2's the GELU output
+        (moondream_tpu/ops/layers.py:106-117)."""
+        lora = lora or {}
+        h = lora_linear(x, self.fc1, lora.get("fc1"))
+        return lora_linear(gelu_approx(h), self.fc2, lora.get("fc2"))
 
 
 def sdpa(

@@ -290,6 +290,24 @@ def params_to_jax(params: nn.ModuleDict) -> dict:
 # ------------------------------------------------------------- checkpoints
 
 
+def lora_from_jax(tree: dict, device=None, dtype=torch.float32) -> dict:
+    """A JAX stacked adapter tree (`moondream_tpu.lora.variant_state_dict`'s
+    layout; leaves numpy or jax arrays) as the port's: the same nesting,
+    each leaf a tensor of `dtype` on `device` (through fp32, so a bf16 leaf
+    keeps its value). Groups or sites that are absent stay absent."""
+    return {grp: {name: {f: torch.from_numpy(np.array(pair[f], dtype=np.float32))
+                         .to(device=device, dtype=dtype) for f in ("A", "B")}
+                  for name, pair in sites.items()}
+            for grp, sites in tree.items()}
+
+
+def lora_to_jax(lora: dict) -> dict:
+    """The inverse of lora_from_jax: every leaf as fp32 numpy."""
+    return {grp: {name: {f: _np32(pair[f]) for f in ("A", "B")}
+                  for name, pair in sites.items()}
+            for grp, sites in lora.items()}
+
+
 def dequantize_int4(
     packed: np.ndarray, scale: np.ndarray, zero_point: np.ndarray, out_shape
 ) -> np.ndarray:
