@@ -99,7 +99,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (torch.profiler) are printed, and one detect and one BatchPipeline
      run; the int4 + kv_int8 and the int8 w8a8 models caption under it,
      graphed equal to eager (W4A16 and the w8a8 kernels on the adapter's
-     route);
+     route); multi-variant pools ("4 2B variant pools"): base rows beside
+     rows of a rank-16 and a rank-8 adapter in one graphed pool on each
+     of the three models, exact launches, every row against the
+     single-stream greedy ids under its variant's factors as the pool
+     holds them (the logit-margin rule) and its first-forward logits
+     bit for bit the pool's forward with every row through its vid and
+     nearest batch-1's step under its own adapter;
+     on the bf16 model also graphed == eager, chunks under the sync error
+     mode, a zero-B pool bit for bit the base pool, a speculative variant
+     pool, and the base and variant pools' ms per chunk, tok/s and device
+     launches per chunk in turns;
      then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
@@ -158,6 +168,7 @@ from moondream_tpu_torch.engine.generate import (  # noqa: E402
     reset_loop_counts,
 )
 from moondream_tpu_torch.engine import graphs  # noqa: E402
+from moondream_tpu_torch.engine import serving as serving_engine  # noqa: E402
 from moondream_tpu_torch.finetune import finetune_region, finetune_text  # noqa: E402
 from moondream_tpu_torch.finetune import trainer as finetune_trainer  # noqa: E402
 from moondream_tpu_torch.finetune.optim import named_leaves, trainable  # noqa: E402
@@ -180,6 +191,7 @@ from moondream_tpu_torch.models.text import (  # noqa: E402
     Int4Linear,
     KVCache,
     dequantize_kv,
+    layer_adapters,
     produce_hidden,
     quantize_kv,
     quantize_text_params,
@@ -1707,19 +1719,35 @@ POOL_REQUESTS = [(0, None), (1, None), (2, POOL_QUESTION), (0, POOL_QUESTION),
 POOL_TOKENS = 48
 
 
-def _pool_run(model, images, kind: dict, sync_check: bool = False) -> dict:
+def _variant_settings(trees, name):
+    """The encode settings of a pool request under variant `name`."""
+    return None if name is None else {"variant_tree": trees[name], "variant_label": name}
+
+
+def _pool_run(model, images, kind: dict, sync_check: bool = False, variants=None,
+              rows=None) -> dict:
     """Encode the images, then serve POOL_REQUESTS through one pool: four
     admitted at once, the other four one per step, then drain. Returns the
     results with counts and timings. With `sync_check`, two chunks are
     dispatched under torch.cuda.set_sync_debug_mode("error") right after
     the first four admissions (in a graphed pool the first captures the
-    chunk's CUDA graph and the second replays it)."""
+    chunk's CUDA graph and the second replays it). `variants` ({name:
+    adapter tree}) and `rows` (a variant name or None per request): a
+    multi-variant pool, each request encoded and served under its own
+    variant; one encode per (image, variant) ("encs_by": that dict,
+    "encs": the base encodes by image)."""
+    rows = rows or [None] * len(POOL_REQUESTS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    encs = [model.encode_image(im) for im in images]
+    encs_by = {}
+    for (img, _), name in zip(POOL_REQUESTS, rows):
+        if (img, name) not in encs_by:
+            encs_by[img, name] = model.encode_image(images[img],
+                                                    settings=_variant_settings(variants, name))
+    encs = [encs_by.get((i, None)) for i in range(len(images))]
     encode_ms = sync_ms(t0)
     eng = ContinuousBatchingEngine(model, n_slots=8, slot_len=1024, chunk=8,
-                                   eos_id=-1, **kind)
+                                   eos_id=-1, variants=variants, **kind)
     chunks, step_ms, admit_ms = [0], [], []
     dispatch = eng._dispatch_chunk
 
@@ -1732,7 +1760,8 @@ def _pool_run(model, images, kind: dict, sync_check: bool = False) -> dict:
     def submit(i):
         img, question = POOL_REQUESTS[i]
         t0 = time.perf_counter()
-        rid = eng.submit(encs[img], question=question, max_tokens=POOL_TOKENS)
+        rid = eng.submit(encs_by[img, rows[i]], question=question, max_tokens=POOL_TOKENS,
+                         variant=rows[i])
         admit_ms.append(sync_ms(t0))
         return rid
 
@@ -1764,7 +1793,8 @@ def _pool_run(model, images, kind: dict, sync_check: bool = False) -> dict:
     slots_bytes = nbytes(eng.kv)
     pref_bytes = nbytes(eng.kv_pref) if eng.prefix_share else 0
     return {"out": out, "chunks": chunks[0], "entries": entries, "encode_ms": encode_ms,
-            "step_ms": step_ms, "admit_ms": admit_ms, "encs": encs, "engine": eng,
+            "step_ms": step_ms, "admit_ms": admit_ms, "encs": encs, "encs_by": encs_by,
+            "engine": eng,
             "cache_bytes": slots_bytes + pref_bytes,
             "plain_bytes": slots_bytes * eng.slot_len // eng.kv.k.shape[3]}
 
@@ -1835,20 +1865,23 @@ def phase_pool(model, images, power: str, label: str, **kind) -> dict:
 
 
 def first_difference_margin(model, enc, prompt, single, other, n, max_tokens,
-                            slots=None) -> tuple:
+                            slots=None, lora=None, decode_lora=None) -> tuple:
     """Batch-1 greedy ids `single` and another run's `other` first differ
-    at token n: step batch-1 again up to token n and return its logit
-    margin there (its pick minus the other's; EOS past a row's end) and
-    that margin in bf16 steps (ulps) of its pick's logit. A near tie is a
-    few steps; a run that read the wrong weights or cache is far more."""
+    at token n: step batch-1 again up to token n (the prompt under the
+    adapter `lora` when given, the decode steps under `decode_lora`, by
+    default `lora`) and return its logit margin there (its pick minus the
+    other's; EOS past a row's end) and that margin in bf16 steps (ulps) of
+    its pick's logit. A near tie is a few steps; a run that read the wrong
+    weights or cache is far more."""
     eos = model.config.tokenizer.eos_id
     pick = lambda r: r[n] if n < len(r) else eos
+    decode_lora = lora if decode_lora is None else decode_lora
     logits, _, _, pos, kv = model._prefill_prompt(
-        model.load_encoded_image(enc, slots=slots), prompt, enc.pos, 0.0, 0.0)
+        model.load_encoded_image(enc, slots=slots), prompt, enc.pos, 0.0, 0.0, lora=lora)
     bound = model._decode_bound(pos + max_tokens + 1)
     for i in range(n):
         emb = text_encoder(torch.tensor([[single[i]]], device=DEV), model.text)
-        logits = decode_step(model.text, kv, emb, pos + i, bound)[0]
+        logits = decode_step(model.text, kv, emb, pos + i, bound, decode_lora)[0]
     logits = logits.reshape(-1).float()
     model._recycle_kv(kv)
     margin = (logits[pick(single)] - logits[pick(other)]).item()
@@ -2141,15 +2174,18 @@ def _first_diff(a: list, b: list) -> int:
                 len(a) if len(a) == len(b) else min(len(a), len(b)))
 
 
-def _check_margin(label: str, model, enc, prompt, single, other, max_tokens, slots=None):
-    """None where `other` equals batch-1 greedy `single`; else batch-1's
-    logit margin at the first difference as (margin, bf16 steps). Raises
-    above 8 bf16 steps: a near tie is a few, a wrong accepted draft or a
-    span mask off by one far more."""
+def _check_margin(label: str, model, enc, prompt, single, other, max_tokens, slots=None,
+                  lora=None, decode_lora=None):
+    """None where `other` equals batch-1 greedy `single` (under the adapters
+    `lora` / `decode_lora` of `first_difference_margin` when given); else
+    batch-1's logit margin at the first difference as (margin, bf16 steps).
+    Raises above 8 bf16 steps: a near tie is a few, a wrong accepted draft
+    or a span mask off by one far more."""
     n = _first_diff(single, other)
     if n == len(single) == len(other):
         return None
-    m = first_difference_margin(model, enc, prompt, single, other, n, max_tokens, slots)
+    m = first_difference_margin(model, enc, prompt, single, other, n, max_tokens, slots, lora,
+                                decode_lora)
     if abs(m[1]) > 8:
         raise AssertionError(f"{label}: ids differ from batch-1 greedy at token {n} with a "
                              f"logit margin of {m[1]} bf16 steps")
@@ -2235,20 +2271,30 @@ def phase_spec(model, enc, power: str) -> list:
     return runs
 
 
-def _batch1_refs(model, encs, requests, max_tokens, eos_id=-1) -> list:
-    """Batch-1 greedy ids of (image, question) requests on their encodes,
-    in slots of 1024 as a pool's, with their prompts."""
+def _prompt_of(model, question) -> list:
+    """A pool request's prompt: the caption template, or a query's."""
     tmpl = model.config.tokenizer.templates
+    return (list(tmpl["caption"]["normal"]) if question is None else
+            list(tmpl["query"]["prefix"]) + model._encode_text(question)
+            + list(tmpl["query"]["suffix"]))
+
+
+def _batch1_refs(model, encs, requests, max_tokens, eos_id=-1, loras=None,
+                 decode_loras=None) -> list:
+    """Batch-1 greedy ids of (image, question) requests on their encodes,
+    in slots of 1024 as a pool's, with their prompts; request i's prompt
+    under the adapter loras[i] when given (its encode made under it), its
+    decode steps under decode_loras[i] (default: loras[i])."""
     out = []
-    for img, question in requests:
-        enc = encs[img]
-        prompt = (list(tmpl["caption"]["normal"]) if question is None else
-                  list(tmpl["query"]["prefix"]) + model._encode_text(question)
-                  + list(tmpl["query"]["suffix"]))
+    for i, (img, question) in enumerate(requests):
+        enc, lora = encs[img], None if loras is None else loras[i]
+        dec = lora if decode_loras is None else decode_loras[i]
+        prompt = _prompt_of(model, question)
         _, _, first, pos, kv = model._prefill_prompt(
-            model.load_encoded_image(enc, slots=1024), prompt, enc.pos, 0.0, 0.0)
+            model.load_encoded_image(enc, slots=1024), prompt, enc.pos, 0.0, 0.0, lora=lora)
         ids = model._generate_answer_tokens(
-            kv, first, pos, {"temperature": 0.0, "max_tokens": max_tokens}, eos_id=eos_id)
+            kv, first, pos, {"temperature": 0.0, "max_tokens": max_tokens}, eos_id=eos_id,
+            lora=dec)
         model._recycle_kv(kv)
         out.append((enc, prompt, ids))
     return out
@@ -3198,6 +3244,7 @@ def phase_int4_pooled_pipeline(model, images, power: str) -> list:
 # --------------------------------------------------------------- variants
 
 VARIANT_RANK = 16  # the 2B adapters' rank
+VARIANT_POOL_RANK = 8  # the variant pools' second adapter's rank
 
 
 def write_adapter(path: str, cfg, rank: int, b_scale: float, seed: int) -> str:
@@ -3220,6 +3267,15 @@ def write_adapter(path: str, cfg, rank: int, b_scale: float, seed: int) -> str:
             state[f"{key}.B"] = bf(rng.standard_normal((fout, rank)) * b_scale)
     torch.save(state, path)
     return path
+
+
+def variant_adapters(folder: str) -> dict:
+    """The 2B adapters of the variant phases, written into `folder`: "zero"
+    (rank 16, B = 0), "real" (rank 16) and "real8" (rank 8)."""
+    return {name: write_adapter(f"{folder}/2b-{name}.pt", MOONDREAM_2B, rank, scale, seed)
+            for name, rank, scale, seed in (("zero", VARIANT_RANK, 0.0, SEED + 5),
+                                            ("real", VARIANT_RANK, 0.02, SEED + 5),
+                                            ("real8", VARIANT_POOL_RANK, 0.02, SEED + 6))}
 
 
 def _device_launches(fn):
@@ -3421,6 +3477,255 @@ def phase_variant_caption(model, img, power: str, adapters: dict) -> list:
     print(f"2B variants ({label}) on {power}: caption under the adapter, {n} tokens, graphed "
           f"{ms[True]:.1f} ms, eager {ms[False]:.1f} ms, ids equal")
     return [dict(LAUNCHES)]
+
+
+# each POOL_REQUESTS row's variant in the variant pools: base rows beside
+# rows of the rank-16 ("r16") and rank-8 ("r8") adapters, an image under
+# two variants and the base
+VARIANT_ROWS = [None, "r16", "r8", None, "r16", "r8", "r16", None]
+# a pooled row's first-forward logits may stray from batch-1's step under
+# its own adapter by at most this share of the distance from that step to
+# the nearest other adapter's (base included) at the same token: the row
+# lies nearer its own adapter's step than any other's, by a factor 2
+VARIANT_LOGIT_RATIO = 0.5
+
+
+def _pool_view(loras: dict, vid: int):
+    """Variant `vid`'s factors as a pool's chunks hold them: its slice of
+    the stacked tree (leaves (L, r_max, d), ranks zero-padded to the
+    pool's widest); None for the base (vid 0)."""
+    if vid == 0:
+        return None
+    return {grp: {site: {f: t[:, vid] for f, t in pair.items()} for site, pair in sites.items()}
+            for grp, sites in loras.items()}
+
+
+def _variant_first_logits(model, variants: dict, trees: dict, encs_by: dict, kind: dict,
+                          label: str) -> str:
+    """Each row's own adapter in a pool's chunk, read at the logits: an eager
+    pool of the 8 POOL_REQUESTS under VARIANT_ROWS (`kind`: {} or
+    speculative) records the fp32 logits of its first chunk's first forward
+    (position 0 of each verify span in a speculative pool), and the same
+    forward from the same cache with every row through one vid, for each
+    vid (run before the chunk's own). Raises unless every row equals, bit
+    for bit, the forward with every row through its own vid (a row reads
+    only its own factors; the products reduce alike) and differs from it
+    under every other vid. Then each row's batch-1 step at the same token
+    and position (its prompt prefilled under its own adapter, as `prepare`
+    does) under every vid's factors as the pool holds them (`_pool_view`):
+    raises where a row is farther from its own vid's step than
+    VARIANT_LOGIT_RATIO of the distance from that step to the nearest
+    other vid's (batch-1 reduces in another order, so this one is a
+    distance). Returns a summary, with each rank-8 row's distance from its
+    step under the unpadded adapter beside it."""
+    eng = ContinuousBatchingEngine(model, n_slots=8, slot_len=1024, chunk=8, eos_id=-1,
+                                   variants=variants, graphed=False, **kind)
+    for (img, q), v in zip(POOL_REQUESTS, VARIANT_ROWS):
+        eng.submit(encs_by[img, v], question=q, max_tokens=POOL_TOKENS, variant=v)
+    name = "ragged_verify_step" if kind.get("speculative") else "ragged_decode_step"
+    inner, seen, uniform = getattr(serving_engine, name), [], {}
+    vids, n_layers = [0] + sorted(eng._vid_of.values()), len(model.text.blocks)
+    take = lambda out: (out[0][:, 0] if isinstance(out, tuple) else out).float().clone()
+
+    def first_forward(*args, **kwargs):
+        if not seen:  # the chunk passes its per-layer adapters last
+            for vid in vids:
+                one = layer_adapters(eng._loras, n_layers, torch.full_like(eng.vid, vid))
+                uniform[vid] = take(inner(*args[:-1], one, **kwargs))
+        out = inner(*args, **kwargs)
+        if not seen:
+            seen.append(take(out))
+        return out
+
+    cur, pos0 = eng.cur.tolist(), eng.pos.tolist()
+    setattr(serving_engine, name, first_forward)
+    try:
+        eng._dispatch_chunk()
+    finally:
+        setattr(serving_engine, name, inner)
+    pooled = seen[0]
+    errs, seps, unpadded = [], [], []
+    for i, ((img, q), v) in enumerate(zip(POOL_REQUESTS, VARIANT_ROWS)):
+        own = 0 if v is None else eng._vid_of[v]
+        if not torch.equal(pooled[i], uniform[own][i]) or any(
+                torch.equal(uniform[own][i], uniform[o][i]) for o in vids if o != own):
+            raise AssertionError(
+                f"variant pool ({label}) row {i} ({v or 'base'}): first-forward logits differ "
+                f"from the forward with every row through vid {own}, or equal another vid's")
+        enc = encs_by[img, v]
+        _, _, first, pos, kv = model._prefill_prompt(
+            model.load_encoded_image(enc, slots=1024), _prompt_of(model, q), enc.pos, 0.0, 0.0,
+            lora=trees.get(v))
+        if (int(first), pos) != (cur[i], pos0[i]):
+            raise AssertionError(f"variant pool ({label}) row {i}: admitted token / position "
+                                 f"{cur[i]} / {pos0[i]}, batch-1 {int(first)} / {pos}")
+        bound = model._decode_bound(pos + POOL_TOKENS + 1)
+        emb = text_encoder(torch.tensor([[int(first)]], device=DEV), model.text)
+
+        def step(lora):
+            return decode_step(model.text, kv, emb, pos, bound, lora)[0].reshape(-1).float()
+
+        by_vid = {vid: step(_pool_view(eng._loras, vid)) for vid in vids}
+        dist = lambda a, b: (a - b).abs().max().item()
+        errs.append(dist(pooled[i], by_vid[own]))
+        seps.append(min(dist(by_vid[own], by_vid[o]) for o in vids if o != own))
+        if v == "r8":
+            unpadded.append(dist(pooled[i], step(trees[v])))
+        model._recycle_kv(kv)
+        if not errs[-1] <= VARIANT_LOGIT_RATIO * seps[-1]:
+            raise AssertionError(
+                f"variant pool ({label}) row {i} ({v or 'base'}): first-forward logits "
+                f"{errs[-1]:.4g} from batch-1 under its own factors, the nearest other "
+                f"adapter {seps[-1]:.4g} (limit {VARIANT_LOGIT_RATIO} of it)")
+    ratio = max(e / s for e, s in zip(errs, seps))
+    return (f"first-forward logits: every row bit for bit the pool's forward with all rows "
+            f"through its vid and unequal under the others; vs batch-1 under each row's pool "
+            f"factors max |diff| per row {[round(e, 4) for e in errs]}, nearest other adapter "
+            f"{[round(x, 3) for x in seps]} (largest ratio {ratio:.4f}, limit "
+            f"{VARIANT_LOGIT_RATIO}); rank-8 rows vs their unpadded adapter "
+            f"{[round(e, 4) for e in unpadded]}")
+
+
+def phase_variant_pools(model, images, power: str, adapters: dict, full: bool = True) -> list:
+    """Multi-variant pools on a 2B model at full width and depth: the 8
+    POOL_REQUESTS (8 slots of 1024, chunk 8, eos -1, 48 tokens each) over
+    VARIANT_ROWS, base rows beside rows of the rank-16 adapter
+    `adapters["real"]` and the rank-8 `adapters["real8"]` in one graphed
+    pool. A counted run with exact launches (the adapters add cuBLAS
+    products, no kernel of the port); every row against the single-stream
+    greedy ids under its variant's factors as the pool holds them
+    (`_check_margin`'s rule: equal, or a first difference within 8 bf16
+    steps of batch-1's logit margin); every row's first-forward logits
+    (`_variant_first_logits`) bit for bit the pool's forward with all rows
+    through its vid, and nearest batch-1's step under its own adapter.
+    With `full` (the bf16 model): graphed equals eager; two chunks
+    dispatched under torch.cuda.set_sync_debug_mode("error") (a capture
+    and a replay); a pool whose every row runs the zero-B adapter
+    `adapters["zero"]` equals a pool without variants bit for bit; a
+    speculative variant pool (k 8) under both rules; the base and the
+    variant pool timed in turns (base, variant, variant, base: ms per
+    chunk, the median of the chunks after the capturing one, read-back
+    included, and the full pool's tok/s) and the device launches of one
+    replayed chunk of each (torch.profiler). Returns the counted runs'
+    launches."""
+    cfg, kinds = model.config, linear_kinds(model)
+    label = format_label(model)
+    L_txt, L_vit, kv8 = cfg.text.n_layers, cfg.vision.enc_n_layers, cfg.text.kv_int8
+    model.tokenizer = IdTokenizer()
+    trees = {name: model._variant({"variant": adapters[key]})
+             for name, key in (("r16", "real"), ("r8", "real8"), ("zero", "zero"))}
+    variants = {name: trees[name] for name in ("r16", "r8")}
+
+    def counted(kind, label_, rows=VARIANT_ROWS, vs=variants):
+        reset_launch_counts()
+        run = _pool_run(model, images, kind, variants=vs, rows=rows)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        spec = kind.get("speculative", 0)
+        n_enc, n_req = len(run["encs_by"]), len(POOL_REQUESTS)
+        want = {name: 0 for name in LAUNCHES}
+        want[K.FLASH] = n_enc * (L_vit + L_txt)  # each encode: ViT + image prefill
+        want[K.DECODE_INT8 if kv8 else K.DECODE] = n_req * L_txt  # prompts
+        want[K.RAGGED_INT8 if kv8 else K.RAGGED] = L_txt * 8 * -(-max(spec, 1) // 16) * run[
+            "chunks"]
+        if kinds["int4"]:  # the image prefills' 730 rows take a dense product
+            want[KQ.W4A16] = 4 * L_txt * (n_req + 8 * run["chunks"])
+        if kinds["int8"]:
+            want[KQ.W8A8] += 4 * L_txt * (n_enc + n_req + 8 * run["chunks"])
+        if kinds["int8_vit"]:
+            want[KQ.W8A8] += 4 * L_vit * n_enc
+        want[KQ.W8A8_QUANTIZE] = want[KQ.W8A8]
+        check_launches(f"variant pool {label_} ({label}), {run['chunks']} chunks", launches,
+                       want)
+        return run, launches
+
+    def against_single(run, label_):
+        """Each row against the single-stream greedy ids under its variant:
+        the prompt under its own adapter (as `prepare` runs it), the decode
+        steps under the pool's factors of its vid (`_pool_view`: a rank-8
+        adapter zero-padded to rank 16 reduces in the pool's shape)."""
+        encs = [run["encs_by"][img, name] for (img, _), name in zip(POOL_REQUESTS, VARIANT_ROWS)]
+        loras = [None if name is None else trees[name] for name in VARIANT_ROWS]
+        vid_of = run["engine"]._vid_of
+        views = [_pool_view(run["engine"]._loras, 0 if name is None else vid_of[name])
+                 for name in VARIANT_ROWS]
+        requests = [(i, q) for i, (_, q) in enumerate(POOL_REQUESTS)]
+        by_index = {i: e for i, e in enumerate(encs)}
+        refs = _batch1_refs(model, by_index, requests, POOL_TOKENS, loras=loras,
+                            decode_loras=views)
+        return [_check_margin(f"variant pool {label_} ({label}) request {i}", model, enc,
+                              prompt, ids, got, POOL_TOKENS, slots=1024, lora=loras[i],
+                              decode_lora=views[i])
+                for i, ((enc, prompt, ids), got) in enumerate(zip(refs, run["out"]))]
+
+    def differs(diffs):
+        return "".join(f"; request {i} ({VARIANT_ROWS[i] or 'base'}) first differs at token "
+                       f"{d[0]} ({d[1][1]} bf16 steps)" for i, d in enumerate(diffs) if d)
+
+    run, launches = counted({}, "graphed")
+    runs = [launches]
+    diffs = against_single(run, "graphed")
+    logits = _variant_first_logits(model, variants, trees, run["encs_by"], {}, label)
+    print(f"2B variant pool ({label}, ranks {VARIANT_RANK} and {VARIANT_POOL_RANK}, rows "
+          f"{[name or 'base' for name in VARIANT_ROWS]}) on {power}: {run['chunks']} chunks, "
+          f"exact launches; vs single-stream greedy under each row's pool factors: "
+          f"{sum(d is None for d in diffs)} of {len(diffs)} requests equal" + differs(diffs)
+          + f"; {logits}")
+    if not full:
+        return runs
+
+    eager = _pool_run(model, images, {"graphed": False}, variants=variants, rows=VARIANT_ROWS)
+    checked = _pool_run(model, images, {}, sync_check=True, variants=variants,
+                        rows=VARIANT_ROWS)
+    if eager["out"] != run["out"] or checked["out"] != run["out"]:
+        raise AssertionError(f"variant pool ({label}): graphed ids differ from eager, or "
+                             "between runs")
+    zero = _pool_run(model, images, {}, variants={"zero": trees["zero"]},
+                     rows=["zero"] * len(POOL_REQUESTS))
+    timed = {"base": [_pool_run(model, images, {})], "variant": [run]}
+    base_out = timed["base"][0]["out"]
+    if zero["out"] != base_out:
+        raise AssertionError(f"zero-B variant pool ({label}): ids differ from the base pool's")
+    # base rows as the base pool's; each adapter changes some row's ids
+    same = [a == b for a, b in zip(run["out"], base_out)]
+    moved = {name for name, eq in zip(VARIANT_ROWS, same) if not eq}
+    if not all(eq for eq, name in zip(same, VARIANT_ROWS) if name is None) or moved != set(
+            variants):
+        raise AssertionError(f"variant pool ({label}): rows equal to the base pool's {same}")
+    spec, spec_launches = counted({"speculative": SPEC_K}, f"spec k {SPEC_K}")
+    runs.append(spec_launches)
+    spec_diffs = against_single(spec, f"spec k {SPEC_K}")
+    spec_logits = _variant_first_logits(model, variants, trees, spec["encs_by"],
+                                        {"speculative": SPEC_K}, f"{label}, spec k {SPEC_K}")
+
+    # timed in turns: variant (the counted run), base, variant, base
+    timed["variant"].append(_pool_run(model, images, {}, variants=variants, rows=VARIANT_ROWS))
+    timed["base"].append(_pool_run(model, images, {}))
+    chunk_ms = {name: statistics.median([statistics.median(r["step_ms"][1:]) for r in rs])
+                for name, rs in timed.items()}
+    per_chunk = {}
+    for name, vs in (("base", None), ("variant", variants)):
+        eng = timed[name][-1]["engine"]  # its chunk graph is captured
+        encs = timed[name][-1]["encs_by"]
+        rows = VARIANT_ROWS if vs else [None] * len(POOL_REQUESTS)
+        for (img, q), v in zip(POOL_REQUESTS, rows):
+            eng.submit(encs[img, v], question=q, max_tokens=POOL_TOKENS, variant=v)
+        eng.step()
+        per_chunk[name] = _device_launches(eng.step)[1]
+        eng.drain()
+    print(f"2B variant pools ({label}) on {power}: graphed == eager ids; two chunks under sync "
+          f"debug mode; zero-B pool == base pool bit for bit; rows equal to the base pool's "
+          f"{same}; "
+          f"spec k {SPEC_K} variant pool vs single-stream under the pool's factors: "
+          f"{sum(d is None for d in spec_diffs)} of {len(spec_diffs)} requests equal"
+          + differs(spec_diffs) + f" ({spec_logits}), accept rate "
+          f"{spec['engine'].spec_accept_rate:.3f}; "
+          f"in turns (variant, base, variant, base), ms per graphed chunk of 8 steps x 8 slots "
+          f"(median, read-back included): base {chunk_ms['base']:.3f} "
+          f"({64 / chunk_ms['base'] * 1e3:.1f} tok/s), variant {chunk_ms['variant']:.3f} "
+          f"({64 / chunk_ms['variant'] * 1e3:.1f} tok/s); device launches per replayed chunk "
+          f"(torch.profiler): base {per_chunk['base']}, variant {per_chunk['variant']}")
+    return runs
 
 
 # ------------------------------------------------------------- finetuning
@@ -3753,10 +4058,9 @@ def main() -> None:
     runs += phase("4 2B bf16 mixed pools", phase_mixed_pools, model, images, power)
     phase("4 2B bf16 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
           power)
-    adapters = {name: write_adapter(f"{adapter_dir.name}/2b-{name}.pt", MOONDREAM_2B,
-                                    VARIANT_RANK, scale, SEED + 5)
-                for name, scale in (("zero", 0.0), ("real", 0.02))}
+    adapters = variant_adapters(adapter_dir.name)
     runs += phase("4 2B variants", phase_variants, model, img, images, power, adapters)
+    runs += phase("4 2B variant pools", phase_variant_pools, model, images, power, adapters)
     # 20 images of three sizes for the pipelines: 13, 2 and 7 crops
     pipe_images = [rng.integers(0, 256, shape, dtype=np.uint8)
                    for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 7][:20]
@@ -3776,6 +4080,8 @@ def main() -> None:
     runs += phase("4 2B int4", phase_int4_pooled_pipeline, model, batch_images, power)
     runs += phase("4 2B int4 speculative", phase_spec, model, enc, power)
     runs += phase("4 2B variants", phase_variant_caption, model, img, power, adapters)
+    runs += phase("4 2B variant pools", phase_variant_pools, model, images, power, adapters,
+                  full=False)
     phase("4 2B int4 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
           power, full=False)
     del model, enc
@@ -3786,6 +4092,8 @@ def main() -> None:
     runs += [*launches, phase("4 2B int8", phase_pool, model, images, power, "int8 plain")]
     runs += phase("4 2B int8 speculative", phase_spec, model, enc, power)
     runs += phase("4 2B variants", phase_variant_caption, model, img, power, adapters)
+    runs += phase("4 2B variant pools", phase_variant_pools, model, images, power, adapters,
+                  full=False)
     adapter_dir.cleanup()
     del model, enc, vits
     launches, model = phase("4 2B GQA", phase_main_path, img, power, MOONDREAM_2B_GQA)
@@ -3869,9 +4177,9 @@ def main() -> None:
 
 def main_variants() -> None:
     """The LoRA variant phases alone (`python3 chip_smoke.py --variants`):
-    the build, the tiny variant reference, then "4 2B variants" on fresh
-    2B models (bf16; int4 + kv_int8; int8 w8a8 text). Prints the card and
-    the phases' seconds; no kernels line."""
+    the build, the tiny variant reference, then "4 2B variants" and "4 2B
+    variant pools" on fresh 2B models (bf16; int4 + kv_int8; int8 w8a8
+    text). Prints the card and the phases' seconds; no kernels line."""
     power = card()
     print(power)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3888,11 +4196,12 @@ def main_variants() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase_small_reference(img, variant=write_adapter(f"{tmp}/tiny.pt", tiny_test_config(),
                                                          4, 0.5, SEED))
-        adapters = {name: write_adapter(f"{tmp}/2b-{name}.pt", MOONDREAM_2B, VARIANT_RANK,
-                                        scale, SEED + 5)
-                    for name, scale in (("zero", 0.0), ("real", 0.02))}
+        adapters = variant_adapters(tmp)
         model = MoondreamModel(MOONDREAM_2B, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
         phase_variants(model, img, images, power, adapters)
+        t1 = time.perf_counter()
+        phase_variant_pools(model, images, power, adapters)
+        pool_s = time.perf_counter() - t1
         del model
         kv8 = dataclasses.replace(MOONDREAM_2B, text=dataclasses.replace(
             MOONDREAM_2B.text, kv_int8=True))
@@ -3902,9 +4211,13 @@ def main_variants() -> None:
             quantize(params["text"])
             model = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
             phase_variant_caption(model, img, power, adapters)
+            t1 = time.perf_counter()
+            phase_variant_pools(model, images, power, adapters, full=False)
+            pool_s += time.perf_counter() - t1
             del model, params
     torch.cuda.synchronize()
-    seconds["4 2B variants"] = round(time.perf_counter() - t0, 1)
+    seconds["4 2B variants"] = round(time.perf_counter() - t0 - pool_s, 1)
+    seconds["4 2B variant pools"] = round(pool_s, 1)
     print("seconds per phase:", seconds)
 
 

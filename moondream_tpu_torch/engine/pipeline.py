@@ -275,8 +275,10 @@ class PooledPipeline:
 
     def run(self, images, question: Optional[str] = None, length: str = "normal",
             settings: Optional[Dict[str, Any]] = None) -> List[str]:
-        """Every image's text, in input order. LoRA variants are refused
-        until the pool takes them (ROADMAP.md Queue 1 item 5)."""
+        """Every image's text, in input order. The LoRA variant settings
+        are refused: the JAX package's PooledPipeline builds its pool
+        without variants and drops them (moondream_tpu/engine/pipeline.py:
+        332-336, :354-444), so there is no variant path to match."""
         _refuse_unported(settings, variants=True)
         eng = self.engine
         model = eng.model

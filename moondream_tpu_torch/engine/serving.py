@@ -1,5 +1,6 @@
 """Continuous batching: one decode forward for a pool of slots, each at its
-own position (moondream_tpu/engine/serving.py, without LoRA variants).
+own position, each row through its own LoRA variant
+(moondream_tpu/engine/serving.py).
 
 A fixed pool of KV slots; requests are prefilled one by one and copied
 into a free slot (`write_slot`); a chunk then advances every active slot:
@@ -14,6 +15,12 @@ C, per-row EOS and budgets. Five chunks:
     gaze) rows, which step a coordinate state machine one forward at a
     time through the region heads;
   * `serve_chunk_mixed_spec`: both at once, greedy.
+Every chunk takes `loras` (a variant-stacked adapter tree,
+`lora.stack_variant_pytrees`: variant 0 the all-zeros base) and `vids`
+(S,) int32, row s's variant: each row adds its own adapter's low-rank
+residual at qkv, proj, fc1 and fc2 of every forward. The factors of the
+rows are gathered and cast to fp32 once per chunk (`models.text.
+layer_adapters`), since vids does not change inside one.
 The chunk's state stays in device tensors for all its steps: no step reads
 anything back to the host (no `.item()`, no `nonzero`, no boolean-mask
 indexing; JAX's dropped out-of-range scatters write to a spare column
@@ -38,11 +45,13 @@ from ..models.text import (
     TextBlock,
     TextModel,
     _split_qkv,
+    layer_adapters,
     quantize_kv,
     text_encoder,
     write_rows,
 )
 from ..ops.attention import decode_attention_cached
+from ..ops.layers import lora_add, lora_linear
 from ..ops.rope import apply_rotary_emb
 from .batched import lm_logits_batched, sample_tokens_batched
 from .drafting import ngram_draft_rows
@@ -63,11 +72,13 @@ def _ragged_attn(
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     prefix_len: int = 0,
+    lora: Optional[dict] = None,
 ) -> torch.Tensor:
     """One attention layer of the pool (moondream_tpu/engine/serving.py:
     56-215). x (S, Tq, D): slot s's row i sits at position pos[s] + i
     (pos an int32 (S,) device tensor); its K/V land in the slot's cache at
-    that position, in place.
+    that position, in place. `lora`: this layer's per-row adapter pairs
+    (`layer_adapters(loras, L, vids)`), or None.
 
     Prefix-shared mode (`pref` + `pids` + `prefix_len`): `kv` holds SUFFIX
     segments (slot s's column j is position prefix_len + j, so writes land
@@ -80,7 +91,8 @@ def _ragged_attn(
     write starting past the cache's end is clamped back, as
     dynamic_update_slice clamps it in the JAX package."""
     bsz, q_len, _ = x.shape
-    q, k, v = _split_qkv(block.qkv(x), config)
+    lora = lora or {}
+    q, k, v = _split_qkv(lora_linear(x, block.qkv, lora.get("qkv")), config)
     steps = torch.arange(q_len, device=x.device)
     position_ids = pos.long()[:, None] + steps  # (S, Tq)
     # rows past the RoPE table are idle slots' (JAX's gather clamps them)
@@ -109,7 +121,10 @@ def _ragged_attn(
         q, kv.k, kv.v, layer, pos, 0, kv_bound, kv.ks, kv.vs, *segment, pids,
         prefix_len,
     )
-    return block.proj(out.transpose(1, 2).reshape(bsz, q_len, config.dim))
+    out = block.proj(out.transpose(1, 2).reshape(bsz, q_len, config.dim))
+    # the proj adapter reads the block input x (the shared-LN output), not
+    # the attention output (moondream_tpu/engine/serving.py:211-214)
+    return lora_add(out, x, lora.get("proj"))
 
 
 def _ragged_forward(
@@ -121,18 +136,23 @@ def _ragged_forward(
     pref: Optional[KVCache],
     pids: Optional[torch.Tensor],
     prefix_len: int,
+    adapters: Optional[list] = None,
 ) -> torch.Tensor:
     """Every block over x (S, Tq, D) at per-row positions; returns the
-    (S, Tq, D) hidden states. Dense and int4 blocks alike (each block's
-    linears are what it holds)."""
+    (S, Tq, D) hidden states. Dense, int4 and int8 blocks alike (each
+    block's linears are what it holds; an adapter's delta is added to the
+    linear's rounded output, bias or w8a8 epilogue included). `adapters`:
+    per layer, each row's adapter pairs (`layer_adapters(loras, L,
+    vids)`), or None."""
     config = model.config
+    adapters = adapters or [None] * len(model.blocks)
     for layer, block in enumerate(model.blocks):
         ln_in = block.ln(x)
         attn_out = _ragged_attn(
             ln_in, block, model.freqs_cis, kv, layer, pos, config, kv_bound,
-            pref, pids, prefix_len,
+            pref, pids, prefix_len, adapters[layer],
         )
-        x = x + attn_out + block.mlp(ln_in)
+        x = x + attn_out + block.mlp(ln_in, adapters[layer])
     return x
 
 
@@ -145,10 +165,14 @@ def ragged_hidden_step(
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     prefix_len: int = 0,
+    adapters: Optional[list] = None,
 ) -> torch.Tensor:
     """One decoder forward for the whole pool at per-row positions from
-    input embeddings x (S, 1, D); returns the (S, D) hidden states."""
-    return _ragged_forward(model, kv, x, pos, kv_bound, pref, pids, prefix_len)[:, 0]
+    input embeddings x (S, 1, D); returns the (S, D) hidden states.
+    `adapters`: per layer, each row's LoRA pairs (`layer_adapters(loras,
+    L, vids)`: row s through variant vids[s]), or None."""
+    return _ragged_forward(model, kv, x, pos, kv_bound, pref, pids, prefix_len,
+                           adapters)[:, 0]
 
 
 def ragged_verify_step(
@@ -162,19 +186,22 @@ def ragged_verify_step(
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     prefix_len: int = 0,
+    adapters: Optional[list] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One speculative verify forward for the pool
     (moondream_tpu/engine/serving.py:392-474): slot s feeds the span
     q_toks[s] (S, k) at positions pos[s]..pos[s]+k-1. `x_override` (S, D)
     replaces the embedding at span position 0 of the rows where `x_mask`
     (S,) is True: structured rows feed a coordinate or size embedding.
-    Returns ((S, k, V) fp32 logits, (S, k, D) hidden states)."""
+    `adapters` (`ragged_hidden_step`): each row's adapter applies over its
+    whole span, an overridden row included. Returns ((S, k, V) fp32
+    logits, (S, k, D) hidden states)."""
     x = text_encoder(q_toks, model)
     if x_override is not None:
         first = torch.arange(x.shape[1], device=x.device) == 0
         x = torch.where(x_mask[:, None, None] & first[None, :, None],
                         x_override[:, None, :].to(x.dtype), x)
-    hidden = _ragged_forward(model, kv, x, pos, kv_bound, pref, pids, prefix_len)
+    hidden = _ragged_forward(model, kv, x, pos, kv_bound, pref, pids, prefix_len, adapters)
     s_, k, d = hidden.shape
     return lm_logits_batched(hidden.reshape(s_ * k, d), model).reshape(s_, k, -1), hidden
 
@@ -188,11 +215,13 @@ def ragged_decode_step(
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     prefix_len: int = 0,
+    adapters: Optional[list] = None,
 ) -> torch.Tensor:
     """One decode step for the pool: tokens (S,) at positions pos (S,);
-    returns (S, V) fp32 logits and updates the caches in place."""
+    returns (S, V) fp32 logits and updates the caches in place.
+    `adapters`: as in `ragged_hidden_step`."""
     x = text_encoder(tokens[:, None], model)
-    hidden = ragged_hidden_step(model, kv, x, pos, kv_bound, pref, pids, prefix_len)
+    hidden = ragged_hidden_step(model, kv, x, pos, kv_bound, pref, pids, prefix_len, adapters)
     return lm_logits_batched(hidden, model)
 
 
@@ -218,6 +247,8 @@ def serve_chunk(
     generator: Optional[torch.Generator],
     temperature,
     top_p,
+    loras: Optional[dict] = None,
+    vids: Optional[torch.Tensor] = None,
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     *,
@@ -233,18 +264,21 @@ def serve_chunk(
     slot on EOS, an exhausted budget or the cache's end. Inactive slots
     keep their position (their writes land on a frozen column that nothing
     attends). `temperature`/`top_p`: floats, or (S,) device tensors of
-    per-request settings. Nothing is read back to the host."""
+    per-request settings. `loras`/`vids`: per-row LoRA variants (the
+    module docstring), or None. Nothing is read back to the host."""
     S = cur_tokens.shape[0]
     dev = cur_tokens.device
     toks = torch.zeros((S, chunk), dtype=torch.int32, device=dev)
     emit = torch.zeros((S, chunk), dtype=torch.bool, device=dev)
     # kv_bound is the SUFFIX capacity under prefix sharing; pos is global
     max_pos = (kv_bound or model.config.max_context) + prefix_len - 1
+    adapters = layer_adapters(loras, len(model.blocks), vids)
     cur, act, bud = cur_tokens, active, budget
     for i in range(chunk):
         toks[:, i] = torch.where(act, cur, 0)
         emit[:, i] = act
-        logits = ragged_decode_step(model, kv, cur, pos, kv_bound, pref, pids, prefix_len)
+        logits = ragged_decode_step(model, kv, cur, pos, kv_bound, pref, pids, prefix_len,
+                                    adapters)
         for sid in suppress_ids:
             logits[:, sid] = NEG_INF
         nxt = sample_tokens_batched(logits, generator, temperature, top_p).to(torch.int32)
@@ -282,8 +316,8 @@ def _put(buf: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     buf[rows, torch.where(valid, cols.long(), spare)] = vals.to(buf.dtype)
 
 
-def _spec_chunk(model, kv, cur, pos, active, budget, hist, hist_cnt, pref, pids, *,
-                eos_id, suppress_ids, n_iter, spec_k, kv_bound, prefix_len,
+def _spec_chunk(model, kv, cur, pos, active, budget, hist, hist_cnt, loras, vids, pref, pids,
+                *, eos_id, suppress_ids, n_iter, spec_k, kv_bound, prefix_len,
                 accept, is_text=None, struct=None) -> tuple:
     """The speculative chunk loop (moondream_tpu/engine/serving.py:
     489-602, 1003-1205). Per iteration: each active text row emits its
@@ -293,8 +327,9 @@ def _spec_chunk(model, kv, cur, pos, active, budget, hist, hist_cnt, pref, pids,
     (S, H + 1): H history columns and a spare. With `struct` (a
     _StructState) and `is_text`, structured rows step their state machine
     instead: they feed their coordinate or size embedding at span position
-    0 and always advance by one. Returns (tokens, emitted, active, pos,
-    cur, budget, hist_cnt)."""
+    0 and always advance by one. Each row verifies through its own LoRA
+    variant (`loras`/`vids`, or None). Returns (tokens, emitted, active,
+    pos, cur, budget, hist_cnt)."""
     S, dev = cur.shape[0], cur.device
     W, H = n_iter * spec_k, hist.shape[1] - 1
     toks = torch.zeros((S, W + 1), dtype=torch.int32, device=dev)
@@ -304,6 +339,7 @@ def _spec_chunk(model, kv, cur, pos, active, budget, hist, hist_cnt, pref, pids,
     steps = torch.arange(spec_k - 1, device=dev)
     max_pos = (kv_bound or model.config.max_context) + prefix_len
     cnt, act, bud = hist_cnt.long(), active, budget.long()
+    adapters = layer_adapters(loras, len(model.blocks), vids)
     for _ in range(n_iter):
         x_override = x_mask = None
         if struct is not None:
@@ -318,7 +354,7 @@ def _spec_chunk(model, kv, cur, pos, active, budget, hist, hist_cnt, pref, pids,
         draft, _ = ngram_draft_rows(hist[:, :H], cnt1, cur, spec_k)
         q_toks = torch.cat([cur[:, None], draft.to(cur.dtype)], dim=1)
         logits, hidden = ragged_verify_step(model, kv, q_toks, pos, kv_bound, x_override,
-                                            x_mask, pref, pids, prefix_len)
+                                            x_mask, pref, pids, prefix_len, adapters)
         if struct is not None:
             # structured rows hold span position 0's hidden state and its
             # unsuppressed greedy token
@@ -365,6 +401,8 @@ def serve_chunk_spec(
     budget: torch.Tensor,
     hist: torch.Tensor,
     hist_cnt: torch.Tensor,
+    loras: Optional[dict] = None,
+    vids: Optional[torch.Tensor] = None,
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     *,
@@ -383,8 +421,8 @@ def serve_chunk_spec(
     temperature 0 (span and step accumulate in another order, so a near
     tie could flip, as in the JAX package). The pool admits requests with
     budget <= slot_len - pos - spec_k, so every span fits its slot."""
-    out = _spec_chunk(model, kv, cur_tokens, pos, active, budget, hist, hist_cnt, pref, pids,
-                      eos_id=eos_id, suppress_ids=suppress_ids, n_iter=n_iter,
+    out = _spec_chunk(model, kv, cur_tokens, pos, active, budget, hist, hist_cnt, loras, vids,
+                      pref, pids, eos_id=eos_id, suppress_ids=suppress_ids, n_iter=n_iter,
                       spec_k=spec_k, kv_bound=kv_bound, prefix_len=prefix_len,
                       accept=_greedy_accept_fn(eos_id))
     return ServeChunkResult(*out)
@@ -402,6 +440,8 @@ def serve_chunk_spec_sampled(
     generator: Optional[torch.Generator],
     temperature,
     top_p,
+    loras: Optional[dict] = None,
+    vids: Optional[torch.Tensor] = None,
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     *,
@@ -425,8 +465,8 @@ def serve_chunk_spec_sampled(
     def accept(draft, logits, act):
         return sampled_accept(logits, draft, generator, t, p_lim, eos_id)
 
-    out = _spec_chunk(model, kv, cur_tokens, pos, active, budget, hist, hist_cnt, pref, pids,
-                      eos_id=eos_id, suppress_ids=suppress_ids, n_iter=n_iter,
+    out = _spec_chunk(model, kv, cur_tokens, pos, active, budget, hist, hist_cnt, loras, vids,
+                      pref, pids, eos_id=eos_id, suppress_ids=suppress_ids, n_iter=n_iter,
                       spec_k=spec_k, kv_bound=kv_bound, prefix_len=prefix_len, accept=accept)
     return ServeChunkResult(*out)
 
@@ -529,6 +569,8 @@ def serve_chunk_mixed(
     boxes: torch.Tensor,
     nobj: torch.Tensor,
     is_box: torch.Tensor,
+    loras: Optional[dict] = None,
+    vids: Optional[torch.Tensor] = None,
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     *,
@@ -545,8 +587,9 @@ def serve_chunk_mixed(
     step; text rows sample tokens as in serve_chunk, structured rows step
     their coordinate state machine (_StructState.consume) and feed its
     coordinate or size embedding, so a pooled detect equals the
-    single-request one. The structured state (`mode` ... `nobj`) is
-    updated in place."""
+    single-request one; each row through its own LoRA variant
+    (`loras`/`vids`), structured rows too. The structured state (`mode`
+    ... `nobj`) is updated in place."""
     S, dev = cur_tokens.shape[0], cur_tokens.device
     toks = torch.zeros((S, chunk), dtype=torch.int32, device=dev)
     emit = torch.zeros((S, chunk), dtype=torch.bool, device=dev)
@@ -554,6 +597,7 @@ def serve_chunk_mixed(
     st = _StructState(region, eos_id, max_objects, max_pos, mode, hid, pending, xbuf, ybuf,
                       boxes, nobj, is_box, model.wte.dtype)
     is_text = st.is_text
+    adapters = layer_adapters(loras, len(model.blocks), vids)
     cur, act, bud = cur_tokens, active, budget
     for i in range(chunk):
         act, emb_struct = st.consume(act, pos, bud, stop_margin=4)
@@ -562,7 +606,7 @@ def serve_chunk_mixed(
         toks[:, i] = torch.where(act & is_text, cur, 0)
         emit[:, i] = act & is_text
         hid_new = ragged_hidden_step(model, kv, emb[:, None, :], pos, kv_bound, pref, pids,
-                                     prefix_len)
+                                     prefix_len, adapters)
         logits = lm_logits_batched(hid_new, model)
         st.hold(act, hid_new, logits)
         for sid in suppress_ids:
@@ -596,6 +640,8 @@ def serve_chunk_mixed_spec(
     boxes: torch.Tensor,
     nobj: torch.Tensor,
     is_box: torch.Tensor,
+    loras: Optional[dict] = None,
+    vids: Optional[torch.Tensor] = None,
     pref: Optional[KVCache] = None,
     pids: Optional[torch.Tensor] = None,
     *,
@@ -619,8 +665,8 @@ def serve_chunk_mixed_spec(
     st = _StructState(region, eos_id, max_objects,
                       (kv_bound or model.config.max_context) + prefix_len, mode, hid, pending,
                       xbuf, ybuf, boxes, nobj, is_box, model.wte.dtype)
-    out = _spec_chunk(model, kv, cur_tokens, pos, active, budget, hist, hist_cnt, pref, pids,
-                      eos_id=eos_id, suppress_ids=suppress_ids, n_iter=n_iter,
+    out = _spec_chunk(model, kv, cur_tokens, pos, active, budget, hist, hist_cnt, loras, vids,
+                      pref, pids, eos_id=eos_id, suppress_ids=suppress_ids, n_iter=n_iter,
                       spec_k=spec_k, kv_bound=kv_bound, prefix_len=prefix_len,
                       accept=_greedy_accept_fn(eos_id), is_text=st.is_text, struct=st)
     return ServeChunkResult(*out)

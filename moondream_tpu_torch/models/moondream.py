@@ -72,7 +72,8 @@ PROMPT_PAD = 8
 SPEC_SEED_LEN = 64
 # The JAX package's LoRA-variant settings (moondream_tpu/models/
 # moondream.py:79-90, :840-855), applied by every entry point but
-# detect_gaze and the serving pool's.
+# detect_gaze and PooledPipeline's. The serving pool takes `variant=`
+# names of its own adapters instead (models/serve.py).
 VARIANT_SETTINGS = ("variant", "variant_tree", "variant_label")
 # Its steering settings (:907-918), which the port does not apply yet:
 # every entry point that takes settings refuses them.
@@ -81,9 +82,10 @@ UNPORTED_SETTINGS = ("steer", "steer_scale")
 
 def _refuse_unported(settings: Optional[Dict[str, Any]], variants: bool = False) -> None:
     """Raise NotImplementedError when `settings` sets a steering vector, or
-    with `variants` a LoRA variant (detect_gaze, the serving pool):
-    answering as the base model instead would drop them without a word
-    (ROADMAP.md Queue 1 item 5 ports them)."""
+    with `variants` a LoRA variant (detect_gaze and PooledPipeline, whose
+    JAX counterparts run no adapter): answering as the base model instead
+    would drop them without a word (ROADMAP.md Queue 1 item 5 ports
+    steering)."""
     for key in UNPORTED_SETTINGS + (VARIANT_SETTINGS if variants else ()):
         if (settings or {}).get(key) is not None:
             raise NotImplementedError(

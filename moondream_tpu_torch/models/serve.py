@@ -1,5 +1,5 @@
 """ContinuousBatchingEngine: the host-side scheduler over the slot pool
-(moondream_tpu/models/serve.py, without per-slot LoRA variants).
+(moondream_tpu/models/serve.py).
 
 Requests with different images, prompts and lengths are admitted whenever
 a slot is free, prefilled one by one, and advanced together by fused
@@ -24,10 +24,17 @@ beside structured rows in a greedy pool.
 
 `submit_many` admits a burst of requests over one batched image encode.
 
-Not ported yet: LoRA variants (the arguments `variants` and `variant=`
-raise NotImplementedError). A GQA text config
-(n_kv_heads < n_heads) is refused: the pool's ragged decode is MHA only, as
-in the JAX package (moondream_tpu/ops/attention.py:608).
+LoRA variants: `ContinuousBatchingEngine(model, variants={name: tree})`
+serves base rows and rows of different adapters in one pool, each row
+through its own adapter in every text forward; requests pick one with
+`variant=name`:
+
+    eng = ContinuousBatchingEngine(model, variants={"a": tree_a, "b": tree_b})
+    r4 = eng.submit(image4, variant="a")
+
+A GQA text config (n_kv_heads < n_heads) is refused: the pool's ragged
+decode is MHA only, as in the JAX package
+(moondream_tpu/ops/attention.py:608).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from ..engine import graphs, serving
+from ..lora import stack_variant_pytrees
 from ..utils.streaming import TokenStreamer, stream_text
 from .moondream import EncodedImage, MoondreamModel, _prompt_pad
 from .text import KVCache, slice_cache_span, slice_cache_span_from
@@ -82,16 +90,7 @@ class PreparedRequest:
     hidden: Optional[torch.Tensor] = None  # the prompt's last hidden state
     include_size: bool = False
     n_objects: int = 0
-
-
-def _refuse_variant(variant) -> None:
-    """The pool serves the base weights only until it takes per-slot LoRA
-    variants: a non-None `variant` (or `variants`) raises."""
-    if variant is not None:
-        raise NotImplementedError(
-            "multi-variant (LoRA) serving is not ported to moondream_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 5)"
-        )
+    vid: int = 0  # the request's LoRA variant in the pool (0: the base weights)
 
 
 class ContinuousBatchingEngine:
@@ -139,13 +138,25 @@ class ContinuousBatchingEngine:
         `max_objects`: the most objects a detect or point request may ask
         for (the size of each slot's box buffer).
 
+        `variants`: multi-variant (LoRA) serving, {name: stacked adapter
+        tree} (`lora.variant_state_dict`'s layout). A request picks one by
+        name (`variant=` on every submission and prepare; None is the base
+        weights) and decodes through it beside base rows and rows of other
+        adapters in the same chunks: each row adds its own adapter's
+        low-rank residual in every text forward (the [BOS, image] and
+        prompt prefills, every decode step, verify span and structured
+        step), on every base format and chunk kind. The adapters are
+        stacked once (`lora.stack_variant_pytrees`) on the model's device
+        in its dtype: variant 0 the all-zeros base, ranks zero-padded to
+        the widest. An unknown name raises KeyError, also in a pool built
+        without variants.
+
         On the card every chunk (plain, speculative greedy and sampled,
         mixed, mixed speculative) replays a CUDA graph, one per (kind,
         chunk, spec_k, max_objects, sampling) of this pool, captured at its
         first chunk (engine/graphs.py; `spec_adaptive` falls back to the
         plain chunk's graph); `graphed=False` runs them eagerly, for
         comparison."""
-        _refuse_variant(variants or None)
         tc = model.config.text
         if tc.n_kv_heads != tc.n_heads:
             raise ValueError(
@@ -213,6 +224,21 @@ class ContinuousBatchingEngine:
         # sampled rows draw from the pool's own generator (the JAX engine
         # starts from PRNGKey(0))
         self.generator = torch.Generator(device=dev).manual_seed(0)
+        # per-slot LoRA variants: each variant's own tree (the prefills run
+        # it unpadded, as JAX's do, so a prefill is the single-stream one;
+        # `.to` copies only a tree on another device or dtype), the stacked
+        # factors of the chunks (leaves (L, V + 1, r, d), variant 0 the zero
+        # base), name -> index, and each slot's index, written in place (a
+        # chunk's graph reads it where it is)
+        to_model = lambda t: t.to(device=dev, dtype=model.dtype)
+        self._variants: Dict[str, dict] = {
+            name: {grp: {site: {f: to_model(t) for f, t in pair.items()}
+                         for site, pair in sites.items()} for grp, sites in tree.items()}
+            for name, tree in (variants or {}).items()}
+        self._vid_of: Dict[str, int] = {name: i + 1 for i, name in enumerate(self._variants)}
+        self._loras = (stack_variant_pytrees(list(self._variants.values()))
+                       if self._variants else None)
+        self.vid = torch.zeros((S,), dtype=torch.int32, device=dev)
         if self.spec_k:
             # per-slot draft histories, plus the spare column of the chunks'
             # masked writes (engine.serving._put)
@@ -321,11 +347,33 @@ class ContinuousBatchingEngine:
         """Encode and prefill a request without touching the pool's state.
         Calls must be serialised among themselves and with other use of the
         model; the PreparedRequest holds a model buffer: admit or release
-        it."""
-        _refuse_variant(variant)
+        it. `variant`: a name given to the constructor, or None."""
+        lora, vid = self._resolve_variant(variant)
         prompt = self._text_prompt(question, caption_length)
         temp, topp = self._sampling(temperature, top_p)
-        return self._prepare_encoded(self.model.encode_image(image), prompt, temp, topp)
+        enc = self.model.encode_image(image, self._variant_settings(lora, variant))
+        return self._prepare_encoded(enc, prompt, temp, topp, lora, vid)
+
+    def _resolve_variant(self, variant: Optional[str]):
+        """A variant's name -> (its adapter tree, its index in the pool);
+        (None, 0) for None. An unknown name raises KeyError naming the
+        registered ones (moondream_tpu/models/serve.py:471-480)."""
+        if variant is None:
+            return None, 0
+        if variant not in self._variants:
+            raise KeyError(
+                f"unknown variant {variant!r}; registered: {sorted(self._variants)}"
+            )
+        return self._variants[variant], self._vid_of[variant]
+
+    @staticmethod
+    def _variant_settings(lora: Optional[dict], variant: Optional[str]):
+        """The encode settings of a request under `lora`: the image prefill
+        runs through the adapter, and the EncodedImage carries its label (a
+        pre-encoded image of another label raises ValueError)."""
+        if lora is None:
+            return None
+        return {"variant_tree": lora, "variant_label": variant}
 
     def _text_prompt(self, question: Optional[str], caption_length: str) -> List[int]:
         """A caption prompt, or a query prompt around `question`."""
@@ -341,11 +389,13 @@ class ContinuousBatchingEngine:
                 self.top_p if top_p is None else top_p)
 
     def _prepare_encoded(self, enc: EncodedImage, prompt: List[int], temp: float,
-                         topp: float) -> PreparedRequest:
-        """Prefill `prompt` after an encoded image on a single-row buffer."""
+                         topp: float, lora: Optional[dict], vid: int) -> PreparedRequest:
+        """Prefill `prompt` after an encoded image on a single-row buffer,
+        under the adapter `lora` (variant `vid`) when given."""
         kv1 = self._prefill_buffer(enc, len(prompt))
-        _, _, next_token, pos, kv1 = self.model._prefill_prompt(kv1, prompt, enc.pos, temp, topp)
-        return PreparedRequest(kv1, next_token, pos, prompt, temp, topp, enc=enc)
+        _, _, next_token, pos, kv1 = self.model._prefill_prompt(kv1, prompt, enc.pos, temp, topp,
+                                                                lora=lora)
+        return PreparedRequest(kv1, next_token, pos, prompt, temp, topp, enc=enc, vid=vid)
 
     def submit_many(
         self,
@@ -362,17 +412,19 @@ class ContinuousBatchingEngine:
         image encode (`encode_images`) instead of one ViT call each
         (moondream_tpu/models/serve.py:626-678); each is then prefilled and
         admitted as `submit` does. Raises RuntimeError when fewer slots are
-        free than there are images. Returns the req_ids in image order."""
-        _refuse_variant(variant)
+        free than there are images. Every request of the burst runs under
+        `variant`. Returns the req_ids in image order."""
+        lora, vid = self._resolve_variant(variant)
         images = list(images)
         free = self.free_slots()
         if len(free) < len(images):
             raise RuntimeError(f"{len(images)} requests but only {len(free)} free slots")
         prompt = self._text_prompt(question, caption_length)
         temp, topp = self._sampling(temperature, top_p)
-        return [self.admit_prepared(self._prepare_encoded(enc, prompt, temp, topp),
+        encs = self.model.encode_images(images, settings=self._variant_settings(lora, variant))
+        return [self.admit_prepared(self._prepare_encoded(enc, prompt, temp, topp, lora, vid),
                                     max_tokens=max_tokens, on_text=on_text)
-                for enc in self.model.encode_images(images)]
+                for enc in encs]
 
     def _prefill_buffer(self, enc: EncodedImage, prompt_len: int) -> KVCache:
         """A single-row buffer holding `enc` with room for the prompt's
@@ -398,12 +450,12 @@ class ContinuousBatchingEngine:
         if prep.structured is None:
             return self._admit(
                 prep.kv1, prep.next_token, prep.pos, slot, max_tokens, on_text,
-                prep.prompt, prep.temperature, prep.top_p, prep.enc,
+                prep.prompt, prep.temperature, prep.top_p, prep.enc, prep.vid,
             )
         # a structured row's budget: every object's steps and two more
         steps = (3 if prep.include_size else 2) * prep.n_objects + 2
         req_id = self._admit(prep.kv1, prep.next_token, prep.pos, slot, steps, None,
-                             prep.prompt, 0.0, 0.0, prep.enc)
+                             prep.prompt, 0.0, 0.0, prep.enc, prep.vid)
         # its state machine starts at XN from the prompt's hidden state and token
         self.slots[slot].structured = prep.structured
         self.mode[slot] = serving.MODE_XN
@@ -422,7 +474,7 @@ class ContinuousBatchingEngine:
     def _admit(
         self, kv1: KVCache, next_token: torch.Tensor, pos: int, slot: int,
         max_tokens: int, on_text, prompt: List[int], temperature: float, top_p: float,
-        enc: Optional[EncodedImage],
+        enc: Optional[EncodedImage], vid: int,
     ) -> int:
         """Copy a prefilled request into `slot` and arm it. Rejects prompts
         that leave no room to generate; clamps the budget so decode never
@@ -473,6 +525,7 @@ class ContinuousBatchingEngine:
         # a text row; admit_prepared turns structured ones over afterwards
         # (else a text request would inherit a structured one's mode)
         self.mode[slot] = serving.MODE_TEXT
+        self.vid[slot] = vid
         self.temp_row[slot] = temperature
         self.topp_row[slot] = top_p
         if temperature > 0:
@@ -512,7 +565,6 @@ class ContinuousBatchingEngine:
         is prefilled once, then its one point rides the mixed chunks. The
         result is {"gaze": {"x", "y"} or None}, as `MoondreamModel.
         detect_gaze` gives in eye mode."""
-        _refuse_variant(variant)
         if not self.free_slots():
             raise RuntimeError("no free slot; step() or drain() first")
         return self.admit_prepared(self.prepare_gaze(image, eye, force_detect, variant))
@@ -520,23 +572,22 @@ class ContinuousBatchingEngine:
     def prepare_gaze(self, image, eye, force_detect: bool = False,
                      variant: Optional[str] = None) -> PreparedRequest:
         """Encode and prefill a gaze request without touching the pool (the
-        same contract as prepare()). `variant` must be None until the pool
-        takes LoRA variants."""
-        _refuse_variant(variant)
+        same contract as prepare()), under `variant` as prepare() takes
+        it."""
+        lora, vid = self._resolve_variant(variant)
         model = self.model
-        enc = model.encode_image(image)
+        enc = model.encode_image(image, self._variant_settings(lora, variant))
         embeds, length = model._gaze_embeds([tuple(eye)])
         kv1 = self._prefill_buffer(enc, length)
-        hidden, next_token, pos = model._gaze_prefill(kv1, enc.pos, embeds, length)
+        hidden, next_token, pos = model._gaze_prefill(kv1, enc.pos, embeds, length, lora=lora)
         if force_detect:
             next_token = torch.zeros_like(next_token)
         return PreparedRequest(kv1, next_token, pos, [], 0.0, 0.0, enc=enc,
-                               structured="gaze", hidden=hidden, n_objects=1)
+                               structured="gaze", hidden=hidden, n_objects=1, vid=vid)
 
     def _submit_structured(self, image, object: str, template_key: str,
                            include_size: bool, max_objects: Optional[int],
                            variant: Optional[str] = None) -> int:
-        _refuse_variant(variant)
         if not self.free_slots():
             raise RuntimeError("no free slot; step() or drain() first")
         return self.admit_prepared(self.prepare_structured(
@@ -547,10 +598,9 @@ class ContinuousBatchingEngine:
                            variant: Optional[str] = None) -> PreparedRequest:
         """Encode and prefill a detect (`template_key` "detect", with
         sizes) or point request without touching the pool (the same
-        contract as prepare()). Raises ValueError when `max_objects`
-        exceeds the pool's; `variant` must be None until the pool takes
-        LoRA variants."""
-        _refuse_variant(variant)
+        contract as prepare()), under `variant` as prepare() takes it.
+        Raises ValueError when `max_objects` exceeds the pool's."""
+        lora, vid = self._resolve_variant(variant)
         n_obj = self.max_objects if max_objects is None else int(max_objects)
         if n_obj > self.max_objects:
             raise ValueError(
@@ -559,12 +609,13 @@ class ContinuousBatchingEngine:
             )
         model = self.model
         prompt = model._structured_prompt(template_key, object)
-        enc = model.encode_image(image)
+        enc = model.encode_image(image, self._variant_settings(lora, variant))
         kv1 = self._prefill_buffer(enc, len(prompt))
-        _, hidden, next_token, pos, kv1 = model._prefill_prompt(kv1, prompt, enc.pos, 0.0, 0.0)
+        _, hidden, next_token, pos, kv1 = model._prefill_prompt(kv1, prompt, enc.pos, 0.0, 0.0,
+                                                                lora=lora)
         return PreparedRequest(kv1, next_token, pos, prompt, 0.0, 0.0, enc=enc,
                                structured=template_key, hidden=hidden,
-                               include_size=include_size, n_objects=n_obj)
+                               include_size=include_size, n_objects=n_obj, vid=vid)
 
     def step(self) -> List[int]:
         """Advance all active slots by one chunk. Returns the req_ids that
@@ -630,20 +681,21 @@ class ContinuousBatchingEngine:
     def _chunk(self, kind: str, temp, topp) -> serving.ServeChunkResult:
         """One chunk of `kind` (a function of engine.serving) on the pool's
         state. On the card it goes through the CUDA graph of its (kind,
-        chunk, spec_k, max_objects, sampling), which reads the per-chunk
-        inputs (tokens, positions, active rows, budgets and, for spec
-        chunks, the history counts) from static copies and whose outputs
-        are copied out before the next replay. The draft histories, the
-        structured rows' state and the per-row sampling settings are this
-        pool's own buffers, allocated once and written in place, so the
-        graph reads and writes them where they are."""
+        chunk, spec_k, max_objects, sampling), which reads the
+        per-chunk inputs (tokens, positions, active rows, budgets and, for
+        spec chunks, the history counts) from static copies and whose
+        outputs are copied out before the next replay. The draft histories,
+        the structured rows' state, the per-row sampling settings and the
+        rows' variants are this pool's own buffers, allocated once and
+        written in place, so the graph reads and writes them where they
+        are."""
         sampled = isinstance(temp, torch.Tensor) or temp > 0
         spec, mixed = "spec" in kind, "mixed" in kind
         text = self.model.text
         region = self.model.region if mixed else None
         kw = dict(eos_id=self.eos_id, suppress_ids=(self.model.config.tokenizer.answer_id,),
                   kv_bound=self._suffix_slots, prefix_len=self.prefix_len,
-                  pref=self.kv_pref, pids=self.pids)
+                  pref=self.kv_pref, pids=self.pids, loras=self._loras, vids=self.vid)
         struct = (self.mode, self.hidS, self.pending, self.xbuf, self.ybuf, self.sboxes,
                   self.nobj, self.is_box)
         if spec:

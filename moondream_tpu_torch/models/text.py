@@ -266,19 +266,27 @@ def write_rows(cache: torch.Tensor, layer: int, rows: torch.Tensor,
 LORA_SITES = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2"))
 
 
-def layer_adapters(lora: Optional[dict], n_layers: int) -> list:
+def layer_adapters(lora: Optional[dict], n_layers: int,
+                   vids: Optional[torch.Tensor] = None) -> list:
     """Per layer, the adapter's pairs {name: {"A": (r, in), "B": (out, r)}}
     of a stacked tree (A (L, r, in), B (L, out, r); a group or site may be
     absent, as in `lora.merge_variant`'s residual), or None for every layer
     without an adapter. The factors are cast to fp32 once per forward, not
-    once per layer and site; each layer's pair is a view of that copy."""
+    once per layer and site; each layer's pair is a view of that copy.
+
+    With `vids` (S,) int32, `lora` is a variant-stacked tree (A (L, V + 1,
+    r, in), B (L, V + 1, out, r); `lora.stack_variant_pytrees`) and each
+    pair holds row s's factors of variant vids[s]: A (S, r, in), B (S, out,
+    r), gathered on the device once, for every layer and step of a chunk
+    (`ops.layers.lora_delta` then applies row s's pair to row s)."""
     if lora is None:
         return [None] * n_layers
+    pick = (lambda t: t) if vids is None else (lambda t: t.index_select(1, vids))
     sites = {}
     for grp, name in LORA_SITES:
         pair = (lora.get(grp) or {}).get(name)
         if pair is not None:
-            sites[name] = (pair["A"].float(), pair["B"].float())
+            sites[name] = (pick(pair["A"]).float(), pick(pair["B"]).float())
     return [{name: {"A": a[layer], "B": b[layer]} for name, (a, b) in sites.items()}
             for layer in range(n_layers)]
 

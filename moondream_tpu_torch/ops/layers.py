@@ -69,11 +69,15 @@ class LayerNorm(nn.Module):
 def lora_delta(x: torch.Tensor, pair: dict) -> torch.Tensor:
     """The low-rank residual (x @ A^T) @ B^T in fp32
     (moondream_tpu/ops/layers.py:78-85): A (r, in) and B (out, r) in
-    torch's (out, in) layout. Both products run in fp32 on fp32 copies of
-    x and the factors (a bf16 value is exact in fp32; TF32 must stay off),
-    as XLA's dots with fp32 accumulation do; the result stays fp32."""
-    a = torch.matmul(x.float(), pair["A"].float().t())
-    return torch.matmul(a, pair["B"].float().t())
+    torch's (out, in) layout, or one pair per row of x (S, Tq, in): A (S,
+    r, in) and B (S, out, r), as the pool gathers them
+    (`models.text.layer_adapters(..., vids)`; JAX's
+    engine/serving._lora_delta). Both products run in fp32 on fp32 copies
+    of x and the factors (a bf16 value is exact in fp32; TF32 must stay
+    off), as XLA's dots with fp32 accumulation do; the result stays
+    fp32."""
+    a = torch.matmul(x.float(), pair["A"].float().transpose(-1, -2))
+    return torch.matmul(a, pair["B"].float().transpose(-1, -2))
 
 
 def lora_add(y: torch.Tensor, x: torch.Tensor, pair: Optional[dict]) -> torch.Tensor:

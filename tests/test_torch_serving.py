@@ -284,10 +284,14 @@ def test_prefix_pool_exhaustion_and_wrong_span(sides):
 
 def test_unported_options_raise(sides):
     _, ours = sides
-    # speculative serving is ported now (tests/test_torch_serving_spec.py)
+    # speculative serving and LoRA variants are ported now
+    # (tests/test_torch_serving_spec.py, tests/test_torch_multi_lora.py): a
+    # variant tree without its sites, and a variant the pool does not hold,
+    # raise KeyError
     assert _engine(ours, speculative=3).spec_k == 3
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError):
         _engine(ours, variants={"a": {}})
     eng = _engine(ours, n_slots=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="unknown variant"):
         eng.submit(ours["encs"][0], variant="a")
+    assert eng.free_slots() == [0]

@@ -3,13 +3,15 @@ settings in every entry point that takes settings.
 
 `variant`, `variant_tree` and `variant_label` apply in every entry point but
 `detect_gaze` (the JAX package's runs no adapter) and `PooledPipeline` (the
-pool's per-slot variants are not ported): with a nonzero adapter the delta
-reaches every site of every layer of the text forwards the entry runs, a
-zero-B adapter gives the base output bit for bit, and an EncodedImage of
-another variant label is refused. `steer` and `steer_scale` raise a
-NotImplementedError everywhere, as do the variant settings in
-`detect_gaze` and `PooledPipeline`, and `variant=` in every pool
-submission, instead of answering as the base model without a word."""
+JAX package's builds its pool without variants and drops the setting):
+with a nonzero adapter the delta reaches every site of every layer of the
+text forwards the entry runs, a zero-B adapter gives the base output bit
+for bit, and an EncodedImage of another variant label is refused. `steer`
+and `steer_scale` raise a NotImplementedError everywhere, as do the
+variant settings in `detect_gaze` and `PooledPipeline`, instead of
+answering as the base model without a word. The pool's `variant=` names
+one of its own variants (tests/test_torch_multi_lora.py): an unknown name
+raises KeyError in every submission."""
 
 import numpy as np
 import pytest
@@ -203,8 +205,10 @@ SUBMISSIONS = {
 
 @pytest.mark.parametrize("submission", sorted(SUBMISSIONS))
 def test_pool_submissions_refuse_variants(model, submission):
+    """A variant the pool was not built with raises KeyError('unknown
+    variant ...') before anything is encoded, and leaves every slot free."""
     eng = ContinuousBatchingEngine(model, n_slots=2)
-    with pytest.raises(NotImplementedError, match="LoRA.*Queue 1 item 5"):
+    with pytest.raises(KeyError, match="unknown variant 'a'; registered: \\[\\]"):
         SUBMISSIONS[submission](eng, "a")
     assert len(eng.free_slots()) == 2
 
