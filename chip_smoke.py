@@ -1,7 +1,7 @@
 """Drive the PyTorch port's caption, query, lockstep-batch, serving,
 speculative, region-head (detect, point, gaze, reasoning, spatial refs),
-multi-image pipeline, int8 w8a8 and finetuning paths once on one CUDA
-card.
+multi-image pipeline, int8 w8a8, LoRA, steering and finetuning paths once
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -40,7 +40,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      speculative caption, a speculative pool, a mixed pool and a mixed
      speculative pool, whose ids and boxes must equal the CPU's; the
      caption path with int8 text blocks and a static int8 ViT; the caption
-     path under a rank-4 LoRA variant (a seeded adapter file);
+     path under a rank-4 LoRA variant (a seeded adapter file); the
+     steered caption (a seeded control vector: the steered prompt's and
+     decode step's logits, and 16 greedy ids, fused and streamed, equal to
+     the CPU's fp32 ids under the peaked oracle);
   4. the main paths at MOONDREAM_2B widths and depth with seeded random
      weights, each with exact kernel launch counts (reset just before the
      path, read just after): the bf16 model (caption, query, lockstep
@@ -110,6 +113,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      mode, a zero-B pool bit for bit the base pool, a speculative variant
      pool, and the base and variant pools' ms per chunk, tok/s and device
      launches per chunk in turns;
+     steering ("4 2B steering", PR 18): a seeded unit-row vector at 4.2
+     in the caption and query, graphed and eager in turns (equal ids,
+     exact launches), the steered graphs under the sync error mode,
+     streamed == fused, scale 0 == unsteered, a speculative k 8 steered
+     caption (margin rule), steered and unsteered ms and device launches
+     per graphed step, a second vector and scale replaying the same graph,
+     HiddenStateCollector.collect and train_control_vectors, and a
+     steered int4 + kv_int8 caption;
      then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
@@ -123,7 +134,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      update, training tokens/s and peak memory; the frozen trees bit for
      bit unchanged, wte moved by weight decay alone, the saved .pt
      reloaded equal, and the graphed caption (graphs captured before the
-     training) equal to an eager one on the trained weights.
+     training) equal to an eager one on the trained weights; LoRA
+     finetuning (PR 18, phase_lora_finetune): a rank-16 adapter over a
+     fresh 2B, four --synthetic mini-steps at grad-accum 2, the base bit
+     for bit unchanged, ms per mini-step and per update and peak memory
+     beside the full text finetune's, and the saved variant served by a
+     graphed caption.
+
+    python3 chip_smoke.py --variants   # the LoRA variant phases alone
+    python3 chip_smoke.py --steer      # the steering and LoRA-finetune phases alone
 
 Prints the card's name and power limit first, the seconds of each phase,
 a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
@@ -170,6 +189,7 @@ from moondream_tpu_torch.engine.generate import (  # noqa: E402
 from moondream_tpu_torch.engine import graphs  # noqa: E402
 from moondream_tpu_torch.engine import serving as serving_engine  # noqa: E402
 from moondream_tpu_torch.finetune import finetune_region, finetune_text  # noqa: E402
+from moondream_tpu_torch.finetune import lora as ft_lora  # noqa: E402
 from moondream_tpu_torch.finetune import trainer as finetune_trainer  # noqa: E402
 from moondream_tpu_torch.finetune.optim import named_leaves, trainable  # noqa: E402
 from moondream_tpu_torch.engine.pipeline import BatchPipeline, PooledPipeline  # noqa: E402
@@ -188,6 +208,7 @@ from moondream_tpu_torch.kernels.build import (  # noqa: E402
 from moondream_tpu_torch.models.moondream import MoondreamModel, _prompt_pad  # noqa: E402
 from moondream_tpu_torch.models.serve import ContinuousBatchingEngine  # noqa: E402
 from moondream_tpu_torch.models.text import (  # noqa: E402
+    LORA_SITES,
     Int4Linear,
     KVCache,
     dequantize_kv,
@@ -224,6 +245,7 @@ from moondream_tpu_torch.ops.layers import (  # noqa: E402
     pack_int8_weight,
     q8_codes_plain,
 )
+from moondream_tpu_torch.repeng import HiddenStateCollector, train_control_vectors  # noqa: E402
 from moondream_tpu_torch.ops.quant import (  # noqa: E402
     quantize_weight_torch,
     quantized_matmul,
@@ -1865,23 +1887,25 @@ def phase_pool(model, images, power: str, label: str, **kind) -> dict:
 
 
 def first_difference_margin(model, enc, prompt, single, other, n, max_tokens,
-                            slots=None, lora=None, decode_lora=None) -> tuple:
+                            slots=None, lora=None, decode_lora=None, steer=None) -> tuple:
     """Batch-1 greedy ids `single` and another run's `other` first differ
     at token n: step batch-1 again up to token n (the prompt under the
     adapter `lora` when given, the decode steps under `decode_lora`, by
-    default `lora`) and return its logit margin there (its pick minus the
-    other's; EOS past a row's end) and that margin in bf16 steps (ulps) of
-    its pick's logit. A near tie is a few steps; a run that read the wrong
+    default `lora`; every forward under the steering vector `steer` when
+    given) and return its logit margin there (its pick minus the other's;
+    EOS past a row's end) and that margin in bf16 steps (ulps) of its
+    pick's logit. A near tie is a few steps; a run that read the wrong
     weights or cache is far more."""
     eos = model.config.tokenizer.eos_id
     pick = lambda r: r[n] if n < len(r) else eos
     decode_lora = lora if decode_lora is None else decode_lora
     logits, _, _, pos, kv = model._prefill_prompt(
-        model.load_encoded_image(enc, slots=slots), prompt, enc.pos, 0.0, 0.0, lora=lora)
+        model.load_encoded_image(enc, slots=slots), prompt, enc.pos, 0.0, 0.0, lora=lora,
+        steer=steer)
     bound = model._decode_bound(pos + max_tokens + 1)
     for i in range(n):
         emb = text_encoder(torch.tensor([[single[i]]], device=DEV), model.text)
-        logits = decode_step(model.text, kv, emb, pos + i, bound, decode_lora)[0]
+        logits = decode_step(model.text, kv, emb, pos + i, bound, decode_lora, steer)[0]
     logits = logits.reshape(-1).float()
     model._recycle_kv(kv)
     margin = (logits[pick(single)] - logits[pick(other)]).item()
@@ -2175,7 +2199,7 @@ def _first_diff(a: list, b: list) -> int:
 
 
 def _check_margin(label: str, model, enc, prompt, single, other, max_tokens, slots=None,
-                  lora=None, decode_lora=None):
+                  lora=None, decode_lora=None, steer=None):
     """None where `other` equals batch-1 greedy `single` (under the adapters
     `lora` / `decode_lora` of `first_difference_margin` when given); else
     batch-1's logit margin at the first difference as (margin, bf16 steps).
@@ -2185,7 +2209,7 @@ def _check_margin(label: str, model, enc, prompt, single, other, max_tokens, slo
     if n == len(single) == len(other):
         return None
     m = first_difference_margin(model, enc, prompt, single, other, n, max_tokens, slots, lora,
-                                decode_lora)
+                                decode_lora, steer)
     if abs(m[1]) > 8:
         raise AssertionError(f"{label}: ids differ from batch-1 greedy at token {n} with a "
                              f"logit margin of {m[1]} bf16 steps")
@@ -3994,6 +4018,445 @@ def phase_finetune(power: str) -> list:
     return runs
 
 
+# ------------------------------------------------------------ steering
+
+STEER_SCALE = 4.2  # the steering phases' scale (repeng.DEFAULT_SCALE)
+# A second vector's scale on the 2B: random weights (N(0, 1/fan_in)) carry
+# a residual stream of norm ~200, which a unit vector at 4.2 nudges without
+# turning a greedy id; at this scale it must turn some.
+STEER_SCALE_LARGE = 256.0
+
+
+def steer_vector(cfg, seed: int) -> np.ndarray:
+    """Seeded unit rows (n_layers, dim), bf16-valued, so that a bf16 model
+    and an fp32 one add the same vector."""
+    vec = torch.randn((cfg.text.n_layers, cfg.text.dim), generator=torch.Generator().manual_seed(seed))
+    return (vec / vec.norm(dim=-1, keepdim=True)).to(BF16).float().numpy()
+
+
+def phase_steer_reference(img: np.ndarray) -> None:
+    """The steered caption on the tiny config, on one set of bf16-valued
+    weights with lm_head's bias + N(0, 1) (the peaked oracle), a seeded
+    unit-row vector at STEER_SCALE: bf16 on the card and bf16 on the CPU,
+    each against fp32 on the CPU, for the steered prompt's logits and one
+    steered decode step's (SMALL_REF_FACTOR times the CPU's bf16 error);
+    then the steered caption's ids (16 greedy tokens, fused and streamed)
+    on the card must equal the CPU's fp32 ids, which the vector must have
+    changed."""
+    cfg = tiny_test_config()
+    state = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").state_dict()
+    b = state["text.lm_head.b"]
+    state["text.lm_head.b"] = b + torch.randn(b.shape, generator=torch.Generator().manual_seed(
+        SEED + 7))
+    state = {n: t.to(BF16).float() for n, t in state.items()}
+    steer = {"steer": steer_vector(cfg, SEED + 8), "steer_scale": STEER_SCALE}
+    greedy = {"temperature": 0.0, "max_tokens": 16}
+    tmpl = list(cfg.tokenizer.templates["caption"]["normal"])
+
+    def run(device, dtype) -> tuple:
+        params = build_params(cfg, device, dtype)
+        params.load_state_dict(state)
+        m = MoondreamModel(cfg, params, IdTokenizer(), dtype, device=device)
+        enc = m.encode_image(img)
+        vec = m._steer_vectors(steer)
+        kv = m.load_encoded_image(enc)
+        logits, _, _, pos, kv = m._prefill_prompt(kv, tmpl, enc.pos, 0.0, 0.0, steer=vec)
+        emb = text_encoder(torch.tensor([[300]], device=device), m.text)
+        step = decode_step(m.text, kv, emb, pos, m._decode_bound(pos + 8), steer=vec)[0]
+        ids = {"steered": m.caption(enc, settings={**greedy, **steer})["caption"],
+               "streamed": "".join(m.caption(enc, stream=True,
+                                             settings={**greedy, **steer})["caption"]),
+               "unsteered": m.caption(enc, settings=greedy)["caption"]}
+        return {"logits": logits.float().cpu(), "decode logits": step.float().cpu()}, ids
+
+    (ref, want), (cpu, _), (card, got) = run("cpu", torch.float32), run("cpu", BF16), run(DEV, BF16)
+    rel = lambda out: {n: ((out[n] - ref[n]).abs().max() / ref[n].abs().max()).item() for n in ref}
+    err_card, err_cpu = rel(card), rel(cpu)
+    print(f"steer reference (tiny config, scale {STEER_SCALE}, vs fp32 on the cpu), rel max err: "
+          f"card bf16 { {n: round(e, 5) for n, e in err_card.items()} }, cpu bf16 "
+          f"{ {n: round(e, 5) for n, e in err_cpu.items()} }; steered ids "
+          f"{len(_ids(got['steered']))} tokens, card == cpu fp32: {got == want}")
+    if not all(err_card[n] <= SMALL_REF_FACTOR * err_cpu[n] for n in ref):
+        raise AssertionError(f"steer reference mismatch: {err_card} vs {err_cpu}")
+    if want["steered"] == want["unsteered"] or want["streamed"] != want["steered"]:
+        raise AssertionError(f"steer reference is not decisive: {want}")
+    if got != want:
+        raise AssertionError(f"steered ids on the card differ from the cpu's: {got} vs {want}")
+
+
+def phase_steer(model, img, images, power: str) -> list:
+    """Steering on the 2B bf16 model (published widths, full depth), a
+    seeded unit-row vector at STEER_SCALE: the steered caption and query
+    (64 greedy tokens), graphed and eager in turns, ids equal bit for bit
+    and exact launches (steering adds no kernel of the port: one add per
+    block); their steered graphs replay once more under
+    torch.cuda.set_sync_debug_mode("error"); the streamed caption equals
+    the fused one; a zero scale gives the unsteered ids; a speculative
+    (k 8) steered caption against plain steered greedy (the logit-margin
+    rule) with exact launches; steered and unsteered ms per graphed step
+    (64 steps, eos off) in turns and device launches per graphed step
+    (torch.profiler); the vector moves the prompt's logits; two vectors and
+    scales replay one graph, the second (STEER_SCALE_LARGE) turning greedy
+    ids, equal to its eager run. Then
+    HiddenStateCollector.collect over two images at 8 greedy tokens for a
+    positive and a negative prompt, train_control_vectors, and a caption
+    steered by the trained vector. Returns the counted runs' launches."""
+    cfg, tok = model.config, model.config.tokenizer
+    kinds = linear_kinds(model)
+    model.tokenizer = IdTokenizer()
+    vec = steer_vector(cfg, SEED + 9)
+    steer = {"steer": vec, "steer_scale": STEER_SCALE}
+    steered = {**GREEDY64, **steer}
+    enc = model.encode_image(img)
+    tmpl = cfg.tokenizer.templates
+    tasks = {
+        "caption": (list(tmpl["caption"]["normal"]),
+                    lambda s: model.caption(enc, "normal", settings=s)["caption"]),
+        "query": (list(tmpl["query"]["prefix"]) + model._encode_text(POOL_QUESTION)
+                  + list(tmpl["query"]["suffix"]),
+                  lambda s: model.query(enc, POOL_QUESTION, settings=s)["answer"]),
+    }
+    runs, lines, ids = [], [], {}
+    for task, (prompt, call) in tasks.items():
+        base = _ids(call(GREEDY64))
+        out, ms = {}, {True: [], False: []}
+        for graphed in (True, False, True, False):
+            model.graphed = graphed
+            try:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                got = _ids(call(steered))
+                ms[graphed].append(sync_ms(t0))
+            finally:
+                model.graphed = True
+            if out.setdefault(graphed, got) != got:
+                raise AssertionError(f"steered {task}: ids differ between runs")
+            check_launches(f"steered {task} (graphed {graphed}), {len(got)} tokens",
+                           dict(LAUNCHES), expected_launches(
+                               cfg, 0, 1, batched_steps(len(got), 64), **kinds))
+            runs.append(dict(LAUNCHES))
+        if out[True] != out[False] or not out[True]:
+            raise AssertionError(f"steered {task}: graphed ids differ from eager")
+        ids[task] = out[True]
+        lines.append(f"{task} {len(out[True])} tokens, graphed {min(ms[True]):.1f} ms, eager "
+                     f"{min(ms[False]):.1f} ms, ids equal; ids "
+                     + ("equal the unsteered ones" if out[True] == base else
+                        f"first differ from unsteered at token {_first_diff(out[True], base)}"))
+    caption = tasks["caption"][1]
+    streamed = _ids("".join(model.caption(enc, "normal", stream=True, settings=steered)["caption"]))
+    if streamed != ids["caption"]:
+        raise AssertionError("steered caption: streamed ids differ from fused")
+    if _ids(caption({**GREEDY64, "steer": vec, "steer_scale": 0.0})) != _ids(caption(GREEDY64)):
+        raise AssertionError("steered caption at scale 0 differs from the unsteered one")
+
+    # the steered graphs (caption and query) once more, no host sync
+    mine = [g for k, e in graphs.cache_of(model.text).entries.items()
+            if k[0] == "generate_text" and k[6] is True for g in e.graphs.values()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in mine:
+            g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not mine:
+        raise AssertionError("no steered answer-loop graph")
+
+    # speculative k 8, steered: the first run captures, the second replays
+    spec_first = _ids(caption({**steered, "speculative": SPEC_K}))
+    reset_launch_counts()
+    reset_loop_counts()
+    t0 = time.perf_counter()
+    spec = _ids(caption({**steered, "speculative": SPEC_K}))
+    spec_ms = sync_ms(t0)
+    if spec != spec_first:
+        raise AssertionError("steered spec caption: ids differ between runs")
+    loop = dict(LOOP_COUNTS["generate_text_spec"])
+    check_launches(f"steered spec caption, {len(spec)} tokens in {loop['steps']} verify spans",
+                   dict(LAUNCHES), expected_launches(cfg, 0, 1 + loop["steps"], 0, **kinds))
+    runs.append(dict(LAUNCHES))
+    diff = _check_margin("steered spec caption", model, enc, tasks["caption"][0],
+                         ids["caption"], spec, 64, steer=model._steer_vectors(steer))
+    lines.append(f"spec k {SPEC_K} caption {len(spec) / (spec_ms / 1e3):.1f} tok/s "
+                 f"({loop['steps']} verify spans; "
+                 + ("ids equal plain steered greedy" if diff is None else
+                    f"first differs at token {diff[0]}, margin {diff[1][0]} ({diff[1][1]} bf16 "
+                    f"steps)") + ")")
+
+    # 64 eos-off steps, steered and unsteered, in turns
+    prompt = tasks["caption"][0]
+    suppress = (tok.answer_id,)
+
+    def answer(s, profiled=False, graphed=True):
+        vec_t = model._steer_vectors(s)
+        kv = model.load_encoded_image(enc)
+        logits, _, first, pos, _ = model._prefill_prompt(kv, prompt, enc.pos, 0.0, 0.0,
+                                                         steer=vec_t)
+        run = lambda: generate_text(model.text, kv, first, pos, None, 0.0, 0.0, 64, -1, suppress,
+                                    model._decode_bound(pos + 65), graphed=graphed, steer=vec_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, n = _device_launches(run) if profiled else (run(), None)
+        t = sync_ms(t0)
+        model._recycle_kv(kv)
+        return res.tokens, (n if profiled else t), logits
+
+    captures = len(graphs.CAPTURES)
+    other = {"steer": steer_vector(cfg, SEED + 10), "steer_scale": STEER_SCALE_LARGE}
+    step_ms = {"unsteered": [], "steered": []}
+    seen, logits = {}, {}
+    for name, s in (("unsteered", None), ("steered", steer), ("steered", other),
+                    ("steered", steer), ("unsteered", None), ("steered", steer),
+                    ("steered", steer), ("unsteered", None)):
+        got, t, logits[name if s is not other else "other"] = answer(s)
+        key = "other" if s is other else name
+        if seen.setdefault(key, got) != got:
+            raise AssertionError(f"64 steps {key}: ids differ between runs")
+        if s is not other:
+            step_ms[name].append(t / 64)
+    new_captures = len(graphs.CAPTURES) - captures
+    if new_captures > 2:
+        raise AssertionError(f"two vectors and scales: {new_captures} new captures (at most the "
+                             "steered and unsteered graphs of this cache)")
+    moved = (logits["steered"] - logits["unsteered"]).abs().max().item()
+    if moved == 0.0:
+        raise AssertionError("the steering vector left the prompt's logits unchanged")
+    if seen["other"] in (seen["steered"], seen["unsteered"]):
+        raise AssertionError(f"the vector at scale {STEER_SCALE_LARGE} turned no greedy id")
+    if answer(other, graphed=False)[0] != seen["other"]:
+        raise AssertionError("the second vector's graph replay differs from its eager run")
+    per_step = {name: answer(s, profiled=True)[1] / 64
+                for name, s in (("unsteered", None), ("steered", steer))}
+    med = {n: statistics.median(v[1:]) for n, v in step_ms.items()}
+    lines.append(f"graphed answer loop (64 steps, eos off) ms per step unsteered "
+                 f"{med['unsteered']:.4f}, steered {med['steered']:.4f} "
+                 f"({100 * (med['steered'] / med['unsteered'] - 1):+.2f}%), in turns; device "
+                 f"launches per step (torch.profiler) unsteered {per_step['unsteered']:.1f}, "
+                 f"steered {per_step['steered']:.1f}; the vector moves the prompt's logits by up "
+                 f"to {moved:.4f}; a second vector at scale {STEER_SCALE_LARGE} replayed the "
+                 f"steered graph ({new_captures} new captures in the turns), its ids first "
+                 f"differ from the unsteered at token {_first_diff(seen['other'], seen['unsteered'])}"
+                 f" and equal its eager run")
+
+    # the collector and the trainer
+    reps = HiddenStateCollector(model)
+    kw = dict(samples_per_image=1, max_tokens=8, temperature=0.0)
+    t0 = time.perf_counter()
+    pos_h = reps.collect(images[:2], "Describe this image in a happy tone.", **kw)
+    neg_h = reps.collect(images[:2], "Describe this image in a sad tone.", **kw)
+    collect_ms = sync_ms(t0)
+    t0 = time.perf_counter()
+    cv = train_control_vectors(pos_h, neg_h)
+    train_ms = (time.perf_counter() - t0) * 1e3
+    shapes = {s.shape for s in pos_h + neg_h}
+    norms = np.linalg.norm(cv.directions, axis=-1)
+    if (shapes != {(cfg.text.n_layers, cfg.text.dim)}
+            or not all(np.isfinite(s).all() for s in pos_h + neg_h)
+            or not np.allclose(norms, 1.0, atol=1e-4)):
+        raise AssertionError(f"collector: shapes {shapes}, direction norms {norms}")
+    trained = _ids(caption({**GREEDY64, "steer": cv}))
+    if not trained:
+        raise AssertionError("the caption steered by the trained vector is empty")
+    lines.append(f"collect 2 images x 2 prompts at 8 greedy tokens: {len(pos_h)} + {len(neg_h)} "
+                 f"states in {collect_ms:.0f} ms; train_control_vectors {train_ms:.1f} ms; the "
+                 f"trained vector's caption {len(trained)} tokens")
+    print(f"2B steering (bf16, scale {STEER_SCALE}) on {power}: " + "; ".join(lines))
+    return runs
+
+
+def phase_steer_caption(model, img, power: str) -> list:
+    """One steered greedy caption (32 tokens, the prompt's EOS kept) on a
+    quantized 2B (int4 + kv_int8: W4A16 and B-int8), graphed and eager in
+    turns, ids equal, exact launches. Returns the launch counts of the
+    graphed run."""
+    cfg = model.config
+    label, kinds = format_label(model), linear_kinds(model)
+    model.tokenizer = IdTokenizer()
+    greedy = {"temperature": 0.0, "max_tokens": 32}
+    s = {**greedy, "steer": steer_vector(cfg, SEED + 9), "steer_scale": STEER_SCALE}
+    enc = model.encode_image(img)
+    out, ms = {}, {}
+    for graphed in (True, False, True):
+        model.graphed = graphed
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            text = model.caption(enc, "normal", settings=s)["caption"]
+            ms[graphed] = sync_ms(t0)
+        finally:
+            model.graphed = True
+        if out.setdefault(graphed, text) != text:
+            raise AssertionError(f"steered caption ({label}): ids differ between runs")
+    if out[True] != out[False] or not out[True]:
+        raise AssertionError(f"steered caption ({label}): graphed ids differ from eager")
+    n = len(_ids(out[True]))
+    check_launches(f"steered caption ({label}), {batched_steps(n, 32)} steps", dict(LAUNCHES),
+                   expected_launches(cfg, 0, 1, batched_steps(n, 32), **kinds))
+    print(f"2B steering ({label}) on {power}: steered caption {n} tokens, graphed "
+          f"{ms[True]:.1f} ms, eager {ms[False]:.1f} ms, ids equal")
+    return [dict(LAUNCHES)]
+
+
+# ------------------------------------------------------------ LoRA finetuning
+
+LORA_FT_RANK = 16  # the 2B adapter finetune's rank
+
+
+def _checksum(leaves) -> float:
+    """Sum of every element in float64: a fingerprint of the weights' bits
+    (equality is checked tensor by tensor besides)."""
+    return sum(t.detach().double().sum().item() for _, t in leaves)
+
+
+def phase_lora_finetune(power: str) -> list:
+    """Adapter-only finetuning at MOONDREAM_2B's published widths and depth
+    on seeded random bf16 weights, as `finetune_text --lora-rank 16` runs
+    it: a rank-16 fp32 adapter (finetune/lora.init_lora_params, A from a
+    CPU generator seeded 0) at qkv, proj, fc1 and fc2, the CLI's optimizer
+    at FT_TEXT_LR over the four --synthetic examples at grad-accum 2 (four
+    mini-steps, two updates). Checks: finite losses, the first example's
+    loss moved by training, the base text model bit for bit unchanged (every
+    tensor, and a float64 checksum) with no gradient, the optimizer state
+    adapter-sized, exact kernel A launches (the ViT; the training forward
+    runs no kernel). Prints ms per mini-step and per update and peak memory
+    beside two mini-steps of the full text finetune on the same model in
+    the same call (an accumulate-only window: the weights do not move).
+    Then the adapter saved by save_variant is served by a graphed caption
+    (settings["variant"]), equal to the eager one, with exact launches.
+    Returns the counted runs' launches."""
+    cfg = MOONDREAM_2B
+    model = MoondreamModel(cfg, None, IdTokenizer(), BF16, seed=SEED, device=DEV)
+    dataset = finetune_text.synthetic_dataset(4)
+    grad_accum = 2
+    optimizer = finetune_trainer.cli_optimizer(FT_TEXT_LR, len(dataset) // grad_accum,
+                                               grad_accum)
+    updates = _timed_updates(optimizer)
+    lora = ft_lora.init_lora_params(cfg.text, LORA_FT_RANK, torch.Generator().manual_seed(0),
+                                    device=DEV)
+    n_params = sum(t.numel() for _, t in named_leaves(lora))
+    state = finetune_trainer.init_train_state(lora, optimizer)
+    step = ft_lora.make_lora_train_step(optimizer, cfg.text)
+    base = [(n, t.detach().clone()) for n, t in named_leaves(model.text)]
+    checksum = _checksum(base)
+    examples = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    steps, losses = [], []
+    for sample in dataset:
+        batch = finetune_text.build_example(model, sample["image"], finetune_text.QUESTION,
+                                            f"{sample['description']}{finetune_text.ANSWER_EOS}")
+        examples.append(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, model.text, batch)
+        steps.append(sync_ms(t0))
+        losses.append(loss.item())
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("LoRA finetune (4 ViT calls)", launches,
+                   expected_launches(cfg, len(dataset), 0, 0, prefills=0))
+    runs = [launches]
+    with torch.no_grad():
+        after = ft_lora.lora_text_loss(state.params, model.text, examples[0]["inputs_embeds"],
+                                       examples[0]["labels"], examples[0]["label_mask"]).item()
+    if (not all(math.isfinite(x) for x in losses + [after]) or after == losses[0]
+            or state.opt_state.count != 2):
+        raise AssertionError(f"LoRA finetune: losses {losses}, after {after}, "
+                             f"{state.opt_state.count} updates")
+    for (name, t), (_, old) in zip(named_leaves(model.text), base):
+        if not torch.equal(t, old) or t.grad is not None or t.requires_grad:
+            raise AssertionError(f"LoRA finetune: the base's {name} changed or has a gradient")
+    if _checksum(named_leaves(model.text)) != checksum:
+        raise AssertionError("LoRA finetune: the base's checksum changed")
+    state_numel = sum(t.numel() for t in state.opt_state.mu + state.opt_state.nu
+                      + (state.opt_state.acc or []))
+    if state_numel != 3 * n_params:
+        raise AssertionError(f"LoRA finetune: optimizer state {state_numel} elements, "
+                             f"adapter {n_params}")
+    mini = [s - u for s, (u, _) in zip(steps, updates)]
+    upd = [u for u, emitted in updates if emitted]
+
+    # mini-steps of the adapter and of the full text finetune on the same
+    # model and example, in turns, each under an accumulate-only optimizer
+    # (its window outlasts the run: nothing moves); the optimizer call is
+    # subtracted, as above
+    turns = ("full", "lora", "lora", "full", "full", "lora")
+    opts = {name: finetune_trainer.cli_optimizer(FT_TEXT_LR, 1, len(turns)) for name in
+            ("lora", "full")}
+    calls = {name: _timed_updates(opt) for name, opt in opts.items()}
+    states = {"lora": finetune_trainer.init_train_state(state.params, opts["lora"]),
+              "full": finetune_trainer.init_train_state(model.text, opts["full"])}
+    lora_step = ft_lora.make_lora_train_step(opts["lora"], cfg.text)
+    steppers = {"lora": lambda st: lora_step(st, model.text, examples[0]),
+                "full": lambda st: finetune_trainer.make_train_step(opts["full"])(st, examples[0])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = {"lora": [], "full": []}
+    for name in turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[name], _ = steppers[name](states[name])
+        timed[name].append(sync_ms(t0) - calls[name][-1][0])
+    full_peak = torch.cuda.max_memory_allocated()
+    if any(emitted for c in calls.values() for _, emitted in c):
+        raise AssertionError("an accumulate-only window updated its tree")
+    del states, opts, steppers, lora_step
+    for (name, t), (_, old) in zip(named_leaves(model.text), base):
+        if not torch.equal(t, old):
+            raise AssertionError(f"full finetune window: {name} moved")
+    del base
+    torch.cuda.empty_cache()
+    print(f"LoRA finetune (2B bf16 base, rank {LORA_FT_RANK} fp32 adapter of {n_params} "
+          f"parameters, {len(dataset)} examples of {examples[0]['inputs_embeds'].shape[1]} "
+          f"positions, grad-accum {grad_accum}, 2 updates, lr {FT_TEXT_LR}) on {power}: losses "
+          f"{[round(x, 4) for x in losses]}, example 0 after training {after:.4f}; ms per "
+          f"mini-step (forward + backward) {[round(x, 1) for x in mini]}; in turns on example "
+          f"0, adapter {[round(x, 1) for x in timed['lora']]} against the full text finetune's "
+          f"{[round(x, 1) for x in timed['full']]} (medians "
+          f"{statistics.median(timed['lora']):.1f} / {statistics.median(timed['full']):.1f}); ms "
+          f"per optimizer update {[round(x, 2) for x in upd]} (accumulate-only calls "
+          f"{[round(u, 2) for u, e in updates if not e]}); max_memory_allocated {peak} bytes "
+          f"(training) against {full_peak} with the full finetune's turns; base bit for bit "
+          f"unchanged (checksum {checksum!r})")
+
+    # the saved adapter served as a variant, graphed against eager
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/adapter.pt"
+        ft_lora.save_variant(path, state.params)
+        s = {"temperature": 0.0, "max_tokens": 32, "variant": path}
+        served = model._variant(s)
+        for grp, site in LORA_SITES:
+            for f in ("A", "B"):
+                if not torch.equal(served[grp][site][f], state.params[grp][site][f].to(BF16)):
+                    raise AssertionError(f"saved variant {grp}.{site}.{f} loads differently")
+        probe = dataset[0]["image"]
+        enc = model.encode_image(probe, settings=s)
+        out = {}
+        for graphed in (True, False, True):
+            model.graphed = graphed
+            try:
+                reset_launch_counts()
+                text = model.caption(enc, settings=s)["caption"]
+            finally:
+                model.graphed = True
+            if out.setdefault(graphed, text) != text:
+                raise AssertionError("caption under the trained variant: ids differ between runs")
+        if out[True] != out[False] or not out[True]:
+            raise AssertionError("caption under the trained variant: graphed ids differ from eager")
+        n = len(_ids(out[True]))
+        check_launches(f"caption under the trained variant, {batched_steps(n, 32)} steps",
+                       dict(LAUNCHES), expected_launches(cfg, 0, 1, batched_steps(n, 32)))
+        runs.append(dict(LAUNCHES))
+        base_caption = model.caption(probe, settings={"temperature": 0.0, "max_tokens": 32})
+    print(f"trained adapter on {power}: save_variant -> settings['variant'] loads the adapter "
+          f"bit for bit (bf16), graphed caption == eager ({n} tokens), ids changed from the "
+          f"base's: {out[True] != base_caption['caption']}")
+    del model
+    return runs
+
+
 def main() -> None:
     power = card()
     print(power)
@@ -4035,6 +4498,7 @@ def main() -> None:
     phase("3 spec reference", phase_spec_reference, img)
     phase("3 finetune reference", phase_finetune_reference,
           finetune_text.synthetic_dataset(1)[0]["image"])
+    phase("3 steer reference", phase_steer_reference, img)
     # 8 images of three sizes for the lockstep batches: 13, 2 and 7 crops
     batch_images = [rng.integers(0, 256, shape, dtype=np.uint8)
                     for shape in [(756, 1008, 3)] * 3 + [(378, 378, 3)] * 3
@@ -4061,6 +4525,7 @@ def main() -> None:
     adapters = variant_adapters(adapter_dir.name)
     runs += phase("4 2B variants", phase_variants, model, img, images, power, adapters)
     runs += phase("4 2B variant pools", phase_variant_pools, model, images, power, adapters)
+    runs += phase("4 2B steering", phase_steer, model, img, images, power)
     # 20 images of three sizes for the pipelines: 13, 2 and 7 crops
     pipe_images = [rng.integers(0, 256, shape, dtype=np.uint8)
                    for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 7][:20]
@@ -4079,6 +4544,7 @@ def main() -> None:
                   int4=True, full=False)
     runs += phase("4 2B int4", phase_int4_pooled_pipeline, model, batch_images, power)
     runs += phase("4 2B int4 speculative", phase_spec, model, enc, power)
+    runs += phase("4 2B steering", phase_steer_caption, model, img, power)
     runs += phase("4 2B variants", phase_variant_caption, model, img, power, adapters)
     runs += phase("4 2B variant pools", phase_variant_pools, model, images, power, adapters,
                   full=False)
@@ -4119,6 +4585,7 @@ def main() -> None:
     runs += [*launches]
     del model
     runs += phase("5 2B finetune", phase_finetune, power)
+    runs += phase("5 2B LoRA finetune", phase_lora_finetune, power)
     print("seconds per phase:", seconds, "total", round(sum(seconds.values()), 1))
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     launches[K.DECODE] += launches.pop(K.DECODE_INT8)
@@ -4221,5 +4688,43 @@ def main_variants() -> None:
     print("seconds per phase:", seconds)
 
 
+def main_steer() -> None:
+    """The steering and adapter-training phases alone (`python3
+    chip_smoke.py --steer`): the build, the tiny steer reference, "4 2B
+    steering" on fresh 2B models (bf16; int4 + kv_int8) and "5 2B LoRA
+    finetune". Prints the card and the phases' seconds; no kernels line."""
+    power = card()
+    print(power)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    img = np.random.default_rng(SEED).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
+    rng = np.random.default_rng(SEED + 2)
+    images = [rng.integers(0, 256, shape, dtype=np.uint8)
+              for shape in ((756, 1008, 3), (378, 378, 3), (600, 800, 3))]
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = round(seconds.get(name, 0.0) + time.perf_counter() - t0, 1)
+
+    timed("1 build", phase_build)
+    timed("3 steer reference", phase_steer_reference, img)
+    model = MoondreamModel(MOONDREAM_2B, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    timed("4 2B steering", phase_steer, model, img, images, power)
+    del model
+    kv8 = dataclasses.replace(MOONDREAM_2B, text=dataclasses.replace(
+        MOONDREAM_2B.text, kv_int8=True))
+    params = init_params(kv8, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
+    quantize_text_params(params["text"])
+    model = MoondreamModel(kv8, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    timed("4 2B steering", phase_steer_caption, model, img, power)
+    del model, params
+    timed("5 2B LoRA finetune", phase_lora_finetune, power)
+    print("seconds per phase:", seconds)
+
+
 if __name__ == "__main__":
-    main_variants() if sys.argv[1:] == ["--variants"] else main()
+    flag = sys.argv[1:]
+    main_variants() if flag == ["--variants"] else main_steer() if flag == ["--steer"] else main()

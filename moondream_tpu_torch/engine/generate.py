@@ -28,6 +28,14 @@ Every forward takes an optional stacked LoRA adapter, `lora`
 threads it (moondream_tpu/engine/generate.py:60-125, :176, :296,
 :420-460, :516, :601); a loop's graph key names its factors
 (`graphs.adapter_key`).
+
+The answer loops take an optional steering vector, `steer` ((n_layers,
+dim), a control vector times its scale; `models.text.text_decoder` adds
+row l to block l's output), as the JAX package threads it through its
+answer, speculative and streamed loops (moondream_tpu/engine/generate.py:
+60-125, :139-170, :176-417). A graphed loop keeps the vector in its state,
+copied in by `reset`: its key names only whether the loop is steered, so
+one graph serves every vector and scale.
 """
 
 from __future__ import annotations
@@ -70,12 +78,13 @@ def prefill(
     prefix_len: int,
     kv_bound: Optional[int] = None,
     lora: Optional[dict] = None,
+    steer: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill a right-padded span embeds (1, T_pad, D) at pos, of which the
     first `length` rows are real. Padding rows write K/V past pos+length;
     those slots are overwritten before they are ever attended. Returns
     (logits (V,) and hidden (D,) of the last real row)."""
-    hidden = text_decoder(embeds, model, kv, pos, prefix_len, kv_bound, lora)
+    hidden = text_decoder(embeds, model, kv, pos, prefix_len, kv_bound, lora, steer)
     h_last = hidden[0, length - 1]
     return _lm_logits(h_last, model), h_last
 
@@ -87,9 +96,10 @@ def decode_step(
     pos: int,
     kv_bound: Optional[int] = None,
     lora: Optional[dict] = None,
+    steer: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step for emb (1, 1, D) at pos. Returns (logits, hidden)."""
-    hidden = text_decoder(emb, model, kv, pos, 0, kv_bound, lora)
+    hidden = text_decoder(emb, model, kv, pos, 0, kv_bound, lora, steer)
     h = hidden[0, 0]
     return _lm_logits(h, model), h
 
@@ -144,21 +154,26 @@ class AnswerState(NamedTuple):
     suppress: torch.Tensor  # (n,) int64: ids masked from every step's logits
     temperature: Optional[torch.Tensor]  # (B,) fp32 of a sampled loop; None: greedy
     top_p: Optional[torch.Tensor]
+    steer: Optional[torch.Tensor] = None  # (L, D) in the model's dtype of a steered loop
 
     @classmethod
-    def create(cls, bsz: int, dev, suppress_ids: Tuple[int, ...], sampled: bool
-               ) -> "AnswerState":
+    def create(cls, bsz: int, dev, suppress_ids: Tuple[int, ...], sampled: bool,
+               steer_like: Optional[torch.Tensor] = None) -> "AnswerState":
+        """`steer_like`: a tensor of the steering buffer's shape and dtype
+        for a steered loop, else None."""
         z = lambda dtype: torch.zeros((bsz,), dtype=dtype, device=dev)
         return cls(tok=z(torch.long), done=z(torch.bool), count=z(torch.long),
                    pos=z(torch.int32),
                    run=torch.zeros((bsz, DONE_CHECK_EVERY), dtype=torch.long, device=dev),
                    suppress=torch.tensor(suppress_ids, dtype=torch.long, device=dev),
                    temperature=z(torch.float32) if sampled else None,
-                   top_p=z(torch.float32) if sampled else None)
+                   top_p=z(torch.float32) if sampled else None,
+                   steer=None if steer_like is None else torch.zeros_like(steer_like))
 
     def reset(self, first: torch.Tensor, pos: int, eos_id: int, temperature: float,
-              top_p: float) -> None:
-        """Start a loop from first tokens (B,) at `pos`, in place."""
+              top_p: float, steer: Optional[torch.Tensor] = None) -> None:
+        """Start a loop from first tokens (B,) at `pos`, in place; a steered
+        state takes `steer`, cast to its buffer's dtype."""
         self.tok.copy_(first.reshape(-1))
         torch.eq(self.tok, eos_id, out=self.done)
         self.count.zero_()
@@ -166,6 +181,8 @@ class AnswerState(NamedTuple):
         if self.temperature is not None:
             self.temperature.fill_(temperature)
             self.top_p.fill_(top_p)
+        if self.steer is not None:
+            self.steer.copy_(steer)
 
 
 def answer_step(model: TextModel, kv: KVCache, st: AnswerState, j: int, eos_id: int,
@@ -181,7 +198,7 @@ def answer_step(model: TextModel, kv: KVCache, st: AnswerState, j: int, eos_id: 
     st.run[:, j] = st.tok.masked_fill(st.done, 0)
     st.count.add_((~st.done).long())
     emb = text_encoder(st.tok[:, None], model)
-    hidden = text_decoder(emb, model, kv, st.pos, 0, kv_bound, lora)[:, 0]
+    hidden = text_decoder(emb, model, kv, st.pos, 0, kv_bound, lora, st.steer)[:, 0]
     logits = _lm_logits(hidden, model).index_fill_(-1, st.suppress, NEG_INF)
     if st.temperature is None:
         nxt = torch.argmax(logits, dim=-1)
@@ -195,25 +212,34 @@ def answer_step(model: TextModel, kv: KVCache, st: AnswerState, j: int, eos_id: 
 def answer_loop(model: TextModel, kv: KVCache, first: torch.Tensor, pos: int,
                 generator: Optional[torch.Generator], temperature: float, top_p: float,
                 eos_id: int, suppress_ids: Tuple[int, ...], kv_bound: Optional[int],
-                graphed: bool, label: str, lora: Optional[dict] = None):
+                graphed: bool, label: str, lora: Optional[dict] = None,
+                steer: Optional[torch.Tensor] = None):
     """(state, run) of an answer loop over B = len(first) rows from `pos`:
     run(n) advances it n steps of `answer_step`. On the card (unless
     `graphed` is False) a full run of DONE_CHECK_EVERY steps replays a CUDA
-    graph keyed by the batch, kv_bound, the adapter, the cache, eos, the
-    suppressed ids and greedy or sampled (engine/graphs.py); a shorter last
-    run, which must not step past the limit, runs eagerly."""
+    graph keyed by the batch, kv_bound, steered or not, the adapter, the
+    cache, eos, the suppressed ids and greedy or sampled
+    (engine/graphs.py); a shorter last run, which must not step past the
+    limit, runs eagerly. `steer` goes into the state's buffer."""
     sampled = temperature > 0
     bsz, dev = first.shape[0], first.device
+    like = _steer_like(model, steer)
     key = (label, bsz, kv_bound, eos_id, tuple(suppress_ids),
-           id(generator) if sampled else None, adapter_key(lora),
+           id(generator) if sampled else None, steer is not None, adapter_key(lora),
            tensor_key(kv.k, kv.v, kv.ks, kv.vs))
     gen = generator if sampled else None
     st, run = graphs.loop(
-        model, key, lambda: AnswerState.create(bsz, dev, tuple(suppress_ids), sampled),
+        model, key, lambda: AnswerState.create(bsz, dev, tuple(suppress_ids), sampled, like),
         lambda st, j: answer_step(model, kv, st, j, eos_id, kv_bound, gen, lora),
         DONE_CHECK_EVERY, graphed and graphs.enabled(dev), label, gen)
-    st.reset(first, pos, eos_id, temperature, top_p)
+    st.reset(first, pos, eos_id, temperature, top_p, steer)
     return st, run
+
+
+def _steer_like(model: TextModel, steer: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A steered loop's buffer template: the vector's shape and device in
+    the activations' dtype (the embeddings'); None for an unsteered loop."""
+    return None if steer is None else torch.empty_like(steer, dtype=model.wte.dtype)
 
 
 def generate_text(
@@ -230,6 +256,7 @@ def generate_text(
     kv_bound: Optional[int] = None,
     graphed: bool = True,
     lora: Optional[dict] = None,
+    steer: Optional[torch.Tensor] = None,
 ) -> GenerateResult:
     """Answer generation from first_token (a 0-d device tensor) at pos, with
     the JAX package's semantics: while the token is not EOS and the limit
@@ -242,10 +269,12 @@ def generate_text(
     Steps after EOS emit nothing (with temperature > 0 they still draw from
     `generator`); `pos` counts emitted tokens only, as JAX's does. On the
     card each full run of steps replays a CUDA graph (`answer_loop`);
-    `graphed=False` runs the same steps eagerly."""
+    `graphed=False` runs the same steps eagerly. `steer`: a steering
+    vector (n_layers, dim) added in every step."""
     limit = _limit(model, pos, max_tokens, kv_bound)
     st, run = answer_loop(model, kv, first_token.reshape(1), pos, generator, temperature,
-                          top_p, eos_id, suppress_ids, kv_bound, graphed, "generate_text", lora)
+                          top_p, eos_id, suppress_ids, kv_bound, graphed, "generate_text", lora,
+                          steer)
     out: List[int] = []
     steps = reads = 0
     while True:
@@ -277,6 +306,7 @@ def stream_tokens(
     suppress_ids: Tuple[int, ...],
     kv_bound: Optional[int] = None,
     lora: Optional[dict] = None,
+    steer: Optional[torch.Tensor] = None,
 ) -> Iterator[int]:
     """The answer loop one token at a time, for streaming: yields each
     emitted id as a host int, one eager `answer_step` and one host read per
@@ -284,7 +314,7 @@ def stream_tokens(
     so a streamed answer equals the fused one."""
     limit = _limit(model, pos, max_tokens, kv_bound)
     st, run = answer_loop(model, kv, first_token.reshape(1), pos, generator, temperature,
-                          top_p, eos_id, suppress_ids, kv_bound, False, "stream", lora)
+                          top_p, eos_id, suppress_ids, kv_bound, False, "stream", lora, steer)
     for _ in range(limit):
         tok = int(st.tok[0])
         if tok == eos_id:
@@ -306,13 +336,15 @@ def _spec_limit(model: TextModel, pos: int, max_tokens: int, spec_k: int,
 
 def _verify_logits(model: TextModel, kv: KVCache, q_toks: torch.Tensor, pos: int,
                    kv_bound: Optional[int], suppress_ids: Tuple[int, ...],
-                   lora: Optional[dict] = None) -> torch.Tensor:
+                   lora: Optional[dict] = None,
+                   steer: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One verify forward: the (k,) span q_toks = [current, draft...] at
     positions pos..pos+k-1, written to the cache in place. Returns the
     span's (k, V) logits with `suppress_ids` masked. Rows past what the
     loop accepts leave K/V at positions the next span overwrites before
     anything attends them."""
-    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, pos, 0, kv_bound, lora)
+    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, pos, 0, kv_bound, lora,
+                          steer)
     logits = _lm_logits(hidden[0], model)
     if suppress_ids:
         logits[:, list(suppress_ids)] = NEG_INF
@@ -394,20 +426,23 @@ class SpecState(NamedTuple):
     suppress: torch.Tensor  # (n,) int64: ids masked from every span's logits
     temperature: Optional[torch.Tensor]  # (1,) fp32 of a sampled loop; None: greedy
     top_p: Optional[torch.Tensor]
+    steer: Optional[torch.Tensor] = None  # (L, D) in the model's dtype of a steered loop
 
     @classmethod
     def create(cls, width: int, spec_k: int, dev, suppress_ids: Tuple[int, ...],
-               sampled: bool) -> "SpecState":
+               sampled: bool, steer_like: Optional[torch.Tensor] = None) -> "SpecState":
         z = lambda *shape, dtype=torch.long: torch.zeros(shape, dtype=dtype, device=dev)
         return cls(tok=z(1), pos=z(1, dtype=torch.int32), count=z(1),
                    done=z(1, dtype=torch.bool), limit=z(1), hist=z(width + 1),
                    run=z(DONE_CHECK_EVERY, spec_k), run_m=z(DONE_CHECK_EVERY),
                    suppress=torch.tensor(suppress_ids, dtype=torch.long, device=dev),
                    temperature=z(1, dtype=torch.float32) if sampled else None,
-                   top_p=z(1, dtype=torch.float32) if sampled else None)
+                   top_p=z(1, dtype=torch.float32) if sampled else None,
+                   steer=None if steer_like is None else torch.zeros_like(steer_like))
 
     def reset(self, first: torch.Tensor, pos: int, limit: int, seed: Optional[torch.Tensor],
-              eos_id: int, temperature: float, top_p: float) -> None:
+              eos_id: int, temperature: float, top_p: float,
+              steer: Optional[torch.Tensor] = None) -> None:
         """Start a loop from the first token at `pos`, in place."""
         self.tok.copy_(first.reshape(1))
         self.pos.fill_(pos)
@@ -421,6 +456,8 @@ class SpecState(NamedTuple):
         if self.temperature is not None:
             self.temperature.fill_(temperature)
             self.top_p.fill_(top_p)
+        if self.steer is not None:
+            self.steer.copy_(steer)
 
 
 def spec_step(model: TextModel, kv: KVCache, st: SpecState, j: int, s0: int, eos_id: int,
@@ -446,7 +483,7 @@ def spec_step(model: TextModel, kv: KVCache, st: SpecState, j: int, s0: int, eos
     draft = ngram_draft_rows(st.hist[None, :spare], at + 1, st.tok, k)[0][0]
     q_toks = torch.cat([st.tok, draft])
     hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, st.pos, 0, kv_bound,
-                          lora)
+                          lora, st.steer)
     logits = _lm_logits(hidden[0], model).index_fill_(-1, st.suppress, NEG_INF)
     if st.temperature is None:
         emitted = torch.argmax(logits, dim=-1)
@@ -479,27 +516,29 @@ def spec_loop(model: TextModel, kv: KVCache, first_token: torch.Tensor, pos: int
               kv_bound: Optional[int], seed: Optional[torch.Tensor],
               generator: Optional[torch.Generator], temperature: float, top_p: float,
               graphed: bool, label: str, run_len: int = DONE_CHECK_EVERY,
-              lora: Optional[dict] = None):
+              lora: Optional[dict] = None, steer: Optional[torch.Tensor] = None):
     """(state, run) of the speculative loop from `pos`: run(n) advances it
     n verify spans of `spec_step`. On the card (unless `graphed` is False)
     a full run of `run_len` spans (DONE_CHECK_EVERY; 1 for the stream)
     replays a CUDA graph keyed by run_len, spec_k, the seed's width,
-    kv_bound, the adapter, the cache, eos, the suppressed ids and greedy or
-    sampled (engine/graphs.py); a shorter run is eager."""
+    kv_bound, steered or not, the adapter, the cache, eos, the suppressed
+    ids and greedy or sampled (engine/graphs.py); a shorter run is eager.
+    `steer` goes into the state's buffer."""
     sampled = temperature > 0
     dev = first_token.device
     s0 = 0 if seed is None else seed.shape[0]
     gen = generator if sampled else None
+    like = _steer_like(model, steer)
     key = (label, run_len, spec_k, s0, kv_bound, eos_id, tuple(suppress_ids),
-           id(generator) if sampled else None, adapter_key(lora),
+           id(generator) if sampled else None, steer is not None, adapter_key(lora),
            tensor_key(kv.k, kv.v, kv.ks, kv.vs))
     st, run = graphs.loop(
         model, key,
         lambda: SpecState.create(s0 + model.config.max_context, spec_k, dev,
-                                 tuple(suppress_ids), sampled),
+                                 tuple(suppress_ids), sampled, like),
         lambda st, j: spec_step(model, kv, st, j, s0, eos_id, kv_bound, gen, lora),
         run_len, graphed and graphs.enabled(dev), label, gen)
-    st.reset(first_token, pos, limit, seed, eos_id, temperature, top_p)
+    st.reset(first_token, pos, limit, seed, eos_id, temperature, top_p, steer)
     return st, run
 
 
@@ -524,6 +563,7 @@ def spec_spans(
     top_p: float = 0.0,
     graphed: bool = True,
     lora: Optional[dict] = None,
+    steer: Optional[torch.Tensor] = None,
 ) -> Iterator[List[int]]:
     """The speculative answer loop one verify span at a time, for the
     speculative stream: while the token is not EOS and the limit is not
@@ -542,13 +582,13 @@ def spec_spans(
     if not spec_on_device(model, spec_k):
         yield from _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id,
                                     suppress_ids, spec_k, kv_bound, seed, generator,
-                                    temperature, top_p, lora)
+                                    temperature, top_p, lora, steer)
         return
     limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
     label = _spec_label(sampled, True)
     st, run = spec_loop(model, kv, first_token, pos, limit, eos_id, suppress_ids, spec_k,
                         kv_bound, seed, generator, temperature, top_p, graphed, label, 1,
-                        lora)
+                        lora, steer)
     reads, spans = 1, 0
     done = bool(st.done)
     while not done:
@@ -563,15 +603,16 @@ def spec_spans(
 
 def _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
                      kv_bound, seed, generator, temperature, top_p,
-                     lora=None) -> Iterator[List[int]]:
+                     lora=None, steer=None) -> Iterator[List[int]]:
     """spec_spans at a host position (GQA, or spec_k > 16: kernel A takes
     the spans): the host reads m and the span's tokens once per span, plus
     the first token once; recorded under "generate_text_spec_eager" (or
     "generate_text_spec_sampled_eager")."""
     sampled = temperature > 0
+    steer = None if steer is None else steer.to(model.wte.dtype)  # cast once, not per span
 
     def accept(draft, q_toks, at):
-        logits = _verify_logits(model, kv, q_toks, at, kv_bound, suppress_ids, lora)
+        logits = _verify_logits(model, kv, q_toks, at, kv_bound, suppress_ids, lora, steer)
         if sampled:
             return sampled_accept(logits, draft, generator, temperature, top_p, eos_id)
         g = torch.argmax(logits, dim=-1)
@@ -606,7 +647,7 @@ def _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_i
 
 def _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
                 kv_bound, seed, generator, temperature, top_p, graphed,
-                lora=None) -> "GenerateResult":
+                lora=None, steer=None) -> "GenerateResult":
     """The fused speculative loops: runs of DONE_CHECK_EVERY verify spans
     over the device state, the host reading the done flag, the count and
     the last run's spans once per run (and once before the first), so at
@@ -617,12 +658,12 @@ def _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, s
     if not spec_on_device(model, spec_k):
         return _collect(_host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id,
                                          suppress_ids, spec_k, kv_bound, seed, generator,
-                                         temperature, top_p, lora), pos)
+                                         temperature, top_p, lora, steer), pos)
     limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
     label = _spec_label(sampled, True)
     st, run = spec_loop(model, kv, first_token, pos, limit, eos_id, suppress_ids, spec_k,
                         kv_bound, seed, generator, temperature, top_p, graphed, label,
-                        lora=lora)
+                        lora=lora, steer=steer)
     out: List[int] = []
     spans = reads = n = 0
     while True:
@@ -658,6 +699,7 @@ def generate_text_spec(
     seed: Optional[torch.Tensor] = None,
     graphed: bool = True,
     lora: Optional[dict] = None,
+    steer: Optional[torch.Tensor] = None,
 ) -> GenerateResult:
     """Speculative greedy generation (moondream_tpu/engine/generate.py:
     176-293): n-gram drafts verified in one spec_k-row forward per
@@ -675,7 +717,7 @@ def generate_text_spec(
     A GQA model or spec_k > 16 runs the eager span loop at a host position
     (one read per span), under LOOP_COUNTS "generate_text_spec_eager"."""
     return _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
-                       kv_bound, seed, None, 0.0, 0.0, graphed, lora)
+                       kv_bound, seed, None, 0.0, 0.0, graphed, lora, steer)
 
 
 def generate_text_spec_sampled(
@@ -694,6 +736,7 @@ def generate_text_spec_sampled(
     seed: Optional[torch.Tensor] = None,
     graphed: bool = True,
     lora: Optional[dict] = None,
+    steer: Optional[torch.Tensor] = None,
 ) -> GenerateResult:
     """Speculative sampling at temperature > 0 (moondream_tpu/engine/
     generate.py:296-417): the drafts of generate_text_spec accepted by the
@@ -704,7 +747,7 @@ def generate_text_spec_sampled(
     generate_text_spec; the graph's replays advance `generator` as the
     eager spans do."""
     return _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
-                       kv_bound, seed, generator, temperature, top_p, graphed, lora)
+                       kv_bound, seed, generator, temperature, top_p, graphed, lora, steer)
 
 
 class ReasoningResult(NamedTuple):

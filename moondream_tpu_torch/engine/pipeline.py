@@ -42,7 +42,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.moondream import _prompt_pad, _refuse_unported
+from ..models.moondream import _prompt_pad, _refuse_dropped
 from ..models.text import text_encoder
 from ..utils.streaming import stream_text
 from . import batched as batched_engine
@@ -138,7 +138,7 @@ class BatchPipeline:
         (its padded rows decode, their outputs are dropped), so every batch
         has the same shapes and graph keys. A settings variant applies in
         the fused prefill and the decode loop."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "BatchPipeline")
         images = list(images)
         if not images:
             return []
@@ -279,7 +279,7 @@ class PooledPipeline:
         are refused: the JAX package's PooledPipeline builds its pool
         without variants and drops them (moondream_tpu/engine/pipeline.py:
         332-336, :354-444), so there is no variant path to match."""
-        _refuse_unported(settings, variants=True)
+        _refuse_dropped(settings, "PooledPipeline", variants=True)
         eng = self.engine
         model = eng.model
         images = list(images)

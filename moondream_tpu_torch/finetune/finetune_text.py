@@ -14,9 +14,15 @@ whole model in the interchange checkpoint layout (save_params), as
 .safetensors or torch .pt, which `weights.load_params` and the JAX
 package's loader read.
 
+With --lora-rank r only a rank-r adapter at qkv, proj, fc1 and fc2 trains
+(finetune/lora.py; the base stays frozen, bit for bit); --save-every
+checkpoints the adapter, and --save writes it as a variant file
+(save_variant) that `settings={"variant": path}` serves. Its A starts from
+a torch generator seeded 0, where the JAX CLI's starts from PRNGKey(0).
+
 Needs nothing beyond torch and numpy with --synthetic; the HF dataset
 needs `datasets`, --wandb needs `wandb`, a .safetensors save needs
-`safetensors`. LoRA finetuning (--lora-rank) is not ported yet.
+`safetensors`.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from ..models.moondream import MoondreamModel
 from ..tokenizer import load_tokenizer
 from ..weights import load_params, params_to_jax
 from . import resolve_config
+from .lora import init_lora_params, make_lora_train_step, save_variant
 from .trainer import TrainState, cli_optimizer, init_train_state, make_train_step, save_checkpoint
 
 ANSWER_EOS = "<|endoftext|>"
@@ -89,15 +96,24 @@ def synthetic_dataset(n: int) -> list:
 
 def train(
     model: MoondreamModel, dataset, epochs: int, lr: float, grad_accum: int,
-    save_every: int = 0, ckpt_dir: str = "checkpoints", log=None,
+    save_every: int = 0, ckpt_dir: str = "checkpoints", log=None, lora_rank: int = 0,
 ) -> TrainState:
     """The CLI's loop: one example per mini-step, an optimizer update every
-    `grad_accum` mini-steps, a checkpoint of the text tree every
-    `save_every` updates. `log(step, loss)` is called at each update."""
+    `grad_accum` mini-steps, a checkpoint of the trained tree every
+    `save_every` updates. `log(step, loss)` is called at each update. With
+    `lora_rank`, the trained tree is a fresh rank-`lora_rank` adapter (A
+    from a CPU generator seeded 0) over the frozen text model."""
     total_steps = epochs * len(dataset) // grad_accum
     optimizer = cli_optimizer(lr, total_steps, grad_accum)
-    state = init_train_state(model.text, optimizer)
-    train_step = make_train_step(optimizer)
+    if lora_rank:
+        lora = init_lora_params(model.config.text, lora_rank, torch.Generator().manual_seed(0),
+                                device=model.device)
+        state = init_train_state(lora, optimizer)
+        lora_step = make_lora_train_step(optimizer, model.config.text)
+        train_step = lambda state, batch: lora_step(state, model.text, batch)
+    else:
+        state = init_train_state(model.text, optimizer)
+        train_step = make_train_step(optimizer)
     i = 0
     for _ in range(epochs):
         for sample in dataset:
@@ -136,15 +152,11 @@ def main(argv: Optional[list] = None) -> None:
                         help="train on N synthetic image/caption pairs "
                              "instead of a HF dataset (offline smoke run)")
     parser.add_argument("--lora-rank", type=int, default=0,
-                        help="LoRA finetuning: not ported yet (raises)")
+                        help="train a LoRA adapter of this rank (the base stays frozen) "
+                             "and save it as a variant file")
     parser.add_argument("--device", type=str, default="cuda",
                         help="the card unless 'cpu' is asked for")
     args = parser.parse_args(argv)
-    if args.lora_rank:  # an adapter the port cannot apply yet
-        raise NotImplementedError(
-            "--lora-rank (LoRA finetuning) is not ported to moondream_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 5)"
-        )
 
     config = resolve_config(args.config)
     params = load_params(args.model, config, device=args.device) if args.model else None
@@ -158,9 +170,12 @@ def main(argv: Optional[list] = None) -> None:
         from datasets import load_dataset
 
         dataset = load_dataset(args.dataset, trust_remote_code=True)["train"]
-    train(model, dataset, args.epochs, args.lr, args.grad_accum, args.save_every,
-          args.ckpt_dir, log)
-    save_params(args.save, model)
+    state = train(model, dataset, args.epochs, args.lr, args.grad_accum, args.save_every,
+                  args.ckpt_dir, log, args.lora_rank)
+    if args.lora_rank:
+        save_variant(args.save, state.params)
+    else:
+        save_params(args.save, model)
     print(f"saved to {args.save}")
 
 

@@ -37,11 +37,19 @@ from ..models.text import TextModel
 Leaves = List[Tuple[str, torch.Tensor]]
 
 
-def named_leaves(module: nn.Module) -> Leaves:
+def named_leaves(module: Union[nn.Module, dict]) -> Leaves:
     """The leaves of the JAX package's tree for `module`: its parameters,
     and for the text model its RoPE table `freqs_cis` (fp32), which JAX
     keeps in the text tree (moondream_tpu/weights.py:229), so that
-    value_and_grad differentiates it and adamw updates it."""
+    value_and_grad differentiates it and adamw updates it. A nested dict of
+    tensors (a stacked LoRA adapter) gives its tensors under dotted names,
+    in the dict's order."""
+    if isinstance(module, dict):
+        leaves = []
+        for k, v in module.items():
+            leaves += ([(f"{k}.{n}", t) for n, t in named_leaves(v)] if isinstance(v, dict)
+                       else [(k, v)])
+        return leaves
     leaves = list(module.named_parameters())
     if isinstance(module, TextModel):
         leaves.append(("freqs_cis", module.freqs_cis))

@@ -20,7 +20,7 @@ the optimizer state, as the JAX package's orbax path does.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -46,13 +46,14 @@ def lr_schedule(base_lr: float):
 
 def text_loss(
     text: TextModel, inputs_embeds: torch.Tensor, labels: torch.Tensor,
-    label_mask: torch.Tensor,
+    label_mask: torch.Tensor, lora: Optional[dict] = None,
 ) -> torch.Tensor:
     """Shifted cross-entropy over the answer span. inputs_embeds (B, T, D);
     labels (B, T) int, labels[t] the target emitted at position t;
     label_mask (B, T) fp32, 1 where labels count. The logits are the
-    weights' dtype, cast to fp32 after the lm head."""
-    hidden = produce_hidden(inputs_embeds, text)
+    weights' dtype, cast to fp32 after the lm head. `lora`: a stacked
+    adapter applied in the forward (finetune/lora.py)."""
+    hidden = produce_hidden(inputs_embeds, text, lora=lora)
     logits = lm_head_full(hidden, text).float()[:, :-1]
     tgt = labels[:, 1:].long()
     mask = label_mask[:, 1:]
@@ -93,10 +94,11 @@ def size_to_bin(size: torch.Tensor) -> torch.Tensor:
 
 
 class TrainState(NamedTuple):
-    """The trained tree (a TextModel or RegionModel, updated in place), its
-    optimizer state and the step count."""
+    """The trained tree (a TextModel or RegionModel, or a stacked LoRA
+    adapter's dict; updated in place), its optimizer state and the step
+    count."""
 
-    params: nn.Module
+    params: Union[nn.Module, dict]
     opt_state: AdamWState
     step: int
 
@@ -123,16 +125,17 @@ def cli_optimizer(lr: float, total_steps: int, grad_accum: int) -> AdamW:
     )
 
 
-def init_train_state(params: nn.Module, optimizer: AdamW) -> TrainState:
+def init_train_state(params: Union[nn.Module, dict], optimizer: AdamW) -> TrainState:
     return TrainState(params=params, opt_state=optimizer.init(named_leaves(params)), step=0)
 
 
 def step_with(
     optimizer: AdamW, state: TrainState, loss_fn: Callable[[], torch.Tensor]
 ) -> Tuple[TrainState, torch.Tensor]:
-    """One training step: loss_fn() with gradients on the trained tree only,
-    its backward, and one optimizer call in place. Returns the next state
-    and the detached loss."""
+    """One training step: loss_fn() with gradients on the trained tree only
+    (a module, or a stacked adapter's dict), its backward, and one
+    optimizer call in place. Returns the next state and the detached
+    loss."""
     leaves = named_leaves(state.params)
     with trainable(leaves):
         loss = loss_fn()

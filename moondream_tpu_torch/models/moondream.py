@@ -32,6 +32,13 @@ EncodedImage records the label it was encoded under, and a request under
 another label refuses it (moondream_tpu/models/moondream.py:79-90,
 :755-784, :840-855). detect_gaze runs no adapter, as the JAX package's
 runs none, and refuses these settings.
+Steering: settings["steer"] (a `repeng.ControlVector`, or an (n_layers,
+dim) array) times settings["steer_scale"] adds its row l to block l's
+output in caption and query, in the answer's prompt prefill and every
+step of its decode loop (fused, speculative, streamed and graphed), as the
+JAX package steers them (moondream_tpu/models/moondream.py:907-918,
+:1231, :1308). Every other entry point, which the JAX package lets drop
+the vector without a word, refuses it.
 """
 
 from __future__ import annotations
@@ -75,23 +82,37 @@ SPEC_SEED_LEN = 64
 # detect_gaze and PooledPipeline's. The serving pool takes `variant=`
 # names of its own adapters instead (models/serve.py).
 VARIANT_SETTINGS = ("variant", "variant_tree", "variant_label")
-# Its steering settings (:907-918), which the port does not apply yet:
-# every entry point that takes settings refuses them.
-UNPORTED_SETTINGS = ("steer", "steer_scale")
+# Its steering settings (:907-918), applied by caption and query only (and
+# compile, which warms them); the JAX package's other entry points drop them.
+STEER_SETTINGS = ("steer", "steer_scale")
 
 
-def _refuse_unported(settings: Optional[Dict[str, Any]], variants: bool = False) -> None:
+def _refuse_dropped(settings: Optional[Dict[str, Any]], entry: str,
+                    variants: bool = False) -> None:
     """Raise NotImplementedError when `settings` sets a steering vector, or
     with `variants` a LoRA variant (detect_gaze and PooledPipeline, whose
-    JAX counterparts run no adapter): answering as the base model instead
-    would drop them without a word (ROADMAP.md Queue 1 item 5 ports
-    steering)."""
-    for key in UNPORTED_SETTINGS + (VARIANT_SETTINGS if variants else ()):
+    JAX counterparts run no adapter), in an entry point whose JAX
+    counterpart drops it without a word: answering as the base model would
+    hide that the setting did nothing. A deliberate deviation from the JAX
+    package, which ignores them there."""
+    for key in STEER_SETTINGS + (VARIANT_SETTINGS if variants else ()):
         if (settings or {}).get(key) is not None:
+            what, where = (("steering", "the JAX package steers caption and query only")
+                           if key in STEER_SETTINGS else
+                           ("a LoRA variant", "the JAX package runs no adapter there"))
             raise NotImplementedError(
-                f"settings[{key!r}] (LoRA variants and steering) is not ported to "
-                "moondream_tpu_torch yet (ROADMAP.md Queue 1 item 5)"
+                f"settings[{key!r}]: {entry} does not apply {what} ({where}, and its "
+                f"{entry} drops the setting without a word); leave it out here"
             )
+
+
+def _unsteered(settings: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """`settings` without the steering keys: what caption and query hand to
+    the entry points that steer nothing (encode_image; compile's detect,
+    point and gaze warm-ups)."""
+    if not settings or not any(settings.get(k) is not None for k in STEER_SETTINGS):
+        return settings
+    return {k: v for k, v in settings.items() if k not in STEER_SETTINGS}
 
 
 def _variant_label(settings: Optional[Dict[str, Any]]) -> Optional[str]:
@@ -310,7 +331,7 @@ class MoondreamModel:
         is when it was encoded under the request's variant label; under
         another label it raises ValueError (the adapter changes the image
         prefill too)."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "encode_image")
         want = _variant_label(settings)
         if isinstance(image, EncodedImage):
             if image.variant != want:
@@ -355,6 +376,29 @@ class MoondreamModel:
         return variant_state_dict(settings["variant"], self.config.text.n_layers, self.dtype,
                                   self.device)
 
+    def _steer_vectors(self, settings: Optional[Dict[str, Any]]) -> Optional[torch.Tensor]:
+        """The request's steering vector, pre-scaled, fp32 (n_layers, dim) on
+        the model's device (moondream_tpu/models/moondream.py:907-918):
+        settings["steer"].scaled(settings["steer_scale"]) for a
+        ControlVector (its default scale when the scale is absent), an
+        array or tensor times the scale (1.0 when absent); None without a
+        vector (a scale alone steers nothing). Raises ValueError for another
+        shape."""
+        steer = (settings or {}).get("steer")
+        if steer is None:
+            return None
+        scale = settings.get("steer_scale")
+        if hasattr(steer, "scaled"):  # repeng.ControlVector
+            vec = steer.scaled(scale, device=self.device)
+        else:
+            vec = torch.as_tensor(steer).to(self.device, torch.float32)
+            vec = vec * (1.0 if scale is None else scale)
+        want = (self.config.text.n_layers, self.config.text.dim)
+        if tuple(vec.shape) != want:
+            raise ValueError(f"settings['steer'] must be (n_layers, dim) = {want}, got "
+                             f"{tuple(vec.shape)}")
+        return vec
+
     def compile(self, settings: Optional[Dict[str, Any]] = None) -> "MoondreamModel":
         """Warm the hot paths (moondream_tpu/models/moondream.py:787-821):
         one dummy request through encode, caption, query, query with
@@ -379,8 +423,10 @@ class MoondreamModel:
         variant's graphs are the ones warmed (the JAX package encodes it
         without settings, and its caption then refuses the snapshot of
         another variant); detect_gaze, which runs no adapter, warms on a
-        base encoding."""
-        _refuse_unported(settings)
+        base encoding. A steering vector in `settings` warms the steered
+        caption and query graphs (one per loop key, whatever the vector
+        and scale); detect and point warm without it, as the JAX package's
+        drop it."""
         s = dict(settings or {})
         s.setdefault("max_tokens", DEFAULT_MAX_TOKENS)
         s.setdefault("max_objects", DEFAULT_MAX_OBJECTS)
@@ -394,12 +440,13 @@ class MoondreamModel:
             build_parallel([*attn_kernels.LOADERS, *quant_kernels.LOADERS])
         side = self.config.vision.crop_size
         dummy = np.zeros((side, side, 3), dtype=np.uint8)
-        enc = self.encode_image(dummy, settings=s)
+        plain = _unsteered(s)
+        enc = self.encode_image(dummy, settings=plain)
         self.caption(enc, "normal", settings=s)
         self.query(image=enc, question="?", settings=s)
         self.query(image=enc, question="?", reasoning=True, settings=s)
-        self.detect(enc, "x", settings=s)
-        self.point(enc, "x", settings=s)
+        self.detect(enc, "x", settings=plain)
+        self.point(enc, "x", settings=plain)
         base = any(s.get(k) is not None for k in VARIANT_SETTINGS)
         self.detect_gaze(self.encode_image(dummy) if base else enc, eye=(0.5, 0.5))
         return self
@@ -458,9 +505,11 @@ class MoondreamModel:
         self, kv: KVCache, prompt_tokens: List[int], pos: int,
         temperature: float, top_p: float, spatial_refs=None,
         prefix_len: Optional[int] = None, lora: Optional[dict] = None,
+        steer: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int, KVCache]:
         """Embed and prefill a prompt into `kv` (in place), under the
-        adapter `lora` when given, and sample the first token.
+        adapter `lora` and the steering vector `steer` when given, and
+        sample the first token.
         `spatial_refs` (points and boxes) replace the embeddings at the
         prompt's coord_id and size_id tokens, in order. Returns (logits,
         hidden, next_token (0-d device tensor), new_pos, kv), as the JAX
@@ -481,7 +530,7 @@ class MoondreamModel:
             prefix_len = self.config.text.prefix_attn
         logits, hidden = engine.prefill(
             self.text, kv, emb, pos, length, prefix_len,
-            kv_bound=self._kv_bound(pos + pad), lora=lora,
+            kv_bound=self._kv_bound(pos + pad), lora=lora, steer=steer,
         )
         next_token = sample_token(logits, self.generator, temperature, top_p)
         return logits, hidden, next_token, pos + length, kv
@@ -515,12 +564,14 @@ class MoondreamModel:
 
     def _generate_answer_tokens(
         self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None, lora=None,
+        steer=None,
     ) -> List[int]:
         """The answer's ids. With settings["speculative"] (k 8 for True):
         n-gram drafts, seeded by the prompt's tail, verified k rows at a
         time; greedy ids equal the plain loop's, and at temperature > 0 the
         drafts pass the rejection test against the target nucleus
-        (moondream_tpu/models/moondream.py:929-982)."""
+        (moondream_tpu/models/moondream.py:929-982). `steer`: a steering
+        vector added in every step or span."""
         max_tokens, temperature, top_p = self._settings(settings)
         eos = eos_id if eos_id is not None else self.config.tokenizer.eos_id
         suppress = (self.config.tokenizer.answer_id,)
@@ -529,22 +580,24 @@ class MoondreamModel:
             return engine.generate_text(
                 self.text, kv, next_token, pos, self.generator, temperature, top_p,
                 max_tokens, eos, suppress, kv_bound=self._decode_bound(pos + max_tokens + 1),
-                graphed=self.graphed, lora=lora,
+                graphed=self.graphed, lora=lora, steer=steer,
             ).tokens
         bound = self._decode_bound(pos + max_tokens + spec_k + 1)
         seed = self._spec_seed(prompt_tokens)
         if temperature == 0:
             return engine.generate_text_spec(
                 self.text, kv, next_token, pos, max_tokens, eos, suppress, spec_k,
-                bound, seed, graphed=self.graphed, lora=lora,
+                bound, seed, graphed=self.graphed, lora=lora, steer=steer,
             ).tokens
         return engine.generate_text_spec_sampled(
             self.text, kv, next_token, pos, self.generator, temperature, top_p,
             max_tokens, eos, suppress, spec_k, bound, seed, graphed=self.graphed, lora=lora,
+            steer=steer,
         ).tokens
 
     def _stream_answer(
         self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None, lora=None,
+        steer=None,
     ) -> Iterator[str]:
         """Incremental streaming, text flushed on word boundaries: one eager
         decode step and one host sync per token, or with
@@ -560,11 +613,11 @@ class MoondreamModel:
                 self.text, kv, next_token, pos, max_tokens, eos, suppress, spec_k,
                 self._decode_bound(pos + max_tokens + spec_k + 1),
                 self._spec_seed(prompt_tokens), self.generator, temperature, top_p,
-                graphed=self.graphed, lora=lora,
+                graphed=self.graphed, lora=lora, steer=steer,
             ) for t in span)
         else:
             tokens = self._step_tokens(kv, next_token, pos, max_tokens, eos, suppress,
-                                       temperature, top_p, lora)
+                                       temperature, top_p, lora, steer)
         streamer = TokenStreamer(self._decode_tokens)
         for tok in tokens:
             chunk = streamer.feed(tok)
@@ -575,11 +628,11 @@ class MoondreamModel:
             yield tail
 
     def _step_tokens(self, kv, next_token, pos, max_tokens, eos, suppress, temperature,
-                     top_p, lora=None) -> Iterator[int]:
+                     top_p, lora=None, steer=None) -> Iterator[int]:
         """The answer's ids one decode step and one host sync at a time."""
         return engine.stream_tokens(
             self.text, kv, next_token, pos, self.generator, temperature, top_p, max_tokens,
-            eos, suppress, self._decode_bound(pos + max_tokens + 1), lora=lora)
+            eos, suppress, self._decode_bound(pos + max_tokens + 1), lora=lora, steer=steer)
 
     # -------------------------------------------------------------- query
     def query(
@@ -599,8 +652,9 @@ class MoondreamModel:
         returned under "reasoning"), then the answer. `spatial_refs`
         ((x, y) points and (x_min, y_min, x_max, y_max) boxes, with an
         image only) go into the prompt as coordinate and size embeddings.
-        A settings variant applies in every text forward."""
-        _refuse_unported(settings)
+        A settings variant applies in every text forward; a steering vector
+        in the answer's prompt prefill and decode loop, not in the image
+        prefill or the reasoning phase, as the JAX package's."""
         templates = self.config.tokenizer.templates["query"]
         if templates is None:
             raise NotImplementedError("Model does not support querying.")
@@ -610,8 +664,9 @@ class MoondreamModel:
             raise ValueError("spatial_refs can only be used with an image.")
         tok_cfg = self.config.tokenizer
         lora = self._variant(settings)
+        steer = self._steer_vectors(settings)
         if image is not None:
-            enc = self.encode_image(image, settings)
+            enc = self.encode_image(image, _unsteered(settings))
             kv, pos = self.load_encoded_image(enc), enc.pos
             prompt = list(templates["prefix"])
             prefix_len = self.config.text.prefix_attn
@@ -647,13 +702,15 @@ class MoondreamModel:
 
         _, _, next_token, pos, kv = self._prefill_prompt(
             kv, answer_prompt, pos, temperature, top_p,
-            None if reasoning else spatial_refs, prefix_len=prefix_len, lora=lora,
+            None if reasoning else spatial_refs, prefix_len=prefix_len, lora=lora, steer=steer,
         )
         if stream:
             return {**reasoning_dict, "answer": self._stream_answer(
-                kv, next_token, pos, settings, prompt_tokens=answer_prompt, lora=lora)}
+                kv, next_token, pos, settings, prompt_tokens=answer_prompt, lora=lora,
+                steer=steer)}
         tokens = self._generate_answer_tokens(kv, next_token, pos, settings,
-                                              prompt_tokens=answer_prompt, lora=lora)
+                                              prompt_tokens=answer_prompt, lora=lora,
+                                              steer=steer)
         self._recycle_kv(kv)  # the next request decodes on it (and its graphs)
         return {**reasoning_dict,
                 "answer": "".join(stream_text(tokens, self._decode_tokens))}
@@ -696,7 +753,9 @@ class MoondreamModel:
         stream: bool = False,
         settings: Optional[Dict[str, Any]] = None,
     ):
-        _refuse_unported(settings)
+        """A caption of the image, plain or streamed, under the settings'
+        variant and steering vector (the latter in the prompt prefill and
+        the decode loop, not in the image prefill)."""
         templates = self.config.tokenizer.templates["caption"]
         if templates is None:
             raise NotImplementedError("Model does not support captioning.")
@@ -704,20 +763,21 @@ class MoondreamModel:
             raise ValueError(f"Model does not support caption length '{length}'.")
 
         lora = self._variant(settings)
-        enc = self.encode_image(image, settings)
+        steer = self._steer_vectors(settings)
+        enc = self.encode_image(image, _unsteered(settings))
         _, temperature, top_p = self._settings(settings)
         kv = self.load_encoded_image(enc)
         prompt = list(templates[length])
         _, _, next_token, pos, kv = self._prefill_prompt(
-            kv, prompt, enc.pos, temperature, top_p, lora=lora
+            kv, prompt, enc.pos, temperature, top_p, lora=lora, steer=steer
         )
         if not stream:
             tokens = self._generate_answer_tokens(kv, next_token, pos, settings,
-                                                  prompt_tokens=prompt, lora=lora)
+                                                  prompt_tokens=prompt, lora=lora, steer=steer)
             self._recycle_kv(kv)  # the next request decodes on it (and its graphs)
             return {"caption": "".join(stream_text(tokens, self._decode_tokens))}
         return {"caption": self._stream_answer(kv, next_token, pos, settings,
-                                               prompt_tokens=prompt, lora=lora)}
+                                               prompt_tokens=prompt, lora=lora, steer=steer)}
 
     # ------------------------------------------------------ detect / point
     def _max_objects(self, settings) -> int:
@@ -756,13 +816,13 @@ class MoondreamModel:
     def detect(self, image, object: str, settings=None):
         """Bounding boxes of `object`, normalised to [0, 1]; settings may set
         max_objects (default 50)."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "detect")
         boxes = self._structured_decode(image, object, "detect", True, settings)
         return {"objects": [_box(b) for b in boxes]}
 
     def point(self, image, object: str, settings=None):
         """Centre points of `object`, normalised to [0, 1]."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "point")
         pts = self._structured_decode(image, object, "point", False, settings)
         return {"points": [{"x": float(p[0]), "y": float(p[1])} for p in pts]}
 
@@ -773,7 +833,7 @@ class MoondreamModel:
         group's concatenated crops, one stitch + projection per group, and
         ONE batched [BOS, image] prefill for all images, under the settings'
         variant (each snapshot labelled with it)."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "encode_images")
         lora = self._variant(settings)
         prepped = [self._crops(im) for im in images]
         groups: Dict[Tuple[int, Tuple[int, int]], List[int]] = {}
@@ -807,7 +867,7 @@ class MoondreamModel:
     ) -> List[str]:
         """Lockstep batched captioning: one prompt for every image, a shared
         position, per-row EOS."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "caption_batch")
         return self._symmetric_batch_generate(
             images, list(self.config.tokenizer.templates["caption"][length]),
             settings,
@@ -817,7 +877,7 @@ class MoondreamModel:
         self, images, question: str, settings: Optional[Dict[str, Any]] = None
     ) -> List[str]:
         """Batched VQA: ONE question over every image, decoded in lockstep."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "query_batch")
         templates = self.config.tokenizer.templates["query"]
         prompt = (
             list(templates["prefix"])
@@ -852,13 +912,13 @@ class MoondreamModel:
 
     def detect_batch(self, images, object: str, settings=None) -> List[dict]:
         """`detect` of one object over many images, in lockstep."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "detect_batch")
         return [{"objects": [_box(b) for b in boxes]} for boxes in
                 self._structured_decode_batch(images, object, "detect", True, settings)]
 
     def point_batch(self, images, object: str, settings=None) -> List[dict]:
         """`point` of one object over many images, in lockstep."""
-        _refuse_unported(settings)
+        _refuse_dropped(settings, "point_batch")
         return [{"points": [{"x": float(p[0]), "y": float(p[1])} for p in pts]} for pts in
                 self._structured_decode_batch(images, object, "point", False, settings)]
 
@@ -1005,7 +1065,7 @@ class MoondreamModel:
         that survive the outlier filter. It runs no LoRA adapter, as the JAX
         package's detect_gaze runs none, and refuses the variant settings
         rather than drop them."""
-        _refuse_unported(unstable_settings, variants=True)
+        _refuse_dropped(unstable_settings, "detect_gaze", variants=True)
         unstable_settings = unstable_settings or {}
         force_detect = unstable_settings.get("force_detect", False)
         if not unstable_settings.get("prioritize_accuracy", False):

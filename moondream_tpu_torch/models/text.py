@@ -23,6 +23,11 @@ rounded to the activation dtype, added to the linear's rounded output
 (moondream_tpu/models/text.py:194-198, :324-331, :411-416, :484-505). The
 proj adapter reads the block's input (the LayerNorm output), not the
 attention output.
+
+A steering vector (`steer=` of `text_decoder`, (n_layers, dim): a control
+vector times its scale, `repeng.ControlVector`) adds its row l to block
+l's output, after ``x + attn + mlp``, in the activation dtype
+(moondream_tpu/models/text.py:505-508), on every weight format.
 """
 
 from __future__ import annotations
@@ -403,14 +408,21 @@ def text_decoder(
     prefix_len: int,
     kv_bound: Optional[int] = None,
     lora: Optional[dict] = None,
+    steer: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run every block over x (B, T, D) at positions pos.., writing the cache
     in place; returns the final hidden states (B, T, D). `pos`: a host int,
     or a (B,) int32 device tensor for one decode token or an MHA span of
     up to 16 rows (attn_with_cache). `lora`: a stacked adapter tree
-    (`lora.variant_state_dict`), layer l's factors applied in block l."""
+    (`lora.variant_state_dict`), layer l's factors applied in block l.
+    `steer`: an (n_layers, dim) steering vector, cast to x's dtype once
+    (JAX casts each row: the same values) and its row l added to block l's
+    output as a separate add, so that the sum rounds as JAX's does; None
+    runs no add."""
     config = model.config
     adapters = layer_adapters(lora, len(model.blocks))
+    if steer is not None:
+        steer = steer.to(x.dtype)
     for layer, block in enumerate(model.blocks):
         ln_in = block.ln(x)
         attn_out = attn_with_cache(
@@ -418,6 +430,8 @@ def text_decoder(
             kv_bound, adapters[layer],
         )
         x = x + attn_out + block.mlp(ln_in, adapters[layer])
+        if steer is not None:
+            x = x + steer[layer]
     return x
 
 

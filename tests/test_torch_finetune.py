@@ -546,9 +546,31 @@ def test_quantized_params_refused_like_jax(tree, fmt):
         assert str(got.value).split(" is not", 1)[1] == str(want.value).split(" is not", 1)[1]
 
 
-def test_lora_rank_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pft.main(["--config", "tiny", "--synthetic", "1", "--device", "cpu", "--lora-rank", "4"])
+def test_lora_rank_trains_an_adapter_that_serves(tmp_path):
+    """--lora-rank on the CPU: two updates, a checkpoint of the adapter at
+    each, and a variant file whose adapter changes a caption's first
+    logits when served through settings["variant"]."""
+    out, ckpt = str(tmp_path / "adapter.pt"), str(tmp_path / "ckpt")
+    pft.main(["--config", "tiny", "--synthetic", "2", "--device", "cpu", "--lora-rank", "2",
+              "--grad-accum", "1", "--epochs", "1", "--save-every", "1", "--lr", "1e-2",
+              "--ckpt-dir", ckpt, "--save", out])
+    saved = torch.load(f"{ckpt}/step_2.pt", weights_only=True)
+    assert saved["step"] == 2 and sorted(saved["params"]) == sorted(
+        f"{g}.{s}.{f}" for g, s in ptext.LORA_SITES for f in ("A", "B"))
+    model = MoondreamModel(PCFG, dtype=torch.float32, seed=0, device="cpu")
+    prompt = list(PCFG.tokenizer.templates["caption"]["normal"])
+    img = np.random.default_rng(0).integers(0, 255, (64, 80, 3), np.uint8)
+
+    def first_logits(settings):
+        enc = model.encode_image(img, settings=settings)
+        kv = model.load_encoded_image(enc)
+        return model._prefill_prompt(kv, prompt, enc.pos, 0.0, 0.0,
+                                     lora=model._variant(settings))[0]
+
+    lora = model._variant({"variant": out})
+    assert lora["mlp"]["fc1"]["A"].shape == (PCFG.text.n_layers, 2, PCFG.text.dim)
+    assert lora["attn"]["qkv"]["B"].any()
+    assert not torch.equal(first_logits({"variant": out}), first_logits(None))
 
 
 def test_cli_needs_the_card_unless_cpu_is_asked_for():

@@ -9,8 +9,11 @@ and spatial refs, detect_batch and point_batch, the speculative paths:
 a speculative caption, a drafting call, and a speculative pool serving a
 caption beside a detect, the multi-image paths: BatchPipeline plain and
 speculative, PooledPipeline and the pool's submit_many, a greedy
-caption with int8 text blocks and a statically calibrated int8 ViT, and
-finetuning: one text training step and one region training step."""
+caption with int8 text blocks and a statically calibrated int8 ViT,
+finetuning: one text training step and one region training step, and
+steering and adapter training: hidden states collected for two prompts, a
+control vector trained from them steering a caption, and one LoRA
+adapter training step."""
 
 import os
 import subprocess
@@ -112,6 +115,18 @@ emb = ftm._run_vision_encoder(img)
 rex = finetune_region.build_class_example(ftm, emb, "cat", [[0.5, 0.5, 0.2, 0.3]])
 rstate, rloss = finetune_region.make_train_step(ropt, ftm.text)(rstate, rex)
 assert torch.isfinite(rloss) and rstate.opt_state.count == 1
+from moondream_tpu_torch import repeng
+reps = repeng.HiddenStateCollector(model)
+kw = dict(samples_per_image=1, max_tokens=3, temperature=0.0)
+cv = repeng.train_control_vectors(reps.collect([img], "yes", **kw), reps.collect([img], "no", **kw))
+assert isinstance(model.caption(img, settings={**greedy, "steer": cv})["caption"], str)
+from moondream_tpu_torch.finetune import lora as ft_lora
+adapter = ft_lora.init_lora_params(ftm.config.text, 2, torch.Generator().manual_seed(0),
+                                   device="cpu")
+lopt = trainer.cli_optimizer(1e-3, 1, 1)
+lstate, lloss = ft_lora.make_lora_train_step(lopt, ftm.config.text)(
+    trainer.init_train_state(adapter, lopt), ftm.text, example)
+assert torch.isfinite(lloss) and bool(adapter["mlp"]["fc2"]["B"].any())
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))

@@ -7,11 +7,18 @@ JAX package's builds its pool without variants and drops the setting):
 with a nonzero adapter the delta reaches every site of every layer of the
 text forwards the entry runs, a zero-B adapter gives the base output bit
 for bit, and an EncodedImage of another variant label is refused. `steer`
-and `steer_scale` raise a NotImplementedError everywhere, as do the
-variant settings in `detect_gaze` and `PooledPipeline`, instead of
-answering as the base model without a word. The pool's `variant=` names
-one of its own variants (tests/test_torch_multi_lora.py): an unknown name
-raises KeyError in every submission."""
+and `steer_scale` apply in caption and query (and compile, which warms
+them), as the JAX package's do: the vector reaches the answer's prompt
+prefill and every decode step (each adding its every row), not the image
+prefill, a zero scale gives the base output bit for bit, and a scale
+alone steers nothing (tests/test_torch_repeng.py holds the ids to JAX's).
+Every other entry point, which the JAX package lets drop them without a
+word, raises NotImplementedError naming the entry point, as do the
+variant settings in `detect_gaze` and `PooledPipeline`. The pool's
+`variant=` names one of its own variants (tests/test_torch_multi_lora.py):
+an unknown name raises KeyError in every submission."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -19,9 +26,11 @@ import torch
 
 from moondream_tpu_torch import lora as port_lora
 from moondream_tpu_torch.config import tiny_test_config
+from moondream_tpu_torch.engine import generate as port_generate
+from moondream_tpu_torch.engine import graphs
 from moondream_tpu_torch.engine.pipeline import BatchPipeline, PooledPipeline
 from moondream_tpu_torch.models.moondream import (
-    UNPORTED_SETTINGS,
+    STEER_SETTINGS,
     VARIANT_SETTINGS,
     EncodedImage,
     MoondreamModel,
@@ -55,6 +64,8 @@ ENTRY_POINTS = {
 }
 # the entry points that refuse the variant settings
 NO_VARIANTS = ("PooledPipeline", "detect_gaze")
+# the entry points that apply the steering settings
+STEERED = ("caption", "compile", "query")
 APPLYING = sorted(set(ENTRY_POINTS) - set(NO_VARIANTS))
 # the entry points whose image may be an EncodedImage
 TAKE_ENCODED = ("encode_image", "caption", "query", "detect", "point", "caption_batch",
@@ -125,18 +136,82 @@ def _same(a, b) -> bool:
 
 
 def test_every_unported_key_has_a_case():
-    assert set(VALUES) == set(UNPORTED_SETTINGS) | set(VARIANT_SETTINGS)
+    assert set(VALUES) == set(STEER_SETTINGS) | set(VARIANT_SETTINGS)
     assert len(APPLYING) == 12
 
 
-REFUSALS = ([(e, k) for e in sorted(ENTRY_POINTS) for k in sorted(UNPORTED_SETTINGS)]
+REFUSALS = ([(e, k) for e in sorted(set(ENTRY_POINTS) - set(STEERED))
+             for k in sorted(STEER_SETTINGS)]
             + [(e, k) for e in NO_VARIANTS for k in sorted(VARIANT_SETTINGS)])
 
 
 @pytest.mark.parametrize("entry,key", REFUSALS, ids=[f"{e}-{k}" for e, k in REFUSALS])
 def test_entry_points_refuse_variants_and_steering(model, entry, key):
-    with pytest.raises(NotImplementedError, match=f"{key}.*Queue 1 item 5"):
+    """Where the JAX package drops the setting without a word."""
+    with pytest.raises(NotImplementedError, match=rf"\['{key}'\]: {entry} does not apply"):
         ENTRY_POINTS[entry](model, {"max_tokens": 2, key: VALUES[key]}, IMG)
+
+
+STEERING = [(e, k) for e in STEERED for k in sorted(STEER_SETTINGS)]
+
+
+@pytest.mark.parametrize("entry,key", STEERING, ids=[f"{e}-{k}" for e, k in STEERING])
+def test_entry_points_apply_steering(model, monkeypatch, entry, key):
+    """`steer`: every text forward of the answer (its prompt prefill and
+    each decode step) gets the whole (n_layers, dim) vector times the
+    scale, the image prefill none, and the answer's hidden states move;
+    compile warms a steered answer loop (its graph state, under graphs
+    enabled on the CPU) and runs its detect and point warm-ups unsteered.
+    `steer_scale`: alone it steers nothing, and a zero scale gives the base
+    output and every hidden state bit for bit."""
+    run = ENTRY_POINTS[entry]
+    cfg = model.config.text
+    vec = np.random.default_rng(2).standard_normal((cfg.n_layers, cfg.dim)).astype(np.float32)
+    vec /= np.linalg.norm(vec, axis=-1, keepdims=True)
+    calls = []
+    decoder = port_generate.text_decoder
+
+    def recorded(*args, **kw):
+        arg = inspect.signature(decoder).bind(*args, **kw).arguments
+        steer = arg.get("steer")
+        out = decoder(*args, **kw)
+        calls.append((arg["x"].shape[1], None if steer is None else steer.clone(), out.clone()))
+        return out
+
+    def traced(s):
+        calls.clear()
+        return run(model, {**SMALL, **s}, IMG), list(calls)
+
+    monkeypatch.setattr(port_generate, "text_decoder", recorded)
+    if entry == "compile":  # graphs on the CPU: a capture runs its steps, a replay reruns them
+        monkeypatch.setattr(graphs, "enabled", lambda dev: True)
+        monkeypatch.setattr(graphs, "capture", lambda cache, fn, label, generator=None: (
+            graphs.StepGraph(type("Rerun", (), {"replay": lambda self: fn()})(), {}, label, ()),
+            fn(), None))
+    base, base_calls = traced({})
+    assert all(s is None for _, s, _ in base_calls)
+    hidden = lambda cs: [o for _, _, o in cs]
+    if key == "steer_scale":
+        for s in ({"steer_scale": 3.0}, {"steer": vec, "steer_scale": 0.0}):
+            out, cs = traced(s)
+            assert _same(out, base)
+            assert all(torch.equal(a, b) for a, b in zip(hidden(cs), hidden(base_calls)))
+            assert all(st is None or not st.any() for _, st, _ in cs)
+        return
+    out, cs = traced({"steer": vec, "steer_scale": 100.0})
+    steered = [(n, st, o) for n, st, o in cs if st is not None]
+    assert steered and all(torch.equal(st, torch.from_numpy(vec) * 100.0) for _, st, _ in steered)
+    assert all(st is None for n, st, _ in cs if n > 700)  # the image prefills
+    assert any(n <= 700 and st is None for n, st, _ in base_calls)
+    first = next(i for i, (n, st, _) in enumerate(cs) if st is not None)
+    assert not torch.equal(cs[first][2], base_calls[first][2])  # the answer's prefill moved
+    if entry == "compile":
+        keys = list(graphs.cache_of(model.text).entries)
+        assert any(k[0] == "generate_text" and k[6] is True for k in keys)
+        assert any(k[0] == "generate_points" for k in keys)
+        last = max(i for i, (_, st, _) in enumerate(cs) if st is not None)
+        assert all(st is None for _, st, _ in cs[last + 1:])  # detect, point and gaze
+        graphs.cache_of(model.text).entries.clear()
 
 
 APPLIED = [(e, k) for e in APPLYING for k in sorted(VARIANT_SETTINGS)]
