@@ -9,7 +9,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   1. build: nvcc-build the attention kernels (A, and the decode kernel with
      its B, B-GQA and C entries, bf16 and int8), the W4A16 and the w8a8
      kernels from moondream_tpu_torch/csrc and g++-build the native crop
-     library, all at once, into moondream_tpu_torch/_build;
+     and native BPE libraries, all at once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
      on the same inputs, TF32 off) at the main paths' shapes (the gaze
      batch's B 20 span and step, the speculative verify spans: kernel B and
@@ -121,6 +121,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      per graphed step, a second vector and scale replaying the same graph,
      HiddenStateCollector.collect and train_control_vectors, and a
      steered int4 + kv_int8 caption;
+     the front ends on the bf16 model: "4 2B HTTP server"
+     (serve_http.make_server over real HTTP on 127.0.0.1: sequential
+     captions and queries on PNG uploads with exact launch counts, each
+     equal to a directly driven engine's; SSE == plain; 8 concurrent
+     captions sharing chunks under the logit-margin rule; detect, point,
+     gaze equal to the model's own calls; chat completions; the p50
+     single-caption latency over HTTP, the direct pool and model.caption
+     in turns); "4 2B CLI" (cli._benchmark's encode ms and streamed
+     tok/s; `python3 -m moondream_tpu_torch.cli --demo` in a subprocess);
+     "4 2B HF wrapper" (answer_question == query; a same-shape embedding
+     swap changes the graphed answer as the eager one); "4 native BPE"
+     (the g++-built native/bpe.cpp against the tokenizers library);
      then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
@@ -143,23 +155,33 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
     python3 chip_smoke.py --variants   # the LoRA variant phases alone
     python3 chip_smoke.py --steer      # the steering and LoRA-finetune phases alone
+    python3 chip_smoke.py --serve      # the front-end phases alone
 
-Prints the card's name and power limit first, the seconds of each phase,
+Prints the card's name and power limit first, then which of PIL,
+tokenizers and transformers the machine has, the seconds of each phase,
 a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
+import base64
 import copy
 import dataclasses
+import importlib.util
+import io
 import json
 import math
+import os
 import random
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -167,6 +189,7 @@ import torch
 if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
 
+from moondream_tpu_torch import cli, native_bpe, serve_http  # noqa: E402
 from moondream_tpu_torch.config import MOONDREAM_05B, MOONDREAM_2B, tiny_test_config  # noqa: E402
 from moondream_tpu_torch.engine import batched as batched_engine  # noqa: E402
 from moondream_tpu_torch.engine.batched import (  # noqa: E402
@@ -192,6 +215,7 @@ from moondream_tpu_torch.finetune import finetune_region, finetune_text  # noqa:
 from moondream_tpu_torch.finetune import lora as ft_lora  # noqa: E402
 from moondream_tpu_torch.finetune import trainer as finetune_trainer  # noqa: E402
 from moondream_tpu_torch.finetune.optim import named_leaves, trainable  # noqa: E402
+from moondream_tpu_torch.hf_moondream import HfMoondream  # noqa: E402
 from moondream_tpu_torch.engine.pipeline import BatchPipeline, PooledPipeline  # noqa: E402
 from moondream_tpu_torch.engine.serving import (  # noqa: E402
     ragged_decode_step,
@@ -252,7 +276,7 @@ from moondream_tpu_torch.ops.quant import (  # noqa: E402
     quantized_matmul_plain,
     unpack_codes,
 )
-from moondream_tpu_torch.tokenizer import ByteTokenizer  # noqa: E402
+from moondream_tpu_torch.tokenizer import ByteTokenizer, load_tokenizer  # noqa: E402
 from moondream_tpu_torch.utils.streaming import stream_text  # noqa: E402
 from moondream_tpu_torch.weights import build_params, init_params, load_params  # noqa: E402
 
@@ -336,9 +360,11 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 
 def phase_build() -> None:
-    build_parallel([*K.LOADERS, *KQ.LOADERS, load_native])
+    build_parallel([*K.LOADERS, *KQ.LOADERS, load_native, native_bpe.available])
     if load_native() is None:
         raise RuntimeError("native crop library did not build")
+    if not native_bpe.available():
+        raise RuntimeError("native BPE library did not build")
     print("build seconds:", {k: round(v, 2) for k, v in build_seconds.items()})
 
 
@@ -4457,9 +4483,436 @@ def phase_lora_finetune(power: str) -> list:
     return runs
 
 
+def probe_modules() -> str:
+    """Which optional host libraries this machine has: the server decodes
+    uploads with PIL, and a real tokenizer.json is read by `tokenizers` or
+    the native BPE."""
+    found = []
+    for name in ("PIL", "tokenizers", "transformers"):
+        try:
+            importlib.import_module(name)
+            found.append(f"import {name}: ok")
+        except ImportError:
+            found.append(f"import {name}: missing")
+    return "python modules on this machine: " + ", ".join(found)
+
+
+SERVE_TOKENS = 32  # every HTTP text request's max_tokens
+SERVE_QUESTION = POOL_QUESTION
+SERVE_SHAPES = ((756, 1008, 3), (378, 378, 3), (600, 800, 3))
+SERVE_CONCURRENT = [0, 1, 2, 0, 1, 2, 0, 1]  # the 8 concurrent captions' images
+SERVE_EYE = (0.45, 0.3)
+
+
+def _png_b64(img: np.ndarray) -> str:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _http(base: str, path: str, payload=None) -> tuple:
+    """(status, JSON body) of a GET (no payload) or a POST over real HTTP."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _ok(base: str, path: str, payload=None):
+    code, body = _http(base, path, payload)
+    if code != 200:
+        raise AssertionError(f"{path}: HTTP {code} {body}")
+    return body
+
+
+def _sse(base: str, path: str, payload) -> list:
+    """The `data:` events of a streamed response, [DONE] last."""
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.headers.get("Content-Type") != "text/event-stream":
+            raise AssertionError(f"{path}: not an event stream")
+        raw = r.read().decode()
+    events = [line[len("data: "):] for line in raw.split("\n") if line.startswith("data: ")]
+    if not events or events[-1] != "[DONE]":
+        raise AssertionError(f"{path}: stream did not end with [DONE]: {events[-2:]}")
+    return events[:-1]
+
+
+def phase_serve(model, power: str) -> list:
+    """The HTTP server (serve_http.make_server: 8 slots of 1024, chunk 8,
+    greedy, the tokenizer's EOS) over the 2B bf16 model, driven over real
+    HTTP on 127.0.0.1 after `warmup()`: /healthz; three sequential
+    captions and two queries on PNG uploads of three sizes, each with
+    exact launch counts (one ViT call and image prefill, one prompt span,
+    kernel C 24 times per pool iteration of the chunks the request
+    dispatched) and each equal to the same request on a
+    ContinuousBatchingEngine built alike and driven directly; a streamed
+    query whose SSE chunks join to the plain answer; 8 concurrent captions
+    that share chunks (the most active rows at a dispatch), each equal to
+    its image's sequential caption or first differing at a near tie (the
+    logit-margin rule); detect, point and gaze equal to model.detect /
+    point / detect_gaze; chat completions with an image (== the query
+    endpoint, streamed == plain) and text only (== model.query without an
+    image; streamed refused as in the JAX package); /metrics. Prints the
+    p50 single-caption latency over HTTP against the direct pool request
+    and model.caption in turns, and the concurrent run's tok/s. Returns
+    the sequential requests' launch counts."""
+    cfg = model.config
+    L_txt = cfg.text.n_layers
+    model.tokenizer = IdTokenizer()
+    rng = np.random.default_rng(SEED + 7)
+    images = [rng.integers(0, 256, shape, dtype=np.uint8) for shape in SERVE_SHAPES]
+    b64 = [_png_b64(im) for im in images]
+    greedy = {"temperature": 0.0, "top_p": 0.0, "max_tokens": SERVE_TOKENS}
+
+    t0 = time.perf_counter()
+    srv, frontend = serve_http.make_server(model, "127.0.0.1", 0, n_slots=8, slot_len=1024,
+                                           chunk=8)
+    eng = frontend.engine
+    frontend.warmup()
+    warm_ms = sync_ms(t0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    dispatched = {"chunks": 0, "most_active": 0}
+    dispatch = eng._dispatch_chunk
+
+    def counted_dispatch():
+        dispatched["chunks"] += 1
+        dispatched["most_active"] = max(dispatched["most_active"],
+                                        sum(s.active for s in eng.slots))
+        dispatch()
+
+    eng._dispatch_chunk = counted_dispatch
+
+    def settled():
+        """Wait until the pool has read back its last chunk."""
+        deadline = time.monotonic() + 60
+        while eng._inflight or any(s.active for s in eng.slots):
+            if time.monotonic() > deadline:
+                raise AssertionError("the pool did not settle")
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+
+    direct = ContinuousBatchingEngine(model, n_slots=8, slot_len=1024, chunk=8, pipeline_depth=2)
+
+    def direct_text(i, question):
+        rid = direct.submit(images[i], question=question, max_tokens=SERVE_TOKENS)
+        return direct.drain()[rid]
+
+    runs = []
+    try:
+        health = _ok(base, "/healthz")
+        if health != {"ok": True, "slots": 8, "free": 8}:
+            raise AssertionError(f"/healthz {health}")
+
+        # sequential requests, each counted and held to the direct pool
+        seq = {}
+        for i, question in ((0, None), (1, None), (2, None), (0, SERVE_QUESTION),
+                            (2, SERVE_QUESTION)):
+            path, key = ("/v1/caption", "caption") if question is None else ("/v1/query",
+                                                                               "answer")
+            payload = {"image_b64": b64[i], "max_tokens": SERVE_TOKENS}
+            if question is not None:
+                payload["question"] = question
+            settled()
+            reset_launch_counts()
+            dispatched["chunks"] = 0
+            text = _ok(base, path, payload)[key]
+            settled()
+            launches = dict(LAUNCHES)
+            want = expected_launches(cfg, 1, 1, 0)
+            want[K.RAGGED] = L_txt * 8 * dispatched["chunks"]
+            check_launches(f"HTTP {path} (image {i}), {len(_ids(text))} tokens, "
+                           f"{dispatched['chunks']} chunks", launches, want)
+            runs.append(launches)
+            if text != direct_text(i, question):
+                raise AssertionError(f"HTTP {path} on image {i} differs from the direct pool")
+            seq[i, question] = text
+
+        # the streamed query: its SSE chunks join to the plain answer
+        events = _sse(base, "/v1/query", {"image_b64": b64[0], "question": SERVE_QUESTION,
+                                          "max_tokens": SERVE_TOKENS, "stream": True})
+        if "".join(json.loads(e)["chunk"] for e in events) != seq[0, SERVE_QUESTION]:
+            raise AssertionError("streamed /v1/query differs from the plain answer")
+
+        # 8 concurrent captions: rows share chunks; each its sequential caption
+        settled()
+        before = _ok(base, "/metrics")["generated_tokens"]
+        dispatched["most_active"] = 0
+        got = {}
+
+        def caption(j, i):
+            got[j] = _http(base, "/v1/caption", {"image_b64": b64[i], "max_tokens": SERVE_TOKENS})
+
+        threads = [threading.Thread(target=caption, args=(j, i))
+                   for j, i in enumerate(SERVE_CONCURRENT)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(got[j][0] != 200 for j in got):
+            raise AssertionError(f"concurrent captions failed: {got}")
+        if dispatched["most_active"] < 2:
+            raise AssertionError("the concurrent captions never shared a chunk")
+        settled()
+        generated = _ok(base, "/metrics")["generated_tokens"] - before
+        encs = {i: model.encode_image(images[i]) for i in set(SERVE_CONCURRENT)}
+        prompt = _prompt_of(model, None)
+        margins = []
+        for j, i in enumerate(SERVE_CONCURRENT):
+            single, other = _ids(seq[i, None]), _ids(got[j][1]["caption"])
+            m = _check_margin(f"concurrent caption {j}", model, encs[i], prompt, single, other,
+                              SERVE_TOKENS, slots=1024)
+            if m is not None:
+                margins.append((j, m))
+        n_tokens = sum(len(_ids(got[j][1]["caption"])) for j in got)
+        if generated != n_tokens:
+            raise AssertionError(f"/metrics counted {generated} tokens, the bodies {n_tokens}")
+
+        # detect, point and gaze: the model's own single paths
+        structured = {}
+        for path, payload, want in (
+                ("/v1/detect", {"object": "object"}, lambda: model.detect(images[0], "object")),
+                ("/v1/point", {"object": "object"}, lambda: model.point(images[0], "object")),
+                ("/v1/gaze", {"eye": {"x": SERVE_EYE[0], "y": SERVE_EYE[1]}},
+                 lambda: model.detect_gaze(images[0], eye=SERVE_EYE))):
+            body = _ok(base, path, {"image_b64": b64[0], **payload})
+            settled()
+            if body != json.loads(json.dumps(want())):
+                raise AssertionError(f"HTTP {path} differs from the model's own call")
+            structured[path] = {k: v if v is None or isinstance(v, dict) else len(v)
+                                for k, v in body.items()}
+
+        # chat completions: with an image (the pool), text only (no image)
+        msg = [{"role": "user", "content": [
+            {"type": "text", "text": SERVE_QUESTION},
+            {"type": "image_url", "image_url": {"url": f"data:image/png;base64,{b64[2]}"}}]}]
+        chat = _ok(base, "/v1/chat/completions", {"messages": msg, "max_tokens": SERVE_TOKENS})
+        content = chat["choices"][0]["message"]["content"]
+        if content != seq[2, SERVE_QUESTION]:
+            raise AssertionError("chat completion with an image differs from /v1/query")
+        events = [json.loads(e) for e in _sse(base, "/v1/chat/completions", {
+            "messages": msg, "max_tokens": SERVE_TOKENS, "stream": True})]
+        if "".join(e["choices"][0]["delta"].get("content", "") for e in events) != content:
+            raise AssertionError("streamed chat completion differs from the plain one")
+        text_only = [{"role": "user", "content": SERVE_QUESTION}]
+        chat = _ok(base, "/v1/chat/completions",
+                   {"messages": text_only, "max_tokens": SERVE_TOKENS})
+        settled()
+        want = model.query(image=None, question=SERVE_QUESTION, settings=greedy)["answer"]
+        if chat["choices"][0]["message"]["content"] != want:
+            raise AssertionError("text-only chat completion differs from model.query")
+        code, _ = _http(base, "/v1/chat/completions",
+                        {"messages": text_only, "max_tokens": SERVE_TOKENS, "stream": True})
+        if code != 400:
+            raise AssertionError(f"text-only streamed chat answered {code}, not 400")
+        metrics = _ok(base, "/metrics")
+
+        # single-caption latency: HTTP, the direct pool, model.caption in turns
+        lat = {"http": [], "pool": [], "caption": []}
+        for _ in range(5):
+            settled()
+            t0 = time.perf_counter()
+            _ok(base, "/v1/caption", {"image_b64": b64[0], "max_tokens": SERVE_TOKENS})
+            lat["http"].append((time.perf_counter() - t0) * 1e3)  # to the response
+            settled()
+            t0 = time.perf_counter()
+            direct_text(0, None)
+            lat["pool"].append(sync_ms(t0))
+            t0 = time.perf_counter()
+            model.caption(images[0], settings=greedy)
+            lat["caption"].append(sync_ms(t0))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        frontend.shutdown()
+        thread.join(timeout=30)
+    p50 = {k: statistics.median(v) for k, v in lat.items()}
+    print(f"2B HTTP server (bf16, 8 slots of 1024, chunk 8) on {power}: warmup {warm_ms:.1f} "
+          f"ms; single caption p50 over HTTP {p50['http']:.1f} ms, direct pool request "
+          f"{p50['pool']:.1f} ms, model.caption {p50['caption']:.1f} ms (in turns, 5 each, "
+          f"{len(_ids(seq[0, None]))} tokens, {images[0].shape[1]}x{images[0].shape[0]} PNG); "
+          f"8 concurrent captions {wall_s * 1e3:.1f} ms wall, {n_tokens} tokens, "
+          f"{n_tokens / wall_s:.1f} tok/s (/metrics counted {generated}), at most "
+          f"{dispatched['most_active']} rows in one chunk; structured {structured}; "
+          f"/metrics requests {metrics['requests']}")
+    print("HTTP concurrent captions vs sequential: " + (
+        f"first differences (request, (token, (margin, bf16 steps))) {margins}" if margins
+        else "all equal"))
+    return runs
+
+
+def phase_cli(model, power: str) -> None:
+    """cli._benchmark on the 2B bf16 model (the demo image, greedy, 32
+    tokens: encode ms to the last kernel and the streamed query's rate,
+    counted in tokens beside the chunks the CLI counts), then `python3 -m
+    moondream_tpu_torch.cli --demo --max-tokens 8` in a subprocess on the
+    card, which must exit 0."""
+    tokens = []
+    step_tokens = model._step_tokens
+
+    def counted(*a, **k):
+        n = 0
+        for t in step_tokens(*a, **k):
+            n += 1
+            yield t
+        tokens.append(n)
+
+    model._step_tokens = counted
+    tokenizer, model.tokenizer = model.tokenizer, ByteTokenizer()  # the CLI's (word chunks)
+    try:
+        res = cli._benchmark(model, cli.demo_image(), "What is the white shape in this image?",
+                             {"max_tokens": SERVE_TOKENS, "temperature": 0.0})
+    finally:
+        del model._step_tokens
+        model.tokenizer = tokenizer
+    timed = tokens[-10:]
+    tok_s = sum(timed) / sum(res["query_s"])
+    print(f"2B CLI --benchmark (bf16, greedy, {SERVE_TOKENS} tokens) on {power}: encode "
+          f"{statistics.median(res['encode_ms']):.1f} ms median (min "
+          f"{min(res['encode_ms']):.1f}), streamed query {tok_s:.1f} tok/s ({sum(timed)} tokens "
+          f"in {sum(res['query_s']):.2f} s over 10 runs; the CLI's own count: "
+          f"{statistics.median(res['chunks_per_s']):.1f} chunks/s)")
+    if importlib.util.find_spec("PIL") is None:
+        print("PIL is not installed: cli --demo (which draws its overlays with PIL) not run")
+        return
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "moondream_tpu_torch.cli", "--demo", "--max-tokens", "8"],
+            cwd=tmp, env={**os.environ, "PYTHONPATH": str(root)}, capture_output=True,
+            text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli --demo exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        found = [line for line in proc.stdout.splitlines()
+                 if line.startswith(("Device:", "Found", "Gaze:"))]
+        drawn = sorted(p.name for p in Path(tmp).glob("*.jpg"))
+    print(f"cli --demo --max-tokens 8 on {power}: exit 0 in {time.perf_counter() - t0:.1f} "
+          f"s, {found}, overlays {drawn}")
+
+
+def phase_hf(model, power: str) -> None:
+    """HfMoondream over the 2B bf16 model: answer_question equals
+    model.query (the default sampling, from one generator state); a
+    same-shape set_input_embeddings swap changes the graphed answer exactly
+    as it changes the eager one (the graph replays, reading the table in
+    place), and restoring the table restores the answer."""
+    hf = HfMoondream(model)
+    img = np.random.default_rng(SEED + 8).integers(0, 256, (600, 800, 3), dtype=np.uint8)
+    enc = model.encode_image(img)
+    model.generator.manual_seed(SEED)
+    got = hf.answer_question(enc, SERVE_QUESTION, max_new_tokens=SERVE_TOKENS)
+    model.generator.manual_seed(SEED)
+    want = model.query(enc, SERVE_QUESTION, settings={"max_tokens": SERVE_TOKENS})["answer"]
+    if got != want.strip():
+        raise AssertionError("answer_question differs from model.query")
+    greedy = {"temperature": 0.0, "max_tokens": SERVE_TOKENS}
+
+    def answer(graphed: bool) -> str:
+        model.graphed = graphed
+        try:
+            return model.query(enc, SERVE_QUESTION, settings=greedy)["answer"]
+        finally:
+            model.graphed = True
+
+    before = answer(True), answer(False)
+    wte = hf.get_input_embeddings()
+    ptr, saved = wte.data_ptr(), wte.detach().clone()
+    new = torch.randn(tuple(wte.shape), generator=torch.Generator(device=DEV).manual_seed(SEED + 9),
+                      device=DEV).mul_(0.02).to(BF16)
+    hf.set_input_embeddings(new)
+    captures, replays = len(graphs.CAPTURES), graphs.REPLAYS.get("generate_text", 0)
+    after = answer(True)
+    if len(graphs.CAPTURES) != captures or graphs.REPLAYS.get("generate_text", 0) == replays:
+        raise AssertionError("the swapped table's answer did not replay the captured graph")
+    after = after, answer(False)
+    if hf.get_input_embeddings().data_ptr() != ptr:
+        raise AssertionError("a same-shape swap moved the table")
+    if before[0] != before[1] or after[0] != after[1] or after[0] == before[0]:
+        raise AssertionError(f"graphed / eager answers before {before} and after {after}")
+    hf.set_input_embeddings(saved)
+    if answer(True) != before[0]:
+        raise AssertionError("restoring the table did not restore the answer")
+    print(f"HfMoondream on {power}: answer_question == model.query; a same-shape "
+          f"embedding swap changed the graphed answer as the eager one "
+          f"({len(_ids(before[0]))} -> {len(_ids(after[0]))} tokens, the graph replayed)")
+
+
+BPE_TEXTS = ["the cat sat in the sun", "Moondream: café, naïve — 猫!",
+             "  two  spaces\nand a line", ""]
+
+
+def bpe_spec() -> dict:
+    """A small byte-level BPE tokenizer.json: the 256 byte symbols and a
+    few merges, in the HF library's layout."""
+    b2u = native_bpe._B2U
+    vocab = {b2u[b]: b for b in range(256)}
+    merges = []
+    for a, b in (("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("Ġ", "c"), ("a", "t"), ("Ġc", "at"),
+                 ("i", "n"), ("Ġ", "s")):
+        merges.append(f"{a} {b}")
+        vocab.setdefault(a + b, len(vocab))
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                  "use_regex": True}
+    return {"version": "1.0", "truncation": None, "padding": None, "added_tokens": [],
+            "normalizer": None, "pre_tokenizer": byte_level, "post_processor": None,
+            "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+
+
+def phase_native_bpe(power: str) -> None:
+    """The native BPE (built into _build/ by phase_build) on a tokenizer.json
+    written here: strings round-trip, the ids equal the HF library's where
+    it is installed, and load_tokenizer takes the native route under
+    MOONDREAM_NATIVE_BPE."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/tokenizer.json"
+        with open(path, "w") as f:
+            json.dump(bpe_spec(), f)
+        tok = native_bpe.NativeBPETokenizer.from_file(path)
+        hf = None
+        if importlib.util.find_spec("tokenizers") is not None:
+            from tokenizers import Tokenizer
+
+            hf = Tokenizer.from_file(path)
+        for text in BPE_TEXTS:
+            ids = tok.encode(text)
+            if tok.decode(ids) != text:
+                raise AssertionError(f"native BPE round trip failed on {text!r}")
+            if hf is not None and ids != hf.encode(text).ids:
+                raise AssertionError(f"native BPE ids differ from the HF library's on {text!r}")
+        os.environ["MOONDREAM_NATIVE_BPE"] = "1"
+        try:
+            routed = load_tokenizer(path)
+        finally:
+            del os.environ["MOONDREAM_NATIVE_BPE"]
+        if not isinstance(routed, native_bpe.NativeBPETokenizer):
+            raise AssertionError(f"MOONDREAM_NATIVE_BPE gave {type(routed).__name__}")
+    print(f"native BPE on {power}: {len(BPE_TEXTS)} strings round-trip"
+          + (", ids equal the HF tokenizers library's" if hf is not None
+             else " (tokenizers missing: no HF comparison)")
+          + "; load_tokenizer takes the native route")
+
+
 def main() -> None:
     power = card()
     print(power)
+    print(probe_modules())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -4531,6 +4984,10 @@ def main() -> None:
                    for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 7][:20]
     runs += phase("4 2B bf16 pipelines", phase_pipelines, model, pipe_images, power)
     runs += phase("4 2B bf16 pipelines", phase_pooled_pipelines, model, pipe_images[:16], power)
+    runs += phase("4 2B HTTP server", phase_serve, model, power)
+    phase("4 2B CLI", phase_cli, model, power)
+    phase("4 2B HF wrapper", phase_hf, model, power)
+    phase("4 native BPE", phase_native_bpe, power)
     del model, enc
     launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(MOONDREAM_2B),
                             int4=True)
@@ -4725,6 +5182,34 @@ def main_steer() -> None:
     print("seconds per phase:", seconds)
 
 
+def main_serve() -> None:
+    """The front-end phases alone (`python3 chip_smoke.py --serve`): the
+    build, then the HTTP server, the CLI, the HF wrapper and the native BPE
+    on a fresh 2B bf16 model. Prints the card, the module probe and the
+    phases' seconds; no kernels line."""
+    power = card()
+    print(power)
+    print(probe_modules())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = round(seconds.get(name, 0.0) + time.perf_counter() - t0, 1)
+
+    timed("1 build", phase_build)
+    model = MoondreamModel(MOONDREAM_2B, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    timed("4 2B HTTP server", phase_serve, model, power)
+    timed("4 2B CLI", phase_cli, model, power)
+    timed("4 2B HF wrapper", phase_hf, model, power)
+    timed("4 native BPE", phase_native_bpe, power)
+    print("seconds per phase:", seconds)
+
+
 if __name__ == "__main__":
     flag = sys.argv[1:]
-    main_variants() if flag == ["--variants"] else main_steer() if flag == ["--steer"] else main()
+    {"--variants": main_variants, "--steer": main_steer, "--serve": main_serve}.get(
+        flag[0] if len(flag) == 1 else None, main)()

@@ -5,7 +5,9 @@ It runs caption, query (with reasoning and spatial refs), detect, point,
 detect_gaze, the lockstep batches and the continuous-batching pool: host
 overlap crops, the ViT, stitch and projection, the [BOS, image] prefill,
 the prompt prefill, the decode loops, the region heads and streaming
-detokenisation. Attention and the int4 linears run in hand-written CUDA
+detokenisation; and its front ends: the HTTP server (`serve_http`), the
+CLI (`cli`), the HF wrapper (`hf_moondream`) and the native byte-level BPE
+(`native_bpe`). Attention and the int4 linears run in hand-written CUDA
 kernels (`csrc/`) on the card and in their plain PyTorch versions on the
 CPU. The package never imports jax.
 """

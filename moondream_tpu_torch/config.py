@@ -140,6 +140,25 @@ class MoondreamConfig:
         with open(path, "r") as f:
             return cls.from_dict(json.load(f))
 
+    # Runtime switches, not model schema (moondream_tpu/config.py:169-185):
+    # left out of to_dict so that exported configs stay the reference's.
+    _RUNTIME_TEXT_FIELDS = ("kv_int8",)
+
+    def to_dict(self) -> dict:
+        """moondream_tpu.config.MoondreamConfig.to_dict without the text
+        fields the port does not read (`group_size`, `xla_attn`); the JAX
+        package's from_dict of it gives its own config back (those fields at
+        their defaults)."""
+        text = dict(self.text.__dict__)
+        for f in self._RUNTIME_TEXT_FIELDS:
+            text.pop(f, None)
+        return {
+            "text": text,
+            "vision": dict(self.vision.__dict__),
+            "region": dict(self.region.__dict__),
+            "tokenizer": dict(self.tokenizer.__dict__),
+        }
+
 
 # Published model sizes, as in moondream_tpu.config.
 MOONDREAM_2B = MoondreamConfig()

@@ -39,6 +39,7 @@ decode is MHA only, as in the JAX package
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -617,12 +618,17 @@ class ContinuousBatchingEngine:
                                structured=template_key, hidden=hidden,
                                include_size=include_size, n_objects=n_obj, vid=vid)
 
-    def step(self) -> List[int]:
+    def step(self, launch_lock=None) -> List[int]:
         """Advance all active slots by one chunk. Returns the req_ids that
-        finished (with pipeline_depth > 1, a chunk late)."""
+        finished (with pipeline_depth > 1, a chunk late). `launch_lock`: a
+        lock held while the chunk is launched (or its graph captured) and
+        not while the host waits for an earlier chunk's tokens (a server
+        passes `graphs.lock()`, which its other threads hold while they
+        launch)."""
         have_active = any(s.active for s in self.slots)
         if have_active:
-            self._dispatch_chunk()
+            with launch_lock if launch_lock is not None else contextlib.nullcontext():
+                self._dispatch_chunk()
         if self._inflight and (
             len(self._inflight) >= self.pipeline_depth or not have_active
         ):

@@ -2,7 +2,9 @@
 
 `ByteTokenizer` is the deterministic byte-level tokenizer the JAX package
 uses offline, id for id. `load_tokenizer` also opens a HF tokenizer.json
-from a local path through the `tokenizers` library, imported only then.
+from a local path through the `tokenizers` library, imported only then, or
+through the in-repo C++ byte-level BPE (`native_bpe`) when
+MOONDREAM_NATIVE_BPE is set.
 """
 
 from __future__ import annotations
@@ -52,11 +54,22 @@ class ByteTokenizer(TokenizerBase):
 
 
 def load_tokenizer(spec: Optional[str] = None) -> TokenizerBase:
-    """A tokenizer.json path (or MOONDREAM_TOKENIZER) -> HFTokenizer;
+    """A tokenizer.json path (or MOONDREAM_TOKENIZER) -> HFTokenizer, or
+    with MOONDREAM_NATIVE_BPE set the in-repo C++ byte-level BPE
+    (`native_bpe`) when it builds here and reads the file (another scheme
+    falls through to HFTokenizer, as in moondream_tpu/tokenizer.py:84-93);
     None or "byte" -> ByteTokenizer."""
     spec = spec or os.environ.get("MOONDREAM_TOKENIZER")
     if spec is None or spec == "byte":
         return ByteTokenizer()
     if not os.path.exists(spec):
         raise FileNotFoundError(f"tokenizer file {spec!r} not found")
+    if os.environ.get("MOONDREAM_NATIVE_BPE"):
+        from .native_bpe import NativeBPETokenizer, available
+
+        if available():
+            try:
+                return NativeBPETokenizer.from_file(spec)
+            except ValueError:
+                pass  # not a byte-level BPE: the HF library reads it
     return HFTokenizer(spec)

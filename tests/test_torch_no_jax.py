@@ -13,7 +13,9 @@ caption with int8 text blocks and a statically calibrated int8 ViT,
 finetuning: one text training step and one region training step, and
 steering and adapter training: hidden states collected for two prompts, a
 control vector trained from them steering a caption, and one LoRA
-adapter training step."""
+adapter training step, and the front ends (the HTTP server, the CLI, the
+HF wrapper and the native BPE tokenizer are imported with the rest):
+one caption served over HTTP."""
 
 import os
 import subprocess
@@ -127,6 +129,22 @@ lopt = trainer.cli_optimizer(1e-3, 1, 1)
 lstate, lloss = ft_lora.make_lora_train_step(lopt, ftm.config.text)(
     trainer.init_train_state(adapter, lopt), ftm.text, example)
 assert torch.isfinite(lloss) and bool(adapter["mlp"]["fc2"]["B"].any())
+import base64, io, json, threading, urllib.request
+from PIL import Image
+from moondream_tpu_torch.serve_http import make_server
+srv, frontend = make_server(model, "127.0.0.1", 0, n_slots=2, chunk=4)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+buf = io.BytesIO()
+Image.fromarray(img).save(buf, format="PNG")
+req = urllib.request.Request(
+    f"http://127.0.0.1:{srv.server_address[1]}/v1/caption", method="POST",
+    data=json.dumps({"image_b64": base64.b64encode(buf.getvalue()).decode(),
+                     "max_tokens": 4}).encode(), headers={"Content-Type": "application/json"})
+with urllib.request.urlopen(req, timeout=120) as r:
+    assert isinstance(json.loads(r.read())["caption"], str)
+srv.shutdown()
+srv.server_close()
+frontend.shutdown()
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))
