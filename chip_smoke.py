@@ -133,6 +133,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      "4 2B HF wrapper" (answer_question == query; a same-shape embedding
      swap changes the graphed answer as the eager one); "4 native BPE"
      (the g++-built native/bpe.cpp against the tokenizers library);
+     "4 2B evals" (phase_eval, PR 20): the twelve eval loops of
+     moondream_tpu_torch/eval on stand-in rows (2 each, four image sizes,
+     16-token answers), eval_all, quant_drift's dynamic and static int8-ViT
+     drift and caption agreement against an int4 + kv_int8 and an int8
+     w8a8 twin (the dense model stays dense), and the recipes'
+     detect_frames over 8 frames in one batch, the gaze recipe's per-face
+     detect_gaze and its process_video on a synthetic mp4, each part with
+     its kernels' launches and every graph replay under the sync error
+     mode; scores and gates mean nothing with random weights;
      then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
@@ -156,6 +165,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     python3 chip_smoke.py --variants   # the LoRA variant phases alone
     python3 chip_smoke.py --steer      # the steering and LoRA-finetune phases alone
     python3 chip_smoke.py --serve      # the front-end phases alone
+    python3 chip_smoke.py --eval       # the eval and recipe phase alone
 
 Prints the card's name and power limit first, then which of PIL,
 tokenizers and transformers the machine has, the seconds of each phase,
@@ -263,6 +273,7 @@ from moondream_tpu_torch.ops.attention import (  # noqa: E402
 from moondream_tpu_torch.ops.image_crops import load_native  # noqa: E402
 from moondream_tpu_torch.ops.layers import (  # noqa: E402
     Int8Linear,
+    Linear,
     int8_linear,
     int8_linear_fp64,
     int8_linear_plain,
@@ -4485,10 +4496,12 @@ def phase_lora_finetune(power: str) -> list:
 
 def probe_modules() -> str:
     """Which optional host libraries this machine has: the server decodes
-    uploads with PIL, and a real tokenizer.json is read by `tokenizers` or
-    the native BPE."""
+    uploads with PIL, a real tokenizer.json is read by `tokenizers` or the
+    native BPE, the eval loops show progress with tqdm and read `datasets`
+    (the smoke's eval phase replaces it), and the video recipes read and
+    write video with cv2."""
     found = []
-    for name in ("PIL", "tokenizers", "transformers"):
+    for name in ("PIL", "tokenizers", "transformers", "tqdm", "datasets", "cv2"):
         try:
             importlib.import_module(name)
             found.append(f"import {name}: ok")
@@ -4909,6 +4922,296 @@ def phase_native_bpe(power: str) -> None:
           + "; load_tokenizer takes the native route")
 
 
+EVAL_TOKENS = 16  # every eval answer's decode cap (the `_settings` override)
+EVAL_MAX_OBJECTS = 8  # the recipes' detect cap (DEFAULT_MAX_OBJECTS there)
+EVAL_SHAPES = ((756, 1008, 3), (378, 378, 3), (600, 800, 3), (480, 640, 3))
+# module: (loop function, the dataset path it loads)
+EVAL_LOOPS = {
+    "chartqa": ("eval_chartqa", "vikhyatk/chartqa"),
+    "coco_map": ("eval_coco_map", "moondream/coco-val-2017-bbox-cleaned"),
+    "countbenchqa": ("eval_countbenchqa", "vikhyatk/CountBenchQA"),
+    "docvqa": ("eval_docvqa", "vikhyatk/docvqa-val"),
+    "gazefollow": ("eval_gazefollow", "vikhyatk/gazefollow"),
+    "mmstar": ("eval_mmstar", "Lin-Chen/MMStar"),
+    "naturalbench": ("eval_naturalbench", "BaiqiL/NaturalBench"),
+    "pope": ("evaluate_pope", "vikhyatk/POPE"),
+    "realworldqa": ("eval_realworldqa", "lmms-lab/RealWorldQA"),
+    "tallyqa": ("eval_tallyqa", "vikhyatk/tallyqa-test"),
+    "textvqa": ("eval_textvqa", "vikhyatk/textvqa_val"),
+    "waste_detection": ("eval_waste_detection", "moondream/waste_detection"),
+}
+
+
+def eval_rows() -> dict:
+    """Stand-in rows for every eval loop, 2 per dataset, with the fields
+    each loop reads and images of the EVAL_SHAPES sizes (PIL, as the HF
+    datasets give them). They replace the data source only."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 10)
+    im = [Image.fromarray(rng.integers(0, 256, s, dtype=np.uint8)) for s in EVAL_SHAPES]
+    qa = lambda q, a, **kw: {"question": q, "answer": a, **kw}
+    gaze = lambda hb, eye, target: {
+        "head_bbox": dict(zip(("xmin", "ymin", "xmax", "ymax"), hb)),
+        "eye": {"x": eye[0], "y": eye[1]}, "gaze": {"x": target[0], "y": target[1]}}
+    return {
+        "vikhyatk/chartqa": [
+            {"image": im[0], "qa": [qa("Peak value?", "42", source="human"),
+                                    qa("Labels?", '["a", "b"]', source="augmented")]},
+            {"image": im[2], "qa": [qa("Lowest year?", "2001", source="human")]}],
+        "moondream/coco-val-2017-bbox-cleaned": [
+            {"image": im[i], "objects": json.dumps({
+                "bbox": [[10.0, 20.0, 100.0, 80.0], [50.0, 40.0, 60.0, 90.0]],
+                "label": [1, 3]})} for i in (0, 3)],
+        "vikhyatk/CountBenchQA": [{"image": im[i], "question": "How many cats?", "number": n}
+                                  for i, n in ((1, 3), (2, 5))],
+        "vikhyatk/docvqa-val": [
+            {"image": im[i], "qa": [{"question": "What is the title?",
+                                     "answers": ["annual report", "report"]}]}
+            for i in (0, 3)],
+        "vikhyatk/gazefollow": [
+            {"image": im[i], "gazes": [gaze((0.1, 0.1, 0.3, 0.3), (0.2, 0.2), (0.6, 0.7)),
+                                       gaze((0.1, 0.1, 0.3, 0.3), (0.2, 0.2), (0.5, 0.8)),
+                                       gaze((0.6, 0.2, 0.8, 0.4), (0.7, 0.3), (0.1, 0.9))]}
+            for i in (2, 3)],
+        "Lin-Chen/MMStar": [
+            {"image": im[i], "question": "Which? A: cat B: dog", "answer": a,
+             "category": "perception", "l2_category": "coarse"} for i, a in ((1, "A"), (3, "B"))],
+        "BaiqiL/NaturalBench": [{
+            "Question_Type": t, "Image_0": im[i], "Image_1": im[j],
+            "Question_0": "Is the sky visible?", "Question_1": "Is it night?",
+            "Image_0_Question_0": "yes", "Image_1_Question_0": "no",
+            "Image_0_Question_1": "no", "Image_1_Question_1": "yes"}
+            for t, i, j in (("yes_no", 0, 1), ("multiple_choice", 2, 3))],
+        "vikhyatk/POPE": [
+            {"image": im[i], "random": [qa("Is there a dog?", "no")],
+             "popular": [qa("Is there a person?", "yes")],
+             "adversarial": [qa("Is there a car?", "no")]} for i in (1, 2)],
+        "lmms-lab/RealWorldQA": [{"image": im[i], "question": "Where is this?", "answer": a}
+                                 for i, a in ((0, "street"), (3, "kitchen"))],
+        "vikhyatk/tallyqa-test": [
+            {"image": im[i], "qa": [qa("How many chairs?", 2, is_simple=True),
+                                    qa("How many red cars?", 0, is_simple=False)]}
+            for i in (1, 3)],
+        "vikhyatk/textvqa_val": [
+            {"image": im[i], "question": "What does the sign say?",
+             "answers": ["stop"] * 7 + ["halt"] * 3} for i in (0, 2)],
+        "moondream/waste_detection": [
+            {"image": im[i], "boxes": [[0.3, 0.3, 0.2, 0.2], [0.7, 0.6, 0.1, 0.3]],
+             "labels": ["bottle", "can"]} for i in (2, 3)],
+    }
+
+
+def _launched(label: str, launches: dict, kernels) -> None:
+    """Raise unless each of `kernels` was launched in the part."""
+    idle = [k for k in kernels if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"{label}: no launch of {idle} (launches {launches})")
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def _dense(model) -> None:
+    blocks = (*model.vision.blocks, *model.text.blocks)
+    if not all(type(m) is Linear for b in blocks for m in (b.qkv, b.proj, b.mlp.fc1, b.mlp.fc2)):
+        raise AssertionError("building a quantized twin changed the dense model")
+
+
+def phase_eval(model, power: str) -> list:
+    """The eval harness (moondream_tpu_torch/eval/) and the recipe loader's
+    path over the 2B bf16 model with seeded random weights, graphed, every
+    graph replay under torch.cuda.set_sync_debug_mode("error"). Scores and
+    gates mean nothing with random weights: a mechanism check only.
+
+    - The twelve per-benchmark loops on eval_rows' stand-in rows (2 each,
+      images of four sizes; `datasets` replaced by a stand-in module for
+      the phase), answers capped at EVAL_TOKENS greedy tokens through the
+      `_settings` override; kernel A in every loop, kernel B in every loop
+      that decodes. GazeFollow runs with EOS id 7: under the 2B's EOS 0,
+      force_detect's token 0 is an EOS, every prediction is None and the
+      loop raises TypeError, in the JAX package as here. eval_all over one
+      loop gives that loop's result.
+    - quant_drift: dynamic and static int8-ViT drift (static calibrated on
+      normalized crops; w8a8 launches), caption agreement (EVAL_TOKENS
+      tokens, the gate corpus) against an int4 + int8 KV twin (W4A16 and
+      B-int8) and an int8 w8a8 text + ViT twin (w8a8); the dense model
+      stays dense after each twin is built.
+    - recipes.common.pipeline.detect_frames over 8 in-memory frames in one
+      batch (one lockstep structured loop, no single detect, no fallback
+      print), then the gaze recipe's per-face detect_gaze on the shared
+      encodings, and with cv2 the gaze recipe's process_video on a
+      synthetic 8-frame mp4; detects capped at EVAL_MAX_OBJECTS.
+    Prints seconds per loop and ms per row, the drift and agreement
+    reports. Returns each part's launch counts."""
+    import contextlib
+    import types
+
+    from moondream_tpu_torch import recipes as port_recipes
+    from moondream_tpu_torch.eval import eval_all, quant_drift
+    from moondream_tpu_torch.models import moondream as port_moondream
+
+    rows, runs, lines, results = eval_rows(), [], [], {}
+    stand_in = types.ModuleType("datasets")
+    stand_in.load_dataset = lambda path, split=None: list(rows[path])
+    saved_datasets = sys.modules.get("datasets")
+    replay = graphs.StepGraph.replay
+
+    def strict_replay(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def part(label, fn, kernels):
+        reset_launch_counts()
+        reset_loop_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = sync_ms(t0) / 1e3
+        launches = dict(LAUNCHES)
+        _launched(label, launches, kernels)
+        runs.append(launches)
+        return out, seconds
+
+    sys.modules["datasets"] = stand_in
+    graphs.StepGraph.replay = strict_replay
+    model._settings = lambda settings: (EVAL_TOKENS, 0.0, 0.0)
+    tok = model.config.tokenizer
+    try:
+        for name, (fn_name, path) in EVAL_LOOPS.items():
+            loop = getattr(importlib.import_module(f"moondream_tpu_torch.eval.{name}"), fn_name)
+            if name == "gazefollow":
+                model.config = dataclasses.replace(
+                    model.config, tokenizer=dataclasses.replace(tok, eos_id=7))
+            try:
+                res, s = part(f"eval {name}", lambda: loop(model, debug=True), [K.FLASH])
+            finally:
+                model.config = dataclasses.replace(model.config, tokenizer=tok)
+            results[name] = res
+            steps = sum(c["steps"] for c in LOOP_COUNTS.values())
+            if steps:
+                _launched(f"eval {name}", runs[-1], [K.DECODE])
+            summary = {k: v for k, v in res.items() if k != "results"}
+            lines.append(f"{name} {s:.2f} s, {s * 1e3 / len(rows[path]):.0f} ms/row "
+                         f"({steps} decode steps; launches {_nonzero(runs[-1])}): {summary}")
+        got, _ = part("eval_all", lambda: eval_all.eval_all(
+            model, skip=[n for n in eval_all.EVALS if n != "tallyqa"]), [K.FLASH])
+        if got != {"tallyqa": results["tallyqa"]}:
+            raise AssertionError(f"eval_all gave {got}, the loop {results['tallyqa']}")
+    finally:
+        del model._settings
+        if saved_datasets is None:
+            del sys.modules["datasets"]
+        else:
+            sys.modules["datasets"] = saved_datasets
+    try:
+        drift = {}
+        for static in (False, True):
+            label = "static" if static else "dynamic"
+            drift[label], s = part(f"int8 ViT drift ({label})", lambda: quant_drift.
+                                   vision_projection_drift(model, static=static),
+                                   [K.FLASH, KQ.W8A8, KQ.W8A8_QUANTIZE])
+            _dense(model)
+            lines.append(f"int8 ViT drift ({label}, {s:.2f} s; launches "
+                         f"{_nonzero(runs[-1])}): {drift[label]}")
+        agreement = {}
+        for label, quant, kernels in (
+                ("int4 + kv_int8", {"int4": True, "kv8": True}, [KQ.W4A16, K.DECODE_INT8]),
+                ("int8 w8a8 text + dynamic int8 ViT", {"int8_text": True, "vit8": True},
+                 [KQ.W8A8, KQ.W8A8_QUANTIZE])):
+            twin = quant_drift.quantized_twin(model, **quant)
+            _dense(model)
+            agreement[label], s = part(
+                f"caption agreement ({label})",
+                lambda: quant_drift.caption_agreement(model, twin, max_tokens=EVAL_TOKENS),
+                [K.FLASH, *kernels])
+            del twin
+            lines.append(f"caption agreement bf16 vs {label} ({s:.2f} s; launches "
+                         f"{_nonzero(runs[-1])}): {agreement[label]}")
+        gates = quant_drift.check_gates({**drift["dynamic"], **agreement["int4 + kv_int8"]})
+        lines.append(f"gates {gates} (random weights: mechanism only)")
+
+        from recipes.common.pipeline import detect_frames
+
+        frames = [np.random.default_rng(SEED + 20 + i).integers(0, 256, (480, 640, 3),
+                                                                dtype=np.uint8)
+                  for i in range(8)]
+        limit = port_moondream.DEFAULT_MAX_OBJECTS
+        port_moondream.DEFAULT_MAX_OBJECTS = EVAL_MAX_OBJECTS
+
+        def batched_route(label, fn, gazes=lambda res, printed: 0):
+            """fn() with one lockstep structured loop, no fallback print and
+            no single structured loop but `gazes(result, printed)` eye-mode
+            gaze points."""
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res, s = part(label, fn, [K.FLASH, K.DECODE])
+            batched = LOOP_COUNTS.get("generate_points_batched", {}).get("calls", 0)
+            singles = LOOP_COUNTS.get("generate_points", {}).get("calls", 0)
+            if "falling back" in out.getvalue() or batched != 1 or (
+                    singles != gazes(res, out.getvalue())):
+                raise AssertionError(f"{label} left the batched route: {batched} batched "
+                                     f"loops, {singles} single ones, printed "
+                                     f"{out.getvalue()[-500:]!r}")
+            return res, s, batched, singles
+
+        try:
+            boxes, s, _, _ = batched_route(
+                "detect_frames", lambda: detect_frames(model, frames, "face", encode_batch=8))
+            lines.append(f"detect_frames over 8 frames in one batch {s:.2f} s, "
+                         f"{sum(map(len, boxes))} boxes; launches {_nonzero(runs[-1])}")
+
+            def faces_and_gazes():
+                """The gaze recipe's inner loop: one detect_batch on the
+                shared encodings, then detect_gaze per face."""
+                encs = model.encode_images(frames)
+                faces = model.detect_batch(encs, "face")
+                return [[model.detect_gaze(enc, eye=((f["x_min"] + f["x_max"]) / 2,
+                                                     (f["y_min"] + f["y_max"]) / 2))["gaze"]
+                         for f in r["objects"]] for enc, r in zip(encs, faces)]
+
+            found, s, _, n = batched_route("gaze recipe's detect_gaze", faces_and_gazes,
+                                           gazes=lambda r, printed: sum(map(len, r)))
+            lines.append(f"faces + per-face detect_gaze over 8 frames {s:.2f} s, {n} gazes, "
+                         f"{sum(g is not None for r in found for g in r)} found; launches "
+                         f"{_nonzero(runs[-1])}")
+            if importlib.util.find_spec("cv2") is not None:
+                import cv2
+
+                with tempfile.TemporaryDirectory() as tmp:
+                    video = f"{tmp}/in.mp4"
+                    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                                             (640, 480))
+                    for f in frames:
+                        writer.write(f)
+                    writer.release()
+                    gaze_recipe = port_recipes.recipe("gaze_detection_video")
+                    # the recipe prints "  frame i: N face(s), ..." per frame
+                    faces = lambda stats, printed: sum(
+                        int(line.split(": ")[1].split()[0]) for line in printed.splitlines()
+                        if line.startswith("  frame "))
+                    stats, s, _, n = batched_route("gaze recipe process_video", lambda: (
+                        gaze_recipe.process_video(model, video, f"{tmp}/out.mp4", every_n=1,
+                                                  encode_batch=8)), gazes=faces)
+                    if stats["frames"] != 8 or stats["sampled"] != 8:
+                        raise AssertionError(f"gaze recipe read {stats}")
+                    lines.append(f"gaze recipe process_video on an 8-frame mp4 {s:.2f} s, "
+                                 f"{n} gazes; launches {_nonzero(runs[-1])}")
+            else:
+                lines.append("cv2 missing: no process_video")
+        finally:
+            port_moondream.DEFAULT_MAX_OBJECTS = limit
+    finally:
+        graphs.StepGraph.replay = replay
+    print(f"2B evals on {power} (seeded random weights, {EVAL_TOKENS}-token answers, every "
+          "replay under sync debug mode \"error\"; scores, drift and gates are mechanism "
+          "only):\n  " + "\n  ".join(lines))
+    return runs
+
+
 def main() -> None:
     power = card()
     print(power)
@@ -4988,6 +5291,7 @@ def main() -> None:
     phase("4 2B CLI", phase_cli, model, power)
     phase("4 2B HF wrapper", phase_hf, model, power)
     phase("4 native BPE", phase_native_bpe, power)
+    runs += phase("4 2B evals", phase_eval, model, power)
     del model, enc
     launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(MOONDREAM_2B),
                             int4=True)
@@ -5209,7 +5513,27 @@ def main_serve() -> None:
     print("seconds per phase:", seconds)
 
 
+def main_eval() -> None:
+    """The eval phase alone (`python3 chip_smoke.py --eval`): the build,
+    then "4 2B evals" on a fresh 2B bf16 model. Prints the card, the module
+    probe and the phases' seconds; no kernels line."""
+    power = card()
+    print(power)
+    print(probe_modules())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_build()
+    seconds["1 build"] = round(time.perf_counter() - t0, 1)
+    model = MoondreamModel(MOONDREAM_2B, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    t0 = time.perf_counter()
+    phase_eval(model, power)
+    seconds["4 2B evals"] = round(time.perf_counter() - t0, 1)
+    print("seconds per phase:", seconds)
+
+
 if __name__ == "__main__":
     flag = sys.argv[1:]
-    {"--variants": main_variants, "--steer": main_steer, "--serve": main_serve}.get(
-        flag[0] if len(flag) == 1 else None, main)()
+    {"--variants": main_variants, "--steer": main_steer, "--serve": main_serve,
+     "--eval": main_eval}.get(flag[0] if len(flag) == 1 else None, main)()

@@ -259,6 +259,24 @@ def test_structured_batcher_grouping_matches_jax():
     assert scenario(serve_http._StructuredBatcher) == scenario(jax_http._StructuredBatcher)
 
 
+def jax_bpe_on_private_library(mp):
+    """Point the JAX package's native BPE wrapper (`_LIB_PATH`, `_lib`,
+    `_tried`, through the MonkeyPatch `mp`, which restores them) at a
+    private copy of native/bpe.cpp's library, built with native/Makefile's
+    flags into the port's build directory under its own name, atomically
+    (`kernels.build.compile_library`). The JAX wrapper otherwise loads
+    native/libmdbpe.so, which every test process that finds it missing
+    rebuilds in place with `make` (moondream_tpu/native_bpe.py:65-76), so
+    that a process can load a library another is still writing."""
+    from moondream_tpu_torch.kernels.build import compile_library
+
+    path = compile_library("mdbpejax", [native_bpe._NATIVE_SRC], ["g++"],
+                           native_bpe._CXX_FLAGS)
+    mp.setattr(jax_bpe, "_LIB_PATH", str(path))
+    mp.setattr(jax_bpe, "_lib", None)
+    mp.setattr(jax_bpe, "_tried", False)
+
+
 def test_byte_to_unicode_matches_jax():
     assert native_bpe._byte_to_unicode() == jax_bpe._byte_to_unicode()
     assert native_bpe._U2B == jax_bpe._U2B and len(native_bpe._B2U) == 256
@@ -274,10 +292,11 @@ PRE_TOKENIZERS = {
 
 
 @pytest.mark.parametrize("name", sorted(PRE_TOKENIZERS))
-def test_bpe_pre_tokenizer_parsing_matches_jax(name, tmp_path):
+def test_bpe_pre_tokenizer_parsing_matches_jax(name, tmp_path, monkeypatch):
     """The same tokenizer.json (the 256 byte symbols and a few merges) under
     each pre-tokenizer: the same regex choice (the same ids) or the same
-    refusal in both wrappers."""
+    refusal in both wrappers (JAX's on a private library)."""
+    jax_bpe_on_private_library(monkeypatch)
     vocab = {native_bpe._B2U[b]: b for b in range(256)}
     merges = []
     for a, b in (("t", "h"), ("th", "e"), ("Ġ", "c"), ("Ġc", "a"), ("a", "t")):
@@ -298,3 +317,64 @@ def test_bpe_pre_tokenizer_parsing_matches_jax(name, tmp_path):
     text = "the cat sat, then the  cats!"
     assert ours.encode(text) == theirs.encode(text)
     assert ours.decode(ours.encode(text)) == text
+
+
+METRIC_NAMES = ("VQAScorer", "relaxed_correctness", "edit_distance", "anls", "box_iou",
+                "average_precision", "aggregate_map", "greedy_match", "precision_recall_f1")
+
+
+@pytest.mark.parametrize("name", METRIC_NAMES)
+def test_eval_metrics_copy_matches_jax(name):
+    """moondream_tpu_torch/eval/metrics.py is moondream_tpu/eval/metrics.py
+    but for its module docstring: each function and class has the same
+    source, the tables the same values."""
+    from moondream_tpu.eval import metrics as jax_metrics
+    from moondream_tpu_torch.eval import metrics
+
+    assert inspect.getsource(getattr(metrics, name)) == inspect.getsource(
+        getattr(jax_metrics, name))
+    for table in ("_CONTRACTIONS", "_DIGIT_MAP", "_ARTICLES", "_PUNCT", "_PERIOD_RE",
+                  "_COMMA_RE"):
+        assert getattr(metrics, table) == getattr(jax_metrics, table), table
+    names = lambda module: {n for n in vars(module) if not n.startswith("__")}
+    assert names(metrics) == names(jax_metrics)
+
+
+def test_eval_metrics_agree_with_jax_on_its_cases():
+    """tests/test_eval_metrics.py's hand-computed cases through both copies."""
+    from moondream_tpu.eval import metrics as jax_metrics
+    from moondream_tpu_torch.eval import metrics
+
+    vqa = [("a dog", ["dog", "a dog", "the dog", "cat", "dog", "dog", "dog", "puppy", "dog",
+                      "dog"]),
+           ("Two", ["2", "two", "2", "3", "2", "2", "two", "2", "2", "4"]),
+           ("isnt it", ["isn't it", "no", "isn't it", "yes", "isn't it"]),
+           ("stop-sign!", ["stop sign", "stopsign", "stop sign", "sign"]),
+           ("1,000", ["1,000", "1000", "1,000"]), ("", ["dog", "cat"])]
+    for cand, gts in vqa:
+        assert (metrics.VQAScorer().compute_score(cand, gts)
+                == jax_metrics.VQAScorer().compute_score(cand, gts))
+    for t, p in [("14", "14.5"), ("14", "15"), ("100%", "96%"), ("0.25", "25%"),
+                 ("cat", "Cat"), ("", ""), ("12%", "0.12"), ("-5", "-5.2")]:
+        assert metrics.relaxed_correctness(t, p) == jax_metrics.relaxed_correctness(t, p)
+    for a, b in [("hello", "hello"), ("HELLO ", "hello"), ("abcd", "wxyz"),
+                 ("kitten", "sitten")]:
+        assert metrics.anls(a, b) == jax_metrics.anls(a, b)
+    for a, b in [("kitten", "sitting"), ("", "abc"), ("abc", "abc")]:
+        assert metrics.edit_distance(a, b) == jax_metrics.edit_distance(a, b)
+    rng = np.random.default_rng(0)
+    for _ in range(5):
+        gts = [tuple(np.concatenate([xy, xy + rng.uniform(5, 30, 2)]))
+               for xy in rng.uniform(0, 50, (rng.integers(1, 6), 2))]
+        preds = [tuple(np.add(gts[rng.integers(0, len(gts))], rng.uniform(-5, 5, 4)))
+                 + (rng.uniform(),) for _ in range(rng.integers(0, 7))]
+        assert (metrics.average_precision(gts, preds, 0.5)
+                == jax_metrics.average_precision(gts, preds, 0.5))
+        assert (metrics.greedy_match(gts, [p[:4] for p in preds], 0.5)
+                == jax_metrics.greedy_match(gts, [p[:4] for p in preds], 0.5))
+    assert metrics.box_iou((0, 0, 2, 2), (1, 1, 3, 3)) == jax_metrics.box_iou(
+        (0, 0, 2, 2), (1, 1, 3, 3))
+    for counts in [(3, 1, 2), (0, 0, 0)]:
+        assert metrics.precision_recall_f1(*counts) == jax_metrics.precision_recall_f1(*counts)
+    assert (metrics.aggregate_map({1: [1.0, 0.5], 2: [0.0]}, {1: 2, 2: 1})
+            == jax_metrics.aggregate_map({1: [1.0, 0.5], 2: [0.0]}, {1: 2, 2: 1}))

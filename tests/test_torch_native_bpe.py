@@ -2,7 +2,9 @@
 against the HF `tokenizers` library and the JAX package's wrapper
 (moondream_tpu/native_bpe.py), on a BPE tokenizer trained locally as
 tests/test_native_bpe.py trains one; and the MOONDREAM_NATIVE_BPE route of
-the port's `load_tokenizer`."""
+the port's `load_tokenizer`. Both wrappers load libraries that only this
+repository's atomic builds write: JAX's is pointed at a private copy, never
+at native/libmdbpe.so, which the JAX package rebuilds in place."""
 
 import json
 
@@ -13,6 +15,7 @@ tokenizers = pytest.importorskip("tokenizers")
 from moondream_tpu import native_bpe as jax_bpe  # noqa: E402
 from moondream_tpu_torch import native_bpe, tokenizer  # noqa: E402
 from moondream_tpu_torch.kernels.build import BUILD_DIR  # noqa: E402
+from test_torch_host import jax_bpe_on_private_library  # noqa: E402
 
 CORPUS = [
     "The quick brown fox jumps over the lazy dog.",
@@ -51,6 +54,16 @@ def _train(path, use_regex=True):
     tok.train_from_iterator(CORPUS, trainer)
     tok.save(str(path))
     return tok
+
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_library():
+    """JAX's wrapper on its own copy of the library for this module, never
+    on native/libmdbpe.so (test_torch_host.jax_bpe_on_private_library)."""
+    mp = pytest.MonkeyPatch()
+    jax_bpe_on_private_library(mp)
+    yield
+    mp.undo()
 
 
 @pytest.fixture(scope="module")

@@ -15,7 +15,9 @@ steering and adapter training: hidden states collected for two prompts, a
 control vector trained from them steering a caption, and one LoRA
 adapter training step, and the front ends (the HTTP server, the CLI, the
 HF wrapper and the native BPE tokenizer are imported with the rest):
-one caption served over HTTP."""
+one caption served over HTTP, and the eval harness and the recipes: an
+eval loop on a stand-in `datasets`, caption agreement against an int8
+ViT twin, and the recipes' batched detect_frames."""
 
 import os
 import subprocess
@@ -145,6 +147,23 @@ with urllib.request.urlopen(req, timeout=120) as r:
 srv.shutdown()
 srv.server_close()
 frontend.shutdown()
+import types
+from moondream_tpu_torch.eval import countbenchqa, quant_drift
+from moondream_tpu_torch import recipes
+stand_in = types.ModuleType("datasets")
+stand_in.load_dataset = lambda path, split=None: [{"image": Image.fromarray(img),
+                                                   "question": "how many?", "number": 2}]
+sys.modules["datasets"] = stand_in
+model._settings = lambda settings: (4, 0.0, 0.0)
+assert countbenchqa.eval_countbenchqa(model)["total_count"] == 1
+del model._settings
+twin = quant_drift.quantized_twin(model, vit8=True)
+assert quant_drift.caption_agreement(model, twin, images=[img], max_tokens=3)["n_images"] == 1
+recipes.recipe("gaze_detection_video")
+from recipes.common.pipeline import detect_frames
+from moondream_tpu_torch.models import moondream as port_moondream
+port_moondream.DEFAULT_MAX_OBJECTS = 2
+assert len(detect_frames(model, [img, img[:200]], "cat")) == 2
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))
