@@ -1,14 +1,15 @@
 """Drive the PyTorch port's caption, query, lockstep-batch, serving,
 speculative, region-head (detect, point, gaze, reasoning, spatial refs),
 multi-image pipeline, int8 w8a8, LoRA, steering and finetuning paths once
-on one CUDA card.
+on one CUDA card, every encode cropping its image on the card (the Lanczos
+kernel) by default.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. build: nvcc-build the attention kernels (A, and the decode kernel with
-     its B, B-GQA and C entries, bf16 and int8), the W4A16 and the w8a8
-     kernels from moondream_tpu_torch/csrc and g++-build the native crop
+     its B, B-GQA and C entries, bf16 and int8), the W4A16, the w8a8 and
+     the Lanczos crop kernels from moondream_tpu_torch/csrc and g++-build the native crop
      and native BPE libraries, all at once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
      on the same inputs, TF32 off) at the main paths' shapes (the gaze
@@ -44,14 +45,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      steered caption (a seeded control vector: the steered prompt's and
      decode step's logits, and 16 greedy ids, fused and streamed, equal to
      the CPU's fp32 ids under the peaked oracle);
-  4. the main paths at MOONDREAM_2B widths and depth with seeded random
-     weights, each with exact kernel launch counts (reset just before the
-     path, read just after): the bf16 model (caption, query, lockstep
-     caption_batch / query_batch over 8 images, three continuous-batching
-     pools), the same weights with int4 text blocks and an int8 KV cache
-     (caption, query, a prefix-shared pool), and the 2B with 8 KV heads
+  4. the main paths at MOONDREAM_2B widths with seeded random weights, each
+     with exact kernel launch counts (reset just before the path, read just
+     after; every encode counts the Lanczos kernel's launches): the bf16
+     model at full depth (caption, query, lockstep caption_batch /
+     query_batch over 8 images, three continuous-batching pools), then at
+     a third of the depth (8 text layers, 9 ViT blocks; third_depth) the
+     2B with int4 text blocks and an int8 KV cache (caption, query, a
+     prefix-shared pool), the int8 w8a8 2B, and the 2B with 8 KV heads
      (GQA), bf16 (caption, query, lockstep batches) then kv_int8 (caption,
-     query); the region-head paths: bf16 detect, point, detect_gaze (eye
+     query); "4 2B device preprocessing" (phase_device_preprocess, on the
+     bf16 model): the Lanczos kernel's crops uint8-equal to its plain
+     version on the card and to the host crops over six image sizes and a
+     batched call, its device-only time beside its bound, host against
+     device crops, encode_image and BatchPipeline on both routes in turns,
+     exact launches of a device-route encode and one encode under the sync
+     error mode; the region-head paths: bf16 detect, point, detect_gaze (eye
      and accuracy mode), query with reasoning and with spatial refs and
      detect_batch over 8 images, int4 + kv_int8 detect and GQA detect, each
      with its decode loops' host reads (at most one per DONE_CHECK_EVERY
@@ -166,6 +175,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     python3 chip_smoke.py --steer      # the steering and LoRA-finetune phases alone
     python3 chip_smoke.py --serve      # the front-end phases alone
     python3 chip_smoke.py --eval       # the eval and recipe phase alone
+    python3 chip_smoke.py --preprocess # the device-preprocessing phase alone
 
 Prints the card's name and power limit first, then which of PIL,
 tokenizers and transformers the machine has, the seconds of each phase,
@@ -232,6 +242,7 @@ from moondream_tpu_torch.engine.serving import (  # noqa: E402
     ragged_verify_step,
 )
 from moondream_tpu_torch.kernels import attention as K  # noqa: E402
+from moondream_tpu_torch.kernels import preprocess as KP  # noqa: E402
 from moondream_tpu_torch.kernels import quant as KQ  # noqa: E402
 from moondream_tpu_torch.kernels.build import (  # noqa: E402
     LAUNCHES,
@@ -270,7 +281,8 @@ from moondream_tpu_torch.ops.attention import (  # noqa: E402
     flash_attention_plain,
     unified_mask,
 )
-from moondream_tpu_torch.ops.image_crops import load_native  # noqa: E402
+from moondream_tpu_torch.ops import device_preprocess as devpre  # noqa: E402
+from moondream_tpu_torch.ops.image_crops import load_native, overlap_crop_image  # noqa: E402
 from moondream_tpu_torch.ops.layers import (  # noqa: E402
     Int8Linear,
     Linear,
@@ -323,6 +335,16 @@ MOONDREAM_2B_GQA = dataclasses.replace(
 )
 
 
+def third_depth(cfg):
+    """`cfg` at a third of its depth (the 2B: 8 of 24 text layers, 9 of 27
+    ViT blocks), every width unchanged: the int4, int8 and GQA models run
+    so, to keep the whole smoke inside its time limit. Launch counts follow
+    the config's depth."""
+    return dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, n_layers=cfg.text.n_layers // 3),
+        vision=dataclasses.replace(cfg.vision, enc_n_layers=cfg.vision.enc_n_layers // 3))
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -371,7 +393,7 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 
 def phase_build() -> None:
-    build_parallel([*K.LOADERS, *KQ.LOADERS, load_native, native_bpe.available])
+    build_parallel([*K.LOADERS, *KQ.LOADERS, *KP.LOADERS, load_native, native_bpe.available])
     if load_native() is None:
         raise RuntimeError("native crop library did not build")
     if not native_bpe.available():
@@ -1517,13 +1539,16 @@ def linear_kinds(model) -> dict:
 
 
 def format_label(model) -> str:
-    """int4 / int8 text blocks, the int8 ViT's kind, the KV cache and heads."""
+    """int4 / int8 text blocks, the int8 ViT's kind, the KV cache and heads,
+    and the depth where it is not the 2B's."""
     k, cfg = linear_kinds(model), model.config
     vit = ("static int8 ViT" if model.vision.blocks[0].qkv.inv_a is not None
            else "dynamic int8 ViT") if k["int8_vit"] else None
+    depth = "" if cfg.text.n_layers == MOONDREAM_2B.text.n_layers else (
+        f", {cfg.text.n_layers} text layers, {cfg.vision.enc_n_layers} ViT blocks")
     return (" + ".join(["int4"] * k["int4"] + ["int8"] * k["int8"] + [vit] * bool(vit)
                        + ["kv_int8" if cfg.text.kv_int8 else "bf16"])
-            + f", {cfg.text.n_kv_heads} KV heads")
+            + f", {cfg.text.n_kv_heads} KV heads" + depth)
 
 
 def normalized_crops(model, images) -> torch.Tensor:
@@ -1533,10 +1558,41 @@ def normalized_crops(model, images) -> torch.Tensor:
     return normalize_crops(torch.from_numpy(crops).to(model.device), model.dtype)
 
 
+def lanczos_launches(shape, cfg=MOONDREAM_2B) -> int:
+    """Lanczos kernel launches of one image's crops on the device route (the
+    default): a vertical pass for the global crop and one for the grid (a
+    copy where the height does not change) and a horizontal pass for each
+    whose width changes; none where the image takes the host route."""
+    vc = cfg.vision
+    h, w = shape[:2]
+    if not (devpre.enabled() and devpre.exact_path_supported(h, w, vc.crop_size)):
+        return 0
+    _, cols = devpre.preprocess_tiling(h, w, vc.crop_size, vc.enc_patch_size,
+                                       vc.overlap_margin, vc.max_crops)
+    margin = vc.enc_patch_size * vc.overlap_margin
+    grid_w = cols * (vc.crop_size - 2 * margin) + 2 * margin
+    return 2 + (w != vc.crop_size) + (w != grid_w)
+
+
+def batch_lanczos_launches(images, cfg=MOONDREAM_2B) -> int:
+    """Lanczos launches of one encode_images call (or one BatchPipeline
+    batch): within each (crop count, tiling) group, one batched crop call
+    per run of consecutive images of one shape."""
+    vc = cfg.vision
+    groups = {}
+    for im in images:
+        shape = np.asarray(im).shape
+        tiling = devpre.preprocess_tiling(*shape[:2], vc.crop_size, vc.enc_patch_size,
+                                          vc.overlap_margin, vc.max_crops)
+        groups.setdefault(tiling, []).append(shape)
+    return sum(lanczos_launches(shape, cfg) for shapes in groups.values()
+               for i, shape in enumerate(shapes) if i == 0 or shapes[i - 1] != shape)
+
+
 def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = False,
                       batch_prefill: bool = False, long_spans: int = 0,
                       prefills: int = None, int8: bool = False,
-                      int8_vit: bool = False) -> dict:
+                      int8_vit: bool = False, crops: int = 0) -> dict:
     """Exact launch counts of a path: `n_vit` ViT calls (kernel A per
     vision block), `prefills` [BOS, image] prefills (kernel A per text
     block; by default one when the path encodes, or one batched), `spans`
@@ -1549,7 +1605,8 @@ def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = Fals
     dequantized int8 layer). int4 blocks add four W4A16 launches per layer
     per span or step (the prefills' 730 rows take a dense product); int8
     text blocks four w8a8 launches per layer per prefill, span or step, and
-    int8 ViT blocks four per ViT block per ViT call."""
+    int8 ViT blocks four per ViT block per ViT call. `crops`: the Lanczos
+    kernel's launches (lanczos_launches per encoded image)."""
     tc = cfg.text
     L_txt, mha = tc.n_layers, tc.n_kv_heads == tc.n_heads
     if prefills is None:
@@ -1568,6 +1625,7 @@ def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = Fals
     if int8_vit:
         want[KQ.W8A8] += 4 * cfg.vision.enc_n_layers * n_vit
     want[KQ.W8A8_QUANTIZE] = want[KQ.W8A8]  # every w8a8 linear runs the pass first
+    want[KP.LANCZOS] = crops
     return want
 
 
@@ -1650,7 +1708,8 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
     # the 730-row image prefill's linears take the dense route (M >= 512)
     steps = batched_steps(len(ids), greedy["max_tokens"])
     check_launches(f"main path ({label}), {len(ids)} tokens, {steps} steps", launches,
-                   expected_launches(cfg, 1, 1, steps, **kinds))
+                   expected_launches(cfg, 1, 1, steps, **kinds,
+                                     crops=lanczos_launches(img.shape, cfg)))
     if model.caption(enc, "normal", settings=greedy)["caption"] != text:
         raise AssertionError("second greedy caption differs")
     streamed = "".join(model.caption(enc, "normal", stream=True, settings=greedy)["caption"])
@@ -1695,8 +1754,170 @@ def phase_main_path(img: np.ndarray, power: str, cfg=MOONDREAM_2B, int4: bool = 
     return (launches, query_launches), model
 
 
-def phase_int8_main_path(img: np.ndarray, images: list, power: str) -> tuple:
-    """The 2B (published widths, full depth) with int8 w8a8 text blocks and a
+# The device-preprocessing phase's images: 13, 2 (both passes copies), 9,
+# 10, 2 and 9 crops; then three 700x900 images in one batched call.
+PREPROCESS_SHAPES = ((756, 1008, 3), (378, 378, 3), (600, 800, 3), (1080, 1440, 3),
+                     (240, 320, 3), (2160, 3840, 3))
+PREPROCESS_TOKENS = 16  # the BatchPipeline comparison's tokens per image (eos off)
+
+
+def lanczos_work(shape, tiling, cfg=MOONDREAM_2B) -> tuple:
+    """(bytes, operations) of one image's crops: the raw image read once and
+    the crop stack written once; 2 operations (a multiply and an add) per
+    non-zero tap, channel and output pixel of each pass that runs (the
+    global crop's and the grid's, each grid pixel once), times 3: the
+    card's fastest integer route for a uint8 pixel times a 22-bit tap is
+    three int8 tensor-core products over the tap's digit planes (the JAX
+    package's design), so the operations bound is taken at the int8 rate."""
+    vc = cfg.vision
+    h, w = shape[:2]
+    base, margin = vc.crop_size, vc.enc_patch_size * vc.overlap_margin
+    window = base - 2 * margin
+    nnz = lambda n_in, n_out: int((devpre._pil_coeffs(n_in, n_out) != 0).sum())
+    macs = 0
+    for th, tw in ((base, base), (tiling[0] * window + 2 * margin,
+                                  tiling[1] * window + 2 * margin)):
+        if w != tw:
+            macs += h * nnz(w, tw)  # the horizontal pass: every input row
+        if h != th:
+            macs += tw * nnz(h, th)  # the vertical pass: every output column
+    nbytes = h * w * 3 + (tiling[0] * tiling[1] + 1) * base * base * 3
+    return nbytes, 2 * 3 * 3 * macs
+
+
+def phase_device_preprocess(model, img: np.ndarray, pipe_images: list, power: str) -> tuple:
+    """"4 2B device preprocessing" on the bf16 2B: the Lanczos kernel's crops
+    (csrc/lanczos_resize.cu) uint8-equal to its plain version on the card
+    and to the host crops (native C++) over PREPROCESS_SHAPES and a batched
+    3 x 700 x 900, with its launches per image; its device-only time at
+    756x1008 (13 crops) beside its bound and the plain version's time; then
+    in turns (host, device, device, host): host crops plus their copy
+    against the raw image's copy plus the kernel, encode_image under
+    MOONDREAM_DEVICE_PREPROCESS=0 and under the default, and BatchPipeline
+    over `pipe_images`; exact launches of one device-route encode_image
+    (Lanczos 4, kernel A 27 + 24) and one encode under sync debug mode
+    "error". Returns (the kernel's summary for the kernels line, the
+    counted encode's launches)."""
+    cfg, vc = model.config, model.config.vision
+    rng = np.random.default_rng(SEED + 30)
+    host = lambda im: overlap_crop_image(im, overlap_margin=vc.overlap_margin,
+                                         max_crops=vc.max_crops)
+    lines, err = [], 0
+    for shape in PREPROCESS_SHAPES + ((3, 700, 900, 3),):
+        batch = rng.integers(0, 256, shape if len(shape) == 4 else (1, *shape), dtype=np.uint8)
+        outs = [host(im) for im in batch]
+        tiling = tuple(outs[0]["tiling"])
+        want = np.concatenate([o["crops"] for o in outs])
+        x = torch.from_numpy(batch).to(DEV)
+        before = LAUNCHES[KP.LANCZOS]
+        got = devpre.device_overlap_crops_batched(x, tiling)
+        launched = LAUNCHES[KP.LANCZOS] - before
+        plain = devpre.device_overlap_crops_batched(x, tiling, plain=True)
+        got, plain = got.cpu().numpy(), plain.cpu().numpy()
+        err = max(err, int(np.abs(got.astype(np.int16) - plain).max()))
+        if not (np.array_equal(got, plain) and np.array_equal(got, want)):
+            raise AssertionError(f"{KP.LANCZOS} {shape}: kernel {np.array_equal(got, plain)} "
+                                 f"== plain, {np.array_equal(got, want)} == host crops")
+        if launched != lanczos_launches(shape[-3:], cfg):
+            raise AssertionError(f"{KP.LANCZOS} {shape}: {launched} launches")
+        lines.append(f"{'x'.join(map(str, shape[:-1]))} -> {got.shape[0]} crops in {launched} "
+                     "launches")
+
+    # the headline: one 756x1008 image's 13 crops
+    tiling = devpre.preprocess_tiling(*img.shape[:2], vc.crop_size, vc.enc_patch_size,
+                                      vc.overlap_margin, vc.max_crops)
+    x = torch.from_numpy(img).to(DEV)
+    out = torch.empty((tiling[0] * tiling[1] + 1, vc.crop_size, vc.crop_size, 3),
+                      dtype=torch.uint8, device=DEV)
+    kernel = lambda: devpre.device_overlap_crops(x, tiling, out=out)
+    ms, dev_ms = median_ms(kernel), graph_ms(kernel)
+    plain_ms = median_ms(lambda: devpre.device_overlap_crops(x, tiling, plain=True), reps=5)
+    bd = bound(*lanczos_work(img.shape, tiling, cfg), peak_ops=PEAK_INT8_OP_S)
+    summary = {"err": float(err), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "device_ms": dev_ms, "library_device_ms": None, **bd}
+    print(f"{KP.LANCZOS} on {power}: uint8-equal to the plain version on the card and to the "
+          f"host crops: {'; '.join(lines)}. 756x1008 (13 crops): one launch set {ms:.4f} ms, "
+          f"device only {dev_ms * 1e3:.2f} us, bound {bd['bound_ms'] * 1e3:.3f} us by "
+          f"{bd['bound_by']} ({bd['bytes']} bytes, {bd['flops']:.4g} int8 op over digit planes; "
+          f"{dev_ms / bd['bound_ms']:.1f} x bound); plain version on the card {plain_ms:.3f} ms; "
+          "no library call computes PIL's Lanczos")
+
+    def turns(fns: dict, reps: int) -> dict:
+        """Median host-clock ms of each function, run in turns (a, b, b, a)."""
+        times = {name: [] for name in fns}
+        order = list(fns) + list(fns)[::-1]
+        for _ in range(reps):
+            for name in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name]()
+                times[name].append(sync_ms(t0))
+        return {name: statistics.median(t) for name, t in times.items()}
+
+    env = os.environ.get("MOONDREAM_DEVICE_PREPROCESS")
+
+    def routed(value, fn):
+        def call():
+            os.environ["MOONDREAM_DEVICE_PREPROCESS"] = value
+            try:
+                return fn()
+            finally:
+                if env is None:
+                    os.environ.pop("MOONDREAM_DEVICE_PREPROCESS")
+                else:
+                    os.environ["MOONDREAM_DEVICE_PREPROCESS"] = env
+        return call
+
+    crops_ms = turns({"host": lambda: model._crops_device([model._crops(img)[0]], tiling),
+                      "device": lambda: model._crops_device([img], tiling)}, 5)
+    encode_ms = turns({"host": routed("0", lambda: model.encode_image(img)),
+                       "device": routed("1", lambda: model.encode_image(img))}, 3)
+    model.tokenizer = IdTokenizer()
+    settings = {"temperature": 0.0, "max_tokens": PREPROCESS_TOKENS}
+    pipe = BatchPipeline(model, batch_size=PIPE_BATCH, eos_id=-1)
+    texts = {}
+
+    def piped(route):
+        texts[route] = pipe.caption(pipe_images, "normal", settings=settings)
+
+    routed("1", lambda: piped("device"))()  # captures the lockstep graphs outside the turns
+    pipe_ms = turns({"host": routed("0", lambda: piped("host")),
+                     "device": routed("1", lambda: piped("device"))}, 1)
+    if texts["host"] != texts["device"]:
+        raise AssertionError("BatchPipeline: the routes gave different tokens")
+    print(f"2B crops and encode on {power}, medians in turns (host, device, device, host): "
+          f"one 756x1008 image's 13 crops on the card, host crops (native C++) + their copy "
+          f"{crops_ms['host']:.2f} ms vs the raw image's copy + the kernel "
+          f"{crops_ms['device']:.2f} ms; encode_image MOONDREAM_DEVICE_PREPROCESS=0 "
+          f"{encode_ms['host']:.1f} ms vs default {encode_ms['device']:.1f} ms; BatchPipeline "
+          f"({len(pipe_images)} images of three sizes, batch {PIPE_BATCH}, {PREPROCESS_TOKENS} "
+          f"tokens, eos off) host route {len(pipe_images) / (pipe_ms['host'] / 1e3):.2f} "
+          f"images/s vs device route {len(pipe_images) / (pipe_ms['device'] / 1e3):.2f} "
+          f"images/s, equal tokens")
+
+    # the counted device-route encode, and one under the sync error mode
+    devpre.reset_route_counts()
+    reset_launch_counts()
+    enc = model.encode_image(img)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check_launches("encode_image (device route, 13 crops)", launches,
+                   expected_launches(cfg, 1, 0, 0, crops=lanczos_launches(img.shape, cfg)))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = model.encode_image(img)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if devpre.ROUTES != {"device": 2, "host": 0}:
+        raise AssertionError(f"crop routes {devpre.ROUTES}")
+    if not (torch.equal(enc.k, again.k) and torch.equal(enc.v, again.v)):
+        raise AssertionError("two device-route encodes differ")
+    return summary, launches
+
+
+def phase_int8_main_path(img: np.ndarray, images: list, power: str, cfg=MOONDREAM_2B) -> tuple:
+    """The 2B at `cfg` (published widths; main() cuts it to a third of its
+    depth) with int8 w8a8 text blocks and a
     statically calibrated int8 ViT, on seeded random weights quantized on
     the card: the ViT is calibrated (collect_vision_act_stats) on the
     normalized crops of the smoke's own images, and a copy of it is
@@ -1705,11 +1926,11 @@ def phase_int8_main_path(img: np.ndarray, images: list, power: str) -> tuple:
     image prefill, 108 per ViT call). Returns (launch counts of the caption
     run, of the query run), the model and its three ViTs by name."""
     t0 = time.perf_counter()
-    params = init_params(MOONDREAM_2B, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
     dense_bytes = _nbytes(*(lin.w for b in params["text"].blocks
                             for lin in (b.qkv, b.proj, b.mlp.fc1, b.mlp.fc2)))
     quantize_text_params_int8(params["text"])
-    probe = MoondreamModel(MOONDREAM_2B, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    probe = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
     vits = {"bf16": params["vision"], "dynamic": copy.deepcopy(params["vision"]),
             "static": copy.deepcopy(params["vision"])}
     crops = normalized_crops(probe, [img, *images])
@@ -1718,11 +1939,12 @@ def phase_int8_main_path(img: np.ndarray, images: list, power: str) -> tuple:
     quantize_vision_params(vits["static"], stats)
     params["vision"] = vits["static"]
     del probe
-    print(f"2B int8 weights on the card: text quantized, ViT calibrated on {crops.shape[0]} "
-          f"normalized crops ({crops.shape[0] // 16 * 16} used, chunks of 16) and quantized "
-          f"static and dynamic: {sync_ms(t0):.1f} ms; text block linears bf16 {dense_bytes} "
-          f"bytes")
-    launches, model = phase_main_path(img, power, MOONDREAM_2B, params=params)
+    print(f"2B int8 weights ({cfg.text.n_layers} text layers, {cfg.vision.enc_n_layers} ViT "
+          f"blocks) on the card: text quantized, ViT calibrated on "
+          f"{crops.shape[0]} normalized crops ({crops.shape[0] // 16 * 16} used, chunks of 16) "
+          f"and quantized static and dynamic: {sync_ms(t0):.1f} ms; text block linears bf16 "
+          f"{dense_bytes} bytes")
+    launches, model = phase_main_path(img, power, cfg, params=params)
     return launches, model, vits
 
 
@@ -1744,7 +1966,8 @@ def phase_int8_encode(model, img: np.ndarray, vits: dict, power: str) -> None:
         model.encode_image(img)
         times[name].append(sync_ms(t0))
         check_launches(f"encode_image ({name} ViT, int8 text)", dict(LAUNCHES),
-                       expected_launches(cfg, 1, 0, 0, int8=True, int8_vit=name != "bf16"))
+                       expected_launches(cfg, 1, 0, 0, int8=True, int8_vit=name != "bf16",
+                                         crops=lanczos_launches(img.shape, cfg)))
         if name not in feats:
             feats[name] = vision_encoder(x, vits[name]).float()
     model.params["vision"] = vits["static"]
@@ -1875,6 +2098,7 @@ def phase_pool(model, images, power: str, label: str, **kind) -> dict:
     n_req, n_img = len(POOL_REQUESTS), len(images)
     want = {name: 0 for name in LAUNCHES}
     want[K.FLASH] = n_img * (L_vit + L_txt)  # each encode: ViT + image prefill
+    want[KP.LANCZOS] = sum(lanczos_launches(images[i].shape, cfg) for i, _ in run["encs_by"])
     want[K.DECODE_INT8 if kv8 else K.DECODE] = n_req * L_txt  # prompts
     want[K.RAGGED_INT8 if kv8 else K.RAGGED] = L_txt * 8 * run["chunks"]
     if kinds["int4"]:  # the image prefills' 730 rows take a dense product
@@ -1980,7 +2204,8 @@ def phase_batch(model, images, power: str) -> list:
         steps = batched_steps(max(len(r) for r in ids), greedy["max_tokens"])
         check_launches(f"{task}_batch ({label}), {n_img} images in {n_groups} ViT groups, "
                        f"{steps} lockstep steps", launches,
-                       expected_launches(cfg, n_groups, 1, steps, batch_prefill=True))
+                       expected_launches(cfg, n_groups, 1, steps, batch_prefill=True,
+                                         crops=batch_lanczos_launches(images, cfg)))
         if len(ids) != n_img or not all(0 <= i < tc.vocab_size for r in ids for i in r):
             raise AssertionError(f"{task}_batch: bad ids")
         print(f"2B {task}_batch ({label}) on {power}: {n_img / (ms / 1e3):.2f} images/s, "
@@ -2381,6 +2606,7 @@ def phase_spec_pools(model, images, power: str) -> list:
         launches = dict(LAUNCHES)
         want = {name: 0 for name in LAUNCHES}
         want[K.FLASH] = len(images) * (L_vit + L_txt)
+        want[KP.LANCZOS] = sum(lanczos_launches(images[i].shape, cfg) for i, _ in run["encs_by"])
         want[K.DECODE] = len(POOL_REQUESTS) * L_txt
         want[K.RAGGED] = L_txt * 8 * -(-k // 16) * run["chunks"]
         check_launches(f"spec pool k {k}, {run['chunks']} chunks", launches, want)
@@ -2413,6 +2639,7 @@ def phase_spec_pools(model, images, power: str) -> list:
         raise AssertionError("the sampled spec pool took the greedy chunk")
     want = {name: 0 for name in LAUNCHES}
     want[K.FLASH] = len(images) * (L_vit + L_txt)
+    want[KP.LANCZOS] = sum(lanczos_launches(images[i].shape, cfg) for i, _ in run["encs_by"])
     want[K.DECODE] = len(POOL_REQUESTS) * L_txt
     want[K.RAGGED] = L_txt * 8 * run["chunks"]
     check_launches(f"sampled spec pool k {SPEC_K}, {run['chunks']} chunks", launches, want)
@@ -2596,7 +2823,8 @@ def phase_structured(model, enc, img, batch_images, power: str, int4: bool = Fal
     out, _, loops = counted(
         "detect_gaze accuracy mode",
         lambda: model.detect_gaze(img, face=FACE, unstable_settings={"prioritize_accuracy": True}),
-        lambda o: expected_launches(cfg, 2, 0, 1, long_spans=1, prefills=2))
+        lambda o: expected_launches(cfg, 2, 0, 1, long_spans=1, prefills=2,
+                                    crops=2 * lanczos_launches(img.shape, cfg)))
     if loops != {"gaze_points_batched": {"calls": 1, "steps": 1, "reads": 1}}:
         raise AssertionError(f"accuracy-mode gaze: one step and one read, got {loops}")
     gaze_acc = out["gaze"]
@@ -2652,7 +2880,8 @@ def phase_structured(model, enc, img, batch_images, power: str, int4: bool = Fal
     out, ms, loops = counted(
         f"detect_batch of {len(batch_images)}", lambda: model.detect_batch(batch_images, "object"),
         lambda o: expected_launches(cfg, n_groups, 1, batched_steps(
-            3 * max(len(r["objects"]) for r in o), 150), batch_prefill=True))
+            3 * max(len(r["objects"]) for r in o), 150), batch_prefill=True,
+            crops=batch_lanczos_launches(batch_images, cfg)))
     if not all(boxes_ok(r["objects"], box_keys) for r in out):
         raise AssertionError("detect_batch: bad boxes")
     times[-1] += (f" from images ({len(batch_images) / (ms / 1e3):.2f} images/s, found "
@@ -3035,13 +3264,16 @@ def _batches(images, bsz: int, pad: bool) -> list:
     return out
 
 
-def _pipeline_launches(cfg, groups: list, steps: int = 0, spans: int = 0) -> dict:
+def _pipeline_launches(cfg, groups: list, steps: int = 0, spans: int = 0,
+                       crops: int = 0) -> dict:
     """Exact launches of BatchPipeline batches with `groups` ViT groups each:
     the ViT per group and one fused prefill of kernel A per text layer per
     batch, then `steps` lockstep decode steps (kernel B) or `spans`
-    lockstep verify spans (kernel C), summed over the batches."""
+    lockstep verify spans (kernel C), summed over the batches; `crops`
+    Lanczos launches (batch_lanczos_launches per batch)."""
     L = cfg.text.n_layers
     want = {name: 0 for name in LAUNCHES}
+    want[KP.LANCZOS] = crops
     want[K.FLASH] = sum(g * cfg.vision.enc_n_layers + L for g in groups)
     want[K.DECODE] = L * steps
     want[K.RAGGED] = L * spans
@@ -3064,6 +3296,7 @@ def phase_pipelines(model, images, power: str) -> list:
     model.tokenizer = IdTokenizer()
     tmpl = list(cfg.tokenizer.templates["caption"]["normal"])
     groups = [_vit_groups(model, b) for b in _batches(images, PIPE_BATCH, pad=True)]
+    crops = sum(batch_lanczos_launches(b, cfg) for b in _batches(images, PIPE_BATCH, pad=True))
     plain = BatchPipeline(model, batch_size=PIPE_BATCH, eos_id=-1)
     ms = {"serial": [], "pipeline": []}
     runs, captured = [], []
@@ -3089,7 +3322,7 @@ def phase_pipelines(model, images, power: str) -> list:
             if len(captured) == 1:
                 check_launches(f"BatchPipeline (2B bf16), {n_img} images in batches of "
                                f"{PIPE_BATCH}, ViT groups {groups}", dict(LAUNCHES),
-                               _pipeline_launches(cfg, groups, steps=loop["steps"]))
+                               _pipeline_launches(cfg, groups, steps=loop["steps"], crops=crops))
                 runs.append(dict(LAUNCHES))
             if (loop["calls"] != len(groups) or loop["steps"] != 64 * len(groups)
                     or loop["reads"] > math.ceil(loop["steps"] / DONE_CHECK_EVERY)
@@ -3137,7 +3370,8 @@ def phase_pipelines(model, images, power: str) -> list:
         batched_engine.generate_text_spec_batched = record
     loop = dict(LOOP_COUNTS["generate_text_spec_batched"])
     check_launches(f"BatchPipeline(speculative={SPEC_K}) (2B bf16), {loop['steps']} verify spans",
-                   dict(LAUNCHES), _pipeline_launches(cfg, groups, spans=loop["steps"]))
+                   dict(LAUNCHES), _pipeline_launches(cfg, groups, spans=loop["steps"],
+                                                      crops=crops))
     runs.append(dict(LAUNCHES))
     iters = sum(r.iters for r in results)
     if (loop["calls"] != len(groups) or loop["reads"] > sum(
@@ -3199,6 +3433,7 @@ def _pooled_pipeline_run(model, images, spec: int, label: str) -> tuple:
     want = {name: 0 for name in LAUNCHES}
     want[K.FLASH] = sum(_vit_groups(model, w) * cfg.vision.enc_n_layers + L
                         for w in _batches(images, 4, pad=False))
+    want[KP.LANCZOS] = sum(batch_lanczos_launches(w, cfg) for w in _batches(images, 4, pad=False))
     want[K.DECODE_INT8 if quantized else K.DECODE] = L * len(images)
     want[K.RAGGED_INT8 if quantized else K.RAGGED] = L * 8 * -(-max(spec, 1) // 16) * chunks
     if quantized:
@@ -3261,6 +3496,7 @@ def phase_pooled_pipelines(model, images, power: str) -> list:
     L = cfg.text.n_layers
     want = {name: 0 for name in LAUNCHES}
     want[K.FLASH] = _vit_groups(model, burst) * cfg.vision.enc_n_layers + L
+    want[KP.LANCZOS] = batch_lanczos_launches(burst, cfg)
     want[K.DECODE] = L * len(burst)
     want[K.RAGGED] = L * 8 * chunks[0]
     check_launches(f"submit_many of {len(burst)} images, {chunks[0]} chunks", dict(LAUNCHES),
@@ -3330,10 +3566,12 @@ def write_adapter(path: str, cfg, rank: int, b_scale: float, seed: int) -> str:
     return path
 
 
-def variant_adapters(folder: str) -> dict:
-    """The 2B adapters of the variant phases, written into `folder`: "zero"
-    (rank 16, B = 0), "real" (rank 16) and "real8" (rank 8)."""
-    return {name: write_adapter(f"{folder}/2b-{name}.pt", MOONDREAM_2B, rank, scale, seed)
+def variant_adapters(folder: str, cfg=MOONDREAM_2B) -> dict:
+    """The adapters of the variant phases at `cfg`'s widths and depth,
+    written into `folder`: "zero" (rank 16, B = 0), "real" (rank 16) and
+    "real8" (rank 8)."""
+    return {name: write_adapter(f"{folder}/2b-{cfg.text.n_layers}-{name}.pt", cfg, rank, scale,
+                                seed)
             for name, rank, scale, seed in (("zero", VARIANT_RANK, 0.0, SEED + 5),
                                             ("real", VARIANT_RANK, 0.02, SEED + 5),
                                             ("real8", VARIANT_POOL_RANK, 0.02, SEED + 6))}
@@ -3498,7 +3736,8 @@ def phase_variants(model, img, images, power: str, adapters: dict) -> list:
     pipe_ms = sync_ms(t0)
     loop = LOOP_COUNTS["generate_text_batched"]
     check_launches("BatchPipeline under a variant", dict(LAUNCHES),
-                   _pipeline_launches(cfg, groups, steps=loop["steps"]))
+                   _pipeline_launches(cfg, groups, steps=loop["steps"],
+                                      crops=batch_lanczos_launches(pipe_images, cfg)))
     runs.append(dict(LAUNCHES))
     if [len(_ids(t)) for t in piped] != [64] * 4:
         raise AssertionError(f"BatchPipeline under a variant: {[len(_ids(t)) for t in piped]}")
@@ -3686,6 +3925,7 @@ def phase_variant_pools(model, images, power: str, adapters: dict, full: bool = 
         n_enc, n_req = len(run["encs_by"]), len(POOL_REQUESTS)
         want = {name: 0 for name in LAUNCHES}
         want[K.FLASH] = n_enc * (L_vit + L_txt)  # each encode: ViT + image prefill
+        want[KP.LANCZOS] = sum(lanczos_launches(images[i].shape, cfg) for i, _ in run["encs_by"])
         want[K.DECODE_INT8 if kv8 else K.DECODE] = n_req * L_txt  # prompts
         want[K.RAGGED_INT8 if kv8 else K.RAGGED] = L_txt * 8 * -(-max(spec, 1) // 16) * run[
             "chunks"]
@@ -3950,7 +4190,8 @@ def phase_finetune(power: str) -> list:
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check_launches("text finetune (4 ViT calls)", launches,
-                   expected_launches(cfg, len(dataset), 0, 0, prefills=0))
+                   expected_launches(cfg, len(dataset), 0, 0, prefills=0, crops=sum(
+                       lanczos_launches(np.asarray(x["image"]).shape, cfg) for x in dataset)))
     runs.append(launches)
     if not all(math.isfinite(x) for x in losses) or state.opt_state.count != 2:
         raise AssertionError(f"text finetune: losses {losses}, updates {state.opt_state.count}")
@@ -4004,7 +4245,8 @@ def phase_finetune(power: str) -> list:
     launches = dict(LAUNCHES)
     rpeak = torch.cuda.max_memory_allocated()
     check_launches("region finetune (2 ViT calls)", launches,
-                   expected_launches(cfg, len(rdata), 0, 0, prefills=0))
+                   expected_launches(cfg, len(rdata), 0, 0, prefills=0, crops=sum(
+                       lanczos_launches(np.asarray(x["image"]).shape, cfg) for x in rdata)))
     runs.append(launches)
     if not all(math.isfinite(x) for x in rlosses) or rstate.opt_state.count != 2:
         raise AssertionError(f"region finetune: losses {rlosses}")
@@ -4043,7 +4285,8 @@ def phase_finetune(power: str) -> list:
         raise AssertionError("the post-training caption did not replay the earlier graphs")
     steps = batched_steps(len(_ids(after)), greedy["max_tokens"])
     check_launches(f"caption after finetuning, {steps} steps", launches,
-                   expected_launches(cfg, 1, 1, steps))
+                   expected_launches(cfg, 1, 1, steps,
+                                     crops=lanczos_launches(np.asarray(probe).shape, cfg)))
     runs.append(launches)
     eager = MoondreamModel(cfg, model.params, IdTokenizer(), BF16, device=DEV, graphed=False)
     if eager.caption(probe, settings=greedy)["caption"] != after:
@@ -4393,7 +4636,8 @@ def phase_lora_finetune(power: str) -> list:
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check_launches("LoRA finetune (4 ViT calls)", launches,
-                   expected_launches(cfg, len(dataset), 0, 0, prefills=0))
+                   expected_launches(cfg, len(dataset), 0, 0, prefills=0, crops=sum(
+                       lanczos_launches(np.asarray(x["image"]).shape, cfg) for x in dataset)))
     runs = [launches]
     with torch.no_grad():
         after = ft_lora.lora_text_loss(state.params, model.text, examples[0]["inputs_embeds"],
@@ -4641,7 +4885,7 @@ def phase_serve(model, power: str) -> list:
             text = _ok(base, path, payload)[key]
             settled()
             launches = dict(LAUNCHES)
-            want = expected_launches(cfg, 1, 1, 0)
+            want = expected_launches(cfg, 1, 1, 0, crops=lanczos_launches(SERVE_SHAPES[i], cfg))
             want[K.RAGGED] = L_txt * 8 * dispatched["chunks"]
             check_launches(f"HTTP {path} (image {i}), {len(_ids(text))} tokens, "
                            f"{dispatched['chunks']} chunks", launches, want)
@@ -5087,7 +5331,8 @@ def phase_eval(model, power: str) -> list:
                 model.config = dataclasses.replace(
                     model.config, tokenizer=dataclasses.replace(tok, eos_id=7))
             try:
-                res, s = part(f"eval {name}", lambda: loop(model, debug=True), [K.FLASH])
+                res, s = part(f"eval {name}", lambda: loop(model, debug=True),
+                              [K.FLASH, KP.LANCZOS])
             finally:
                 model.config = dataclasses.replace(model.config, tokenizer=tok)
             results[name] = res
@@ -5098,7 +5343,7 @@ def phase_eval(model, power: str) -> list:
             lines.append(f"{name} {s:.2f} s, {s * 1e3 / len(rows[path]):.0f} ms/row "
                          f"({steps} decode steps; launches {_nonzero(runs[-1])}): {summary}")
         got, _ = part("eval_all", lambda: eval_all.eval_all(
-            model, skip=[n for n in eval_all.EVALS if n != "tallyqa"]), [K.FLASH])
+            model, skip=[n for n in eval_all.EVALS if n != "tallyqa"]), [K.FLASH, KP.LANCZOS])
         if got != {"tallyqa": results["tallyqa"]}:
             raise AssertionError(f"eval_all gave {got}, the loop {results['tallyqa']}")
     finally:
@@ -5255,13 +5500,22 @@ def main() -> None:
     phase("3 finetune reference", phase_finetune_reference,
           finetune_text.synthetic_dataset(1)[0]["image"])
     phase("3 steer reference", phase_steer_reference, img)
-    # 8 images of three sizes for the lockstep batches: 13, 2 and 7 crops
+    # 8 images of three sizes for the lockstep batches: 13, 2 and 9 crops
     batch_images = [rng.integers(0, 256, shape, dtype=np.uint8)
                     for shape in [(756, 1008, 3)] * 3 + [(378, 378, 3)] * 3
                     + [(600, 800, 3)] * 2]
+    # 20 images of three sizes for the pipelines: 13, 2 and 9 crops
+    pipe_images = [rng.integers(0, 256, shape, dtype=np.uint8)
+                   for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 7][:20]
     kv8 = lambda cfg: dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, kv_int8=True))
+    # the int4, int8 and GQA models: a third of the 2B's depth, its widths
+    shallow, shallow_gqa = third_depth(MOONDREAM_2B), third_depth(MOONDREAM_2B_GQA)
     runs = []
     launches, model = phase("4 2B bf16 caption/query", phase_main_path, img, power)
+    summary[KP.LANCZOS], crop_launches = phase("4 2B device preprocessing",
+                                               phase_device_preprocess, model, img,
+                                               pipe_images, power)
+    runs.append(crop_launches)
     phase("4 2B bf16 graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
           power, lockstep=True, pools=[("bf16 plain", {}), ("bf16 prefix-shared", {
               "prefix_share": True, "prefix_entries": 4})])
@@ -5282,9 +5536,6 @@ def main() -> None:
     runs += phase("4 2B variants", phase_variants, model, img, images, power, adapters)
     runs += phase("4 2B variant pools", phase_variant_pools, model, images, power, adapters)
     runs += phase("4 2B steering", phase_steer, model, img, images, power)
-    # 20 images of three sizes for the pipelines: 13, 2 and 7 crops
-    pipe_images = [rng.integers(0, 256, shape, dtype=np.uint8)
-                   for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 7][:20]
     runs += phase("4 2B bf16 pipelines", phase_pipelines, model, pipe_images, power)
     runs += phase("4 2B bf16 pipelines", phase_pooled_pipelines, model, pipe_images[:16], power)
     runs += phase("4 2B HTTP server", phase_serve, model, power)
@@ -5293,8 +5544,7 @@ def main() -> None:
     phase("4 native BPE", phase_native_bpe, power)
     runs += phase("4 2B evals", phase_eval, model, power)
     del model, enc
-    launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(MOONDREAM_2B),
-                            int4=True)
+    launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(shallow), int4=True)
     phase("4 2B int4 graphs", phase_graphs, model, model.encode_image(img), images,
           batch_images, power, pools=[("int4 + kv_int8", {})])
     runs += [*launches,
@@ -5306,13 +5556,15 @@ def main() -> None:
     runs += phase("4 2B int4", phase_int4_pooled_pipeline, model, batch_images, power)
     runs += phase("4 2B int4 speculative", phase_spec, model, enc, power)
     runs += phase("4 2B steering", phase_steer_caption, model, img, power)
+    adapters = variant_adapters(adapter_dir.name, shallow)
     runs += phase("4 2B variants", phase_variant_caption, model, img, power, adapters)
     runs += phase("4 2B variant pools", phase_variant_pools, model, images, power, adapters,
                   full=False)
     phase("4 2B int4 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
           power, full=False)
     del model, enc
-    launches, model, vits = phase("4 2B int8", phase_int8_main_path, img, images, power)
+    launches, model, vits = phase("4 2B int8", phase_int8_main_path, img, images, power,
+                                  shallow)
     phase("4 2B int8", phase_int8_encode, model, img, vits, power)
     enc = model.encode_image(img)
     phase("4 2B int8 graphs", phase_graphs, model, enc, images, batch_images, power)
@@ -5323,7 +5575,7 @@ def main() -> None:
                   full=False)
     adapter_dir.cleanup()
     del model, enc, vits
-    launches, model = phase("4 2B GQA", phase_main_path, img, power, MOONDREAM_2B_GQA)
+    launches, model = phase("4 2B GQA", phase_main_path, img, power, shallow_gqa)
     phase("4 2B GQA graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
           power, lockstep=True)
     runs += [*launches, *phase("4 2B GQA", phase_batch, model, batch_images, power)]
@@ -5334,7 +5586,7 @@ def main() -> None:
     del enc
     params = model.params
     del model
-    launches, model = phase("4 2B GQA", phase_main_path, img, power, kv8(MOONDREAM_2B_GQA),
+    launches, model = phase("4 2B GQA", phase_main_path, img, power, kv8(shallow_gqa),
                             params=params)
     phase("4 2B GQA graphs", phase_graphs, model, model.encode_image(img), images, batch_images,
           power)
@@ -5373,13 +5625,17 @@ def main() -> None:
                            "moondream_tpu/ops/layers.py:30-35 (_q8_act); "
                            "moondream_tpu/ops/layers.py:56-59 (static codes; XLA, no Pallas "
                            "kernel)"),
+        KP.LANCZOS: ("moondream_tpu_torch/csrc/lanczos_resize.cu",
+                     "moondream_tpu/ops/device_preprocess.py:202-229 (XLA einsum over digit "
+                     "planes, no Pallas kernel)"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms")
     # every kernel's headline case has a library call, but the quantize
-    # pass: no one PyTorch call makes int8 codes
-    missing = [name for name in sources
-               if summary[name]["library_ms"] is None and name != KQ.W8A8_QUANTIZE]
+    # pass and the Lanczos crops: no one PyTorch call makes int8 codes or
+    # computes PIL's Lanczos
+    missing = [name for name in sources if summary[name]["library_ms"] is None
+               and name not in (KQ.W8A8_QUANTIZE, KP.LANCZOS)]
     if missing:
         raise AssertionError(f"no library time for {missing}")
 
@@ -5406,8 +5662,9 @@ def main() -> None:
 def main_variants() -> None:
     """The LoRA variant phases alone (`python3 chip_smoke.py --variants`):
     the build, the tiny variant reference, then "4 2B variants" and "4 2B
-    variant pools" on fresh 2B models (bf16; int4 + kv_int8; int8 w8a8
-    text). Prints the card and the phases' seconds; no kernels line."""
+    variant pools" on fresh 2B models (bf16; int4 + kv_int8 and int8 w8a8
+    text at a third of the depth). Prints the card and the phases' seconds;
+    no kernels line."""
     power = card()
     print(power)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5431,10 +5688,10 @@ def main_variants() -> None:
         phase_variant_pools(model, images, power, adapters)
         pool_s = time.perf_counter() - t1
         del model
-        kv8 = dataclasses.replace(MOONDREAM_2B, text=dataclasses.replace(
-            MOONDREAM_2B.text, kv_int8=True))
-        for cfg, quantize in ((kv8, quantize_text_params), (MOONDREAM_2B,
-                                                            quantize_text_params_int8)):
+        shallow = third_depth(MOONDREAM_2B)
+        adapters = variant_adapters(tmp, shallow)
+        kv8 = dataclasses.replace(shallow, text=dataclasses.replace(shallow.text, kv_int8=True))
+        for cfg, quantize in ((kv8, quantize_text_params), (shallow, quantize_text_params_int8)):
             params = init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
             quantize(params["text"])
             model = MoondreamModel(cfg, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
@@ -5452,8 +5709,9 @@ def main_variants() -> None:
 def main_steer() -> None:
     """The steering and adapter-training phases alone (`python3
     chip_smoke.py --steer`): the build, the tiny steer reference, "4 2B
-    steering" on fresh 2B models (bf16; int4 + kv_int8) and "5 2B LoRA
-    finetune". Prints the card and the phases' seconds; no kernels line."""
+    steering" on fresh 2B models (bf16; int4 + kv_int8 at a third of the
+    depth) and "5 2B LoRA finetune". Prints the card and the phases'
+    seconds; no kernels line."""
     power = card()
     print(power)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5475,8 +5733,8 @@ def main_steer() -> None:
     model = MoondreamModel(MOONDREAM_2B, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
     timed("4 2B steering", phase_steer, model, img, images, power)
     del model
-    kv8 = dataclasses.replace(MOONDREAM_2B, text=dataclasses.replace(
-        MOONDREAM_2B.text, kv_int8=True))
+    shallow = third_depth(MOONDREAM_2B)
+    kv8 = dataclasses.replace(shallow, text=dataclasses.replace(shallow.text, kv_int8=True))
     params = init_params(kv8, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
     quantize_text_params(params["text"])
     model = MoondreamModel(kv8, params, ByteTokenizer(), BF16, seed=SEED, device=DEV)
@@ -5533,7 +5791,31 @@ def main_eval() -> None:
     print("seconds per phase:", seconds)
 
 
+def main_preprocess() -> None:
+    """The device-preprocessing phase alone (`python3 chip_smoke.py
+    --preprocess`): the build, then "4 2B device preprocessing" on a fresh
+    2B bf16 model. Prints the card and the phases' seconds; no kernels
+    line."""
+    power = card()
+    print(power)
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_build()
+    seconds["1 build"] = round(time.perf_counter() - t0, 1)
+    img = np.random.default_rng(SEED).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
+    rng = np.random.default_rng(SEED + 2)
+    pipe_images = [rng.integers(0, 256, shape, dtype=np.uint8)
+                   for shape in [(756, 1008, 3), (378, 378, 3), (600, 800, 3)] * 7][:20]
+    model = MoondreamModel(MOONDREAM_2B, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    model.encode_image(img)  # the first encode's kernel A and cuBLAS set-up
+    t0 = time.perf_counter()
+    phase_device_preprocess(model, img, pipe_images, power)
+    seconds["4 2B device preprocessing"] = round(time.perf_counter() - t0, 1)
+    print("seconds per phase:", seconds)
+
+
 if __name__ == "__main__":
     flag = sys.argv[1:]
     {"--variants": main_variants, "--steer": main_steer, "--serve": main_serve,
-     "--eval": main_eval}.get(flag[0] if len(flag) == 1 else None, main)()
+     "--eval": main_eval, "--preprocess": main_preprocess}.get(
+        flag[0] if len(flag) == 1 else None, main)()

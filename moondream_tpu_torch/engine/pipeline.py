@@ -3,19 +3,22 @@ producer thread overlaps the host's work for the next images with the
 card's work for the current ones.
 
 `BatchPipeline` runs lockstep batches of one shared prompt. Its producer
-crops each batch on the host (the native C++ path, which releases the
-GIL), groups the crops by (crop count, tiling), puts them in pinned host
-memory and copies them to the card on a side stream that only copies; it
-launches no kernel. The consumer makes its stream wait on the batch's
-copy event, runs the ViT and the stitch + projection per group, then ONE
+groups each batch's images by (crop count, tiling), puts the raw images
+(or, where the crop route says host, their host crops: the native C++
+path, which releases the GIL) in pinned host memory and copies them to the
+card on a side stream that only copies; it launches no kernel. The
+consumer makes its stream wait on the batch's copy event, launches the
+crop kernel per group of raw images right before that group's ViT (as the
+JAX package's consumer dispatches its crop graph), runs the ViT and the
+stitch + projection per group, then ONE
 fused [BOS, image, prompt] prefill straight into the decode-sized cache
 (no per-image snapshot and reload, as `encode_images` + `caption_batch`
 pay) and the lockstep decode loop, plain or speculative
 (engine/batched.py). The JAX package dispatches batch i+1's whole device
 program before collecting batch i; here the lockstep loops read their
 done flag every DONE_CHECK_EVERY steps, so the consumer is busy until its
-batch ends, and what overlaps the decode is the next batch's crops and
-their copy. `_dispatch` / `_collect` keep JAX's split all the same.
+batch ends, and what overlaps the decode is the next batch's host work
+and its copy. `_dispatch` / `_collect` keep JAX's split all the same.
 
 `PooledPipeline` streams images through the continuous-batching pool: the
 producer thread runs one `encode_images` per wave and the prompt prefills
@@ -39,10 +42,9 @@ import queue
 import threading
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
-from ..models.moondream import _prompt_pad, _refuse_dropped
+from ..models.moondream import _n_crops, _prompt_pad, _refuse_dropped
 from ..models.text import text_encoder
 from ..utils.streaming import stream_text
 from . import batched as batched_engine
@@ -96,18 +98,20 @@ def _stop(producer: threading.Thread, stop: threading.Event, work: "queue.Queue"
 
 
 class _Batch(NamedTuple):
-    """One producer -> consumer work item: crops on their way to the card."""
+    """One producer -> consumer work item: raw images or host crops on their
+    way to the card."""
 
-    groups: List[Tuple[Tuple[int, int], int, List[int], torch.Tensor]]  # tiling, n, rows, crops
+    # tiling, crops per image, rows, crop segments (MoondreamModel._build_crop_segments)
+    groups: List[Tuple[Tuple[int, int], int, List[int], List[Tuple[str, torch.Tensor]]]]
     n_images: int  # real images; the rest pad the tail batch
-    copied: Optional[torch.cuda.Event]  # the copy stream's event after the crops' copies
+    copied: Optional[torch.cuda.Event]  # the copy stream's event after the segments' copies
 
 
 class BatchPipeline:
     def __init__(self, model, batch_size: int = 8, prefetch: int = 2,
                  eos_id: Optional[int] = None, speculative: int = 0):
         """`eos_id=None` uses the model's EOS; benchmarks pass -1 to force
-        fixed-length generation. `prefetch`: crop batches that may be in
+        fixed-length generation. `prefetch`: batches of images that may be in
         flight to the card. `speculative=k` (greedy settings only): decode
         each batch with the lockstep speculative loop
         (batched.generate_text_spec_batched, prompt-seeded histories, the
@@ -169,7 +173,9 @@ class BatchPipeline:
         return texts
 
     def _produce(self, images, work: "queue.Queue", stop: threading.Event) -> None:
-        """Host crops and their copy to the card, batch by batch."""
+        """Each batch's raw images (host crops where the route says host)
+        and their copy to the card, batch by batch; no kernel is launched
+        here (moondream_tpu/engine/pipeline.py:160-210)."""
         model, bsz = self.model, self.batch_size
         copies = _side_stream(model.device)
         try:
@@ -177,17 +183,15 @@ class BatchPipeline:
                 chunk = images[start:start + bsz]
                 n_real = len(chunk)
                 chunk = chunk + [chunk[-1]] * (bsz - n_real)
-                prepped = [model._crops(im) for im in chunk]
+                prepped = model._prep_crop_groups(chunk)
                 rows: Dict[Tuple[int, Tuple[int, int]], List[int]] = {}
-                for i, (crops, tiling) in enumerate(prepped):
-                    rows.setdefault((crops.shape[0], tiling), []).append(i)
+                for i, (item, tiling) in enumerate(prepped):
+                    rows.setdefault((_n_crops(item, tiling), tiling), []).append(i)
                 groups = []
-                for (n, tiling), idxs in rows.items():
-                    host = torch.from_numpy(np.concatenate([prepped[i][0] for i in idxs]))
-                    if copies is not None:
-                        with torch.cuda.stream(copies):
-                            host = host.pin_memory().to(model.device, non_blocking=True)
-                    groups.append((tiling, n, idxs, host))
+                with torch.cuda.stream(copies) if copies is not None else contextlib.nullcontext():
+                    for (n, tiling), idxs in rows.items():
+                        segs = model._build_crop_segments([prepped[i][0] for i in idxs])
+                        groups.append((tiling, n, idxs, segs))
                 if stop.is_set():
                     return
                 work.put(_Batch(groups, n_real, _record(copies)))
@@ -202,9 +206,12 @@ class BatchPipeline:
         decode loop (moondream_tpu/engine/pipeline.py:190-275). Returns
         (the loop's result, the cache); the tokens stay on the card."""
         model, cfg, bsz = self.model, self.model.config, self.batch_size
-        _adopt(batch.copied, [crops for *_, crops in batch.groups])
+        _adopt(batch.copied, [t for *_, segs in batch.groups for _, t in segs])
         img_embs: List[Optional[torch.Tensor]] = [None] * bsz
-        for tiling, n, idxs, crops in batch.groups:
+        for tiling, n, idxs, segs in batch.groups:
+            # the crop kernel runs here, on the compute stream right before
+            # the group's ViT, never on the producer's copy stream
+            crops = model._materialize_crop_segments(segs, tiling)
             for i, emb in zip(idxs, model._embed_group(crops, n, tiling)):
                 img_embs[i] = emb
 

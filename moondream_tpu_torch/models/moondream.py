@@ -3,12 +3,17 @@ detect, point, detect_gaze, the lockstep batched paths and what the
 serving pool needs of the model (a subset of
 moondream_tpu/models/moondream.py).
 
-encode_image: host overlap crops -> ViT over a bucketed crop batch ->
-stitch + projection -> [BOS, image] prefill -> KV snapshot. caption and
-query: the template prompt prefill over the restored snapshot (query also
-without an image), then greedy or top-p decode, plain or streamed; query
-with reasoning first runs the reasoning loop with inline grounding, and
-spatial refs replace the prompt's coordinate and size token embeddings.
+encode_image: overlap crops -> ViT over a bucketed crop batch -> stitch +
+projection -> [BOS, image] prefill -> KV snapshot. The crops are made on
+the card from the raw image by default (`ops.device_preprocess`, the
+Lanczos kernel of csrc/lanczos_resize.cu; equal to the host crops byte for
+byte), and on the host under MOONDREAM_DEVICE_PREPROCESS=0 or past
+`exact_path_supported`; the encode launches nothing that syncs the host.
+caption and query: the template prompt prefill over the restored snapshot
+(query also without an image), then greedy or top-p decode, plain or
+streamed; query with reasoning first runs the reasoning loop with inline
+grounding, and spatial refs replace the prompt's coordinate and size token
+embeddings.
 detect / point: the prompt prefill, then the structured coordinate loop
 through the region heads. detect_gaze: an embedding-space prompt around an
 eye position, then one point (eye mode), or 20 sampled eye positions over
@@ -55,6 +60,7 @@ from ..config import MoondreamConfig
 from ..engine import batched as batched_engine
 from ..engine import generate as engine
 from ..engine.sampling import sample_token
+from ..ops import device_preprocess as devpre
 from ..ops.image_crops import overlap_crop_image, reconstruct_from_crops
 from ..tokenizer import TokenizerBase, load_tokenizer
 from ..utils.points import remove_outlier_points
@@ -182,6 +188,21 @@ def _prompt_pad(length: int) -> int:
     return max(_ceil_to(length, PROMPT_PAD), PROMPT_PAD)
 
 
+def _rgb_array(image) -> np.ndarray:
+    """A PIL image (converted to RGB) or a uint8 (H, W, 3) array, as a uint8
+    (H, W, 3) array."""
+    arr = image if isinstance(image, np.ndarray) else np.asarray(image.convert("RGB"))
+    if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
+        raise ValueError("image must be uint8 (H, W, 3)")
+    return arr
+
+
+def _n_crops(item: np.ndarray, tiling) -> int:
+    """Crops of a `_prep_crop_groups` item: a host stack's rows, or a raw
+    image's tiles plus its global crop."""
+    return item.shape[0] if item.ndim == 4 else tiling[0] * tiling[1] + 1
+
+
 def _bucket(n: int, buckets=CROP_BUCKETS) -> int:
     for b in buckets:
         if n <= b:
@@ -281,16 +302,86 @@ class MoondreamModel:
         """Host overlap crops (n, 378, 378, 3) uint8 and the tiling of a PIL
         image or a uint8 (H, W, 3) array."""
         cfg = self.config.vision
-        if isinstance(image, np.ndarray):
-            np_image = image
-        else:
-            np_image = np.asarray(image.convert("RGB"))
-        if np_image.dtype != np.uint8 or np_image.ndim != 3 or np_image.shape[2] != 3:
-            raise ValueError("image must be uint8 (H, W, 3)")
         out = overlap_crop_image(
-            np_image, overlap_margin=cfg.overlap_margin, max_crops=cfg.max_crops
+            _rgb_array(image), overlap_margin=cfg.overlap_margin, max_crops=cfg.max_crops
         )
         return out["crops"], tuple(out["tiling"])
+
+    def _prep_crop_groups(self, images) -> List[Tuple[np.ndarray, Tuple[int, int]]]:
+        """Per image: (its raw uint8 (H, W, 3) array, its tiling) where it
+        crops on the card (`device_preprocess.device_route`: the default),
+        else (its host crop stack (n, 378, 378, 3), its tiling)
+        (moondream_tpu/models/moondream.py:610-638)."""
+        cfg = self.config.vision
+        out = []
+        for im in images:
+            arr = _rgb_array(im)
+            if devpre.device_route(*arr.shape[:2], cfg.crop_size):
+                out.append((arr, devpre.preprocess_tiling(
+                    *arr.shape[:2], cfg.crop_size, cfg.enc_patch_size, cfg.overlap_margin,
+                    cfg.max_crops)))
+            else:
+                out.append(self._crops(arr))
+        return out
+
+    def _stage(self, arrays: List[np.ndarray]) -> torch.Tensor:
+        """uint8 arrays of one shape, stacked, on the model's device: on a
+        card copied into pinned memory and sent with a non_blocking copy on
+        the current stream (no host sync)."""
+        pin = self.device.type == "cuda"
+        host = torch.empty((len(arrays), *arrays[0].shape), dtype=torch.uint8, pin_memory=pin)
+        view = host.numpy()
+        for i, a in enumerate(arrays):
+            view[i] = a
+        return host.to(self.device, non_blocking=True) if pin else host
+
+    def _build_crop_segments(self, items: List[np.ndarray]) -> List[Tuple[str, torch.Tensor]]:
+        """Producer half of a tiling group's crops (moondream_tpu/models/
+        moondream.py:640-675): consecutive raw images of one shape make one
+        segment ("raw", (count, H, W, 3)), cropped later by one batched
+        kernel call; a host crop stack makes a segment ("crops", (n, 378,
+        378, 3)). Each is copied to the device here, on the current stream;
+        no kernel is launched."""
+        segs: List[Tuple[str, torch.Tensor]] = []
+        run: List[np.ndarray] = []
+        for it in items + [None]:
+            if run and (it is None or it.ndim == 4 or it.shape != run[0].shape):
+                segs.append(("raw", self._stage(run)))
+                run = []
+            if it is not None and it.ndim == 3:
+                run.append(it)
+            elif it is not None:
+                segs.append(("crops", self._stage([it])[0]))
+        return segs
+
+    def _materialize_crop_segments(self, segs, tiling, pad_to: int = 0) -> torch.Tensor:
+        """Consumer half (moondream_tpu/models/moondream.py:677-691): the
+        group's image-major crop stack on the device, at least `pad_to` rows
+        (the rest zero): the crop kernel writes each raw segment's crops in
+        place, and each host stack is copied in. Launches on the current
+        stream, right before the ViT."""
+        cfg = self.config.vision
+        per_image = tiling[0] * tiling[1] + 1
+        rows = [t.shape[0] * (per_image if kind == "raw" else 1) for kind, t in segs]
+        total = sum(rows)
+        out = torch.empty((max(total, pad_to), cfg.crop_size, cfg.crop_size, 3),
+                          dtype=torch.uint8, device=self.device)
+        out[total:].zero_()
+        off = 0
+        for (kind, t), n in zip(segs, rows):
+            if kind == "raw":
+                devpre.device_overlap_crops_batched(
+                    t, tiling, cfg.crop_size, cfg.enc_patch_size, cfg.overlap_margin,
+                    out=out[off:off + n])
+            else:
+                out[off:off + n].copy_(t)
+            off += n
+        return out
+
+    def _crops_device(self, items: List[np.ndarray], tiling, pad_to: int = 0) -> torch.Tensor:
+        """A tiling group's crops (raw images and / or host stacks) as one
+        image-major stack on the device (both halves in this thread)."""
+        return self._materialize_crop_segments(self._build_crop_segments(items), tiling, pad_to)
 
     def _vision_features(self, crops: torch.Tensor) -> torch.Tensor:
         """(N, 378, 378, 3) uint8 crops -> (N, 729, enc_dim). Crops on the
@@ -318,12 +409,14 @@ class MoondreamModel:
 
     def _run_vision_encoder(self, image) -> torch.Tensor:
         """PIL image or uint8 (H, W, 3) array -> (729, text_dim) image
-        embedding, the ViT over the crops padded to a crop-count bucket."""
-        crops, tiling = self._crops(image)
-        n = crops.shape[0]
-        x = torch.zeros((_bucket(n), *crops.shape[1:]), dtype=torch.uint8)
-        x[:n] = torch.from_numpy(crops)
-        return self._stitch_project(self._vision_features(x)[:n], tiling)
+        embedding: the crops (on the card by default, from the raw image;
+        from the host where `_prep_crop_groups` says so), padded with zero
+        crops on the device to a crop-count bucket, through the ViT
+        (moondream_tpu/models/moondream.py:702-753)."""
+        ((item, tiling),) = self._prep_crop_groups([image])
+        n = _n_crops(item, tiling)
+        crops = self._crops_device([item], tiling, pad_to=_bucket(n))
+        return self._stitch_project(self._vision_features(crops)[:n], tiling)
 
     def encode_image(self, image, settings: Optional[Dict[str, Any]] = None) -> EncodedImage:
         """Encode an image and prefill [BOS, image] through the text model,
@@ -344,7 +437,7 @@ class MoondreamModel:
         lora = self._variant(settings)
         img_emb = self._run_vision_encoder(image)
         bos = self.config.tokenizer.bos_id
-        bos_emb = text_encoder(torch.tensor([[bos]], device=self.device), self.text)
+        bos_emb = self.text.wte[bos:bos + 1][None]  # text_encoder's lookup, no host tensor
         embeds = torch.cat([bos_emb, img_emb[None]], dim=1).to(self.dtype)
         seq = embeds.shape[1]
         kv = KVCache.create(self.config.text, 1, self.dtype, self.device)
@@ -434,10 +527,12 @@ class MoondreamModel:
         s.setdefault("top_p", 0.0)
         if self.device.type == "cuda":
             from ..kernels import attention as attn_kernels
+            from ..kernels import preprocess as crop_kernels
             from ..kernels import quant as quant_kernels
             from ..kernels.build import build_parallel
 
-            build_parallel([*attn_kernels.LOADERS, *quant_kernels.LOADERS])
+            build_parallel([*attn_kernels.LOADERS, *quant_kernels.LOADERS,
+                            *crop_kernels.LOADERS])
         side = self.config.vision.crop_size
         dummy = np.zeros((side, side, 3), dtype=np.uint8)
         plain = _unsteered(s)
@@ -835,19 +930,18 @@ class MoondreamModel:
         variant (each snapshot labelled with it)."""
         _refuse_dropped(settings, "encode_images")
         lora = self._variant(settings)
-        prepped = [self._crops(im) for im in images]
+        prepped = self._prep_crop_groups(images)
         groups: Dict[Tuple[int, Tuple[int, int]], List[int]] = {}
-        for i, (crops, tiling) in enumerate(prepped):
-            groups.setdefault((crops.shape[0], tiling), []).append(i)
+        for i, (item, tiling) in enumerate(prepped):
+            groups.setdefault((_n_crops(item, tiling), tiling), []).append(i)
         img_embs: List[Optional[torch.Tensor]] = [None] * len(images)
         for (n, tiling), idxs in groups.items():
-            embs = self._embed_group(
-                torch.from_numpy(np.concatenate([prepped[i][0] for i in idxs])), n, tiling)
-            for j, i in enumerate(idxs):
-                img_embs[i] = embs[j]
+            crops = self._crops_device([prepped[i][0] for i in idxs], tiling)
+            for i, emb in zip(idxs, self._embed_group(crops, n, tiling)):
+                img_embs[i] = emb
 
         bos = self.config.tokenizer.bos_id
-        bos_emb = text_encoder(torch.tensor([bos], device=self.device), self.text)
+        bos_emb = self.text.wte[bos:bos + 1]
         embeds = torch.stack([torch.cat([bos_emb, e]) for e in img_embs]).to(self.dtype)
         bsz, seq, _ = embeds.shape
         bound = self._kv_bound(seq)

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..config import VisionConfig
 from ..ops.layers import MLP, Int8Linear, LayerNorm, Linear, attn_core, gelu_approx
+from ..ops.tables import on_device
 
 # the block linears that the int8 formats quantize, by their input
 QUANTIZED = ("qkv", "proj", "fc1", "fc2")
@@ -231,8 +232,10 @@ def _pool_matrix(in_size: int, out_size: int) -> np.ndarray:
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw) -> torch.Tensor:
     """(..., H, W, C) -> (..., out_h, out_w, C) adaptive mean pool as two
     fp32 matrix products."""
-    ph = torch.from_numpy(_pool_matrix(int(x.shape[-3]), out_hw[0])).to(x.device)
-    pw = torch.from_numpy(_pool_matrix(int(x.shape[-2]), out_hw[1])).to(x.device)
+    sizes = (int(x.shape[-3]), out_hw[0], int(x.shape[-2]), out_hw[1])
+    ph, pw = on_device(("pool", *sizes), lambda: (torch.from_numpy(_pool_matrix(*sizes[:2])),
+                                                  torch.from_numpy(_pool_matrix(*sizes[2:]))),
+                       x.device)
     pooled = torch.einsum("oh,...hwc->...owc", ph, x.float())
     pooled = torch.einsum("pw,...owc->...opc", pw, pooled)
     return pooled.to(x.dtype)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..kernels.build import compile_library
+from .tables import on_device
 
 _NATIVE_SRC = Path(__file__).resolve().parents[2] / "native" / "preprocess.cpp"
 # The same flags as native/Makefile, so crops match the JAX package's build.
@@ -175,11 +176,15 @@ def reconstruct_from_crops(
         off = np.clip(pos - tile * inner, 0, tile_len - 1)
         return tile, off
 
-    tile_r, off_r = axis_index(out_h, inner_h, n_rows, tile_h)
-    tile_c, off_c = axis_index(out_w, inner_w, n_cols, tile_w)
-    as_t = lambda a: torch.from_numpy(a).to(crops.device)
-    tile_idx = as_t(tile_r[:, None] * n_cols + tile_c[None, :])
+    def indices():
+        tile_r, off_r = axis_index(out_h, inner_h, n_rows, tile_h)
+        tile_c, off_c = axis_index(out_w, inner_w, n_cols, tile_w)
+        return tuple(map(torch.from_numpy, (tile_r[:, None] * n_cols + tile_c[None, :],
+                                            off_r[:, None], off_c[None, :])))
+
+    key = ("stitch", n_rows, n_cols, tile_h, tile_w, margin)
+    tile_idx, off_r, off_c = on_device(key, indices, crops.device)
     lead = crops.shape[:-4]
     flat = crops.reshape(-1, *crops.shape[-4:])
-    out = flat[:, tile_idx, as_t(off_r)[:, None], as_t(off_c)[None, :]]
+    out = flat[:, tile_idx, off_r, off_c]
     return out.reshape(*lead, *out.shape[1:])

@@ -2,7 +2,8 @@
 fresh interpreter with `sys.modules["jax"]` and `sys.modules["moondream_tpu"]`
 set to None, import every module of moondream_tpu_torch and run a tiny
 greedy caption on the CPU, dense and with int4 text blocks and an int8 KV
-cache, serve two requests on one image through a prefix-shared pool, caption
+cache, encode an image on the device crop route (the plain Lanczos passes)
+and on the host route with equal snapshots, serve two requests on one image through a prefix-shared pool, caption
 two images in one lockstep batch, caption with a GQA text config, run
 the region-head paths: detect, point, both gaze modes, query with reasoning
 and spatial refs, detect_batch and point_batch, the speculative paths:
@@ -41,6 +42,16 @@ model = MoondreamModel(tiny_test_config(), dtype=torch.float32, seed=1, device="
 img = np.random.default_rng(0).integers(0, 255, (300, 500, 3), dtype=np.uint8)
 out = model.caption(img, settings={"temperature": 0, "max_tokens": 4})
 assert isinstance(out["caption"], str)
+import os
+from moondream_tpu_torch.ops import device_preprocess as devpre
+os.environ.pop("MOONDREAM_DEVICE_PREPROCESS", None)
+devpre.reset_route_counts()
+on_device = model.encode_image(img)
+os.environ["MOONDREAM_DEVICE_PREPROCESS"] = "0"
+on_host = model.encode_image(img)
+del os.environ["MOONDREAM_DEVICE_PREPROCESS"]
+assert devpre.ROUTES == {"device": 1, "host": 1}
+assert torch.equal(on_device.k, on_host.k) and torch.equal(on_device.v, on_host.v)
 from moondream_tpu_torch.models.serve import ContinuousBatchingEngine
 eng = ContinuousBatchingEngine(model, n_slots=2, slot_len=1024, chunk=4, prefix_share=True)
 enc = model.encode_image(img)
