@@ -1,6 +1,6 @@
 """Drive the PyTorch port's caption, query, lockstep-batch, serving,
 speculative, region-head (detect, point, gaze, reasoning, spatial refs),
-multi-image pipeline, int8 w8a8, LoRA, steering and finetuning paths once
+multi-image pipeline, int8 w8a8, LoRA, steering, multi-GPU and finetuning paths once
 on one CUDA card, every encode cropping its image on the card (the Lanczos
 kernel) by default.
 
@@ -151,6 +151,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      detect_gaze and its process_video on a synthetic mp4, each part with
      its kernels' launches and every graph replay under the sync error
      mode; scores and gates mean nothing with random weights;
+     "4 2B multi-GPU" (phase_multi_gpu): an NCCL process group of
+     one rank (the card's machine has one GPU), every kernel at the
+     per-rank shapes of tp 2 and tp 4 against its plain version (kernel A
+     at 16 and 8 heads and the ViT's 7-crop share, kernel B's device form,
+     C, B-GQA 16/4 and 8/2, B-int8 and C-int8 at scale group 1), the
+     sharded engines on the tiny config (card bf16 == CPU fp32 unsharded
+     ids and boxes under the peaked oracle), the 2B sharded lockstep
+     engine (730-token prefill, 64 graphed greedy tokens) and a sharded
+     pool (8 requests of 48 tokens) in turns with the unsharded ones, with
+     exact launches and collective counts and every replay under the sync
+     error mode, and one caption over HTTP from serve_http's mesh=;
      then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
@@ -176,6 +187,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     python3 chip_smoke.py --serve      # the front-end phases alone
     python3 chip_smoke.py --eval       # the eval and recipe phase alone
     python3 chip_smoke.py --preprocess # the device-preprocessing phase alone
+    python3 chip_smoke.py --multi-gpu  # the multi-GPU serving phase alone
 
 Prints the card's name and power limit first, then which of PIL,
 tokenizers and transformers the machine has, the seconds of each phase,
@@ -187,6 +199,7 @@ from __future__ import annotations
 import base64
 import copy
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -283,6 +296,12 @@ from moondream_tpu_torch.ops.attention import (  # noqa: E402
 )
 from moondream_tpu_torch.ops import device_preprocess as devpre  # noqa: E402
 from moondream_tpu_torch.ops.image_crops import load_native, overlap_crop_image  # noqa: E402
+from moondream_tpu_torch.parallel.inference import ShardedTextEngine  # noqa: E402
+from moondream_tpu_torch.parallel.serving import (  # noqa: E402
+    ShardedBatchingEngine,
+    shard_model,
+    shard_vision_encoder,
+)
 from moondream_tpu_torch.ops.layers import (  # noqa: E402
     Int8Linear,
     Linear,
@@ -2007,7 +2026,7 @@ def _variant_settings(trees, name):
 
 
 def _pool_run(model, images, kind: dict, sync_check: bool = False, variants=None,
-              rows=None) -> dict:
+              rows=None, make=ContinuousBatchingEngine) -> dict:
     """Encode the images, then serve POOL_REQUESTS through one pool: four
     admitted at once, the other four one per step, then drain. Returns the
     results with counts and timings. With `sync_check`, two chunks are
@@ -2017,7 +2036,8 @@ def _pool_run(model, images, kind: dict, sync_check: bool = False, variants=None
     adapter tree}) and `rows` (a variant name or None per request): a
     multi-variant pool, each request encoded and served under its own
     variant; one encode per (image, variant) ("encs_by": that dict,
-    "encs": the base encodes by image)."""
+    "encs": the base encodes by image). `make(model, **settings)` builds
+    the engine (a sharded pool's class)."""
     rows = rows or [None] * len(POOL_REQUESTS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2028,8 +2048,7 @@ def _pool_run(model, images, kind: dict, sync_check: bool = False, variants=None
                                                     settings=_variant_settings(variants, name))
     encs = [encs_by.get((i, None)) for i in range(len(images))]
     encode_ms = sync_ms(t0)
-    eng = ContinuousBatchingEngine(model, n_slots=8, slot_len=1024, chunk=8,
-                                   eos_id=-1, variants=variants, **kind)
+    eng = make(model, n_slots=8, slot_len=1024, chunk=8, eos_id=-1, variants=variants, **kind)
     chunks, step_ms, admit_ms = [0], [], []
     dispatch = eng._dispatch_chunk
 
@@ -5456,6 +5475,330 @@ def phase_eval(model, power: str) -> list:
           "only):\n  " + "\n  ".join(lines))
     return runs
 
+# ------------------------------------------------------------- multi-GPU
+MULTI_TOKENS = 64  # the sharded lockstep engine's greedy tokens (eos off)
+# per-rank head counts of the 2B's 32 heads at tp 2 and tp 4
+RANK_HEADS = (16, 8)
+
+
+def _held(label: str, got: torch.Tensor, want: torch.Tensor, run=None) -> float:
+    """A kernel's output against its plain version's (fp32 on the same
+    inputs), relative to max|plain|; raises past KERNEL_REL_TOL. With `run`
+    prints the kernel's device-only time."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= KERNEL_REL_TOL * scale):
+        raise AssertionError(f"{label}: max_abs_err {err} > {KERNEL_REL_TOL} * {scale}")
+    ms = f", device only {graph_ms(run):.4f} ms" if run is not None else ""
+    print(f"  {label}: max_abs_err {err:.3e} = {err / scale:.2e} of max|plain| {scale:.3f}{ms}")
+    return err
+
+
+def _rank_kernel_cases(gen: torch.Generator) -> None:
+    """Every kernel of the sharded paths at the shapes one rank gives it
+    under tp 2 and tp 4 (16 and 8 of the 2B's 32 heads; 4 and 2 of the GQA
+    2B's 8 KV heads) and the crop-parallel ViT's share of a 13-crop image
+    over two ranks (7 crops), each against its plain version in fp32 on
+    the same inputs: kernel A (the 730-row image prefill over 768 columns;
+    the ViT), kernel B's device form (lockstep batch 8 at pos 800), kernel
+    C (a pool of 8 slots at their own positions), B-GQA (16/4 and 8/2 heads
+    at pos 800), and B-int8's device form and C-int8 over caches with one
+    scale per head and token (a rank's scale group)."""
+    randn = lambda *sh: torch.randn(*sh, generator=gen, device=DEV, dtype=BF16)
+    print("per-rank kernel shapes (tp 2 / tp 4 heads of the 2B), each vs its plain version:")
+    b, t, h, d = 7, 768, 16, 72
+    qkv = randn(b, t, 3 * h * d)
+    q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, -1))
+    _held(f"{K.FLASH} vit share 7x16x768x768 d72 prefix729",
+          flash_attention(q, k, v, 0, 729),
+          flash_attention_plain(q.float(), k.float(), v.float(), 0, 729),
+          lambda: flash_attention(q, k, v, 0, 729))
+    pool_pos = [735, 736, 800, 1000, 0, 760, 900, 1022]
+    pos_t = torch.tensor(pool_pos, dtype=torch.int32, device=DEV)
+    for h in RANK_HEADS:
+        q, kc, vc = randn(1, h, 730, 64), randn(1, h, 768, 64), randn(1, h, 768, 64)
+        _held(f"{K.FLASH} image prefill {h}x730x768 d64 prefix730",
+              flash_attention(q, kc, vc, 0, 730),
+              flash_attention_plain(q.float(), kc.float(), vc.float(), 0, 730),
+              lambda: flash_attention(q, kc, vc, 0, 730))
+        kc, vc = randn(24, 8, h, 1024, 64), randn(24, 8, h, 1024, 64)
+        kc[..., 801:, :] *= 1000
+        vc[..., 801:, :] *= 1000
+        pt = torch.full((8,), 800, dtype=torch.int32, device=DEV)
+        for kind, q in (("random q", randn(8, h, 1, 64)),
+                        ("diagonal q", kc[13, :, :, 800:801].clone())):
+            _held(f"{K.DECODE} device form batch8 {h} heads tq1 pos800 bound896, {kind}",
+                  decode_attention_cached(q, kc, vc, 13, pt, 0, 896, lockstep=True),
+                  decode_attention_cached_plain(q.float(), kc.float(), vc.float(), 13, 800, 0,
+                                                896),
+                  (lambda: decode_attention_cached(q, kc, vc, 13, pt, 0, 896, lockstep=True))
+                  if kind == "random q" else None)
+        kr, vr = randn(24, 8, h, 1024, 64), randn(24, 8, h, 1024, 64)
+        for s_, p in enumerate(pool_pos):
+            kr[:, s_, :, p + 1:] *= 1000
+            vr[:, s_, :, p + 1:] *= 1000
+        q = randn(8, h, 1, 64)
+        _held(f"{K.RAGGED} pool 8 slots {h} heads tq1",
+              decode_attention_cached(q, kr, vr, 13, pos_t, 0),
+              decode_attention_ragged_plain(q.float(), kr.float(), vr.float(), 13, pos_t, 0),
+              lambda: decode_attention_cached(q, kr, vr, 13, pos_t, 0))
+        hkv = h // 4
+        kg, vg = kc[:, :, :hkv].contiguous(), vc[:, :, :hkv].contiguous()
+        q = randn(8, h, 1, 64)
+        _held(f"{K.DECODE_GQA} batch8 {h}/{hkv} heads pos800 bound896",
+              decode_attention_cached(q, kg, vg, 13, 800, 730, 896),
+              decode_attention_cached_plain(q.float(), kg.float(), vg.float(), 13, 800, 730,
+                                            896),
+              lambda: decode_attention_cached(q, kg, vg, 13, 800, 730, 896))
+        del kg, vg
+        # one scale per head and token: quantize_kv with a group of 1
+        (k8, ks), (v8, vs) = (quantize_kv(x.float().view(24 * 8, h, 1024, 64), 1)
+                              for x in (kc, vc))
+        k8, v8 = k8.view(24, 8, h, 1024, 64), v8.view(24, 8, h, 1024, 64)
+        ks, vs = ks.view(24, 8, h, 1024), vs.view(24, 8, h, 1024)
+        q = randn(8, h, 1, 64)
+        _held(f"{K.DECODE_INT8} device form batch8 {h} heads scale group 1 pos800",
+              decode_attention_cached(q, k8, v8, 13, pt, 0, 896, ks, vs, lockstep=True),
+              decode_attention_cached_plain(q.float(), k8, v8, 13, 800, 0, 896, ks, vs),
+              lambda: decode_attention_cached(q, k8, v8, 13, pt, 0, 896, ks, vs, lockstep=True))
+        (k8, ks), (v8, vs) = (quantize_kv(x.float().view(24 * 8, h, 1024, 64), 1)
+                              for x in (kr, vr))
+        k8, v8 = k8.view(24, 8, h, 1024, 64), v8.view(24, 8, h, 1024, 64)
+        ks, vs = ks.view(24, 8, h, 1024), vs.view(24, 8, h, 1024)
+        _held(f"{K.RAGGED_INT8} pool 8 slots {h} heads scale group 1",
+              decode_attention_cached(q, k8, v8, 13, pos_t, 0, None, ks, vs),
+              decode_attention_ragged_plain(q.float(), k8, v8, 13, pos_t, 0, None, ks, vs),
+              lambda: decode_attention_cached(q, k8, v8, 13, pos_t, 0, None, ks, vs))
+        del kc, vc, kr, vr, k8, v8, ks, vs
+
+
+def _tiny_sharded_reference(mesh, img: np.ndarray) -> None:
+    """The sharded engines on the tiny config under the peaked oracle
+    (_peaked_tiny_state), bf16 on the card over the world-1 mesh against
+    the unsharded engines in fp32 on the CPU: ShardedTextEngine's prefill
+    and greedy ids over a two-row batch, and a sharded pool (crop-parallel
+    ViT) serving a caption, a query and a detect (mixed chunks); ids and
+    boxes must be equal."""
+    cfg = tiny_test_config()
+    state = _peaked_tiny_state(cfg)
+    tc = cfg.text
+
+    def model_on(device, dtype):
+        params = build_params(cfg, device, dtype)
+        params.load_state_dict(state)
+        return MoondreamModel(cfg, params, IdTokenizer(), dtype, device=device)
+
+    def pool(m, make) -> list:
+        eng = make(m, n_slots=4, slot_len=1024, chunk=4, max_objects=3)
+        rids = [eng.submit(img, max_tokens=12), eng.submit(img, POOL_QUESTION, max_tokens=12),
+                eng.submit_detect(img, "object")]
+        res = eng.drain()
+        return [res[r] for r in rids]
+
+    embeds = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(
+        (2, 16, tc.dim)).astype(np.float32) * 0.5).to(BF16).float()
+    cpu = model_on("cpu", torch.float32)
+    kv = KVCache.create(tc, 2, torch.float32, "cpu")
+    logits, _ = batched_engine.prefill_batched(cpu.text, kv, embeds, 0, 16, 0, kv_bound=256)
+    want_ids = generate_text_batched(cpu.text, kv, logits.argmax(-1), 16, None, 0.0, 0.0, 12,
+                                     -1, (), kv_bound=256).tokens
+    want_pool = pool(cpu, ContinuousBatchingEngine)
+
+    card_model = model_on(DEV, BF16)
+    eng = ShardedTextEngine(card_model.text, tc, mesh)
+    s_logits, _, s_kv = eng.prefill(embeds.to(DEV, BF16), pos=0, length=16, prefix_len=0)
+    got_ids = eng.generate(s_kv, s_logits.argmax(-1), 16, max_tokens=12, eos_id=-1,
+                           buffer=12).tokens.cpu()
+    twin = shard_model(card_model, mesh)
+    shard_vision_encoder(twin, mesh)
+    got_pool = pool(twin, ShardedBatchingEngine)
+    if not want_pool[2]["objects"]:
+        raise AssertionError(f"tiny sharded reference is not decisive: {want_pool}")
+    same = {"lockstep ids": torch.equal(got_ids, want_ids.cpu()),
+            "pool": _same(got_pool, want_pool)}
+    print(f"tiny sharded reference (card bf16 world-1 mesh vs cpu fp32 unsharded, peaked): "
+          f"{same}; detect {got_pool[2]['objects']}")
+    if not all(same.values()):
+        raise AssertionError(f"tiny sharded reference differs: ids {got_ids.tolist()} vs "
+                             f"{want_ids.tolist()}, pool {got_pool} vs {want_pool}")
+
+
+def _check_nccl() -> None:
+    """Raise unless the process group runs NCCL on the card."""
+    import torch.distributed as dist
+
+    from moondream_tpu_torch.parallel import comm
+
+    if dist.get_backend() != "nccl" or comm.process_device().type != "cuda":
+        raise AssertionError(f"multi-GPU phase runs over {dist.get_backend()} on "
+                             f"{comm.process_device()}, not nccl on cuda")
+
+
+def phase_multi_gpu(model, img: np.ndarray, images: list, power: str,
+                    gen: torch.Generator) -> list:
+    """Multi-GPU serving (moondream_tpu_torch/parallel/) on the card's world
+    of one: an NCCL process group of one rank (the phase raises if the
+    backend is not nccl on cuda), the kernels at the per-rank shapes of tp 2
+    and tp 4 (_rank_kernel_cases), the tiny sharded reference, then the 2B
+    bf16 at full width and depth through the sharded code path (its
+    collectives run over NCCL, inside the CUDA graphs):
+    ShardedTextEngine's 730-token [BOS, image] prefill and 64 greedy
+    tokens (graphed) in turns with the unsharded lockstep engine (prefill
+    logits within KERNEL_REL_TOL of max|logit|, token agreement, tok/s,
+    exact launches and the collectives), a sharded pool of 8 requests of
+    48 tokens in turns with the unsharded pool (ms per chunk, ids, exact
+    launches), every graph replay of both under the sync error mode, and
+    one caption over HTTP from serve_http's mesh=. More than one rank is
+    not run here: the card's machine has one GPU."""
+    import torch.distributed as dist
+
+    from moondream_tpu_torch.parallel import comm
+    from moondream_tpu_torch.parallel.mesh import create_mesh
+
+    cfg, tc = model.config, model.config.text
+    L = tc.n_layers
+    mesh = create_mesh({"dp": 1, "tp": 1}, device="cuda")
+    _check_nccl()
+    runs = []
+    replay = graphs.StepGraph.replay
+
+    def strict_replay(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    try:
+        _rank_kernel_cases(gen)
+        _tiny_sharded_reference(mesh, img)
+        # every replay of the 2B paths' graphs (their collectives inside)
+        # under the sync error mode
+        graphs.StepGraph.replay = strict_replay
+
+        model.tokenizer = IdTokenizer()
+        img_emb = model._run_vision_encoder(img)
+        bos = cfg.tokenizer.bos_id
+        embeds = torch.cat([model.text.wte[bos:bos + 1][None], img_emb[None]], dim=1).to(BF16)
+        n = embeds.shape[1]
+        eng = ShardedTextEngine(model.text, tc, mesh)
+        s_kv = eng.create_cache(1, BF16)
+        u_kv = KVCache.create(tc, 1, BF16, DEV)
+
+        def sharded():
+            logits, _, kv = eng.prefill(embeds, kv=s_kv, pos=0, length=n, prefix_len=n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.generate(kv, logits.argmax(-1), n, max_tokens=MULTI_TOKENS, eos_id=-1,
+                               buffer=MULTI_TOKENS)
+            return logits, res.tokens[0].tolist(), sync_ms(t0)
+
+        def unsharded():
+            logits, _ = batched_engine.prefill_batched(model.text, u_kv, embeds, 0, n, n,
+                                                       kv_bound=768)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = generate_text_batched(model.text, u_kv, logits.argmax(-1), n, None, 0.0, 0.0,
+                                        MULTI_TOKENS, -1, (), kv_bound=1024)
+            return logits, res.tokens[0].tolist(), sync_ms(t0)
+
+        out = {}
+        for i, (label, fn) in enumerate((("unsharded", unsharded), ("sharded", sharded)) * 2):
+            if label == "sharded" and i == 3:
+                reset_launch_counts()
+                comm.reset_collective_counts()
+            out.setdefault(label, []).append(fn())
+        torch.cuda.synchronize()
+        launches, colls = dict(LAUNCHES), dict(comm.COLLECTIVES)
+        want = {name: 0 for name in LAUNCHES}
+        want[K.FLASH], want[K.DECODE] = L, L * MULTI_TOKENS
+        check_launches("sharded lockstep engine (prefill + 64 graphed steps)", launches, want)
+        # two row-parallel sums per layer per forward, one vocabulary gather
+        # per forward, and the dp gathers of prefill (2) and generate (1)
+        want_c = {"all_reduce": 2 * L * (1 + MULTI_TOKENS),
+                  "all_gather": (1 + MULTI_TOKENS) + 3}
+        print("sharded lockstep engine collectives:", colls, "expected:", want_c)
+        if colls != want_c:
+            raise AssertionError(f"collective counts {colls} != {want_c}")
+        runs.append(launches)
+        (u_logits, u_ids, _), (s_logits, s_ids, _) = out["unsharded"][-1], out["sharded"][-1]
+        scale = u_logits.abs().max().item()
+        err = (s_logits.float() - u_logits.float()).abs().max().item()
+        if err > KERNEL_REL_TOL * scale:
+            raise AssertionError(f"sharded prefill logits: {err} > {KERNEL_REL_TOL} * {scale}")
+        if out["sharded"][0][1] != s_ids:
+            raise AssertionError("sharded engine: ids differ between two runs")
+        agree = _first_diff(s_ids, u_ids)
+        tok_s = {label: [MULTI_TOKENS / (r[2] / 1e3) for r in rs] for label, rs in out.items()}
+        print(f"2B sharded lockstep engine (world 1, nccl) on {power}: prefill logits "
+              f"max_abs_err {err:.3e} = {err / scale:.2e} of max|logit| {scale:.2f}; greedy ids "
+              f"agree on {agree} of {MULTI_TOKENS}; decode tok/s in turns (unsharded, sharded, "
+              f"unsharded, sharded): "
+              f"{[round(x, 1) for pair in zip(tok_s['unsharded'], tok_s['sharded']) for x in pair]}")
+        del eng, s_kv, u_kv
+
+        twin = shard_model(model, mesh)
+        pools = {}
+        for label, m, mk in (("unsharded", model, ContinuousBatchingEngine),
+                             ("sharded", twin, ShardedBatchingEngine)) * 2:
+            if label == "sharded":
+                reset_launch_counts()
+                comm.reset_collective_counts()
+            pools.setdefault(label, []).append(_pool_run(m, images, {}, make=mk))
+            if label == "sharded":
+                torch.cuda.synchronize()
+                launches, colls = dict(LAUNCHES), dict(comm.COLLECTIVES)
+        run = pools["sharded"][-1]
+        want = {name: 0 for name in LAUNCHES}
+        want[K.FLASH] = len(images) * (cfg.vision.enc_n_layers + L)
+        want[KP.LANCZOS] = sum(lanczos_launches(images[i].shape, cfg) for i, _ in run["encs_by"])
+        want[K.DECODE] = len(POOL_REQUESTS) * L
+        want[K.RAGGED] = L * 8 * run["chunks"]
+        check_launches(f"sharded pool, {run['chunks']} chunks", launches, want)
+        print("sharded pool collectives:", colls)
+        runs.append(launches)
+        # each run's engine captures its chunk's graph at its first chunk:
+        # the median step leaves that out, the mean keeps it
+        turns = lambda f: [round(f(r), 2) for pair in zip(pools["unsharded"], pools["sharded"])
+                           for r in pair]
+        agree = [_first_diff(a, b) for a, b in zip(run["out"], pools["unsharded"][-1]["out"])]
+        tokens = len(POOL_REQUESTS) * POOL_TOKENS
+        print(f"2B sharded pool (world 1, nccl) on {power}: ms per chunk of 8 steps x 8 slots in "
+              f"turns (unsharded, sharded, unsharded, sharded): median "
+              f"{turns(lambda r: statistics.median(r['step_ms']))}, mean with the capture "
+              f"{turns(lambda r: sum(r['step_ms']) / r['chunks'])}; sharded "
+              f"{tokens / (sum(run['step_ms']) / 1e3):.1f} tok/s decode; ids agree with the "
+              f"unsharded pool on {agree} of {POOL_TOKENS} per request")
+        if pools["sharded"][0]["out"] != run["out"]:
+            raise AssertionError("sharded pool: ids differ between two runs")
+        del pools, run
+        graphs.StepGraph.replay = replay
+
+        server, frontend = serve_http.make_server(model, "127.0.0.1", 0, n_slots=4, chunk=8,
+                                                  mesh=mesh)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            t0 = time.perf_counter()
+            body = _ok(f"http://127.0.0.1:{server.server_address[1]}", "/v1/caption",
+                       {"image_b64": _png_b64(images[1]), "max_tokens": 16})
+            http_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            server.shutdown()
+            server.server_close()
+            frontend.shutdown()
+        if not isinstance(body.get("caption"), str):
+            raise AssertionError(f"HTTP over mesh=: {body}")
+        print(f"HTTP caption over serve_http mesh= (world 1, crop-parallel ViT) on {power}: "
+              f"{len(_ids(body['caption']))} ids in {http_ms:.1f} ms (first request: kernel "
+              f"set-up and the pool's graph capture included)")
+        del twin, frontend, server
+    finally:
+        graphs.StepGraph.replay = replay
+        gc.collect()  # the engines' graphs go before their communicators
+        dist.destroy_process_group()
+    return runs
+
 
 def main() -> None:
     power = card()
@@ -5543,6 +5886,7 @@ def main() -> None:
     phase("4 2B HF wrapper", phase_hf, model, power)
     phase("4 native BPE", phase_native_bpe, power)
     runs += phase("4 2B evals", phase_eval, model, power)
+    runs += phase("4 2B multi-GPU", phase_multi_gpu, model, img, images, power, gen)
     del model, enc
     launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(shallow), int4=True)
     phase("4 2B int4 graphs", phase_graphs, model, model.encode_image(img), images,
@@ -5791,6 +6135,30 @@ def main_eval() -> None:
     print("seconds per phase:", seconds)
 
 
+def main_multi_gpu() -> None:
+    """The multi-GPU phase alone (`python3 chip_smoke.py --multi-gpu`): the
+    build, then "4 2B multi-GPU" on a fresh 2B bf16 model. Prints the card
+    and the phases' seconds; no kernels line."""
+    power = card()
+    print(power)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_build()
+    seconds["1 build"] = round(time.perf_counter() - t0, 1)
+    img = np.random.default_rng(SEED).integers(0, 256, (756, 1008, 3), dtype=np.uint8)
+    rng = np.random.default_rng(SEED + 2)
+    images = [rng.integers(0, 256, shape, dtype=np.uint8)
+              for shape in ((756, 1008, 3), (378, 378, 3), (600, 800, 3))]
+    model = MoondreamModel(MOONDREAM_2B, None, ByteTokenizer(), BF16, seed=SEED, device=DEV)
+    t0 = time.perf_counter()
+    phase_multi_gpu(model, img, images, power, torch.Generator(device=DEV).manual_seed(SEED))
+    torch.cuda.synchronize()
+    seconds["4 2B multi-GPU"] = round(time.perf_counter() - t0, 1)
+    print("seconds per phase:", seconds)
+
+
 def main_preprocess() -> None:
     """The device-preprocessing phase alone (`python3 chip_smoke.py
     --preprocess`): the build, then "4 2B device preprocessing" on a fresh
@@ -5817,5 +6185,5 @@ def main_preprocess() -> None:
 if __name__ == "__main__":
     flag = sys.argv[1:]
     {"--variants": main_variants, "--steer": main_steer, "--serve": main_serve,
-     "--eval": main_eval, "--preprocess": main_preprocess}.get(
+     "--eval": main_eval, "--preprocess": main_preprocess, "--multi-gpu": main_multi_gpu}.get(
         flag[0] if len(flag) == 1 else None, main)()

@@ -43,6 +43,20 @@ class TextConfig:
 
 
 @dataclass(frozen=True)
+class TextShardConfig(TextConfig):
+    """One tensor-parallel rank's text config (`parallel.mesh.
+    shard_text_model`): `n_heads`, `n_kv_heads` and `ff_dim` are the
+    rank's shares over the tp ranks, and `dim` its attention width before
+    proj, (n_heads / tp) * head_dim, so that head_dim, rope_dim and
+    qkv_dim are the rank's too. `model_dim` is the residual stream's
+    width, which every rank holds whole. The rank's int8 KV cache keeps
+    one scale per head and token (`models.text.kv_scale_group`), as the
+    JAX package's does under a mesh."""
+
+    model_dim: int = 2048
+
+
+@dataclass(frozen=True)
 class VisionConfig:
     enc_dim: int = 1152
     enc_patch_size: int = 14

@@ -60,12 +60,19 @@ NEG_INF = -1e30
 def _lm_logits(h: torch.Tensor, model: TextModel) -> torch.Tensor:
     """Final LayerNorm + vocab projection of hidden vectors (..., D) with
     fp32 accumulation, rounded through bf16 (as the JAX package does for
-    greedy parity) and returned as fp32."""
+    greedy parity) and returned as fp32. A tensor-parallel rank's head
+    (`ops.layers.VocabParallelLinear`) computes its vocabulary slice and
+    gathers the whole row from the tp group before the bf16 rounding:
+    each column is one product rounded once, so the gathered row is the
+    unsharded one."""
     hn = layer_norm(h, model.post_ln.weight, model.post_ln.bias)
     lead = hn.shape[:-1]
     logits = torch.addmm(
         model.lm_head.b, hn.reshape(-1, hn.shape[-1]), model.lm_head.w
     )
+    gather = getattr(model.lm_head, "gather", None)
+    if gather is not None:
+        logits = gather(logits)
     return logits.reshape(*lead, -1).to(torch.bfloat16).float()
 
 

@@ -28,7 +28,8 @@ workspace it captured, its generator.
 Launch counts: the kernel wrappers count in Python, which a replay does not
 run. Each capture records its graph's launches and takes them back from
 `build.LAUNCHES`; every replay adds them (`build.add_launches`), so the
-counts stay exact.
+counts stay exact. The collectives of a tensor-parallel rank's graphs
+(`parallel.comm.COLLECTIVES`) are counted the same way.
 
 There is no fallback: a capture or a replay that fails raises. The loops'
 `graphed=False` runs the same steps eagerly, for comparison; a CPU tensor
@@ -48,6 +49,7 @@ import torch
 from ..kernels.attention import stream_workspace
 from ..kernels.build import LAUNCHES, add_launches, launches_since
 from ..models.text import LORA_SITES
+from ..parallel.comm import COLLECTIVES
 
 # Replays per graph label, and one record per capture (label, capture ms,
 # bytes the graphs' memory pool grew by, launches per replay), since
@@ -84,15 +86,19 @@ class StepGraph:
     """A captured CUDA graph, the launches one replay makes and what it
     holds."""
 
-    def __init__(self, graph, launches: Dict[str, int], label: str, keep: Tuple):
+    def __init__(self, graph, launches: Dict[str, int], label: str, keep: Tuple,
+                 collectives: Optional[Dict[str, int]] = None):
         self.graph = graph
         self.launches = launches
         self.label = label
         self.keep = keep
+        self.collectives = collectives or {}
 
     def replay(self) -> None:
         self.graph.replay()
         add_launches(self.launches)
+        for name, n in self.collectives.items():
+            COLLECTIVES[name] += n
         REPLAYS[self.label] = REPLAYS.get(self.label, 0) + 1
 
 
@@ -155,6 +161,15 @@ def adapter_key(lora: Optional[dict]) -> Optional[Tuple]:
     return tensor_key(*(None if p is None else p[f] for p in pairs for f in ("A", "B")))
 
 
+def group_key(owner: Any) -> Optional[str]:
+    """The mesh and rank of a tensor-parallel rank's text model (its
+    `shard`, `parallel.mesh.shard_text_model`), or None: a graph captures
+    its collectives over that rank's process groups, so a rank's keys
+    name them (an unsharded model's keys are as they were)."""
+    shard = getattr(owner, "shard", None)
+    return None if shard is None else shard.key
+
+
 def _side_stream(dev: torch.device) -> torch.cuda.Stream:
     if dev not in _streams:
         _streams[dev] = torch.cuda.Stream(dev)
@@ -182,6 +197,7 @@ def capture(cache: GraphCache, fn: Callable[[], Any], label: str,
         if cache.pool is None:
             cache.pool = torch.cuda.graph_pool_handle()
         before, reserved = dict(LAUNCHES), torch.cuda.memory_reserved(dev)
+        before_coll = dict(COLLECTIVES)
         # Python's collector must not run inside the capture: a graph it
         # frees then (an evicted entry's) is destroyed mid-capture, which
         # CUDA forbids and which invalidates the capture. Collect first.
@@ -203,6 +219,9 @@ def capture(cache: GraphCache, fn: Callable[[], Any], label: str,
                 finally:
                     launches = launches_since(before)
                     LAUNCHES.update(before)
+                    collectives = {n: c - before_coll[n] for n, c in COLLECTIVES.items()
+                                   if c != before_coll[n]}
+                    COLLECTIVES.update(before_coll)
                 graph.capture_end()
         finally:
             if gc_enabled:
@@ -212,7 +231,7 @@ def capture(cache: GraphCache, fn: Callable[[], Any], label: str,
                          "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
                          "launches": sum(launches.values())})
         keep = (stream_workspace(dev, side.cuda_stream), generator)
-        return StepGraph(graph, launches, label, keep), first, out
+        return StepGraph(graph, launches, label, keep, collectives), first, out
 
 
 class LoopRun:
@@ -259,7 +278,8 @@ def loop(owner: Any, key: Hashable, make_state: Callable[[], Any],
         state = make_state()
         return state, LoopRun(Entry(state), step, run_len, None, label, None)
     cache = cache_of(owner)
-    entry = cache.entry(key, make_state)
+    group = group_key(owner)
+    entry = cache.entry(key if group is None else (key, group), make_state)
     return entry.state, LoopRun(entry, step, run_len, cache, label, generator, tails)
 
 

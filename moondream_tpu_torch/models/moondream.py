@@ -56,7 +56,7 @@ from typing import Any, Dict, Iterator, List, Literal, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import MoondreamConfig
+from ..config import MoondreamConfig, TextConfig, TextShardConfig
 from ..engine import batched as batched_engine
 from ..engine import generate as engine
 from ..engine.sampling import sample_token
@@ -271,6 +271,14 @@ class MoondreamModel:
         return self.params["text"]
 
     @property
+    def cache_config(self) -> TextConfig:
+        """The config the model's KV caches are made from: its text config,
+        or a tensor-parallel rank's own (`config.TextShardConfig`: the
+        rank's heads, one int8 scale per head and token)."""
+        tc = self.text.config
+        return tc if isinstance(tc, TextShardConfig) else self.config.text
+
+    @property
     def region(self):
         if "region" not in self.params:
             raise ValueError("these parameters have no region heads")
@@ -440,7 +448,7 @@ class MoondreamModel:
         bos_emb = self.text.wte[bos:bos + 1][None]  # text_encoder's lookup, no host tensor
         embeds = torch.cat([bos_emb, img_emb[None]], dim=1).to(self.dtype)
         seq = embeds.shape[1]
-        kv = KVCache.create(self.config.text, 1, self.dtype, self.device)
+        kv = KVCache.create(self.cache_config, 1, self.dtype, self.device)
         engine.prefill(
             self.text, kv, embeds, 0, seq, seq, kv_bound=self._kv_bound(seq), lora=lora
         )
@@ -451,7 +459,8 @@ class MoondreamModel:
         moondream.py:840-855): settings["variant_tree"] as given (on the
         model's device), else settings["variant"] loaded from its local
         file in the model's dtype on its device (`lora.variant_state_dict`,
-        cached), else None."""
+        cached), else None. A tensor-parallel rank cuts it to its shard
+        (`parallel.mesh.shard_adapter`; a tree cut already stays)."""
         if not settings:
             return None
         tree = settings.get("variant_tree")
@@ -461,13 +470,18 @@ class MoondreamModel:
             if kinds != {self.device.type}:
                 raise ValueError(f"settings['variant_tree'] lies on {sorted(kinds)}, the model "
                                  f"on {self.device}: the adapter runs where the model runs")
-            return tree
-        if settings.get("variant") is None:
+        elif settings.get("variant") is None:
             return None
-        from ..lora import variant_state_dict
+        else:
+            from ..lora import variant_state_dict
 
-        return variant_state_dict(settings["variant"], self.config.text.n_layers, self.dtype,
-                                  self.device)
+            tree = variant_state_dict(settings["variant"], self.config.text.n_layers,
+                                      self.dtype, self.device)
+        if isinstance(self.text.config, TextShardConfig):
+            from ..parallel.mesh import shard_adapter
+
+            tree = shard_adapter(tree, self.text)
+        return tree
 
     def _steer_vectors(self, settings: Optional[Dict[str, Any]]) -> Optional[torch.Tensor]:
         """The request's steering vector, pre-scaled, fp32 (n_layers, dim) on
@@ -555,7 +569,7 @@ class MoondreamModel:
             pool = self._kv_pool.get((batch, slots))
             entry = pool.pop() if pool else None
         if entry is None:
-            return KVCache.create(self.config.text, batch, self.dtype, self.device, slots)
+            return KVCache.create(self.cache_config, batch, self.dtype, self.device, slots)
         kv, freed = entry
         if freed is not None:
             torch.cuda.current_stream(kv.k.device).wait_event(freed)

@@ -197,7 +197,7 @@ class ContinuousBatchingEngine:
             self._suffix_slots = pad(self.slot_len - self.prefix_len)
             n_pref = int(prefix_entries) if prefix_entries else n_slots
             self.kv_pref = KVCache.create(
-                self.config, n_pref, model.dtype, dev, pad(self.prefix_len)
+                model.cache_config, n_pref, model.dtype, dev, pad(self.prefix_len)
             )
             self.pids = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
             self._pref_refs = [0] * n_pref
@@ -205,8 +205,11 @@ class ContinuousBatchingEngine:
             self._pref_enc: List[Optional[EncodedImage]] = [None] * n_pref
         else:
             self._suffix_slots = self.slot_len
+        # the slots this process computes: all of them here, a dp group's
+        # share in a sharded pool (parallel.serving)
+        lo, hi = self._slot_range(n_slots)
         self.kv = KVCache.create(
-            self.config, n_slots, model.dtype, dev, self._suffix_slots
+            model.cache_config, hi - lo, model.dtype, dev, self._suffix_slots
         )
         S = n_slots
         self.cur = torch.zeros((S,), dtype=torch.int32, device=dev)
@@ -266,6 +269,27 @@ class ContinuousBatchingEngine:
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if not s.active]
+
+    # ------------------------------------------- the slots this process runs
+    # A sharded pool (parallel.serving.ShardedBatchingEngine) overrides these
+    # four: its KV cache holds its dp group's slots only, its chunks run
+    # their rows and gather every slot's results.
+    def _slot_range(self, n_slots: int):
+        """[lo, hi): the slots whose KV this process holds and computes."""
+        return 0, n_slots
+
+    def _rows(self, t):
+        """A per-slot (S, ...) tensor's rows that this process's chunks run."""
+        return t
+
+    def _gather(self, res: "serving.ServeChunkResult",
+                mixed: bool) -> "serving.ServeChunkResult":
+        """Every slot's results of a chunk that ran `_rows`."""
+        return res
+
+    def _write_slot(self, snap: KVCache, slot: int) -> None:
+        """Copy a prefilled request's KV into pool slot `slot`."""
+        serving.write_slot(self.kv, snap, slot)
 
     # ------------------------------------------------- prefix-shared image KV
     def _acquire_prefix(self, enc: EncodedImage) -> int:
@@ -352,8 +376,14 @@ class ContinuousBatchingEngine:
         lora, vid = self._resolve_variant(variant)
         prompt = self._text_prompt(question, caption_length)
         temp, topp = self._sampling(temperature, top_p)
-        enc = self.model.encode_image(image, self._variant_settings(lora, variant))
+        enc = self.encode_for(image, variant)
         return self._prepare_encoded(enc, prompt, temp, topp, lora, vid)
+
+    def encode_for(self, image, variant: Optional[str] = None) -> EncodedImage:
+        """The model's EncodedImage of `image` under the named variant (its
+        image prefill runs through the adapter; None: the base weights)."""
+        lora, _ = self._resolve_variant(variant)
+        return self.model.encode_image(image, self._variant_settings(lora, variant))
 
     def _resolve_variant(self, variant: Optional[str]):
         """A variant's name -> (its adapter tree, its index in the pool);
@@ -514,7 +544,7 @@ class ContinuousBatchingEngine:
             self.pids[slot] = pid
         else:
             span = min(model._kv_bound(pos) or self.config.max_context, self.slot_len)
-            serving.write_slot(self.kv, slice_cache_span(kv1, span), slot)
+            self._write_slot(slice_cache_span(kv1, span), slot)
         model._recycle_kv(kv1)
 
         req_id = self._next_req
@@ -711,20 +741,30 @@ class ContinuousBatchingEngine:
         if mixed:
             kw.update(max_objects=self.max_objects)
 
-        def run(cur, pos, active, budget, hist_cnt=None):
+        rows = self._rows
+        kw.update(pids=rows(self.pids), vids=rows(self.vid))
+        struct = tuple(rows(t) for t in struct)
+        hist = rows(self.hist) if spec else None
+        sampling = (self.generator, rows(temp) if isinstance(temp, torch.Tensor) else temp,
+                    rows(topp) if isinstance(topp, torch.Tensor) else topp)
+
+        def chunk_rows(cur, pos, active, budget, hist_cnt):
             state = (self.kv, cur, pos, active, budget)
-            sampling = (self.generator, temp, topp)
             if kind == "serve_chunk":
                 return serving.serve_chunk(text, *state, *sampling, **kw)
             if kind == "serve_chunk_spec":
-                return serving.serve_chunk_spec(text, *state, self.hist, hist_cnt, **kw)
+                return serving.serve_chunk_spec(text, *state, hist, hist_cnt, **kw)
             if kind == "serve_chunk_spec_sampled":
-                return serving.serve_chunk_spec_sampled(text, *state, self.hist, hist_cnt,
+                return serving.serve_chunk_spec_sampled(text, *state, hist, hist_cnt,
                                                         *sampling, **kw)
             if kind == "serve_chunk_mixed":
                 return serving.serve_chunk_mixed(text, region, *state, *sampling, *struct, **kw)
-            return serving.serve_chunk_mixed_spec(text, region, *state, self.hist, hist_cnt,
+            return serving.serve_chunk_mixed_spec(text, region, *state, hist, hist_cnt,
                                                   *struct, **kw)
+
+        def run(cur, pos, active, budget, hist_cnt=None):
+            return self._gather(chunk_rows(rows(cur), rows(pos), rows(active), rows(budget),
+                                           rows(hist_cnt)), mixed)
 
         inputs = (self.cur, self.pos, self.active, self.budget) + (
             (self.hist_cnt,) if spec else ())
@@ -733,6 +773,8 @@ class ContinuousBatchingEngine:
         key = (kind, self.chunk, self.spec_k if spec else None,
                self.max_objects if mixed else None,
                "per row" if isinstance(temp, torch.Tensor) else (temp, topp))
+        if graphs.group_key(text) is not None:
+            key += (graphs.group_key(text),)
         return graphs.chunk(self.graphs, key, run, inputs, kind,
                             self.generator if sampled else None)
 

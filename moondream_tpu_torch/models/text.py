@@ -38,7 +38,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..config import TextConfig
+from ..config import TextConfig, TextShardConfig
 from ..ops.attention import decode_attention, decode_attention_cached, flash_attention
 from ..ops.layers import _INV127, MLP, Int8Linear, LayerNorm, Linear, lora_add, lora_linear, sdpa
 from ..ops.quant import quantize_weight_torch, quantized_matmul
@@ -52,8 +52,9 @@ def kv_scale_group(config: TextConfig) -> int:
     """How many adjacent KV heads share one int8 scale per token: the JAX
     package's `kv_pair_factor` (moondream_tpu/models/text.py:41-55), whose
     cache row holds that many heads side by side. 2 for the 2B, 0.5B and
-    tiny configs."""
-    if config.n_kv_heads != config.n_heads:
+    tiny configs; 1 for a tensor-parallel rank's config, as the JAX
+    package's is 1 under a mesh (xla_attn), where the head axis splits."""
+    if isinstance(config, TextShardConfig) or config.n_kv_heads != config.n_heads:
         return 1
     if config.n_kv_heads % 2 or config.head_dim * 2 > 128:
         return 1

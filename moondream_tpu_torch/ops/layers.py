@@ -55,6 +55,62 @@ class Linear(nn.Module):
         return linear(x, self.w, self.b)
 
 
+def _mm_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated and returned in fp32, from bf16 operands on the
+    card without widening them."""
+    if x.dtype == torch.float32:
+        return torch.mm(x, w)
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return torch.mm(x.float(), w.float())
+
+
+class RowParallelLinear(nn.Module):
+    """One tensor-parallel rank's rows of a row-parallel linear (a text
+    block's proj or fc2, `parallel.mesh.shard_text_model`): `w` (K/tp, N)
+    reads the rank's share of the input features, `b` (N,) is the whole
+    bias. The rank's partial product is fp32; the partials are summed in
+    fp32 over the tp group (`parallel.comm.all_reduce_fp32`); the bias is
+    added once, after the sum, and the result rounded to x's dtype once,
+    as the unsharded `linear` rounds its product and bias once."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor, group):
+        super().__init__()
+        self.w = nn.Parameter(w, requires_grad=False)
+        self.b = nn.Parameter(b, requires_grad=False)
+        self.group = group
+
+    def reduce(self, partial: torch.Tensor) -> torch.Tensor:
+        """The fp32 sum of a partial product over the tp group."""
+        from ..parallel.comm import all_reduce_fp32
+
+        return all_reduce_fp32(partial, self.group)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        y = self.reduce(_mm_fp32(x.reshape(-1, x.shape[-1]), self.w))
+        return (y + self.b.float()).to(x.dtype).reshape(*lead, self.w.shape[1])
+
+
+class VocabParallelLinear(Linear):
+    """One tensor-parallel rank's vocabulary slice of the LM head: `w` (D,
+    V/tp) and `b` (V/tp,) its columns. `gather` concatenates the ranks'
+    (..., V/tp) logits into the whole (..., V) row on every rank, in rank
+    order (`engine.generate._lm_logits` calls it before the bf16 rounding
+    and the argmax or draw)."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor, group):
+        nn.Module.__init__(self)
+        self.w = nn.Parameter(w, requires_grad=False)
+        self.b = nn.Parameter(b, requires_grad=False)
+        self.group = group
+
+    def gather(self, logits: torch.Tensor) -> torch.Tensor:
+        from ..parallel.comm import gather_cols
+
+        return gather_cols(logits, self.group)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, dim: int, device=None, dtype=None):
         super().__init__()
@@ -66,7 +122,7 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias)
 
 
-def lora_delta(x: torch.Tensor, pair: dict) -> torch.Tensor:
+def lora_delta(x: torch.Tensor, pair: dict, reduce=None) -> torch.Tensor:
     """The low-rank residual (x @ A^T) @ B^T in fp32
     (moondream_tpu/ops/layers.py:78-85): A (r, in) and B (out, r) in
     torch's (out, in) layout, or one pair per row of x (S, Tq, in): A (S,
@@ -75,17 +131,24 @@ def lora_delta(x: torch.Tensor, pair: dict) -> torch.Tensor:
     engine/serving._lora_delta). Both products run in fp32 on fp32 copies
     of x and the factors (a bf16 value is exact in fp32; TF32 must stay
     off), as XLA's dots with fp32 accumulation do; the result stays
-    fp32."""
+    fp32. `reduce`: where x holds a tensor-parallel rank's share of the
+    input features (and A the same columns: fc2 of a rank,
+    `RowParallelLinear.reduce`), the fp32 sum over the ranks of the
+    partial (x @ A^T), before B."""
     a = torch.matmul(x.float(), pair["A"].float().transpose(-1, -2))
+    if reduce is not None:
+        a = reduce(a)
     return torch.matmul(a, pair["B"].float().transpose(-1, -2))
 
 
-def lora_add(y: torch.Tensor, x: torch.Tensor, pair: Optional[dict]) -> torch.Tensor:
-    """y + lora_delta(x, pair) rounded to y's dtype first, as the JAX
-    package adds it to a linear's rounded output; y itself without a pair."""
+def lora_add(y: torch.Tensor, x: torch.Tensor, pair: Optional[dict],
+             reduce=None) -> torch.Tensor:
+    """y + lora_delta(x, pair, reduce) rounded to y's dtype first, as the
+    JAX package adds it to a linear's rounded output; y itself without a
+    pair."""
     if pair is None:
         return y
-    return y + lora_delta(x, pair).to(y.dtype)
+    return y + lora_delta(x, pair, reduce).to(y.dtype)
 
 
 def lora_linear(x: torch.Tensor, lin: nn.Module, pair: Optional[dict]) -> torch.Tensor:
@@ -108,8 +171,8 @@ class MLP(nn.Module):
         absent): fc1's reads x, fc2's the GELU output
         (moondream_tpu/ops/layers.py:106-117)."""
         lora = lora or {}
-        h = lora_linear(x, self.fc1, lora.get("fc1"))
-        return lora_linear(gelu_approx(h), self.fc2, lora.get("fc2"))
+        h = gelu_approx(lora_linear(x, self.fc1, lora.get("fc1")))
+        return lora_add(self.fc2(h), h, lora.get("fc2"), getattr(self.fc2, "reduce", None))
 
 
 def sdpa(

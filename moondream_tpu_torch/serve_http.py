@@ -46,6 +46,7 @@ import base64
 import hashlib
 import io
 import json
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -55,9 +56,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from .engine import graphs
-
-# Where the multi-GPU work is queued; --tp and mesh= need it.
-_MULTI_GPU = "moondream_tpu_torch has no multi-GPU serving yet (ROADMAP.md Queue 1 item 9)"
 
 
 class _Metrics:
@@ -264,19 +262,23 @@ class ServingFrontend:
                  prefix_share: bool = False):
         from .models.serve import ContinuousBatchingEngine
 
+        engine_kw = _engine_kwargs(n_slots, slot_len, chunk, temperature, top_p,
+                                   speculative, spec_adaptive, variants)
+        self._ctl = None
         if mesh is not None:
-            raise NotImplementedError(f"mesh=: {_MULTI_GPU}")
-        self.engine = ContinuousBatchingEngine(
-            model, n_slots=n_slots, slot_len=slot_len, chunk=chunk,
-            temperature=temperature, top_p=top_p, speculative=speculative,
-            spec_adaptive=spec_adaptive,
-            # dispatch chunk i+1 before reading chunk i's tokens back;
-            # costs one chunk of streaming latency
-            pipeline_depth=2,
-            # multi-tenant LoRA: {name: stacked adapter tree}; requests pick
-            # one with {"variant": name} and decode beside base rows
-            variants=variants, prefix_share=prefix_share,
-        )
+            # multi-GPU serving: this is rank 0; every call on the engine
+            # (and on its model, the rank's sharded twin) that changes state
+            # is mirrored to the other ranks (parallel.comm.Controller,
+            # comm.MIRRORED), under the launch lock
+            from .parallel import comm
+
+            group, engine = _sharded_engine(model, mesh,
+                                            dict(engine_kw, prefix_share=prefix_share))
+            self._ctl = comm.Controller(group, {"engine": engine}, lock=graphs.lock())
+            self.engine = self._ctl.proxy("engine")
+            model = self.engine.model
+        else:
+            self.engine = ContinuousBatchingEngine(model, prefix_share=prefix_share, **engine_kw)
         self.model = model
         # detect/point through the pool's mixed chunks instead of the single
         # path and the same-object coalescer
@@ -358,15 +360,7 @@ class ServingFrontend:
             enc = self._enc_batcher.request("encode", image, "")
         elif self.encode_cache and key is not None:
             with graphs.lock():
-                if variant is None:
-                    enc = self.engine.model.encode_image(image)
-                else:
-                    lora, _ = self.engine._resolve_variant(variant)
-                    enc = self.engine.model.encode_image(
-                        image,
-                        settings={"variant_tree": lora,
-                                  "variant_label": variant},
-                    )
+                enc = self.engine.encode_for(image, variant)
         else:
             return image
         self._cache_put(key, enc)
@@ -722,6 +716,37 @@ class ServingFrontend:
         self._stop = True
         self._wake.set()
         self._stepper.join(timeout=5)
+        if self._ctl is not None:
+            self._ctl.close()  # the other ranks' make_server returns
+
+
+def _engine_kwargs(n_slots, slot_len, chunk, temperature, top_p, speculative,
+                   spec_adaptive, variants) -> Dict[str, Any]:
+    """The pool's settings, alike on every rank of a mesh."""
+    return dict(
+        n_slots=n_slots, slot_len=slot_len, chunk=chunk,
+        temperature=temperature, top_p=top_p, speculative=speculative,
+        spec_adaptive=spec_adaptive,
+        # dispatch chunk i+1 before reading chunk i's tokens back;
+        # costs one chunk of streaming latency
+        pipeline_depth=2,
+        # multi-tenant LoRA: {name: stacked adapter tree}; requests pick
+        # one with {"variant": name} and decode beside base rows
+        variants=variants,
+    )
+
+
+def _sharded_engine(model, mesh, engine_kw: Dict[str, Any]):
+    """(the control plane's gloo group, this rank's sharded pool with the
+    crop-parallel ViT), made alike on every rank (moondream_tpu/
+    serve_http.py:257-282). A prefix-shared pool raises ValueError
+    (`make_sharded_serving_engine`), before the mesh or the process group
+    is read."""
+    from .parallel import comm
+    from .parallel.serving import make_sharded_serving_engine
+
+    engine = make_sharded_serving_engine(model, mesh, shard_vision=True, **engine_kw)
+    return comm.control_group(), engine
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -990,7 +1015,25 @@ def make_server(model, host: str = "127.0.0.1", port: int = 8080,
                 struct_pool: bool = False, variants=None,
                 prefix_share: bool = False):
     """Build (server, frontend); call server.serve_forever() to run.
-    `mesh=` (multi-GPU serving) raises NotImplementedError."""
+
+    `mesh=` (a `parallel.mesh.create_mesh` DeviceMesh; every rank of the
+    world calls make_server with its own copy of the same model and the
+    same settings): rank 0 builds the server over the sharded pool (slots
+    on dp, heads on tp, the ViT crop-parallel) and its frontend mirrors
+    the engine calls that change state to the other ranks; on every other
+    rank make_server follows those calls and returns (None, None) once
+    rank 0's frontend shuts down. `prefix_share` with a mesh raises
+    ValueError."""
+    import torch.distributed as dist
+
+    if mesh is not None and dist.is_initialized() and dist.get_rank() != 0:
+        from .parallel import comm
+
+        group, engine = _sharded_engine(model, mesh, dict(
+            _engine_kwargs(n_slots, slot_len, chunk, temperature, top_p, speculative,
+                           spec_adaptive, variants), prefix_share=prefix_share))
+        comm.follow(group, {"engine": engine})
+        return None, None
     frontend = ServingFrontend(
         model, n_slots=n_slots, slot_len=slot_len, chunk=chunk,
         temperature=temperature, top_p=top_p, speculative=speculative,
@@ -1038,8 +1081,11 @@ def _parser() -> argparse.ArgumentParser:
                              "request then builds the kernels and captures the "
                              "pool's graph)")
     parser.add_argument("--tp", type=int, default=0, metavar="N",
-                        help="tensor parallelism over N GPUs: not ported yet "
-                             "(raises NotImplementedError); 0 = one device")
+                        help="serve over every GPU of the host, one process per "
+                             "GPU: heads split over N of them (tensor parallel), "
+                             "the pool's slots over the rest (data parallel); N "
+                             "must divide the GPU count (with --device cpu: N gloo "
+                             "ranks). 0 = one device, one process")
     parser.add_argument("--encode-cache", type=int, default=0, metavar="N",
                         help="LRU-cache the N most recent images' encodes "
                              "(content-addressed): repeat images skip crops, ViT "
@@ -1075,17 +1121,14 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None):
-    args = _parser().parse_args(argv)
-    if args.tp:
-        raise NotImplementedError(f"--tp {args.tp}: {_MULTI_GPU}")
-
+def _build_model(args, device):
+    """The model of the command line, on `device`: a checkpoint or random
+    weights from seed 0 (alike on every rank)."""
     from .finetune import resolve_config
     from .models.moondream import MoondreamModel
     from .tokenizer import load_tokenizer
-    from .weights import checked_device, load_params
+    from .weights import load_params
 
-    device = checked_device(args.device)
     config = resolve_config(args.config)
     params = (
         load_params(args.model, config, runtime_int4=args.int4,
@@ -1101,6 +1144,13 @@ def main(argv=None):
             from .models.text import quantize_text_params, quantize_text_params_int8
 
             (quantize_text_params if args.int4 else quantize_text_params_int8)(model.text)
+    return model
+
+
+def _serve(args, model, mesh=None) -> None:
+    """Build the server over `model` (sharded over `mesh` when given), warm it
+    up and serve until interrupted; a follower rank returns when rank 0
+    stops."""
     variants = None
     if args.variant:
         from .lora import variant_state_dict
@@ -1110,7 +1160,7 @@ def main(argv=None):
             name, _, src = spec.partition("=")
             if not src:
                 raise SystemExit(f"--variant {spec!r}: expected NAME=PATH")
-            variants[name] = variant_state_dict(src, config.text.n_layers, model.dtype,
+            variants[name] = variant_state_dict(src, model.config.text.n_layers, model.dtype,
                                                 model.device)
         print(f"variants registered: {sorted(variants)}")
     server, frontend = make_server(
@@ -1119,10 +1169,12 @@ def main(argv=None):
         temperature=args.temperature, top_p=args.top_p,
         speculative=args.spec, spec_adaptive=args.spec_adaptive,
         struct_window_s=args.struct_window, encode_cache=args.encode_cache,
-        encode_window_s=args.encode_window,
+        encode_window_s=args.encode_window, mesh=mesh,
         struct_pool=args.struct_pool, variants=variants,
         prefix_share=args.prefix_share,
     )
+    if server is None:
+        return
     if not args.no_warmup:
         print("warming up (building the kernels, capturing the pool's graph)...")
         t0 = time.monotonic()
@@ -1145,6 +1197,36 @@ def main(argv=None):
     finally:
         server.shutdown()
         frontend.shutdown()
+
+
+def _serve_rank(rank: int, args, world: int) -> None:
+    """One rank of `--tp`: the same model on this rank's device, the dp x tp
+    mesh, then rank 0 serves and the others follow."""
+    from .parallel import comm
+    from .parallel.mesh import create_mesh
+
+    model = _build_model(args, comm.process_device())
+    _serve(args, model, create_mesh({"dp": world // args.tp, "tp": args.tp}))
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+
+    from .weights import checked_device
+
+    device = checked_device(args.device)
+    if args.tp:
+        import torch
+
+        from .parallel import comm
+
+        world = torch.cuda.device_count() if device.type == "cuda" else args.tp
+        if world % args.tp:
+            raise SystemExit(f"--tp {args.tp} does not divide {world} devices")
+        comm.launch(world, _serve_rank, args, world, device=device.type, timeout_s=None,
+                    threads=max(1, (os.cpu_count() or 1) // world))
+        return
+    _serve(args, _build_model(args, device))
 
 
 if __name__ == "__main__":

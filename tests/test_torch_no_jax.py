@@ -18,7 +18,9 @@ adapter training step, and the front ends (the HTTP server, the CLI, the
 HF wrapper and the native BPE tokenizer are imported with the rest):
 one caption served over HTTP, and the eval harness and the recipes: an
 eval loop on a stand-in `datasets`, caption agreement against an int8
-ViT twin, and the recipes' batched detect_frames."""
+ViT twin, and the recipes' batched detect_frames, and the multi-GPU
+modules: a world of one gloo rank running the sharded text engine and the
+sharded pool with the crop-parallel ViT."""
 
 import os
 import subprocess
@@ -175,6 +177,18 @@ from recipes.common.pipeline import detect_frames
 from moondream_tpu_torch.models import moondream as port_moondream
 port_moondream.DEFAULT_MAX_OBJECTS = 2
 assert len(detect_frames(model, [img, img[:200]], "cat")) == 2
+from moondream_tpu_torch import parallel
+assert all(getattr(parallel, name) is not None for name in parallel.__all__)
+from moondream_tpu_torch.parallel.mesh import create_mesh
+mesh = create_mesh({"dp": 1, "tp": 1}, device="cpu")  # a world of one gloo rank
+seng = parallel.ShardedTextEngine(model.text, model.config.text, mesh)
+lg, _, skv = seng.prefill(torch.zeros(1, 8, model.config.text.dim), pos=0, length=8,
+                          prefix_len=0)
+assert seng.generate(skv, lg.argmax(-1), 8, max_tokens=3, eos_id=-1, buffer=3).tokens.shape == (1, 3)
+peng = parallel.make_sharded_serving_engine(model, mesh, shard_vision=True, n_slots=2, chunk=4)
+rid = peng.submit(img, max_tokens=4)
+assert isinstance(peng.drain()[rid], str)
+torch.distributed.destroy_process_group()
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
           if m is not None and n.startswith(("jax", "moondream_tpu"))

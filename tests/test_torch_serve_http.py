@@ -11,7 +11,7 @@ by the peaked oracle (the region decoders' fc2 biases + seeded normals x
 50) and compared within 1e-6 (sizes pass through exp2, which the two
 libraries may round an ulp apart). The cases follow the unmarked tests of
 tests/test_serve_http.py; the port's own add a variants endpoint and the
-refused multi-GPU options.
+multi-GPU options' refusals.
 
 Every JAX frontend here has 4 slots and a chunk of 4, and shares its pool's
 compiled chunks (`_JITS`) with the others of its prefix mode, so that JAX
@@ -545,12 +545,16 @@ def test_variants_endpoint(models, tmp_path):
 
 
 def test_multi_gpu_options_refused(models):
-    """--tp and mesh= need multi-GPU serving, which the port does not have
-    yet: they raise NotImplementedError naming the queued item."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        serve_http.main(["--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        serve_http.make_server(models[1], "127.0.0.1", 0, mesh=object())
+    """What multi-GPU serving refuses, as the JAX package does: a
+    prefix-shared pool under mesh= (ValueError, before the mesh is read),
+    and --tp over quantized text weights (each rank's shard cut raises; the
+    launcher reports it). Serving over a mesh itself is
+    tests/test_torch_parallel_serving.py's."""
+    with pytest.raises(ValueError, match="prefix_share is single-chip"):
+        serve_http.make_server(models[1], "127.0.0.1", 0, mesh=object(), prefix_share=True)
+    with pytest.raises(RuntimeError, match="must be dense"):
+        serve_http.main(["--tp", "2", "--device", "cpu", "--config", "tiny", "--int4",
+                         "--no-warmup", "--port", "0"])
 
 
 def test_main_defaults_to_the_card(monkeypatch):

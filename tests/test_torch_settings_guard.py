@@ -249,9 +249,9 @@ def test_entry_points_apply_variants(model, variants, monkeypatch, entry, key):
     seen = set()
     delta = layers.lora_delta
 
-    def counted(x, pair):
+    def counted(x, pair, *rest):
         seen.add(where[pair["A"].data_ptr()])
-        return delta(x, pair)
+        return delta(x, pair, *rest)
 
     monkeypatch.setattr(layers, "lora_delta", counted)
     run(model, real, IMG)
