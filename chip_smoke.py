@@ -9,7 +9,7 @@ kernel) by default.
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. build: nvcc-build the attention kernels (A, and the decode kernel with
      its B, B-GQA and C entries, bf16 and int8), the W4A16, the w8a8 and
-     the Lanczos crop kernels from moondream_tpu_torch/csrc and g++-build the native crop
+     the Lanczos crop kernel from moondream_tpu_torch/csrc and g++-build the native crop
      and native BPE libraries, all at once, into moondream_tpu_torch/_build;
   2. kernels vs plain: each kernel against its plain PyTorch version (fp32
      on the same inputs, TF32 off) at the main paths' shapes (the gaze
@@ -57,7 +57,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      query); "4 2B device preprocessing" (phase_device_preprocess, on the
      bf16 model): the Lanczos kernel's crops uint8-equal to its plain
      version on the card and to the host crops over six image sizes and a
-     batched call, its device-only time beside its bound, host against
+     batched call, one launch per crop call, its device-only time at batch
+     1 and 8 beside its bound and its plan's multiply-adds, host against
      device crops, encode_image and BatchPipeline on both routes in turns,
      exact launches of a device-route encode and one encode under the sync
      error mode; the region-head paths: bf16 detect, point, detect_gaze (eye
@@ -199,6 +200,7 @@ from __future__ import annotations
 import base64
 import copy
 import dataclasses
+import functools
 import gc
 import importlib.util
 import io
@@ -370,6 +372,16 @@ def card() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+@functools.lru_cache(maxsize=1)
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
 
 
 def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -1578,19 +1590,11 @@ def normalized_crops(model, images) -> torch.Tensor:
 
 
 def lanczos_launches(shape, cfg=MOONDREAM_2B) -> int:
-    """Lanczos kernel launches of one image's crops on the device route (the
-    default): a vertical pass for the global crop and one for the grid (a
-    copy where the height does not change) and a horizontal pass for each
-    whose width changes; none where the image takes the host route."""
-    vc = cfg.vision
+    """Lanczos kernel launches of one crop call on the device route (the
+    default): one, for the global crop and the grid, both passes of each;
+    none where the image takes the host route."""
     h, w = shape[:2]
-    if not (devpre.enabled() and devpre.exact_path_supported(h, w, vc.crop_size)):
-        return 0
-    _, cols = devpre.preprocess_tiling(h, w, vc.crop_size, vc.enc_patch_size,
-                                       vc.overlap_margin, vc.max_crops)
-    margin = vc.enc_patch_size * vc.overlap_margin
-    grid_w = cols * (vc.crop_size - 2 * margin) + 2 * margin
-    return 2 + (w != vc.crop_size) + (w != grid_w)
+    return int(devpre.enabled() and devpre.exact_path_supported(h, w, cfg.vision.crop_size))
 
 
 def batch_lanczos_launches(images, cfg=MOONDREAM_2B) -> int:
@@ -1625,7 +1629,7 @@ def expected_launches(cfg, n_vit: int, spans: int, steps: int, int4: bool = Fals
     per span or step (the prefills' 730 rows take a dense product); int8
     text blocks four w8a8 launches per layer per prefill, span or step, and
     int8 ViT blocks four per ViT block per ViT call. `crops`: the Lanczos
-    kernel's launches (lanczos_launches per encoded image)."""
+    kernel's launches (lanczos_launches per crop call)."""
     tc = cfg.text
     L_txt, mha = tc.n_layers, tc.n_kv_heads == tc.n_heads
     if prefills is None:
@@ -1808,13 +1812,15 @@ def phase_device_preprocess(model, img: np.ndarray, pipe_images: list, power: st
     """"4 2B device preprocessing" on the bf16 2B: the Lanczos kernel's crops
     (csrc/lanczos_resize.cu) uint8-equal to its plain version on the card
     and to the host crops (native C++) over PREPROCESS_SHAPES and a batched
-    3 x 700 x 900, with its launches per image; its device-only time at
-    756x1008 (13 crops) beside its bound and the plain version's time; then
+    3 x 700 x 900, with its launches per call (one); its device-only time
+    at 756x1008 (13 crops), batch 1 and a BatchPipeline batch of 8, beside
+    its bound, the multiply-adds its plan issues and the plain version's
+    time; then
     in turns (host, device, device, host): host crops plus their copy
     against the raw image's copy plus the kernel, encode_image under
     MOONDREAM_DEVICE_PREPROCESS=0 and under the default, and BatchPipeline
     over `pipe_images`; exact launches of one device-route encode_image
-    (Lanczos 4, kernel A 27 + 24) and one encode under sync debug mode
+    (Lanczos 1, kernel A 27 + 24) and one encode under sync debug mode
     "error". Returns (the kernel's summary for the kernels line, the
     counted encode's launches)."""
     cfg, vc = model.config, model.config.vision
@@ -1854,12 +1860,32 @@ def phase_device_preprocess(model, img: np.ndarray, pipe_images: list, power: st
     bd = bound(*lanczos_work(img.shape, tiling, cfg), peak_ops=PEAK_INT8_OP_S)
     summary = {"err": float(err), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                "device_ms": dev_ms, "library_device_ms": None, **bd}
+    # a BatchPipeline batch: 8 such images in one call
+    x8 = torch.from_numpy(np.stack([img] * PIPE_BATCH)).to(DEV)
+    out8 = torch.empty((PIPE_BATCH * out.shape[0], *out.shape[1:]), dtype=torch.uint8,
+                       device=DEV)
+    dev8_ms = graph_ms(lambda: devpre.device_overlap_crops_batched(x8, tiling, out=out8))
+    nbytes, ops = lanczos_work(img.shape, tiling, cfg)
+    bd8 = bound(PIPE_BATCH * nbytes, PIPE_BATCH * ops, peak_ops=PEAK_INT8_OP_S)
+    # the multiply-adds the kernel's tile plan issues, and the least time
+    # the CUDA cores take for them at 64 int32 multiply-adds per SM per clock
+    plan = devpre.tile_plan(*img.shape[:2], devpre.overlap_sets(tiling, vc.crop_size,
+                                                                vc.enc_patch_size,
+                                                                vc.overlap_margin))
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    core_us = plan.macs / (64 * sms * max_sm_clock_hz()) * 1e6
     print(f"{KP.LANCZOS} on {power}: uint8-equal to the plain version on the card and to the "
-          f"host crops: {'; '.join(lines)}. 756x1008 (13 crops): one launch set {ms:.4f} ms, "
+          f"host crops: {'; '.join(lines)}. 756x1008 (13 crops): one launch {ms:.4f} ms, "
           f"device only {dev_ms * 1e3:.2f} us, bound {bd['bound_ms'] * 1e3:.3f} us by "
           f"{bd['bound_by']} ({bd['bytes']} bytes, {bd['flops']:.4g} int8 op over digit planes; "
-          f"{dev_ms / bd['bound_ms']:.1f} x bound); plain version on the card {plain_ms:.3f} ms; "
-          "no library call computes PIL's Lanczos")
+          f"{dev_ms / bd['bound_ms']:.1f} x bound); batch {PIPE_BATCH}: device only "
+          f"{dev8_ms * 1e3:.2f} us, bound {bd8['bound_ms'] * 1e3:.3f} us "
+          f"({dev8_ms / bd8['bound_ms']:.1f} x bound, {dev8_ms / dev_ms:.2f} x batch 1); "
+          f"plan: tiles {' and '.join(f'{th}x{tw}' for th, tw in plan.tiles)} (global, grid), "
+          f"chunks of {' and '.join(map(str, plan.rings))} source rows, {plan.smem} bytes of "
+          f"shared memory, {plan.macs} int32 multiply-adds per image ({core_us:.2f} us on "
+          f"{sms} SMs' CUDA cores at 64 a clock, {max_sm_clock_hz() / 1e6:.0f} MHz); "
+          f"plain version on the card {plain_ms:.3f} ms; no library call computes PIL's Lanczos")
 
     def turns(fns: dict, reps: int) -> dict:
         """Median host-clock ms of each function, run in turns (a, b, b, a)."""

@@ -22,9 +22,11 @@ Resample.c), and so is this module's:
 
 Each output pixel reads a band of at most `ksize` inputs: the tap table of
 an (in, out) size pair is kept as (start (out,), taps (out, ksize)) int32,
-cached on the host and on each device. On a CUDA tensor the passes are the
-hand-written kernel of `csrc/lanczos_resize.cu` (`kernels.preprocess`); on
-the CPU their plain versions below, which do the same integer arithmetic
+cached on the host and on each device. A crop call (`device_resize`,
+`device_overlap_crops_batched`) is one launch of the hand-written kernel of
+`csrc/lanczos_resize.cu` (`kernels.preprocess`) on a CUDA tensor, tiled as
+`tile_plan` plans from the host bands; on the CPU it is one call of its
+plain version, `crops_plain`, whose passes do the same integer arithmetic
 one tap at a time. |acc| <= 255 * sum|tap| < 2**31 for Lanczos-3, so
 neither can overflow and both are exact.
 
@@ -238,8 +240,8 @@ def resize_v_plain(x: torch.Tensor, b: Band) -> torch.Tensor:
 
 def v_crops_plain(src: torch.Tensor, out: torch.Tensor, b: Optional[Band], crop_hw,
                   window: int, tiling, crop0: int, per_image: int) -> None:
-    """Plain version of the kernel's vertical pass into a crop stack: the
-    vertical pass of src (B, H, W, 3) (skipped when `b` is None), and
+    """The vertical pass of crops_plain, into a crop stack: the vertical
+    pass of src (B, H, W, 3) (skipped when `b` is None), and
     crops of crop_hw cut from it at (r * window, c * window) for the
     tiling's rows and columns, written row-major to crops crop0, crop0 + 1,
     ... of each image's `per_image` in out (B * per_image, ch, cw, 3)."""
@@ -252,22 +254,69 @@ def v_crops_plain(src: torch.Tensor, out: torch.Tensor, b: Optional[Band], crop_
             crops[:, crop0 + r * tiling[1] + c] = full[:, y0:y0 + ch, x0:x0 + cw]
 
 
-def _resize_h(x: torch.Tensor, out_w: int, plain: bool) -> torch.Tensor:
-    b = band(x.shape[2], out_w, x.device)
-    if plain or x.device.type == "cpu":
-        return resize_h_plain(x, b)
-    from ..kernels.preprocess import lanczos_h
+class CropSet(NamedTuple):
+    """One resize of a crop call and the crops cut from it: the images
+    resized to `size` (out_h, out_w), then tiling[0] x tiling[1] crops at
+    (r * window, c * window), written to crops crop0 + r * tiling[1] + c of
+    each image's stack."""
 
-    return lanczos_h(x, b)
+    size: Tuple[int, int]
+    tiling: Tuple[int, int]
+    window: int
+    crop0: int
 
 
-def _v_crops(src, out, out_h: int, crop_hw, window, tiling, crop0, per_image, plain) -> None:
-    b = None if src.shape[1] == out_h else band(src.shape[1], out_h, src.device)
-    if plain or src.device.type == "cpu":
-        return v_crops_plain(src, out, b, crop_hw, window, tiling, crop0, per_image)
-    from ..kernels.preprocess import lanczos_v_crops
+def overlap_sets(tiling: Tuple[int, int], base_size: int = 378, patch_size: int = 14,
+                 overlap_margin: int = 4) -> Tuple[CropSet, CropSet]:
+    """The crop sets of an overlap-crop call: the global crop (the whole
+    base_size resize) and the tiling's grid."""
+    margin_px = patch_size * overlap_margin
+    window = base_size - 2 * margin_px
+    grid = (tiling[0] * window + 2 * margin_px, tiling[1] * window + 2 * margin_px)
+    return (CropSet((base_size, base_size), (1, 1), window, 0),
+            CropSet(grid, tuple(tiling), window, 1))
 
-    lanczos_v_crops(src, out, b, crop_hw, window, tiling, crop0, per_image)
+
+def set_bands(h: int, w: int, s: CropSet, device) -> Tuple[Optional[Band], Optional[Band]]:
+    """A set's (horizontal, vertical) bands on `device`, None for a pass
+    whose size does not change (Pillow skips it)."""
+    oh, ow = s.size
+    return (None if w == ow else band(w, ow, device), None if h == oh else band(h, oh, device))
+
+
+@lru_cache(maxsize=64)
+def tile_plan(h: int, w: int, sets: Tuple[CropSet, ...]):
+    """The crop kernel's plan (kernels.preprocess.plan_crops) for (h, w)
+    images and `sets`, from the host bands: a call reads nothing from the
+    card for it. Raises past the sizes the bands take."""
+    from ..kernels.preprocess import plan_crops
+
+    return plan_crops([(s.size, *set_bands(h, w, s, "cpu")) for s in sets])
+
+
+def crops_plain(images: torch.Tensor, out: torch.Tensor, sets, crop_hw, per_image: int) -> None:
+    """Plain version of the crop kernel, one call per launch: for each set,
+    the plain horizontal pass of the (B, H, W, 3) images to the set's width
+    (skipped where it does not change), then the vertical pass into the
+    set's crops of crop_hw in out (B * per_image, ch, cw, 3)."""
+    h, w = images.shape[1:3]
+    for s in sets:
+        hb, vb = set_bands(h, w, s, images.device)
+        src = images if hb is None else resize_h_plain(images, hb)
+        v_crops_plain(src, out, vb, crop_hw, s.window, s.tiling, s.crop0, per_image)
+
+
+def _crops(images: torch.Tensor, out: torch.Tensor, sets, crop_hw, per_image: int,
+           plain: bool) -> None:
+    """One crop call: the kernel on a card, the plain version on the CPU or
+    with `plain`."""
+    if plain or images.device.type == "cpu":
+        return crops_plain(images, out, sets, crop_hw, per_image)
+    from ..kernels.preprocess import lanczos_crops
+
+    h, w = images.shape[1:3]
+    lanczos_crops(images, out, sets, [set_bands(h, w, s, images.device) for s in sets],
+                  crop_hw, per_image, tile_plan(h, w, tuple(sets)))
 
 
 def _check_images(images: torch.Tensor) -> None:
@@ -283,10 +332,8 @@ def device_resize(image_u8: torch.Tensor, out_h: int, out_w: int,
     kernel on a card, the plain passes on the CPU or with `plain`)."""
     x = image_u8[None]
     _check_images(x)
-    if x.shape[2] != out_w:
-        x = _resize_h(x, out_w, plain)
     out = torch.empty((1, out_h, out_w, 3), dtype=torch.uint8, device=x.device)
-    _v_crops(x, out, out_h, (out_h, out_w), 0, (1, 1), 0, 1, plain)
+    _crops(x, out, (CropSet((out_h, out_w), (1, 1), 0, 0),), (out_h, out_w), 1, plain)
     return out[0]
 
 
@@ -302,26 +349,18 @@ def device_overlap_crops_batched(
     """(B, H, W, 3) uint8 images of one shape -> (B * (rows * cols + 1),
     base, base, 3) uint8 crops, image-major, each image's global crop first
     and then its tiles row-major: the host path's crops. `out` receives
-    them when given (a contiguous slice of a larger stack). At most four
-    launches for the whole batch: a horizontal pass to the global width and
-    one to the grid's (each skipped where the width does not change), then
-    one vertical pass for the global crop and one for the tiles, each
-    writing straight into the stack (a copy where the height does not
-    change)."""
+    them when given (a contiguous slice of a larger stack). One launch for
+    the whole batch: both crop sets (overlap_sets) of every image, both
+    passes of each (a copy where a size does not change)."""
     _check_images(images_u8)
-    n_rows, n_cols = tiling
-    margin_px = patch_size * overlap_margin
-    window = base_size - 2 * margin_px
-    per_image = n_rows * n_cols + 1
+    per_image = tiling[0] * tiling[1] + 1
     shape = (images_u8.shape[0] * per_image, base_size, base_size, 3)
     if out is None:
         out = torch.empty(shape, dtype=torch.uint8, device=images_u8.device)
     elif tuple(out.shape) != shape or out.dtype != torch.uint8 or not out.is_contiguous():
         raise ValueError(f"out must be contiguous uint8 {shape}, got {tuple(out.shape)}")
-    grid = (n_rows * window + 2 * margin_px, n_cols * window + 2 * margin_px)
-    for (th, tw), tiles, crop0 in (((base_size, base_size), (1, 1), 0), (grid, tiling, 1)):
-        src = images_u8 if images_u8.shape[2] == tw else _resize_h(images_u8, tw, plain)
-        _v_crops(src, out, th, (base_size, base_size), window, tiles, crop0, per_image, plain)
+    _crops(images_u8, out, overlap_sets(tiling, base_size, patch_size, overlap_margin),
+           (base_size, base_size), per_image, plain)
     return out
 
 

@@ -4,7 +4,7 @@ serving-pool chunk, goes on one CUDA card.
     python3 -m moondream_tpu_torch.profile_caption [--tokens 64] [--top 12]
         [--int4 | --int8-text] [--int8-vision dynamic|static] [--kv-int8]
         [--gqa] [--loop spec|reasoning|detect]
-        [--pool plain|shared|spec|mixed] [--pipeline] [--eager]
+        [--pool plain|shared|spec|mixed] [--pipeline] [--eager] [--crops]
 
 Builds MOONDREAM_2B with seeded random weights on the card (with --int4, the
 text blocks quantized to int4; with --int8-text, to the int8 w8a8 format;
@@ -40,6 +40,14 @@ With --pipeline, it profiles instead a BatchPipeline (engine/pipeline.py,
 batch 8, up to --tokens tokens) over 16 seeded images of three sizes
 (two batches), then the same images through encode_images + caption_batch
 per batch of 8, each after a warm-up run of itself.
+
+With --crops, it builds no model and profiles instead 20 calls of the
+device crop kernel (`ops.device_preprocess.device_overlap_crops_batched`)
+on seeded 756x1008 images (13 crops each) at batch 1 and batch 8, and
+prints each device kernel's time per call and per launch beside the
+launches that LAUNCHES counted; then the kernel's device-only µs per call
+(20 calls from a CUDA graph) under the default tile plan and under other
+(TH, TW, chunk rows) for both crop sets, at both batches.
 """
 
 from __future__ import annotations
@@ -78,7 +86,11 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def report(label: str, fn, top: int) -> None:
+def report(label: str, fn, top: int, calls: int = 0) -> list:
+    """Profile one run of `fn` and print its wall time, busy time, idle share
+    and top kernels; with `calls`, also each kernel's µs per call and per
+    launch when `fn` makes that many calls. Returns the device events as
+    (start µs, end µs, name), in order of start."""
     replays = sum(graphs.REPLAYS.values())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -91,18 +103,87 @@ def report(label: str, fn, top: int) -> None:
         if e.device_type != DeviceType.CUDA:
             continue
         s, t = e.time_range.start, e.time_range.end
-        spans.append((s, t))
+        spans.append((s, t, e.name))
         per_kernel[e.name][0] += t - s
         per_kernel[e.name][1] += 1
     if not spans:
         raise RuntimeError("torch.profiler recorded no device events")
-    busy_ms = _busy_us(spans) / 1e3
+    spans.sort()
+    busy_ms = _busy_us([span[:2] for span in spans]) / 1e3
     print(f"== {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, device launches {len(spans)}, "
           f"graph replays {sum(graphs.REPLAYS.values()) - replays}")
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (us, n) in ranked[:top]:
-        print(f"  {us / 1e3:9.2f} ms  n={n:6d}  {name[:100]}")
+        per = f"  {us / calls:8.2f} us per call, {us / n:8.2f} per launch" if calls else ""
+        print(f"  {us / 1e3:9.2f} ms  n={n:6d}{per}  {name[:100]}")
+    return spans
+
+
+def graph_us(fn, reps: int = 20) -> float:
+    """Device-only µs of one call: `reps` calls captured in one CUDA graph,
+    replayed between two events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) * 1e3 / reps
+
+
+# (TH, TW, chunk rows) of the --crops sweep, every set's alike
+CROP_PLANS = ((32, 64, 32), (32, 64, 16), (32, 64, 8), (16, 64, 16), (8, 64, 16), (16, 32, 16),
+              (8, 32, 16))
+
+
+def profile_crops(top: int) -> None:
+    """--crops: 20 calls of the crop kernel at 756x1008, batch 1 and 8, then
+    its device-only time under each plan of CROP_PLANS."""
+    from .kernels import preprocess as kp
+    from .kernels.build import LAUNCHES
+    from .kernels.preprocess import LANCZOS
+    from .ops import device_preprocess as devpre
+
+    rng = np.random.default_rng(0)
+    tiling = devpre.preprocess_tiling(756, 1008, 378, 14, 4, 12)
+    per_image = tiling[0] * tiling[1] + 1
+    for bsz in (1, 8):
+        x = torch.from_numpy(rng.integers(0, 256, (bsz, 756, 1008, 3), dtype=np.uint8)).cuda()
+        out = torch.empty((bsz * per_image, 378, 378, 3), dtype=torch.uint8, device="cuda")
+        call = lambda: devpre.device_overlap_crops_batched(x, tiling, out=out)  # noqa: E731
+        call()  # builds the kernel
+        before = LAUNCHES[LANCZOS]
+        spans = report(f"crops, batch {bsz} x 756x1008 ({per_image} crops each), 20 calls",
+                       lambda: [call() for _ in range(20)], top, calls=20)
+        per_call = (LAUNCHES[LANCZOS] - before) // 20
+        print(f"  {LANCZOS} launches per call: {per_call}")
+        if len(spans) != 20 * per_call:
+            raise RuntimeError(f"{len(spans)} device events for {20 * per_call} launches")
+        for i in range(per_call):  # the i-th launch of each call, in launch order
+            mine = spans[i::per_call]
+            us = sum(e - s for s, e, _ in mine) / len(mine)
+            name = mine[0][2].replace("(anonymous namespace)::", "").split("(")[0]
+            print(f"  launch {i + 1} of {per_call}: {us:.2f} us, {name}")
+        sets = devpre.overlap_sets(tiling)
+        print(f"  default plan {devpre.tile_plan(756, 1008, sets)}: "
+              f"device only {graph_us(call):.2f} us per call")
+        host = [(s.size, *devpre.set_bands(756, 1008, s, "cpu")) for s in sets]
+        bands = [devpre.set_bands(756, 1008, s, x.device) for s in sets]
+        for th, tw, ring in CROP_PLANS:
+            plan = kp.plan_crops(host, tile=(th, tw), ring_rows=ring)
+            us = graph_us(lambda: kp.lanczos_crops(x, out, sets, bands, (378, 378), per_image,
+                                                   plan))
+            print(f"  plan TH {th} TW {tw} chunks of {ring} rows ({plan.smem} bytes): {us:.2f} us")
 
 
 def main() -> None:
@@ -124,6 +205,8 @@ def main() -> None:
                     help="profile a BatchPipeline run against encode_images + caption_batch")
     ap.add_argument("--eager", action="store_true",
                     help="decode steps from Python, without CUDA graphs")
+    ap.add_argument("--crops", action="store_true",
+                    help="profile the device crop kernel alone (no model)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_caption: needs a CUDA card")
@@ -131,6 +214,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip())
+    if args.crops:
+        profile_crops(args.top)
+        return
 
     cfg = MOONDREAM_2B
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(
