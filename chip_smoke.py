@@ -163,6 +163,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      pool (8 requests of 48 tokens) in turns with the unsharded ones, with
      exact launches and collective counts and every replay under the sync
      error mode, and one caption over HTTP from serve_http's mesh=;
+     "4 2B multi-GPU training" (phase_multi_gpu_training): the 2B text
+     at full depth trains a 2 x 768 batch through GPipe (pp 1 x dp 1, M
+     2), the dp 1 x tp 1 step and the dp 1 x sp 1 step over NCCL groups of
+     one, each in turns with the unsharded step from the same saved
+     leaves: first losses within 1e-2, every leaf moved alike (in bf16
+     too, but for GPipe's reassociated microbatch sums), ms per step,
+     peak memory and collectives per step; before them the row-parallel
+     linears' fp32 product and its backward (ops.layers._MmFp32) against
+     autograd of an fp32 mm at the 2B proj and fc2 shapes;
      then the 0.5B (MOONDREAM_05B) caption path over a single-tile image. Phase 2 also holds kernel A at
      the pipeline's fused [BOS, image, prompt] prefill, kernel C at the
      lockstep speculative verify, kernel B's device form at Tq 8 and 16
@@ -188,7 +197,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     python3 chip_smoke.py --serve      # the front-end phases alone
     python3 chip_smoke.py --eval       # the eval and recipe phase alone
     python3 chip_smoke.py --preprocess # the device-preprocessing phase alone
-    python3 chip_smoke.py --multi-gpu  # the multi-GPU serving phase alone
+    python3 chip_smoke.py --multi-gpu  # the multi-GPU serving and training phases alone
 
 Prints the card's name and power limit first, then which of PIL,
 tokenizers and transformers the machine has, the seconds of each phase,
@@ -5742,8 +5751,8 @@ def phase_multi_gpu(model, img: np.ndarray, images: list, power: str,
         check_launches("sharded lockstep engine (prefill + 64 graphed steps)", launches, want)
         # two row-parallel sums per layer per forward, one vocabulary gather
         # per forward, and the dp gathers of prefill (2) and generate (1)
-        want_c = {"all_reduce": 2 * L * (1 + MULTI_TOKENS),
-                  "all_gather": (1 + MULTI_TOKENS) + 3}
+        want_c = {name: 0 for name in comm.COLLECTIVES}
+        want_c.update(all_reduce=2 * L * (1 + MULTI_TOKENS), all_gather=(1 + MULTI_TOKENS) + 3)
         print("sharded lockstep engine collectives:", colls, "expected:", want_c)
         if colls != want_c:
             raise AssertionError(f"collective counts {colls} != {want_c}")
@@ -5822,6 +5831,236 @@ def phase_multi_gpu(model, img: np.ndarray, images: list, power: str,
     finally:
         graphs.StepGraph.replay = replay
         gc.collect()  # the engines' graphs go before their communicators
+        dist.destroy_process_group()
+    return runs
+
+
+TRAIN_BATCH = (2, 768)  # the multi-GPU training phase's rows and positions
+TRAIN_WARM, TRAIN_TIMED = 2, 5  # bf16 steps per run: warm, then timed
+TRAIN_LR = 1e-3
+TRAIN_LOSS_TOL = 1e-2  # a sharded path's first loss against the unsharded one's
+TRAIN_PATHS = {"unsharded": "unsharded", "pp": "pp 1 x dp 1, M 2", "tp": "dp 1 x tp 1",
+               "sp": "dp 1 x sp 1"}
+
+
+def _moved_alike(got, want, start) -> tuple:
+    """assert_moved_alike's rule (tests/test_torch_finetune.py) for one leaf,
+    in fp32: the movement within 1e-3 of the reference's in L2 and no
+    element off by more than 1e-1 of its largest movement. Returns (ok, L2
+    ratio, max ratio, elements that moved otherwise)."""
+    d_got, d_want = got.float() - start.float(), want.float() - start.float()
+    diff = d_got - d_want
+    nd, nw = float(diff.norm()), float(d_want.norm())
+    md, mw = float(diff.abs().max()), float(d_want.abs().max())
+    return (nd <= 1e-3 * nw and md <= 1e-1 * mw, nd / nw if nw else nd, md / mw if mw else md,
+            int((diff != 0).sum()))
+
+
+MM_FP32_TOL = 1e-2  # _MmFp32's bf16 product and gradients, of the fp32 reference's max |x|
+
+
+def check_mm_fp32(tc, rows: int) -> None:
+    """The row-parallel linears' product (`ops.layers._mm_fp32` on bf16
+    operands on the card: `_MmFp32`, fp32 out, bf16 gradients) at the 2B's
+    proj and fc2 shapes over `rows` rows, against autograd of
+    torch.mm(x.float(), w.float()) under the same fp32 upstream gradient:
+    the product and both gradients within MM_FP32_TOL of the reference's
+    largest magnitude, the gradients in the operands' dtype, and under
+    no_grad the product bit for bit torch.mm(x, w, out_dtype=fp32)."""
+    from moondream_tpu_torch.ops.layers import _mm_fp32
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    for label, k in (("proj", tc.dim), ("fc2", tc.ff_dim)):
+        x = torch.randn(rows, k, generator=gen, device=DEV).to(BF16)
+        w = (torch.randn(k, tc.dim, generator=gen, device=DEV) / math.sqrt(k)).to(BF16)
+        up = torch.randn(rows, tc.dim, generator=gen, device=DEV)
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = _mm_fp32(xg, wg)
+        y.backward(up)
+        xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
+        yr = torch.mm(xr, wr)
+        yr.backward(up)
+        errs = {n: float((a.float() - b).abs().max() / b.abs().max())
+                for n, a, b in (("y", y.detach(), yr.detach()), ("dx", xg.grad, xr.grad),
+                                ("dw", wg.grad, wr.grad))}
+        with torch.no_grad():
+            same = torch.equal(_mm_fp32(x, w), torch.mm(x, w, out_dtype=torch.float32))
+        print(f"multi-GPU training, _MmFp32 at {label} ({rows} x {k} @ {k} x {tc.dim}) vs fp32 "
+              f"autograd: max err / max |ref| "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f"; no_grad product == mm(out_dtype=fp32): {same}")
+        if (y.dtype != torch.float32 or xg.grad.dtype != BF16 or wg.grad.dtype != BF16
+                or max(errs.values()) > MM_FP32_TOL or not same):
+            raise AssertionError(f"_MmFp32 at {label}: {errs}, dtypes {y.dtype} "
+                                 f"{xg.grad.dtype} {wg.grad.dtype}, no_grad equal {same}")
+
+
+def phase_multi_gpu_training(power: str) -> list:
+    """Multi-GPU training (parallel.pipeline's GPipe, parallel.grad's
+    collectives and gradient sums, parallel.mesh.shard_batch and the
+    dp x tp / dp x sp step of finetune.trainer.make_train_step) at
+    MOONDREAM_2B's published widths and full depth (24 text layers) on
+    seeded random bf16 weights, on the card's world of one: an NCCL
+    process group of one rank (the phase raises unless nccl on cuda). A
+    seeded batch of TRAIN_BATCH rows x positions (random inputs_embeds,
+    labels and label_mask > 0.3) trains through three sharded paths at
+    their degenerate world-1 meshes, each in turns with the unsharded
+    make_train_step: GPipe at pp 1 x dp 1 over M 2 microbatches (the
+    schedule and the fp32 sums over microbatches), the dp 1 x tp 1 step on
+    shard_text_model (copy_to, reduce_from and gather_cols over NCCL groups
+    of one) and the dp 1 x sp 1 step on shard_batch(..., seq_axis="sp")
+    (the labels shifted before the cut, the K/V gather and its
+    reduce-scatter). Every run restarts from the same saved leaves (the
+    steps update the weights in place) with a fresh optimizer
+    (make_optimizer, lr TRAIN_LR).
+
+    Gates, each path against the unsharded run before it: (0)
+    check_mm_fp32, the row-parallel linears' bf16 product and backward,
+    which only the tp path runs; (1) one step on the same weights widened
+    to fp32: the loss within TRAIN_LOSS_TOL relative and every leaf moved
+    alike (assert_moved_alike's rule); (2) bf16, two rounds of TRAIN_WARM
+    + TRAIN_TIMED steps per path in turns: the first loss within
+    TRAIN_LOSS_TOL, every loss finite, and for tp and sp every leaf of the
+    first step moved alike. GPipe's first step is only printed: the rule
+    cannot hold in bf16 for a path that reassociates a sum (M 2's
+    microbatches), since a bf16 weight moves by whole ulps, so a last-bit
+    change of its update moves it by one ulp more or less, as much as the
+    largest movement of a leaf whose weights are large. No kernel is
+    launched anywhere (training runs none). Prints each bf16 run's
+    ms per step (median of the timed steps), max_memory_allocated and
+    collectives per step, and the bf16 first step's movement against the
+    unsharded one's. More than one rank is not run here (the card's
+    machine has one GPU): NCCL point-to-point sends and the multi-rank
+    sums are held on the CPU over gloo ranks (tests/test_torch_pipeline_
+    parallel.py, tests/test_torch_parallel_training.py). Returns the
+    launch counts."""
+    import torch.distributed as dist
+
+    from moondream_tpu_torch.parallel import comm
+    from moondream_tpu_torch.parallel.mesh import create_mesh, shard_batch, shard_text_model
+    from moondream_tpu_torch.parallel.pipeline import make_pp_train_step, shard_params_pp
+
+    tc = MOONDREAM_2B.text
+    params = init_params(MOONDREAM_2B, torch.Generator(device=DEV).manual_seed(SEED), DEV, BF16)
+    text = params["text"]
+    del params
+    b, t = TRAIN_BATCH
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    embeds = torch.randn(b, t, tc.dim, generator=gen, device=DEV).to(BF16)
+    labels = torch.randint(0, tc.vocab_size, (b, t), generator=gen, device=DEV)
+    mask = (torch.rand(b, t, generator=gen, device=DEV) > 0.3).float()
+    meshes = {"pp": create_mesh({"pp": 1, "dp": 1}, device="cuda")}
+    _check_nccl()
+    meshes["tp"] = create_mesh({"dp": 1, "tp": 1}, device="cuda")
+    meshes["sp"] = create_mesh({"dp": 1, "sp": 1}, device="cuda")
+
+    def build(path, opt, batch):
+        if path == "unsharded":
+            return text, finetune_trainer.make_train_step(opt), batch
+        m = meshes[path]
+        if path == "pp":
+            return shard_params_pp(text, m), make_pp_train_step(opt, tc, m, 2), batch
+        if path == "tp":
+            return (shard_text_model(text, m), finetune_trainer.make_train_step(opt),
+                    shard_batch(batch, m))
+        return text, finetune_trainer.make_train_step(opt), shard_batch(batch, m, seq_axis="sp")
+
+    def run(path, saved, batch, steps):
+        """`steps` steps of a path from the saved leaves: (losses, ms per
+        step, the leaves after the first step, launches, collectives,
+        peak bytes)."""
+        with torch.no_grad():
+            for (_, x), s0 in zip(named_leaves(text), saved):
+                x.copy_(s0)
+        opt = finetune_trainer.make_optimizer(lr=TRAIN_LR)
+        trained, step, data = build(path, opt, batch)
+        state = finetune_trainer.init_train_state(trained, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        comm.reset_collective_counts()
+        ms, losses, first = [], [], None
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, loss = step(state, data)
+            ms.append(sync_ms(t0))
+            losses.append(loss.item())
+            if i == 0:  # the leaves after the first step (live when it is the last)
+                first = [x.detach() if steps == 1 else x.detach().clone()
+                         for _, x in named_leaves(text)]
+        torch.cuda.synchronize()
+        if any(LAUNCHES.values()) or state.step != steps:
+            raise AssertionError(f"{TRAIN_PATHS[path]}: kernels launched {_nonzero(LAUNCHES)}, "
+                                 f"step {state.step}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{TRAIN_PATHS[path]}: losses {losses}")
+        return (losses, ms, first, dict(LAUNCHES), dict(comm.COLLECTIVES),
+                torch.cuda.max_memory_allocated())
+
+    def compare(label, got, ref, saved, gate):
+        """A path's first step (its losses and leaves after it) against the
+        unsharded one's, from the saved leaves."""
+        rel = abs(got[0][0] - ref[0][0]) / abs(ref[0][0])
+        checks = [(name, *_moved_alike(x, r, s0)) for (name, _), x, r, s0
+                  in zip(named_leaves(text), got[1], ref[1], saved)]
+        bad = [c for c in checks if not c[1]]
+        print(f"multi-GPU training, {label} vs unsharded: first loss {got[0][0]:.6f} vs "
+              f"{ref[0][0]:.6f} (rel {rel:.2e}); leaves moved alike {len(checks) - len(bad)} "
+              f"of {len(checks)}, worst L2 ratio {max(c[2] for c in checks):.2e}, worst max "
+              f"ratio {max(c[3] for c in checks):.2e}, elements moved otherwise "
+              f"{sum(c[4] for c in checks)}")
+        if rel > TRAIN_LOSS_TOL:
+            raise AssertionError(f"{label}: loss {got[0][0]} vs unsharded {ref[0][0]}")
+        if gate and bad:
+            raise AssertionError(f"{label}: leaves not moved alike: "
+                                 f"{[(c[0], c[2], c[3]) for c in bad[:8]]}")
+
+    runs, rows = [], []
+    try:
+        check_mm_fp32(tc, b * t)
+        # (1) the gated step on fp32 copies of the seeded bf16 weights
+        for p in text.parameters():
+            p.data = p.data.float()
+        batch = {"inputs_embeds": embeds.float(), "labels": labels, "label_mask": mask}
+        saved = [x.detach().clone() for _, x in named_leaves(text)]
+        ref = None
+        for path in TRAIN_PATHS:
+            got = run(path, saved, batch, 1)
+            runs.append(got[3])
+            if path == "unsharded":
+                ref = (got[0], [x.clone() for x in got[2]])
+            else:
+                compare(f"fp32 {TRAIN_PATHS[path]}", (got[0], got[2]), ref, saved, gate=True)
+            del got
+        del saved, ref
+        for p in text.parameters():
+            p.data = p.data.to(BF16)
+        gc.collect()
+        # (2) bf16 in turns, two rounds
+        batch = {"inputs_embeds": embeds, "labels": labels, "label_mask": mask}
+        saved = [x.detach().clone() for _, x in named_leaves(text)]
+        steps = TRAIN_WARM + TRAIN_TIMED
+        for rnd in range(2):
+            ref = None
+            for path in TRAIN_PATHS:
+                got = run(path, saved, batch, steps)
+                runs.append(got[3])
+                if path == "unsharded":
+                    ref = (got[0], got[2])
+                else:
+                    compare(f"bf16 round {rnd + 1} {TRAIN_PATHS[path]}", (got[0], got[2]), ref,
+                            saved, gate=path != "pp")
+                rows.append((TRAIN_PATHS[path], statistics.median(got[1][TRAIN_WARM:]), got[5],
+                             {k: v // steps for k, v in got[4].items() if v}))
+                del got
+            del ref
+        print(f"2B multi-GPU training (bf16, {b} x {t} positions, {tc.n_layers} layers, world "
+              f"1, nccl) on {power}: ms per step (median of {TRAIN_TIMED} after {TRAIN_WARM} "
+              f"warm), max_memory_allocated bytes and collectives per step, in turns: "
+              + "; ".join(f"{label} {med:.1f} ms {peak} B {colls}"
+                          for label, med, peak, colls in rows))
+    finally:
+        gc.collect()
         dist.destroy_process_group()
     return runs
 
@@ -5913,6 +6152,7 @@ def main() -> None:
     phase("4 native BPE", phase_native_bpe, power)
     runs += phase("4 2B evals", phase_eval, model, power)
     runs += phase("4 2B multi-GPU", phase_multi_gpu, model, img, images, power, gen)
+    runs += phase("4 2B multi-GPU training", phase_multi_gpu_training, power)
     del model, enc
     launches, model = phase("4 2B int4", phase_main_path, img, power, kv8(shallow), int4=True)
     phase("4 2B int4 graphs", phase_graphs, model, model.encode_image(img), images,
@@ -6162,9 +6402,10 @@ def main_eval() -> None:
 
 
 def main_multi_gpu() -> None:
-    """The multi-GPU phase alone (`python3 chip_smoke.py --multi-gpu`): the
-    build, then "4 2B multi-GPU" on a fresh 2B bf16 model. Prints the card
-    and the phases' seconds; no kernels line."""
+    """The multi-GPU phases alone (`python3 chip_smoke.py --multi-gpu`): the
+    build, then "4 2B multi-GPU" on a fresh 2B bf16 model and "4 2B
+    multi-GPU training". Prints the card and the phases' seconds; no
+    kernels line."""
     power = card()
     print(power)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6182,6 +6423,10 @@ def main_multi_gpu() -> None:
     phase_multi_gpu(model, img, images, power, torch.Generator(device=DEV).manual_seed(SEED))
     torch.cuda.synchronize()
     seconds["4 2B multi-GPU"] = round(time.perf_counter() - t0, 1)
+    del model
+    t0 = time.perf_counter()
+    phase_multi_gpu_training(power)
+    seconds["4 2B multi-GPU training"] = round(time.perf_counter() - t0, 1)
     print("seconds per phase:", seconds)
 
 

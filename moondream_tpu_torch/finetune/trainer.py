@@ -15,18 +15,24 @@ trained tree in place, so the model's other paths (and the CUDA graphs
 that baked in its weights' addresses) read the trained weights.
 Checkpoints hold the trained tree and the step; resuming re-initialises
 the optimizer state, as the JAX package's orbax path does.
+
+The same step trains on a dp x tp or dp x sp mesh (`parallel.mesh`: a
+rank's `shard_text_model`, `shard_batch`), and `parallel.pipeline` trains
+over pp x dp; sharded states save and load the unsharded checkpoint.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.region import RegionModel, decode_coordinate
 from ..models.text import TextModel, lm_head_full, produce_hidden
+from ..parallel.mesh import gather_leaves, load_leaves, placement, train_plan
 from .optim import AdamW, AdamWState, named_leaves, trainable
 
 
@@ -46,20 +52,36 @@ def lr_schedule(base_lr: float):
 
 def text_loss(
     text: TextModel, inputs_embeds: torch.Tensor, labels: torch.Tensor,
-    label_mask: torch.Tensor, lora: Optional[dict] = None,
+    label_mask: torch.Tensor, lora: Optional[dict] = None, seq=None,
+    row_groups: Sequence = (),
 ) -> torch.Tensor:
     """Shifted cross-entropy over the answer span. inputs_embeds (B, T, D);
     labels (B, T) int, labels[t] the target emitted at position t;
     label_mask (B, T) fp32, 1 where labels count. The logits are the
     weights' dtype, cast to fp32 after the lm head. `lora`: a stacked
-    adapter applied in the forward (finetune/lora.py)."""
-    hidden = produce_hidden(inputs_embeds, text, lora=lora)
-    logits = lm_head_full(hidden, text).float()[:, :-1]
-    tgt = labels[:, 1:].long()
-    mask = label_mask[:, 1:]
+    adapter applied in the forward (finetune/lora.py).
+
+    On a mesh (`make_train_step` passes these): `row_groups`, the groups
+    over which the batch's rows and positions are split; the loss is then
+    this rank's nll sum over the mask sum of the whole batch (all-reduced,
+    without a gradient), and the ranks' parts add up to the global masked
+    mean. `seq`: the batch is one sequence-parallel rank's block of
+    positions (`parallel.mesh.shard_batch(..., seq_axis=)`), whose labels
+    and mask were shifted over the whole sequence before the cut, so
+    position t's own label is its target."""
+    hidden = produce_hidden(inputs_embeds, text, lora=lora, seq=seq)
+    logits = lm_head_full(hidden, text).float()
+    if seq is None:
+        logits, labels, label_mask = logits[:, :-1], labels[:, 1:], label_mask[:, 1:]
+    tgt = labels.long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1)
+    denom = torch.sum(label_mask)
+    if row_groups:
+        from ..parallel.grad import sum_over
+
+        denom = sum_over(denom, row_groups)
+    return torch.sum(nll * label_mask) / torch.clamp_min(denom, 1)
 
 
 def region_coord_loss(coord_logits: torch.Tensor, coord_labels: torch.Tensor) -> torch.Tensor:
@@ -130,35 +152,61 @@ def init_train_state(params: Union[nn.Module, dict], optimizer: AdamW) -> TrainS
 
 
 def step_with(
-    optimizer: AdamW, state: TrainState, loss_fn: Callable[[], torch.Tensor]
+    optimizer: AdamW, state: TrainState, loss_fn: Callable[[], torch.Tensor],
+    reduce: Optional[Callable] = None,
 ) -> Tuple[TrainState, torch.Tensor]:
     """One training step: loss_fn() with gradients on the trained tree only
     (a module, or a stacked adapter's dict), its backward, and one
     optimizer call in place. Returns the next state and the detached
-    loss."""
+    loss. `reduce(leaves, loss)`: on a mesh, sums the gradients over the
+    ranks (setting each leaf's `.grad`) and returns the whole batch's
+    loss, between the backward and the update."""
     leaves = named_leaves(state.params)
     with trainable(leaves):
         loss = loss_fn()
         loss.backward()
+    loss = loss.detach()
+    if reduce is not None:
+        loss = reduce(leaves, loss)
     optimizer.update(state.opt_state, leaves)
-    return state._replace(step=state.step + 1), loss.detach()
+    return state._replace(step=state.step + 1), loss
 
 
 def make_train_step(optimizer: AdamW):
     """The text training step: train_step(state, batch) -> (state, loss),
     batch {"inputs_embeds", "labels", "label_mask"} (finetune_text.
-    build_example), state.params the TextModel."""
+    build_example), state.params the TextModel. It runs unchanged on one
+    GPU and on a dp x tp or dp x sp mesh, as the JAX package's does under
+    GSPMD: state.params may be a rank's `parallel.mesh.shard_text_model`
+    and the batch this rank's block from `parallel.mesh.shard_batch`
+    (`parallel.mesh.train_plan` reads both); the gradients are then summed
+    over the ranks (`parallel.grad.sum_gradients`) before each rank's
+    optimizer updates its own shard, and the loss returned is the whole
+    batch's."""
 
     def train_step(state: TrainState, batch: dict) -> Tuple[TrainState, torch.Tensor]:
+        plan = train_plan(state.params, batch)
+        seq, rows, reduce = (None, (), None) if plan is None else (plan.seq, plan.rows, plan.reduce)
         return step_with(optimizer, state, lambda: text_loss(
-            state.params, batch["inputs_embeds"], batch["labels"], batch["label_mask"]))
+            state.params, batch["inputs_embeds"], batch["labels"], batch["label_mask"],
+            seq=seq, row_groups=rows), reduce=reduce)
 
     return train_step
 
 
 def save_checkpoint(path: str, state: TrainState) -> None:
     """The trained tree's leaves (named_leaves) and the step, torch.save'd
-    from host copies."""
+    from host copies. From a sharded state (every rank calls it), the
+    stages' and tp ranks' leaves are gathered to rank 0, which writes the
+    file the unsharded state would (`parallel.mesh.gather_leaves`), as the
+    JAX package's orbax checkpoint holds the global arrays; the ranks leave
+    when it is written."""
+    if placement(state.params) is not None:
+        leaves = gather_leaves(state.params)
+        if leaves is not None:
+            torch.save({"params": leaves, "step": state.step}, path)
+        dist.barrier()
+        return
     torch.save({
         "params": {name: t.detach().cpu() for name, t in named_leaves(state.params)},
         "step": state.step,
@@ -167,12 +215,18 @@ def save_checkpoint(path: str, state: TrainState) -> None:
 
 def load_checkpoint(path: str, template_state: TrainState, optimizer: AdamW) -> TrainState:
     """Copy a checkpoint's leaves into template_state.params in place and
-    start a fresh optimizer state at the saved step."""
+    start a fresh optimizer state at the saved step. A sharded template
+    (each rank's shard or stage) takes its cut of the whole model's leaves
+    (`parallel.mesh.load_leaves`), so a checkpoint written on a mesh loads
+    on one GPU and the other way round."""
     saved = torch.load(path, map_location="cpu", weights_only=True)
     leaves = named_leaves(template_state.params)
-    with torch.no_grad():
-        for name, t in leaves:
-            t.copy_(saved["params"][name])
+    if placement(template_state.params) is not None:
+        load_leaves(template_state.params, saved["params"])
+    else:
+        with torch.no_grad():
+            for name, t in leaves:
+                t.copy_(saved["params"][name])
     return TrainState(
         params=template_state.params, opt_state=optimizer.init(leaves), step=saved["step"]
     )

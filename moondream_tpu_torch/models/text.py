@@ -466,17 +466,28 @@ def _require_dense(model: TextModel, op: str) -> None:
 def attn_uncached(
     x: torch.Tensor, block: TextBlock, freqs_cis: torch.Tensor,
     attn_mask: torch.Tensor, config: TextConfig, lora: Optional[dict] = None,
+    seq=None,
 ) -> torch.Tensor:
     """Cache-free attention of the training path at positions 0..T-1
     (moondream_tpu/models/text.py:420-450), through the plain `sdpa`; under
     GQA each KV head is repeated for its query heads. Differentiable.
-    `lora`: this layer's qkv and proj adapter pairs, or None."""
+    `lora`: this layer's qkv and proj adapter pairs, or None. `seq`: x holds
+    one sequence-parallel rank's block of positions (`parallel.mesh.
+    BatchShard`): RoPE at the block's global positions, and K and V
+    gathered over the sequence group (`parallel.grad.gather_seq`) before
+    the GQA repeat; `attn_mask` is then the block's rows of the whole
+    sequence's mask."""
     bsz, q_len, _ = x.shape
     lora = lora or {}
     q, k, v = _split_qkv(lora_linear(x, block.qkv, lora.get("qkv")), config)
-    position_ids = torch.arange(q_len, device=x.device)
+    start = 0 if seq is None else seq.seq_offset
+    position_ids = torch.arange(start, start + q_len, device=x.device)
     q = apply_rotary_emb(q, freqs_cis, position_ids, config.rope_dim)
     k = apply_rotary_emb(k, freqs_cis, position_ids, config.rope_dim)
+    if seq is not None:
+        from ..parallel.grad import gather_seq
+
+        k, v = gather_seq(k, seq.seq_group, 2), gather_seq(v, seq.seq_group, 2)
     if config.n_kv_heads != config.n_heads:
         rep = config.n_heads // config.n_kv_heads
         k = k.repeat_interleave(rep, dim=1)
@@ -486,30 +497,50 @@ def attn_uncached(
     return lora_add(out, x, lora.get("proj"))
 
 
+def _tp_group(model: TextModel):
+    """The tp group of a rank's `parallel.mesh.shard_text_model`, else None."""
+    return getattr(getattr(model, "shard", None), "tp_group", None)
+
+
 def _uncached_blocks(inputs_embeds: torch.Tensor, model: TextModel,
-                     lora: Optional[dict] = None):
-    """The residual stream after each block of the cache-free forward."""
+                     lora: Optional[dict] = None, seq=None):
+    """The residual stream after each block of the cache-free forward. On a
+    tensor-parallel shard the LayerNorm output that qkv and fc1 read passes
+    `parallel.grad.copy_to` (its gradient summed over tp)."""
     config = model.config
-    mask = prefix_attn_mask(inputs_embeds.shape[1], config.prefix_attn, inputs_embeds.device)
+    t = inputs_embeds.shape[1]
+    if seq is None:
+        mask = prefix_attn_mask(t, config.prefix_attn, inputs_embeds.device)
+    else:
+        mask = prefix_attn_mask(seq.seq_len, config.prefix_attn, inputs_embeds.device)
+        mask = mask[:, :, seq.seq_offset:seq.seq_offset + t]
     adapters = layer_adapters(lora, len(model.blocks))
+    tp = _tp_group(model)
+    if tp is not None:
+        from ..parallel.grad import copy_to
     h = inputs_embeds
     for block, ad in zip(model.blocks, adapters):
         ln_in = block.ln(h)
-        h = (h + attn_uncached(ln_in, block, model.freqs_cis, mask, config, ad)
+        if tp is not None:
+            ln_in = copy_to(ln_in, tp)
+        h = (h + attn_uncached(ln_in, block, model.freqs_cis, mask, config, ad, seq)
              + block.mlp(ln_in, ad))
         yield h
 
 
 def produce_hidden(inputs_embeds: torch.Tensor, model: TextModel,
-                   lora: Optional[dict] = None) -> torch.Tensor:
+                   lora: Optional[dict] = None, seq=None) -> torch.Tensor:
     """Full-sequence cache-free forward for training, (B, T, D) -> (B, T, D)
     (moondream_tpu/models/text.py:539-564): every block under
     prefix_attn_mask(T, config.prefix_attn), with an optional stacked
     adapter tree at qkv, proj, fc1 and fc2. Differentiable by autograd;
-    raises ValueError for int4 or int8 text blocks."""
+    raises ValueError for int4 or int8 text blocks. `seq`: inputs_embeds is
+    one sequence-parallel rank's block of positions (`attn_uncached`). A
+    pipeline stage's model (`parallel.pipeline.shard_params_pp`) runs its
+    own slab of blocks."""
     _require_dense(model, "produce_hidden")
     h = inputs_embeds
-    for h in _uncached_blocks(inputs_embeds, model, lora):
+    for h in _uncached_blocks(inputs_embeds, model, lora, seq):
         pass
     return h
 
@@ -524,5 +555,13 @@ def produce_hidden_layers(inputs_embeds: torch.Tensor, model: TextModel) -> torc
 
 def lm_head_full(hidden: torch.Tensor, model: TextModel) -> torch.Tensor:
     """Full-sequence logits for training, in the weights' dtype
-    (moondream_tpu/models/text.py:601-603)."""
-    return model.lm_head(model.post_ln(hidden))
+    (moondream_tpu/models/text.py:601-603). On a tensor-parallel shard the
+    head's input passes `parallel.grad.copy_to` and the ranks' vocabulary
+    slices are gathered by `parallel.grad.gather_cols`, so every rank holds
+    the whole row."""
+    tp = _tp_group(model)
+    if tp is None:
+        return model.lm_head(model.post_ln(hidden))
+    from ..parallel.grad import copy_to, gather_cols
+
+    return gather_cols(model.lm_head(copy_to(model.post_ln(hidden), tp)), tp)

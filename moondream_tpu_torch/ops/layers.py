@@ -55,13 +55,33 @@ class Linear(nn.Module):
         return linear(x, self.w, self.b)
 
 
+class _MmFp32(torch.autograd.Function):
+    """torch.mm(x, w, out_dtype=fp32), which autograd cannot differentiate,
+    with the backward of the unsharded linear: the fp32 gradient rounded to
+    the operands' dtype, then the two products in that dtype (fp32
+    accumulation), as addmm's backward computes them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def _mm_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w accumulated and returned in fp32, from bf16 operands on the
-    card without widening them."""
+    card without widening them; differentiable."""
     if x.dtype == torch.float32:
         return torch.mm(x, w)
     if x.is_cuda:
-        return torch.mm(x, w, out_dtype=torch.float32)
+        return _MmFp32.apply(x, w)
     return torch.mm(x.float(), w.float())
 
 
@@ -72,7 +92,10 @@ class RowParallelLinear(nn.Module):
     bias. The rank's partial product is fp32; the partials are summed in
     fp32 over the tp group (`parallel.comm.all_reduce_fp32`); the bias is
     added once, after the sum, and the result rounded to x's dtype once,
-    as the unsharded `linear` rounds its product and bias once."""
+    as the unsharded `linear` rounds its product and bias once. Where the
+    partial carries a gradient (training), the sum is `parallel.grad.
+    reduce_from`, whose backward passes the gradient through; elsewhere it
+    is summed in place, the call the serving paths' CUDA graphs capture."""
 
     def __init__(self, w: torch.Tensor, b: torch.Tensor, group):
         super().__init__()
@@ -82,6 +105,10 @@ class RowParallelLinear(nn.Module):
 
     def reduce(self, partial: torch.Tensor) -> torch.Tensor:
         """The fp32 sum of a partial product over the tp group."""
+        if partial.requires_grad:
+            from ..parallel.grad import reduce_from
+
+            return reduce_from(partial, self.group)
         from ..parallel.comm import all_reduce_fp32
 
         return all_reduce_fp32(partial, self.group)
@@ -97,7 +124,8 @@ class VocabParallelLinear(Linear):
     V/tp) and `b` (V/tp,) its columns. `gather` concatenates the ranks'
     (..., V/tp) logits into the whole (..., V) row on every rank, in rank
     order (`engine.generate._lm_logits` calls it before the bf16 rounding
-    and the argmax or draw)."""
+    and the argmax or draw; the training loss reaches it through
+    `models.text.lm_head_full`, differentiably)."""
 
     def __init__(self, w: torch.Tensor, b: torch.Tensor, group):
         nn.Module.__init__(self)

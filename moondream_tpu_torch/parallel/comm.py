@@ -16,6 +16,9 @@ collectives; PyTorch runs one process per GPU. So:
     engines' collectives: the fp32 sum of the row-parallel linears' partial
     products over tp, and the gathers of the vocabulary shards (over tp),
     of the dp groups' rows and of the crop-parallel ViT's shares.
+    `reduce_scatter_fp32`, `send_to` and `recv_from` are training's too
+    (`grad`, `pipeline`): the transpose of a sequence gather, and the
+    activations and their gradients between pipeline stages.
     `COLLECTIVES` counts their calls (a CUDA graph's replays count them
     again, as `build.LAUNCHES` counts kernels).
   * The control plane keeps JAX's single-controller API: user code runs on
@@ -46,7 +49,8 @@ BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 GROUP_TIMEOUT = datetime.timedelta(seconds=600)
 
 # Collective calls since reset_collective_counts(), by name.
-COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+                               "send": 0, "recv": 0}
 
 
 def reset_collective_counts() -> None:
@@ -145,6 +149,45 @@ def gather_cols(x: torch.Tensor, group) -> torch.Tensor:
     lead, w = x.shape[:-1], x.shape[-1]
     rows = gather_rows(x.reshape(1, -1), group)  # (n, prod(lead) * w)
     return rows.reshape(n, -1, w).permute(1, 0, 2).reshape(*lead, n * w)
+
+
+def reduce_scatter_fp32(x: torch.Tensor, group) -> torch.Tensor:
+    """The fp32 sum of `x` over `group`, of which this rank keeps its block
+    along dim 0 (dim 0 splits evenly over the group, in rank order). NCCL
+    reduce-scatters; gloo has no reduce-scatter, so there the whole sum is
+    all-reduced and the rank's block cut from it (the same values)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"reduce_scatter_fp32 sums fp32 tensors, got {x.dtype}")
+    if group is None:
+        return x
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over {n} ranks")
+    x = x.contiguous()
+    COLLECTIVES["reduce_scatter"] += 1
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    return x.chunk(n)[r].contiguous()
+
+
+def send_to(x: torch.Tensor, group, peer: int) -> None:
+    """Send `x` to rank `peer` of `group` (its rank within the group; the
+    global rank is looked up with dist.get_global_rank). Blocks until the
+    peer's matching recv_from has taken it or the group's timeout passes."""
+    COLLECTIVES["send"] += 1
+    dist.send(x.contiguous(), dst=dist.get_global_rank(group, peer))
+
+
+def recv_from(shape, dtype: torch.dtype, device, group, peer: int) -> torch.Tensor:
+    """A tensor of `shape` and `dtype` sent by rank `peer` of `group`."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    COLLECTIVES["recv"] += 1
+    dist.recv(out, src=dist.get_global_rank(group, peer))
+    return out
 
 
 def warm_up(group, device: torch.device) -> None:

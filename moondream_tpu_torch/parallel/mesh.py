@@ -6,18 +6,25 @@ partition the computation; here every rank (one process per GPU,
 `parallel.comm`) holds its own shard, cut out of the full model, and the
 sharded modules call their collectives themselves. The axes:
 
-  dp: data parallel (the rows of a lockstep batch, the slots of a pool)
+  dp: data parallel (the rows of a lockstep batch, the slots of a pool,
+      the rows of a training batch)
   tp: tensor parallel (Megatron splits: qkv and fc1 column-parallel, proj
       and fc2 row-parallel, the LM head split on the vocabulary)
+  sp: sequence parallel (a training batch's positions; any axis name
+      given to `shard_batch` as seq_axis)
 
 `create_mesh` builds a `torch.distributed.device_mesh.DeviceMesh` over
 the ranks of the process group; `shard_text_model` cuts one rank's text
-model out of the full one. Training's batch placement (`batch_shardings`,
-`shard_batch`) is not ported yet.
+model out of the full one; `shard_batch` cuts one rank's block of a
+training batch, which `finetune.trainer.make_train_step` trains on
+(`train_plan`); `shard_params` cuts one rank's share of every tensor of
+the whole model by `param_shardings` (placement only: no port forward
+reads a tp-cut ViT). The pipeline axis is `parallel.pipeline`'s.
 
-Deviation: the JAX package splits `wte` on its model axis; every rank here
+Deviations: the JAX package splits `wte` on its model axis; every rank here
 keeps the whole table, since each looks up whole rows (a lookup needs no
-collective then).
+collective then). The text qkv is cut by heads (`qkv_columns`), where the
+JAX package places contiguous columns and lets GSPMD move them.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -123,6 +130,45 @@ def text_param_shardings() -> Dict[str, tuple]:
     }
 
 
+def vision_param_shardings() -> Dict[str, tuple]:
+    """The ViT's Megatron split (moondream_tpu/parallel/mesh.py:105-130),
+    per parameter of the port's vision model, as `text_param_shardings`:
+    qkv and fc1 column-parallel, proj and fc2 row-parallel, and the
+    projection MLP (one MLP, not stacked) split the same way; the patch
+    embedding, positions and norms whole. Placement only (`shard_params`):
+    no port forward reads a tp-cut ViT (serving splits crops over the ranks,
+    `parallel.serving.shard_vision_encoder`), so qkv's columns are the
+    contiguous share that the JAX package places."""
+    return {
+        "blocks.*.qkv.w": (None, "tp"),
+        "blocks.*.qkv.b": ("tp",),
+        "blocks.*.proj.w": ("tp", None),
+        "blocks.*.mlp.fc1.w": (None, "tp"),
+        "blocks.*.mlp.fc1.b": ("tp",),
+        "blocks.*.mlp.fc2.w": ("tp", None),
+        "proj_mlp.fc1.w": (None, "tp"),
+        "proj_mlp.fc1.b": ("tp",),
+        "proj_mlp.fc2.w": ("tp", None),
+    }
+
+
+def region_param_shardings() -> Dict[str, tuple]:
+    """The region heads: every tensor whole
+    (moondream_tpu/parallel/mesh.py:133-145)."""
+    return {}
+
+
+def param_shardings() -> Dict[str, Dict[str, tuple]]:
+    """The whole model's tables by part (moondream_tpu/parallel/mesh.py:
+    148-153)."""
+    return {"vision": vision_param_shardings(), "text": text_param_shardings(),
+            "region": region_param_shardings()}
+
+
+def _rule(table: Dict[str, tuple], name: str) -> Optional[tuple]:
+    return table.get(re.sub(r"^blocks\.\d+\.", "blocks.*.", name))
+
+
 # -------------------------------------------------------------- the cut
 
 
@@ -167,26 +213,38 @@ def local_text_config(config: TextConfig, tp: int) -> TextShardConfig:
     return TextShardConfig(**fields, model_dim=config.dim)
 
 
-def _cut(model: TextModel, name: str, cfg: TextConfig, shard: "Shard") -> torch.Tensor:
-    """Text parameter `name` of the full model, cut for the rank on each
-    dimension that `text_param_shardings` puts on tp: by heads for qkv
-    (`qkv_columns`), else the rank's contiguous share. A parameter left
-    whole, or any under tp 1, is the full model's tensor, shared."""
-    t = model.get_parameter(name)
-    spec = text_param_shardings().get(re.sub(r"^blocks\.\d+\.", "blocks.*.", name))
-    if spec is None or shard.tp == 1:
-        return t
-    r = shard.tp_rank
-    for dim, axis in enumerate(spec):
-        if axis != "tp":
-            continue
-        if ".qkv." in name:
-            idx = qkv_columns(cfg, shard.tp, r)
-        else:
-            n = t.shape[dim] // shard.tp
-            idx = torch.arange(r * n, (r + 1) * n)
-        t = t.index_select(dim, idx.to(t.device))
+def full_text_config(config: TextConfig, tp: int) -> TextConfig:
+    """The whole model's text config from a tp rank's (`local_text_config`)."""
+    fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(TextConfig)}
+    if isinstance(config, TextShardConfig):
+        fields.update(dim=config.model_dim, n_heads=config.n_heads * tp,
+                      n_kv_heads=config.n_kv_heads * tp, ff_dim=config.ff_dim * tp)
+    return TextConfig(**fields)
+
+
+def _contiguous_cut(t: torch.Tensor, spec: Optional[tuple], n: int, r: int) -> torch.Tensor:
+    """Rank r's contiguous share, of n, of each dimension `spec` puts on tp."""
+    for dim, axis in enumerate(spec or ()):
+        if axis == "tp" and n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, r * size, size)
     return t.contiguous()
+
+
+def cut_text_tensor(t: torch.Tensor, name: str, config: TextConfig, tp: int,
+                    rank: int) -> torch.Tensor:
+    """Text parameter `name` (the full model's tensor `t`, `config` the full
+    model's) cut for tp rank `rank` on each dimension that
+    `text_param_shardings` puts on tp: by heads for qkv (`qkv_columns`),
+    else the rank's contiguous share. A tensor left whole, or any under tp
+    1, is `t` itself."""
+    spec = _rule(text_param_shardings(), name)
+    if spec is None or tp == 1:
+        return t
+    if ".qkv." not in name:
+        return _contiguous_cut(t, spec, tp, rank)
+    dim = spec.index("tp")
+    return t.index_select(dim, qkv_columns(config, tp, rank).to(t.device)).contiguous()
 
 
 def _dense_linear(w: torch.Tensor, b: torch.Tensor) -> Linear:
@@ -205,6 +263,15 @@ def check_shardable(config: TextConfig, tp: int) -> None:
             raise ValueError(f"{name}={getattr(config, name)} not divisible by tp={tp}")
 
 
+def _dense_parts(params) -> None:
+    """Raise ValueError for int4 / int8 blocks in the vision or text part."""
+    for part in ("vision", "text"):
+        if part in params and not all(type(blk.qkv) is Linear for blk in params[part].blocks):
+            raise ValueError(
+                f"sharded {part} params must be dense: the JAX package's mesh shardings name "
+                "only the dense {w, b} leaves and refuse int4 / int8 blocks")
+
+
 def shard_text_model(model: TextModel, mesh: DeviceMesh,
                      config: Optional[TextConfig] = None) -> TextModel:
     """This rank's shard of a full text model, on the model's device: a
@@ -220,16 +287,13 @@ def shard_text_model(model: TextModel, mesh: DeviceMesh,
     Quantized text blocks (int4 or int8 w8a8) raise ValueError: the JAX
     package's shardings name only the dense weights, and placing quantized
     parameters on a mesh raises there too."""
-    if not all(type(blk.qkv) is Linear for blk in model.blocks):
-        raise ValueError(
-            "sharded text params must be dense: the JAX package's mesh shardings name "
-            "only the dense {w, b} leaves and refuse int4 / int8 text blocks")
+    _dense_parts({"text": model})
     shard = Shard.of(mesh)
     cfg = config or model.config
     check_shardable(cfg, shard.tp)
 
     def cut(name):
-        return _cut(model, name, cfg, shard)
+        return cut_text_tensor(model.get_parameter(name), name, cfg, shard.tp, shard.tp_rank)
 
     out = TextModel.__new__(TextModel)
     nn.Module.__init__(out)
@@ -284,10 +348,7 @@ def shard_adapter(tree: Optional[dict], model: TextModel) -> Optional[dict]:
 
 def _cut_adapter(tree: dict, model: TextModel, shard: Shard) -> dict:
     lcfg = model.config
-    full = TextConfig(**{f.name: getattr(lcfg, f.name) for f in dataclasses.fields(TextConfig)})
-    full = dataclasses.replace(full, dim=lcfg.model_dim, n_heads=lcfg.n_heads * shard.tp,
-                               n_kv_heads=lcfg.n_kv_heads * shard.tp,
-                               ff_dim=lcfg.ff_dim * shard.tp)
+    full = full_text_config(lcfg, shard.tp)
     r = shard.tp_rank
     ff = slice(r * lcfg.ff_dim, (r + 1) * lcfg.ff_dim)
     out = {grp: {name: dict(pair) for name, pair in sites.items()}
@@ -301,3 +362,259 @@ def _cut_adapter(tree: dict, model: TextModel, shard: Shard) -> dict:
     if "fc2" in mlp and mlp["fc2"]["A"].shape[2] == full.ff_dim:
         mlp["fc2"]["A"] = mlp["fc2"]["A"][:, :, ff].contiguous()
     return out
+
+
+# ------------------------------------------------------------ the whole model
+
+
+def shard_params(model, mesh: DeviceMesh) -> Dict[str, torch.Tensor]:
+    """This rank's share of every tensor of the whole model (a MoondreamModel
+    or its parameters' ModuleDict) by `param_shardings`, name -> tensor on
+    the model's device, the names "part.leaf" (`finetune.optim.named_leaves`
+    of each part, the RoPE table included): the text cut as
+    `shard_text_model` cuts it (`cut_text_tensor`), the vision cut into
+    contiguous shares as the JAX package places them, the region heads
+    whole. Placement only (moondream_tpu/parallel/mesh.py:156-159). First it
+    checks that every split dimension divides its mesh axis, and that the
+    text heads, MLP width and vocabulary split over tp (`check_shardable`;
+    the 2B check of the JAX package's multi-chip dry run), and raises
+    ValueError naming the tensor; int4 / int8 blocks raise ValueError."""
+    from ..finetune.optim import named_leaves
+
+    params = getattr(model, "params", model)
+    _dense_parts(params)
+    tables = param_shardings()
+    tp, r = axis_size(mesh, "tp"), axis_rank(mesh, "tp")
+    named = [(part, name, t) for part in ("vision", "text", "region") if part in params
+             for name, t in named_leaves(params[part])]
+    for part, name, t in named:
+        for dim, axis in enumerate(_rule(tables[part], name) or ()):
+            if axis is not None and t.shape[dim] % axis_size(mesh, axis):
+                raise ValueError(
+                    f"{part}.{name}: dim {dim} of {tuple(t.shape)} not divisible by "
+                    f"{axis}={axis_size(mesh, axis)} under mesh "
+                    f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    if "text" in params:
+        check_shardable(params["text"].config, tp)
+    out = {}
+    for part, name, t in named:
+        t = t.detach()
+        out[f"{part}.{name}"] = (
+            cut_text_tensor(t, name, params["text"].config, tp, r) if part == "text"
+            else _contiguous_cut(t, _rule(tables[part], name), tp, r))
+    return out
+
+
+# ------------------------------------------------------------ training
+
+
+@dataclass(frozen=True)
+class BatchShard:
+    """One rank's block of a training batch (`shard_batch`): the dp group
+    its rows are split over, and under sequence parallelism (`seq_axis`
+    set) the sequence group, the block's first position and the whole
+    sequence's length."""
+
+    dp_group: Any
+    seq_axis: Optional[str]
+    seq_group: Any
+    seq_offset: int
+    seq_len: int
+
+
+class ShardedBatch(dict):
+    """`shard_batch`'s result: the rank's tensors by key, and `.shard`, its
+    BatchShard."""
+
+    shard: BatchShard
+
+
+def batch_shardings(mesh: Optional[DeviceMesh] = None,
+                    seq_axis: Optional[str] = None) -> Dict[str, tuple]:
+    """Each training batch key's split (moondream_tpu/parallel/mesh.py:
+    56-69): rows on "dp" and, with `seq_axis` (say "sp"), positions on
+    that axis."""
+    if seq_axis is not None and mesh is not None and seq_axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no axis {seq_axis!r}")
+    return {
+        "inputs_embeds": ("dp", seq_axis, None),
+        "labels": ("dp", seq_axis),
+        "label_mask": ("dp", seq_axis),
+    }
+
+
+def shard_batch(batch: dict, mesh: DeviceMesh, seq_axis: Optional[str] = None) -> ShardedBatch:
+    """This rank's block of a host batch {"inputs_embeds" (B, T, D),
+    "labels" (B, T), "label_mask" (B, T)} (numpy or tensors) on its device
+    (moondream_tpu/parallel/mesh.py:72-75): its B/dp rows and, with
+    `seq_axis`, its T/sp positions, for `finetune.trainer.make_train_step`.
+    Under sequence parallelism the shifted cross-entropy crosses block
+    edges (position t predicts labels[t+1]), so labels and label_mask are
+    shifted by one over the whole sequence before the cut, the last
+    position's mask 0; the loss then reads each position's own label.
+    Raises ValueError when B does not split over dp or T over the sequence
+    axis."""
+    shardings = batch_shardings(mesh, seq_axis)
+    dp, dr = axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+    sp, sr = (axis_size(mesh, seq_axis), axis_rank(mesh, seq_axis)) if seq_axis else (1, 0)
+    unknown = set(batch) - set(shardings)
+    if unknown:
+        raise KeyError(f"no split for batch keys {sorted(unknown)}")
+    host = {k: torch.as_tensor(v) for k, v in batch.items()}
+    b, t = host["labels"].shape
+    if b % dp:
+        raise ValueError(f"batch of {b} rows does not split over dp={dp}")
+    if t % sp:
+        raise ValueError(f"sequence of {t} positions does not split over {seq_axis}={sp}")
+    if seq_axis:
+        pad = lambda x: torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
+        host["labels"], host["label_mask"] = pad(host["labels"]), pad(host["label_mask"])
+    rows = slice(dr * (b // dp), (dr + 1) * (b // dp))
+    cols = slice(sr * (t // sp), (sr + 1) * (t // sp))
+    dev = comm.process_device()
+    out = ShardedBatch({k: v[rows, cols].to(dev, copy=True) for k, v in host.items()})
+    out.shard = BatchShard(axis_group(mesh, "dp"), seq_axis,
+                           axis_group(mesh, seq_axis) if seq_axis else None,
+                           sr * (t // sp), t)
+    return out
+
+
+@dataclass(frozen=True)
+class TrainPlan:
+    """How a training step on a mesh sums: `rows`, the groups over which
+    the batch's rows and positions are split (dp, and the sequence axis);
+    `tp_group`, the model's tp group; `seq`, the batch's BatchShard under
+    sequence parallelism."""
+
+    rows: tuple
+    tp_group: Any
+    seq: Optional[BatchShard]
+
+    def groups_of(self, name: str) -> tuple:
+        """The groups a leaf's gradient is summed over: every leaf over the
+        rows' groups; `freqs_cis` also over tp, since each rank's heads read
+        the RoPE table (the norms and the row-parallel biases need no tp sum:
+        `copy_to` before the column-parallel inputs makes their gradients
+        whole on every tp rank)."""
+        return self.rows + ((self.tp_group,) if name == "freqs_cis" else ())
+
+    def reduce(self, leaves, loss: torch.Tensor) -> torch.Tensor:
+        """Sum the gradients (`grad.sum_gradients`) into each leaf's .grad
+        and return the ranks' losses summed over the rows' groups."""
+        from .grad import sum_gradients, sum_over
+
+        grads = sum_gradients(leaves, self.groups_of)
+        for name, p in leaves:
+            p.grad = grads[name]
+        return sum_over(loss, self.rows)
+
+
+def placement(model: TextModel) -> Any:
+    """Where a text model's leaves sit on a mesh: the Shard of a rank's
+    `shard_text_model`, the `pipeline.Stage` of a pipeline stage
+    (`pipeline.shard_params_pp`), or None for a whole model. The training
+    step, its checkpoints and `train_plan` read the sharding through this
+    one function."""
+    shard = getattr(model, "shard", None)
+    return shard if shard is not None else getattr(model, "stage", None)
+
+
+def train_plan(model: TextModel, batch: dict) -> Optional[TrainPlan]:
+    """The TrainPlan of a step on `model` (a rank's `shard_text_model` or a
+    whole model) and `batch` (a `ShardedBatch`, or a dict of this rank's
+    rows): the dp group from the batch, else from the model. None when
+    neither is sharded: the step sums nothing."""
+    shard = placement(model)
+    if shard is not None and not isinstance(shard, Shard):
+        raise ValueError("a pipeline stage trains through pipeline.make_pp_train_step")
+    bs = batch.shard if isinstance(batch, ShardedBatch) else None
+    if shard is None and bs is None:
+        return None
+    dp_group = bs.dp_group if bs is not None else shard.dp_group
+    seq = bs if bs is not None and bs.seq_axis else None
+    rows = tuple(g for g in (dp_group, seq and seq.seq_group) if g is not None)
+    return TrainPlan(rows, shard.tp_group if shard is not None else None, seq)
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def _shard_and_stage(model) -> tuple:
+    """(Shard, None), (None, Stage) or (None, None): `placement` split."""
+    where = placement(model)
+    return (where, None) if isinstance(where, Shard) else (None, where)
+
+
+def _stage_layer(model, name: str):
+    """(global layer, rest of the name) of a pipeline stage's block leaf."""
+    _, i, rest = name.split(".", 2)
+    return model.stage.first_layer + int(i), rest
+
+
+def gather_leaves(model: TextModel) -> Optional[Dict[str, torch.Tensor]]:
+    """The whole text model's leaves (`finetune.optim.named_leaves`' names
+    and order of the unsharded model) as host tensors on global rank 0, None
+    on the others, gathered from each rank's shard (`shard_text_model`:
+    the tp cuts) or pipeline stage (`pipeline.shard_params_pp`: the layer
+    slabs); dp replicas are equal, so dp index 0's are taken. Every rank of
+    the mesh must call it."""
+    from ..finetune.optim import named_leaves
+
+    shard, stage = _shard_and_stage(model)
+    blocks: Dict[int, Dict[str, torch.Tensor]] = {}
+    head: List[tuple] = []
+    tail: List[tuple] = []
+    for name, t in named_leaves(model):
+        t = t.detach()
+        if stage is not None and name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            parts = comm.gather_rows(t[None].contiguous(), stage.pp_group)
+            for s in range(parts.shape[0]):
+                blocks.setdefault(s * len(model.blocks) + int(i), {})[rest] = parts[s]
+            continue
+        spec = _rule(text_param_shardings(), name) if shard is not None else None
+        if spec is not None and "tp" in spec and shard.tp > 1:
+            dim = spec.index("tp")
+            parts = comm.gather_rows(t.movedim(dim, 0).contiguous(), shard.tp_group)
+            parts = parts.chunk(shard.tp)
+            if ".qkv." in name:
+                full = full_text_config(model.config, shard.tp)
+                whole = torch.empty((full.qkv_dim, *parts[0].shape[1:]), dtype=t.dtype,
+                                    device=t.device)
+                for r, piece in enumerate(parts):
+                    whole[qkv_columns(full, shard.tp, r).to(t.device)] = piece
+            else:
+                whole = torch.cat(parts)
+            t = whole.movedim(0, dim)
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            blocks.setdefault(int(i), {})[rest] = t
+        else:
+            (tail if blocks else head).append((name, t))
+    if dist.get_rank() != 0:
+        return None
+    out = dict(head)
+    for layer in sorted(blocks):
+        out.update({f"blocks.{layer}.{rest}": t for rest, t in blocks[layer].items()})
+    out.update(tail)
+    return {name: t.cpu() for name, t in out.items()}
+
+
+@torch.no_grad()
+def load_leaves(model: TextModel, saved: Dict[str, torch.Tensor]) -> None:
+    """Copy the whole model's leaves `saved` (`gather_leaves`' names) into a
+    rank's shard or pipeline stage in place: each rank cuts its tp share
+    (`cut_text_tensor`) or its layer slab."""
+    from ..finetune.optim import named_leaves
+
+    shard, stage = _shard_and_stage(model)
+    for name, t in named_leaves(model):
+        if stage is not None and name.startswith("blocks."):
+            layer, rest = _stage_layer(model, name)
+            src = saved[f"blocks.{layer}.{rest}"]
+        elif shard is not None:
+            src = cut_text_tensor(saved[name], name, full_text_config(model.config, shard.tp),
+                                  shard.tp, shard.tp_rank)
+        else:
+            src = saved[name]
+        t.copy_(src)

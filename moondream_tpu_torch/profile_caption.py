@@ -5,6 +5,7 @@ serving-pool chunk, goes on one CUDA card.
         [--int4 | --int8-text] [--int8-vision dynamic|static] [--kv-int8]
         [--gqa] [--loop spec|reasoning|detect]
         [--pool plain|shared|spec|mixed] [--pipeline] [--eager] [--crops]
+        [--train] [--bucket-elements N]
 
 Builds MOONDREAM_2B with seeded random weights on the card (with --int4, the
 text blocks quantized to int4; with --int8-text, to the int8 w8a8 format;
@@ -48,6 +49,19 @@ prints each device kernel's time per call and per launch beside the
 launches that LAUNCHES counted; then the kernel's device-only µs per call
 (20 calls from a CUDA graph) under the default tile plan and under other
 (TH, TW, chunk rows) for both crop sets, at both batches.
+
+With --train, it builds the 2B text model alone (bf16, seeded, 24 layers)
+in an NCCL process group of one rank and profiles one training step of a
+seeded 2 x 768 batch (labels and label_mask > 0.3, as the smoke's "4 2B
+multi-GPU training") on each path in turn: the unsharded
+`finetune.trainer.make_train_step`, GPipe at pp 1 x dp 1 over 2
+microbatches (`parallel.pipeline.make_pp_train_step`), and the dp 1 x tp 1
+and dp 1 x sp 1 steps; each after 2 warm steps, then 5 timed steps (median
+ms, host clock). Beside the report it prints the host time of the
+collectives' calls (torch.profiler's `c10d::` and `nccl:` CPU events: calls
+and µs per call) and the collectives per step (`comm.COLLECTIVES`).
+`--bucket-elements N` sets how many fp32 elements `parallel.grad.
+sum_gradients` packs into one collective (1: one collective per leaf).
 """
 
 from __future__ import annotations
@@ -86,11 +100,13 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def report(label: str, fn, top: int, calls: int = 0) -> list:
-    """Profile one run of `fn` and print its wall time, busy time, idle share
-    and top kernels; with `calls`, also each kernel's µs per call and per
-    launch when `fn` makes that many calls. Returns the device events as
-    (start µs, end µs, name), in order of start."""
+def report(label: str, fn, top: int, calls: int = 0, cpu_events=None) -> list:
+    """Profile one run of `fn` and print its wall time, busy time, idle share,
+    the host's kernel launch calls and top kernels; with `calls`, also each
+    kernel's µs per call and per launch when `fn` makes that many calls;
+    with `cpu_events` (a dict of [µs, count]), add to it the host events of
+    the collectives (names starting "c10d::" or "nccl:"). Returns the
+    device events as (start µs, end µs, name), in order of start."""
     replays = sum(graphs.REPLAYS.values())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -99,8 +115,13 @@ def report(label: str, fn, top: int, calls: int = 0) -> list:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, per_kernel = [], defaultdict(lambda: [0.0, 0])
+    host_launches = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            host_launches += e.name == "cudaLaunchKernel"
+            if cpu_events is not None and e.name.startswith(("c10d::", "nccl:")):
+                cpu_events[e.name][0] += e.time_range.end - e.time_range.start
+                cpu_events[e.name][1] += 1
             continue
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t, e.name))
@@ -112,6 +133,7 @@ def report(label: str, fn, top: int, calls: int = 0) -> list:
     busy_ms = _busy_us([span[:2] for span in spans]) / 1e3
     print(f"== {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, device launches {len(spans)}, "
+          f"cudaLaunchKernel calls {host_launches}, "
           f"graph replays {sum(graphs.REPLAYS.values()) - replays}")
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (us, n) in ranked[:top]:
@@ -186,6 +208,71 @@ def profile_crops(top: int) -> None:
             print(f"  plan TH {th} TW {tw} chunks of {ring} rows ({plan.smem} bytes): {us:.2f} us")
 
 
+def profile_train(top: int, device: str = "cuda") -> None:
+    """--train: one profiled step of each training path at world 1 over
+    NCCL (see the module docstring); `device` "cpu" runs the same paths
+    over gloo (a rehearsal: the profile then has no device events)."""
+    import torch.distributed as dist
+
+    from .finetune import trainer
+    from .parallel import comm
+    from .parallel.mesh import create_mesh, shard_batch, shard_text_model
+    from .parallel.pipeline import make_pp_train_step, shard_params_pp
+
+    tc = MOONDREAM_2B.text
+    gen = torch.Generator(device).manual_seed(0)
+    text = init_params(MOONDREAM_2B, gen, device, torch.bfloat16)["text"]
+    b, t = 2, 768
+    batch = {
+        "inputs_embeds": torch.randn(b, t, tc.dim, generator=gen, device=device).bfloat16(),
+        "labels": torch.randint(0, tc.vocab_size, (b, t), generator=gen, device=device),
+        "label_mask": (torch.rand(b, t, generator=gen, device=device) > 0.3).float(),
+    }
+    meshes = {"pp": create_mesh({"pp": 1, "dp": 1}, device=device)}
+    want = "nccl" if device == "cuda" else "gloo"
+    if dist.get_backend() != want:
+        raise RuntimeError(f"profile_caption --train: backend {dist.get_backend()}, not {want}")
+    meshes["tp"] = create_mesh({"dp": 1, "tp": 1}, device=device)
+    meshes["sp"] = create_mesh({"dp": 1, "sp": 1}, device=device)
+    opt = trainer.make_optimizer(lr=1e-5)
+    paths = {
+        "unsharded": (text, trainer.make_train_step(opt), batch),
+        "pp 1 x dp 1, M 2": (shard_params_pp(text, meshes["pp"]),
+                             make_pp_train_step(opt, tc, meshes["pp"], 2), batch),
+        "dp 1 x tp 1": (shard_text_model(text, meshes["tp"]), trainer.make_train_step(opt),
+                        shard_batch(batch, meshes["tp"])),
+        "dp 1 x sp 1": (text, trainer.make_train_step(opt),
+                        shard_batch(batch, meshes["sp"], seq_axis="sp")),
+    }
+    try:
+        for label, (model, step, data) in paths.items():
+            box = [trainer.init_train_state(model, opt)]
+
+            def one():
+                box[0], loss = step(box[0], data)
+                return loss
+
+            for _ in range(2):
+                one()
+            ms = []
+            comm.reset_collective_counts()
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            colls = {k: v // 5 for k, v in comm.COLLECTIVES.items() if v}
+            print(f"-- {label}: {sorted(ms)[2]:.1f} ms per step (median of 5, host clock), "
+                  f"collectives per step {colls}")
+            host = defaultdict(lambda: [0.0, 0])
+            report(f"train step, {label}", one, top, cpu_events=host)
+            for name, (us, n) in sorted(host.items()):
+                print(f"  host {name}: {n} calls, {us / n:.1f} us per call, {us / 1e3:.2f} ms")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tokens", type=int, default=64)
@@ -207,6 +294,10 @@ def main() -> None:
                     help="decode steps from Python, without CUDA graphs")
     ap.add_argument("--crops", action="store_true",
                     help="profile the device crop kernel alone (no model)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a 2B training step of each path at world 1 over NCCL")
+    ap.add_argument("--bucket-elements", type=int,
+                    help="with --train: fp32 elements per gradient-sum collective")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_caption: needs a CUDA card")
@@ -216,6 +307,14 @@ def main() -> None:
     ).stdout.strip())
     if args.crops:
         profile_crops(args.top)
+        return
+    if args.train:
+        from .parallel import grad
+
+        if args.bucket_elements:
+            grad.BUCKET_ELEMENTS = args.bucket_elements
+        print(f"gradient sums: at most {grad.BUCKET_ELEMENTS} fp32 elements per collective")
+        profile_train(args.top)
         return
 
     cfg = MOONDREAM_2B

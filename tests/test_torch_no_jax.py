@@ -20,7 +20,9 @@ one caption served over HTTP, and the eval harness and the recipes: an
 eval loop on a stand-in `datasets`, caption agreement against an int8
 ViT twin, and the recipes' batched detect_frames, and the multi-GPU
 modules: a world of one gloo rank running the sharded text engine and the
-sharded pool with the crop-parallel ViT."""
+sharded pool with the crop-parallel ViT, and multi-GPU training on that
+world (hf_release is imported with the rest): one GPipe step at M 2, one
+dp x tp step on a rank's shard and one sequence-parallel step."""
 
 import os
 import subprocess
@@ -35,6 +37,7 @@ sys.modules["moondream_tpu"] = None  # and so does the JAX package
 import importlib, pkgutil
 import numpy as np
 import torch
+torch.set_num_threads(1)  # one core, as the port's other test modules: the suite runs workers side by side
 import moondream_tpu_torch
 for m in pkgutil.walk_packages(moondream_tpu_torch.__path__, "moondream_tpu_torch."):
     importlib.import_module(m.name)
@@ -188,6 +191,29 @@ assert seng.generate(skv, lg.argmax(-1), 8, max_tokens=3, eos_id=-1, buffer=3).t
 peng = parallel.make_sharded_serving_engine(model, mesh, shard_vision=True, n_slots=2, chunk=4)
 rid = peng.submit(img, max_tokens=4)
 assert isinstance(peng.drain()[rid], str)
+from moondream_tpu_torch.parallel.pipeline import make_pp_train_step
+g = torch.Generator().manual_seed(4)
+tb = {"inputs_embeds": torch.randn(2, 8, cfg.text.dim, generator=g) * 0.1,
+      "labels": torch.randint(0, cfg.text.vocab_size, (2, 8), generator=g),
+      "label_mask": (torch.rand(2, 8, generator=g) > 0.3).float()}
+import copy
+base_text = MoondreamModel(tiny_test_config(), dtype=torch.float32, seed=3, device="cpu").text
+def fresh_text():
+    return copy.deepcopy(base_text)
+def one_step(step, params, batch):
+    opt = trainer.make_optimizer(lr=1e-3)
+    state, loss = step(opt)(trainer.init_train_state(params, opt), batch)
+    assert torch.isfinite(loss) and state.step == 1 and state.opt_state.count == 1
+    return float(loss)
+pmesh = create_mesh({"pp": 1, "dp": 1}, device="cpu")
+losses = [one_step(lambda o: make_pp_train_step(o, tiny_test_config().text, pmesh, 2),
+                   parallel.shard_params_pp(fresh_text(), pmesh), tb),
+          one_step(trainer.make_train_step, parallel.shard_text_model(fresh_text(), mesh),
+                   parallel.shard_batch(tb, mesh)),
+          one_step(trainer.make_train_step, fresh_text(),
+                   parallel.shard_batch(tb, create_mesh({"dp": 1, "sp": 1}, device="cpu"),
+                                        seq_axis="sp"))]
+assert max(losses) - min(losses) <= 1e-5 * max(losses), losses
 torch.distributed.destroy_process_group()
 assert sys.modules["jax"] is None and sys.modules["moondream_tpu"] is None
 loaded = [n for n, m in sys.modules.items()
