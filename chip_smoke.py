@@ -207,6 +207,7 @@ a kernels JSON line second to last, and {"ok": true, "device": {...}} last.
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -245,7 +246,7 @@ from moondream_tpu_torch.engine.batched import (  # noqa: E402
 from moondream_tpu_torch.engine.generate import (  # noqa: E402
     DONE_CHECK_EVERY,
     LOOP_COUNTS,
-    _verify_logits,
+    _lm_logits,
     decode_step,
     generate_reasoning,
     generate_text,
@@ -287,6 +288,7 @@ from moondream_tpu_torch.models.text import (  # noqa: E402
     quantize_text_params,
     quantize_text_params_int8,
     quantize_weight_int8,
+    text_decoder,
     text_encoder,
 )
 from moondream_tpu_torch.models.vision import (  # noqa: E402
@@ -489,13 +491,21 @@ def int4pack_mm(x, qw):
 
 
 GQA_KERNELS = (K.DECODE_GQA, K.DECODE_GQA_LAYER)
+# kernel A's device form (a (B,) int32 position tensor), summarised apart
+# from its host form and reported inside kernel A's entry of the kernels
+# line; its launches count under K.FLASH
+FLASH_DEVICE = "flash_attn_fwd device position"
+# the GQA verify span's numbers that its headline adds: the bound over the
+# 8 KV heads as the cache holds them, and the device time of
+# attn_with_cache's route (both heads repeated, then kernel A)
+GQA_SPAN_KEYS = ("bound_unrepeated_ms", "repeat_and_kernel_ms")
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
     """Kernel vs plain at the main path's shapes; returns per-kernel summary."""
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEV, dtype=BF16)
     summary = {name: {"err": 0.0}
-               for name in (K.FLASH, K.DECODE, K.RAGGED, *GQA_KERNELS, KQ.W4A16)}
+               for name in (K.FLASH, FLASH_DEVICE, K.DECODE, K.RAGGED, *GQA_KERNELS, KQ.W4A16)}
 
     def check(name, label, run, plain, args, work=None, library=None, timed=True):
         """run(): the kernel on the tensors `args`; plain(*args): the plain
@@ -670,6 +680,84 @@ def phase_kernels(gen: torch.Generator) -> dict:
               (q, kc, vc), attn_work(q, kl[..., :748, :], vl[..., :748, :], 20 * 748),
               sdpa(q, kl, vl, mask))
     del kc, vc, kl, vl
+
+    # Kernel A's device form at the speculative verify spans' shapes: the
+    # GQA 2B's (Tq 8, 32 query heads over 8 KV heads repeated, as
+    # attn_with_cache repeats them) and the MHA 2B's at k 24 (Tq 24, 32
+    # heads), each over the layer view of a stacked (24, 1, H, 2048, 64)
+    # cache read to the caption's kv_bound 1024, causal (the loops' prefix
+    # 0), x1000 garbage past the span. At pos 800 (timed; the first case is
+    # the form's headline), 0 and Tk - Tq, random and diagonal queries: held
+    # to the plain version and bit for bit to the host form, the position
+    # passed as a (1,) int32 tensor on the card.
+    tk = 1024
+    for label, tq, hkv in (("gqa 2B verify span", 8, 8), ("mha k24 verify span", 24, 32)):
+        for pos in (800, 0, tk - tq):
+            kc, vc = randn(24, 1, hkv, 2048, 64), randn(24, 1, hkv, 2048, 64)
+            kc[..., pos + tq:, :] *= 1000
+            vc[..., pos + tq:, :] *= 1000
+            kr = kc[13, :, :, :tk].repeat_interleave(32 // hkv, dim=1)
+            vr = vc[13, :, :, :tk].repeat_interleave(32 // hkv, dim=1)
+            at = torch.full((1,), pos, dtype=torch.int32, device=DEV)
+            mask = unified_mask(tq, tk, pos, 0, DEV)
+            cols = pos + tq
+            for kind, q in (("random q", randn(1, 32, tq, 64)),
+                            ("diagonal q", kr[:, :, pos:pos + tq].clone())):
+                if not torch.equal(flash_attention(q, kr, vr, at, 0),
+                                   flash_attention(q, kr, vr, pos, 0)):
+                    raise AssertionError(f"{FLASH_DEVICE} {label} pos {pos}, {kind}: the "
+                                         "device form differs from the host form")
+                check(FLASH_DEVICE, f"{label} 32x{tq}x{tk} pos{pos} (device), {kind}",
+                      lambda: flash_attention(q, kr, vr, at, 0),
+                      lambda q, k, v: flash_attention_plain(q, k, v, pos, 0), (q, kr, vr),
+                      attn_work(q, kr[..., :cols, :], vr[..., :cols, :], int(mask.sum())),
+                      sdpa(q, kr, vr, mask), timed=pos == 800)
+                if pos == 800:  # the host form's device time, in turns with the device form's
+                    dev_ms = [graph_ms(lambda: flash_attention(q, kr, vr, p, 0))
+                              for p in (pos, at, at, pos)]
+                    print(f"{FLASH_DEVICE} {label} pos{pos}, {kind}: device only, in turns, "
+                          f"host form {dev_ms[0]:.4f} / {dev_ms[3]:.4f} ms, device form "
+                          f"{dev_ms[1]:.4f} / {dev_ms[2]:.4f} ms")
+                if pos == 800 and hkv != 32 and kind == "random q":
+                    # the GQA route as attn_with_cache runs it: the layer's
+                    # 8 KV heads read from the cache, repeated, then kernel
+                    # A; its floor is the bound over the unrepeated K/V
+                    kl, vl = kc[13, :, :, :tk], vc[13, :, :, :tk]
+                    b8 = bound(*attn_work(q, kl[..., :cols, :], vl[..., :cols, :],
+                                          int(mask.sum())))
+                    whole = graph_ms(lambda: flash_attention(
+                        q, kl.repeat_interleave(32 // hkv, dim=1),
+                        vl.repeat_interleave(32 // hkv, dim=1), at, 0))
+                    kernel = summary[FLASH_DEVICE]["device_ms"]
+                    summary[FLASH_DEVICE].update(bound_unrepeated_ms=b8["bound_ms"],
+                                                 repeat_and_kernel_ms=whole)
+                    print(f"{FLASH_DEVICE} {label} pos{pos}, {kind}: bound over the "
+                          f"unrepeated {hkv}-head K/V {b8['bound_ms']:.5f} ms by "
+                          f"{b8['bound_by']} ({b8['bytes']:.4g} bytes), kernel device only "
+                          f"{kernel / b8['bound_ms']:.1f} x it; repeat_interleave of K and V "
+                          f"+ kernel A device only {whole:.4f} ms "
+                          f"({whole / b8['bound_ms']:.1f} x it)")
+                    del kl, vl
+        # a CUDA graph captured at one position replays at the others, each
+        # replay bit for bit the host form there
+        at.fill_(0)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            flash_attention(q, kr, vr, at, 0)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            out = flash_attention(q, kr, vr, at, 0)
+        for pos in (800, tk - tq, 3):
+            at.fill_(pos)
+            graph.replay()
+            if not torch.equal(out, flash_attention(q, kr, vr, pos, 0)):
+                raise AssertionError(f"{FLASH_DEVICE} {label}: a graph replayed at pos {pos} "
+                                     "differs from the host form")
+        print(f"{FLASH_DEVICE} {label}: bit for bit the host form at pos 800, 0 and "
+              f"{tk - tq}, and after CUDA graph replays at 800, {tk - tq} and 3")
+        del graph, out, kc, vc, kr, vr
 
     # Kernel B's int8 entry, the same cases on an int8 (24, 1, 32, 2048, 64)
     # cache quantized by the port (a scale per token and head pair), with
@@ -2410,7 +2498,8 @@ def phase_spec_reference(img: np.ndarray) -> None:
     the CPU (as phase_serving_reference): a pool verify step
     (`ragged_verify_step`) of k 8 and 24 rows (24: kernel C in two
     launches), plain and prefix-shared, and a batch-1 verify span of 8
-    (kernel B) and 24 rows (kernel A). Then, under the peaked oracle, the
+    (kernel B) and 24 rows (kernel A) at a device position, as
+    `spec_step` runs them (both kernels' device forms). Then, under the peaked oracle, the
     ids and boxes of a batch-1 speculative caption, a speculative pool, a
     mixed pool (caption, detect, point, gaze) and a mixed speculative pool:
     card bf16 must equal CPU fp32. Then the two mixed pools again with the
@@ -2440,9 +2529,11 @@ def phase_spec_reference(img: np.ndarray) -> None:
                 params = build_params(cfg, device, dtype)
                 params.load_state_dict(state)
                 to = lambda ts: KVCache(*(t.to(device, dtype) for t in ts))
-                if label == "batch-1":
-                    return _verify_logits(params["text"], to(kv), toks[0, :k].to(device), pos,
-                                          None, ()).float().cpu()
+                if label == "batch-1":  # spec_step's forward, at a (1,) device position
+                    text, span = params["text"], toks[0, :k].to(device)
+                    at = torch.full((1,), pos, dtype=torch.int32, device=device)
+                    hidden = text_decoder(text_encoder(span[None], text), text, to(kv), at, 0)
+                    return _lm_logits(hidden[0], text).float().cpu()
                 return ragged_verify_step(
                     params["text"], to(kv), toks[:, :k].to(device),
                     torch.tensor(pos, dtype=torch.int32, device=device), None, None, None,
@@ -3096,6 +3187,27 @@ def _mixed_run(model, encs, spec: int, graphed: bool) -> tuple:
     return [eng.results[r] for r in rids], statistics.median(step_ms)
 
 
+@contextlib.contextmanager
+def strict_replays():
+    """Within: every graph replay of the loops runs under
+    torch.cuda.set_sync_debug_mode("error"), so that a host sync inside a
+    replay raises."""
+    replay = graphs.StepGraph.replay
+
+    def strict_replay(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    graphs.StepGraph.replay = strict_replay
+    try:
+        yield
+    finally:
+        graphs.StepGraph.replay = replay
+
+
 def phase_loop_graphs(model, enc, img, images, batch_images, power: str,
                       full: bool = True) -> None:
     """The speculative, reasoning and structured loops, the gaze step and
@@ -3122,21 +3234,9 @@ def phase_loop_graphs(model, enc, img, images, batch_images, power: str,
     suppress = (tok.answer_id,)
     caption = list(tok.templates["caption"]["normal"])
     lines = []
-    replay = graphs.StepGraph.replay
-
-    def strict_replay(self):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            replay(self)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
-    graphs.StepGraph.replay = strict_replay
-    try:
+    with strict_replays():
         _loop_graph_paths(model, enc, img, images, batch_images, full, label, lines,
                           suppress, caption)
-    finally:
-        graphs.StepGraph.replay = replay
     print(f"2B loop graphs ({label}) on {power}; every replay under sync debug mode "
           "\"error\", results and launch counts equal graphed and eager: " + "; ".join(lines))
 
@@ -3271,32 +3371,155 @@ def _loop_graph_paths(model, enc, img, images, batch_images, full, label, lines,
             turns(f"mixed pool{' spec k %d' % spec if spec else ''} (ms per chunk)", mixed, "ms")
 
 
-def phase_spec_eager_route(model, enc, power: str) -> dict:
-    """Speculative decode on a GQA model (k 8, 64 greedy tokens): its verify
-    spans take kernel A at a host position, so the span loop runs eagerly
-    by configuration, under LOOP_COUNTS "generate_text_spec_eager", one
-    host read per span plus one, with exact launches (kernel A on every
-    layer for the prompt span and each verify span). Returns the launch
-    counts."""
+LONG_SPEC_K = 24  # verify spans past kernel B's 16 rows: kernel A's device form
+SPEC_SAMPLED = {"max_tokens": 64, "temperature": 0.5, "top_p": 0.9}
+
+
+def _turns(label: str, model, call, loop: str, expect) -> tuple:
+    """call() through the entry point in turns, graphed, eager, graphed,
+    graphed, eager (the first graphed run captures what it needs), every
+    replay under sync debug mode "error", each run counted: the results
+    equal in every turn; LOOP_COUNTS holds `loop` alone, called once,
+    whose reads are expect(counts)["reads"]; the launch counts equal
+    expect(counts)["launches"]; graphed runs after the first replay graphs
+    and eager ones none. Returns (the result, its loop counts, the last
+    run's launches, median ms graphed, median ms eager)."""
+    outs, ms, replayed = [], {False: [], True: []}, {False: [], True: []}
+    with strict_replays():
+        for g in (True, False, True, True, False):
+            model.graphed = g
+            reset_launch_counts()
+            reset_loop_counts()
+            replays = sum(graphs.REPLAYS.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            ms[g].append(sync_ms(t0))
+            replayed[g].append(sum(graphs.REPLAYS.values()) - replays)
+            loops = {k: dict(v) for k, v in LOOP_COUNTS.items()}
+            if list(loops) != [loop]:
+                raise AssertionError(f"{label} (graphed {g}): loops {loops}, not {loop} alone")
+            c = loops[loop]
+            want = expect(c)
+            if c["calls"] != 1 or c["reads"] != want["reads"]:
+                raise AssertionError(f"{label} (graphed {g}): loops {loops}, expected "
+                                     f"{want['reads']} reads of {loop}")
+            launches = dict(LAUNCHES)
+            check_launches(f"{label} (graphed {g}), {c['steps']} steps", launches,
+                           want["launches"])
+            outs.append(out)
+    model.graphed = True
+    if any(o != outs[0] for o in outs):
+        raise AssertionError(f"{label}: graphed and eager results differ: {outs}")
+    if not all(replayed[True][1:]) or any(replayed[False]):
+        raise AssertionError(f"{label}: replays {replayed}")
+    return (outs[0], c, launches, statistics.median(ms[True][1:]),
+            statistics.median(ms[False]))
+
+
+# kernel A's launches per verify span, measured by phase_spec_turns on each
+# path that takes its device form, reported in the kernels line
+VERIFY_SPAN_LAUNCHES = {}
+
+
+def phase_spec_turns(model, enc, power: str, spec_k: int) -> list:
+    """The speculative caption through the entry point at `spec_k`, greedy
+    (64 tokens) and sampled (SPEC_SAMPLED, the model's generator seeded
+    alike in every turn), graphed against eager in turns (`_turns`): equal
+    ids, one host read per run of 8 verify spans plus one, exact launches
+    (the caption prompt's span as phase_main_path's; every verify span
+    takes kernel A's device form on every layer where the model is GQA or
+    spans exceed 16 rows, kernel B's otherwise); greedy ids equal plain
+    greedy, or differ within batch-1's logit margin (_check_margin).
+    Prints tok/s graphed and eager, host clock, prompt prefill included,
+    and records in VERIFY_SPAN_LAUNCHES kernel A's launches per verify
+    span of the greedy run (its launches less the plain caption's prompt
+    span's, over its spans). Returns the launch counts of the last greedy
+    and sampled runs."""
     cfg = model.config
+    tc = cfg.text
+    label, kinds = format_label(model), linear_kinds(model)
     model.tokenizer = IdTokenizer()
+    # spans of more than 16 rows over an MHA model count as long spans
+    # (kernel A); expected_launches sends a GQA model's short ones to
+    # kernel A too
+    long = tc.n_kv_heads == tc.n_heads and spec_k > 16
+    prompt = list(cfg.tokenizer.templates["caption"]["normal"])
+    # the plain caption runs the same prompt span and then decode steps,
+    # which take no kernel A: its kernel A launches are the prompt's
     reset_launch_counts()
-    reset_loop_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ids = _ids(model.caption(enc, "normal", settings={**GREEDY64, "speculative": SPEC_K})[
-        "caption"])
-    ms = sync_ms(t0)
-    loops = {k: dict(v) for k, v in LOOP_COUNTS.items()}
-    c = loops.get("generate_text_spec_eager")
-    if list(loops) != ["generate_text_spec_eager"] or c["reads"] != c["steps"] + 1:
-        raise AssertionError(f"GQA speculative caption: loops {loops}")
-    launches = dict(LAUNCHES)
-    check_launches(f"GQA spec caption, {len(ids)} tokens in {c['steps']} verify spans",
-                   launches, expected_launches(cfg, 0, 1 + c["steps"], 0))
-    print(f"2B GQA speculative caption k {SPEC_K} on {power}: the eager span loop "
-          f"(generate_text_spec_eager), {len(ids) / (ms / 1e3):.1f} tok/s, {len(ids)} tokens "
-          f"in {c['steps']} spans, {c['reads']} host reads")
+    plain = _ids(model.caption(enc, "normal", settings=GREEDY64)["caption"])
+    prompt_a = LAUNCHES[K.FLASH]
+
+    def expect(c):
+        n = c["steps"]
+        return {"reads": math.ceil(n / DONE_CHECK_EVERY) + 1,
+                "launches": expected_launches(cfg, 0, 1 + (0 if long else n), 0,
+                                              long_spans=n if long else 0, **kinds)}
+
+    runs, lines = [], []
+    for kind, settings in (("greedy", GREEDY64), ("sampled", SPEC_SAMPLED)):
+        settings = {**settings, "speculative": spec_k}
+
+        def call():
+            if kind == "sampled":
+                model.generator.manual_seed(SEED + 9)
+            return _ids(model.caption(enc, "normal", settings=settings)["caption"])
+
+        loop = "generate_text_spec" + ("_sampled" if kind == "sampled" else "")
+        ids, c, launches, g_ms, e_ms = _turns(f"spec caption k {spec_k} {kind} ({label})",
+                                              model, call, loop, expect)
+        runs.append(launches)
+        line = (f"{kind} {len(ids) / (g_ms / 1e3):.1f} tok/s graphed, "
+                f"{len(ids) / (e_ms / 1e3):.1f} eager ({len(ids)} tokens in {c['steps']} "
+                f"verify spans, {c['reads']} host reads, {launches[K.FLASH]} kernel A "
+                "launches")
+        if kind == "greedy":
+            per_span = (launches[K.FLASH] - prompt_a) / c["steps"]
+            VERIFY_SPAN_LAUNCHES[f"k {spec_k} ({label})"] = per_span
+            line += f", {per_span:g} per verify span past the prompt's {prompt_a}"
+            diff = _check_margin(f"spec caption k {spec_k} ({label})", model, enc, prompt,
+                                 plain, ids, 64)
+            line += ("; ids equal plain greedy" if diff is None else
+                     f"; first differs from plain greedy at token {diff[0]}, batch-1 margin "
+                     f"{diff[1][0]} ({diff[1][1]} bf16 steps)")
+        lines.append(line + ")")
+    kernel_a = long or tc.n_kv_heads != tc.n_heads
+    route = "kernel A's device form" if kernel_a else "kernel B's device form"
+    print(f"2B speculative caption k {spec_k} ({label}) on {power}, verify spans on "
+          f"{route}, graphed vs eager in turns, ids equal, every replay under sync debug "
+          f"mode \"error\": " + "; ".join(lines))
+    return runs
+
+
+def phase_stream(model, enc, power: str) -> dict:
+    """The plain token stream through the entry point (caption(stream=True),
+    64 greedy tokens), graphed (a CUDA graph of one decode step, replayed
+    per token) against eager in turns (`_turns`): the streamed ids equal
+    the fused caption's in every turn, one host read per token (plus the
+    one that finds EOS, if any), exact launches (the prompt span, then one
+    decode step per streamed token). Prints tok/s of both, host clock,
+    prompt prefill included. Returns the last run's launch counts."""
+    cfg = model.config
+    label, kinds = format_label(model), linear_kinds(model)
+    model.tokenizer = IdTokenizer()
+    fused = _ids(model.caption(enc, "normal", settings=GREEDY64)["caption"])
+
+    def call():
+        return _ids("".join(model.caption(enc, "normal", stream=True,
+                                          settings=GREEDY64)["caption"]))
+
+    def expect(c):
+        return {"reads": c["steps"] + (c["steps"] < GREEDY64["max_tokens"]),
+                "launches": expected_launches(cfg, 0, 1, c["steps"], **kinds)}
+
+    ids, c, launches, g_ms, e_ms = _turns(f"stream ({label})", model, call, "stream", expect)
+    if ids != fused:
+        raise AssertionError(f"stream ({label}): streamed ids differ from the fused caption's")
+    print(f"2B plain stream ({label}) on {power}: graphed {len(ids) / (g_ms / 1e3):.1f} tok/s, "
+          f"eager {len(ids) / (e_ms / 1e3):.1f} tok/s ({len(ids)} tokens, {c['reads']} host "
+          f"reads, one graph of one step replayed per token; streamed ids equal the fused "
+          f"caption's, every replay under sync debug mode \"error\")")
     return launches
 
 
@@ -6136,6 +6359,9 @@ def main() -> None:
     runs += phase("4 2B bf16 structured", phase_structured, model, enc, img, batch_images,
                   power)
     runs += phase("4 2B bf16 speculative", phase_spec, model, enc, power)
+    runs += phase("4 2B bf16 speculative k 24", phase_spec_turns, model, enc, power,
+                  LONG_SPEC_K)
+    runs.append(phase("4 2B bf16 stream", phase_stream, model, enc, power))
     runs += phase("4 2B bf16 spec pools", phase_spec_pools, model, images, power)
     runs += phase("4 2B bf16 mixed pools", phase_mixed_pools, model, images, power)
     phase("4 2B bf16 loop graphs", phase_loop_graphs, model, enc, img, images, batch_images,
@@ -6192,7 +6418,7 @@ def main() -> None:
     enc = model.encode_image(img)
     runs += phase("4 2B GQA", phase_structured, model, enc, img, batch_images, power,
                   full=False)
-    runs.append(phase("4 2B GQA", phase_spec_eager_route, model, enc, power))
+    runs += phase("4 2B GQA speculative", phase_spec_turns, model, enc, power, SPEC_K)
     del enc
     params = model.params
     del model
@@ -6257,10 +6483,22 @@ def main() -> None:
                else s["ms"] / s["library_ms"] if s["library_ms"] else None)
         return {"vs_library": lib, "vs_bound": s["device_ms"] / s["bound_ms"]}
 
+    def entry(name, s):
+        return {"max_abs_err": s["err"], **{key: s[key] for key in keys}, **ratios(s)}
+
+    # kernel A's device form: its headline case inside kernel A's entry,
+    # with the GQA span's bound over the unrepeated K/V and the time of the
+    # repeat plus the kernel, and the launches per verify span measured on
+    # the paths that take it
+    if not VERIFY_SPAN_LAUNCHES:
+        raise AssertionError("no launches per verify span of kernel A's device form")
+    device_form = {**entry(FLASH_DEVICE, summary[FLASH_DEVICE]),
+                   **{key: summary[FLASH_DEVICE][key] for key in GQA_SPAN_KEYS},
+                   "launches_per_verify_span": dict(VERIFY_SPAN_LAUNCHES)}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": summary[name]["err"],
-         **{key: summary[name][key] for key in keys}, **ratios(summary[name])}
+         "launches": launches[name], **entry(name, summary[name]),
+         **({"device_position": device_form} if name == K.FLASH else {})}
         for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,16 @@
 // MASKED scores, then PV. One kernel covers both Pallas variants because it
 // is online-softmax tiled over KV whatever Tk is.
 //
+// The position comes in two forms, as the Pallas kernels take it by scalar
+// prefetch (a traced value inside the JAX package's decode loops): a host
+// int `pos`, or `pos_dev`, a (B,) int32 array on the device holding batch
+// row b's position at pos_dev[b] (kernel B's device form), which a CUDA
+// graph's replays advance without a host read. Each block reads its row's
+// position once, before the warpgroups split, so that the producer issues
+// exactly the KV tiles the consumers wait on. Tk stays the static read
+// bound; tiles past the row's last attendable column are still skipped. At
+// equal positions both forms run the same tile plan and give the same bits.
+//
 // Numerics: scores accumulate in fp32 on the tensor cores and are scaled in
 // fp32 after the dot (as `_flash_kernel_kvtiled` and the XLA sdpa path do;
 // `_flash_kernel` instead folds the scale into q in bf16). Probabilities are
@@ -251,14 +261,17 @@ template <int DP>
 __global__ void __launch_bounds__(NT, 1) flash_attn_fwd_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int H, int Tq, int Tk,
-    int D, long long o_sb, long long o_sh, long long o_st, int pos, int prefix,
-    float scale_log2) {
+    int D, long long o_sb, long long o_sh, long long o_st, int pos_host,
+    const int* __restrict__ pos_dev, int prefix, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<DP>& sm = *reinterpret_cast<Smem<DP>*>(smem_raw);
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * BQ;
   const int wg = threadIdx.x / 128;
+  // One read per thread of one address, before the split: every warpgroup
+  // plans the same tiles from it.
+  const int pos = pos_dev != nullptr ? pos_dev[b] : pos_host;
   // Skip KV tiles past the last column any row of this q tile may attend.
   const int last_row = min(q0 + BQ, Tq) - 1;
   const int last_col = min(max(pos + last_row, prefix - 1), Tk - 1);
@@ -477,8 +490,8 @@ bool encode(CUtensorMap* map, const void* base, int D, int T, int H, int B, long
 
 template <int DP>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Tq,
-                   int Tk, int D, const long long* s, int pos, int prefix, float scale,
-                   cudaStream_t stream) {
+                   int Tk, int D, const long long* s, int pos, const int* pos_dev, int prefix,
+                   float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!encode(&qm, q, D, Tq, H, B, s[2], s[1], s[0], BQ) ||
       !encode(&km, k, D, Tk, H, B, s[5], s[4], s[3], BK) ||
@@ -490,7 +503,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_attn_fwd_kernel<DP><<<grid, NT, bytes, stream>>>(qm, km, vm, o, H, Tq, Tk, D, s[9],
-                                                         s[10], s[11], pos, prefix,
+                                                         s[10], s[11], pos, pos_dev, prefix,
                                                          scale * LOG2E);
   return cudaGetLastError();
 }
@@ -502,7 +515,7 @@ extern "C" int flash_attn_fwd_bf16(
     int Tk, int D, long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh,
-    long long o_st, int pos, int prefix, float scale, void* stream) {
+    long long o_st, int pos, const int* pos_dev, int prefix, float scale, void* stream) {
   const long long s[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
                            v_sb, v_sh, v_st, o_sb, o_sh, o_st};
   bool strided = true;  // TMA: 16-byte aligned bases and strides
@@ -519,12 +532,12 @@ extern "C" int flash_attn_fwd_bf16(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D <= 16)
-    err = launch<16>(qp, kp, vp, op, B, H, Tq, Tk, D, s, pos, prefix, scale, st);
+    err = launch<16>(qp, kp, vp, op, B, H, Tq, Tk, D, s, pos, pos_dev, prefix, scale, st);
   else if (D <= 32)
-    err = launch<32>(qp, kp, vp, op, B, H, Tq, Tk, D, s, pos, prefix, scale, st);
+    err = launch<32>(qp, kp, vp, op, B, H, Tq, Tk, D, s, pos, pos_dev, prefix, scale, st);
   else if (D <= 64)
-    err = launch<64>(qp, kp, vp, op, B, H, Tq, Tk, D, s, pos, prefix, scale, st);
+    err = launch<64>(qp, kp, vp, op, B, H, Tq, Tk, D, s, pos, pos_dev, prefix, scale, st);
   else
-    err = launch<80>(qp, kp, vp, op, B, H, Tq, Tk, D, s, pos, prefix, scale, st);
+    err = launch<80>(qp, kp, vp, op, B, H, Tq, Tk, D, s, pos, pos_dev, prefix, scale, st);
   return (int)err;
 }

@@ -1,5 +1,7 @@
 """Prompt-lookup (n-gram) drafting for the speculative loops
-(moondream_tpu/engine/drafting.py).
+(moondream_tpu/engine/drafting.py). The JAX package's single-stream
+`ngram_draft` is `ngram_draft_rows` over one row, as the batch-1 loop
+(engine/generate.spec_step) calls it.
 
 A draft never changes what is emitted: every speculative loop verifies it
 against the target model's own logits, so drafting only decides how many
@@ -22,7 +24,7 @@ host sync.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Tuple
 
 import torch
 
@@ -70,14 +72,3 @@ def ngram_draft_rows(
     draft = hl.gather(1, gather)
     draft = torch.where(any_match[:, None], draft, cur[:, None])
     return draft.clamp(min=0).to(h.dtype), any_match
-
-
-def ngram_draft(
-    hist: torch.Tensor, cnt1: Union[int, torch.Tensor], tok: torch.Tensor,
-    spec_k: int, max_n: int = MAX_NGRAM,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The single-stream form: history (H,), count and token. Returns
-    (draft (spec_k - 1,), any_match 0-d bool)."""
-    cnt = torch.as_tensor(cnt1, device=hist.device).reshape(1)
-    d, m = ngram_draft_rows(hist[None], cnt, tok.reshape(1), spec_k, max_n)
-    return d[0], m[0]

@@ -19,9 +19,11 @@ one CUDA graph replay (engine/graphs.py): the answer loop (`AnswerState`),
 the speculative loop (`SpecState`, verify spans at a device position), the
 reasoning loop (`ReasoningState`), the structured loop (`PointsState`, one
 graph per start phase) and the accuracy-mode gaze step (`GazeState`). The
-speculative stream replays a graph of one span per read; the plain token
-stream runs its steps eagerly, and speculative decode on a GQA model or
-with spec_k > 16 runs an eager span loop at a host position.
+speculative stream replays a graph of one span per read and the plain
+token stream a graph of one step per token. Every model and every spec_k
+runs its verify spans at the device position: MHA spans of up to 16 rows
+take kernel B's device form, GQA spans and longer ones kernel A's, as the
+JAX package runs them all inside its loops at a traced position.
 
 Every forward takes an optional stacked LoRA adapter, `lora`
 (`lora.variant_state_dict`), applied in every block as the JAX package
@@ -47,10 +49,10 @@ import torch
 
 from ..models import region as region_ops
 from ..models.region import RegionModel
-from ..models.text import DECODE_SPAN_MAX, KVCache, TextModel, text_decoder, text_encoder
+from ..models.text import KVCache, TextModel, text_decoder, text_encoder
 from ..ops.layers import layer_norm
 from . import graphs
-from .drafting import ngram_draft, ngram_draft_rows
+from .drafting import ngram_draft_rows
 from .graphs import adapter_key, tensor_key
 from .sampling import sample_tokens_batched, target_probs
 
@@ -220,25 +222,26 @@ def answer_loop(model: TextModel, kv: KVCache, first: torch.Tensor, pos: int,
                 generator: Optional[torch.Generator], temperature: float, top_p: float,
                 eos_id: int, suppress_ids: Tuple[int, ...], kv_bound: Optional[int],
                 graphed: bool, label: str, lora: Optional[dict] = None,
-                steer: Optional[torch.Tensor] = None):
+                steer: Optional[torch.Tensor] = None, run_len: int = DONE_CHECK_EVERY):
     """(state, run) of an answer loop over B = len(first) rows from `pos`:
     run(n) advances it n steps of `answer_step`. On the card (unless
-    `graphed` is False) a full run of DONE_CHECK_EVERY steps replays a CUDA
-    graph keyed by the batch, kv_bound, steered or not, the adapter, the
-    cache, eos, the suppressed ids and greedy or sampled
-    (engine/graphs.py); a shorter last run, which must not step past the
-    limit, runs eagerly. `steer` goes into the state's buffer."""
+    `graphed` is False) a full run of `run_len` steps (DONE_CHECK_EVERY; 1
+    for the stream) replays a CUDA graph keyed by the batch, kv_bound,
+    steered or not, the adapter, run_len, the cache, eos, the suppressed
+    ids and greedy or sampled (engine/graphs.py); a shorter last run, which
+    must not step past the limit, runs eagerly. `steer` goes into the
+    state's buffer."""
     sampled = temperature > 0
     bsz, dev = first.shape[0], first.device
     like = _steer_like(model, steer)
     key = (label, bsz, kv_bound, eos_id, tuple(suppress_ids),
-           id(generator) if sampled else None, steer is not None, adapter_key(lora),
+           id(generator) if sampled else None, steer is not None, adapter_key(lora), run_len,
            tensor_key(kv.k, kv.v, kv.ks, kv.vs))
     gen = generator if sampled else None
     st, run = graphs.loop(
         model, key, lambda: AnswerState.create(bsz, dev, tuple(suppress_ids), sampled, like),
         lambda st, j: answer_step(model, kv, st, j, eos_id, kv_bound, gen, lora),
-        DONE_CHECK_EVERY, graphed and graphs.enabled(dev), label, gen)
+        run_len, graphed and graphs.enabled(dev), label, gen)
     st.reset(first, pos, eos_id, temperature, top_p, steer)
     return st, run
 
@@ -314,20 +317,32 @@ def stream_tokens(
     kv_bound: Optional[int] = None,
     lora: Optional[dict] = None,
     steer: Optional[torch.Tensor] = None,
+    graphed: bool = True,
 ) -> Iterator[int]:
     """The answer loop one token at a time, for streaming: yields each
-    emitted id as a host int, one eager `answer_step` and one host read per
-    token. The steps are generate_text's (the same kernels and split plans),
-    so a streamed answer equals the fused one."""
+    emitted id as a host int, one `answer_step` and one host read per
+    token, as the JAX package's jitted step reads one. On the card each
+    step replays a CUDA graph of one step (`answer_loop`, run_len 1, label
+    "stream"); `graphed=False` runs it eagerly. The steps are
+    generate_text's (the same kernels and split plans), so a streamed
+    answer equals the fused one. The reads are recorded under LOOP_COUNTS
+    "stream" when the stream ends or is closed."""
     limit = _limit(model, pos, max_tokens, kv_bound)
     st, run = answer_loop(model, kv, first_token.reshape(1), pos, generator, temperature,
-                          top_p, eos_id, suppress_ids, kv_bound, False, "stream", lora, steer)
-    for _ in range(limit):
-        tok = int(st.tok[0])
-        if tok == eos_id:
-            return
-        yield tok
-        run(1)
+                          top_p, eos_id, suppress_ids, kv_bound, graphed, "stream", lora, steer,
+                          run_len=1)
+    steps = reads = 0
+    try:
+        while steps < limit:
+            tok = int(st.tok[0])
+            reads += 1
+            if tok == eos_id:
+                return
+            yield tok
+            run(1)
+            steps += 1
+    finally:
+        _record("stream", steps, reads)
 
 
 def _spec_limit(model: TextModel, pos: int, max_tokens: int, spec_k: int,
@@ -339,23 +354,6 @@ def _spec_limit(model: TextModel, pos: int, max_tokens: int, spec_k: int,
     if kv_bound is not None:
         limit = min(limit, kv_bound - spec_k + 1 - pos)
     return max(limit, 0)
-
-
-def _verify_logits(model: TextModel, kv: KVCache, q_toks: torch.Tensor, pos: int,
-                   kv_bound: Optional[int], suppress_ids: Tuple[int, ...],
-                   lora: Optional[dict] = None,
-                   steer: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One verify forward: the (k,) span q_toks = [current, draft...] at
-    positions pos..pos+k-1, written to the cache in place. Returns the
-    span's (k, V) logits with `suppress_ids` masked. Rows past what the
-    loop accepts leave K/V at positions the next span overwrites before
-    anything attends them."""
-    hidden = text_decoder(text_encoder(q_toks[None], model), model, kv, pos, 0, kv_bound, lora,
-                          steer)
-    logits = _lm_logits(hidden[0], model)
-    if suppress_ids:
-        logits[:, list(suppress_ids)] = NEG_INF
-    return logits
 
 
 def greedy_accept(draft: torch.Tensor, g: torch.Tensor, eos_id: int) -> torch.Tensor:
@@ -472,9 +470,10 @@ def spec_step(model: TextModel, kv: KVCache, st: SpecState, j: int, s0: int, eos
               lora: Optional[dict] = None) -> None:
     """One verify span of the speculative loop (moondream_tpu/engine/
     generate.py:238-290 greedy, :367-414 sampled), in place on `st`: the
-    token joins the draft history at S0 + count, ngram_draft drafts
+    token joins the draft history at S0 + count, ngram_draft_rows drafts
     spec_k - 1 tokens from it, one forward verifies [token; draft] at the
-    device position (kernel B's device form), and the acceptance (greedy,
+    device position (kernel B's device form for an MHA span of up to 16
+    rows, kernel A's for a GQA or longer one), and the acceptance (greedy,
     or the rejection test from `generator`) gives m, clamped to the limit.
     Run row j records the span's [token; accepted] and m; the accepted
     interior joins the history by a masked write (JAX's dropped scatter
@@ -508,16 +507,6 @@ def spec_step(model: TextModel, kv: KVCache, st: SpecState, j: int, s0: int, eos
     st.done.logical_or_((st.tok == eos_id) | (st.count >= st.limit))
 
 
-def spec_on_device(model: TextModel, spec_k: int) -> bool:
-    """Whether the speculative loop runs on its device state (`spec_step`,
-    graphed on the card): MHA and spans of at most 16 rows, which kernel B
-    takes at a device position. A GQA model's spans, and spans of more
-    rows, take kernel A at a host position: the eager span loop
-    (`_host_spec_spans`), recorded under its own LOOP_COUNTS label."""
-    cfg = model.config
-    return cfg.n_kv_heads == cfg.n_heads and spec_k <= DECODE_SPAN_MAX
-
-
 def spec_loop(model: TextModel, kv: KVCache, first_token: torch.Tensor, pos: int, limit: int,
               eos_id: int, suppress_ids: Tuple[int, ...], spec_k: int,
               kv_bound: Optional[int], seed: Optional[torch.Tensor],
@@ -549,9 +538,8 @@ def spec_loop(model: TextModel, kv: KVCache, first_token: torch.Tensor, pos: int
     return st, run
 
 
-def _spec_label(sampled: bool, on_device: bool) -> str:
-    return ("generate_text_spec_sampled" if sampled else "generate_text_spec") + (
-        "" if on_device else "_eager")
+def _spec_label(sampled: bool) -> str:
+    return "generate_text_spec_sampled" if sampled else "generate_text_spec"
 
 
 def spec_spans(
@@ -574,25 +562,19 @@ def spec_spans(
 ) -> Iterator[List[int]]:
     """The speculative answer loop one verify span at a time, for the
     speculative stream: while the token is not EOS and the limit is not
-    reached, draft spec_k - 1 tokens from [seed; emitted] (ngram_draft),
+    reached, draft spec_k - 1 tokens from [seed; emitted] (ngram_draft_rows),
     verify [token; draft] in one forward and advance by the m tokens the
     acceptance gives: greedy (`greedy_accept`) at temperature 0, else the
     rejection test against the target nucleus (`sampled_accept`). Yields
     each span's m emitted tokens (the span's token and its accepted
     drafts) as host ints. The spans are the fused loops' `spec_step`s, one
-    host read each plus one before the first; on the card each span
-    replays a CUDA graph of one span (`graphed=False`: eager). The reads
-    are recorded under LOOP_COUNTS "generate_text_spec" (or
-    "generate_text_spec_sampled") when the loop ends. A GQA model or
-    spec_k > 16 takes the eager span loop at a host position instead."""
-    sampled = temperature > 0
-    if not spec_on_device(model, spec_k):
-        yield from _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id,
-                                    suppress_ids, spec_k, kv_bound, seed, generator,
-                                    temperature, top_p, lora, steer)
-        return
+    host read each plus one before the first, for every model and spec_k;
+    on the card each span replays a CUDA graph of one span
+    (`graphed=False`: eager). The reads are recorded under LOOP_COUNTS
+    "generate_text_spec" (or "generate_text_spec_sampled") when the loop
+    ends."""
     limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
-    label = _spec_label(sampled, True)
+    label = _spec_label(temperature > 0)
     st, run = spec_loop(model, kv, first_token, pos, limit, eos_id, suppress_ids, spec_k,
                         kv_bound, seed, generator, temperature, top_p, graphed, label, 1,
                         lora, steer)
@@ -608,50 +590,6 @@ def spec_spans(
     _record(label, spans, reads)
 
 
-def _host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
-                     kv_bound, seed, generator, temperature, top_p,
-                     lora=None, steer=None) -> Iterator[List[int]]:
-    """spec_spans at a host position (GQA, or spec_k > 16: kernel A takes
-    the spans): the host reads m and the span's tokens once per span, plus
-    the first token once; recorded under "generate_text_spec_eager" (or
-    "generate_text_spec_sampled_eager")."""
-    sampled = temperature > 0
-    steer = None if steer is None else steer.to(model.wte.dtype)  # cast once, not per span
-
-    def accept(draft, q_toks, at):
-        logits = _verify_logits(model, kv, q_toks, at, kv_bound, suppress_ids, lora, steer)
-        if sampled:
-            return sampled_accept(logits, draft, generator, temperature, top_p, eos_id)
-        g = torch.argmax(logits, dim=-1)
-        return g, greedy_accept(draft, g, eos_id)
-
-    limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
-    dev = first_token.device
-    s0 = 0 if seed is None else seed.shape[0]
-    # the draft history [seed; emitted], JAX's width (seed + max_context)
-    hist = torch.zeros(s0 + model.config.max_context, dtype=torch.long, device=dev)
-    if seed is not None:
-        hist[:s0] = seed
-    tok = first_token.reshape(()).long()
-    t = int(tok)
-    reads, iters, i = 1, 0, 0
-    while t != eos_id and i < limit:
-        hist[s0 + i] = tok
-        draft, _ = ngram_draft(hist, s0 + i + 1, tok, spec_k)
-        emitted, m = accept(draft, torch.cat([tok.view(1), draft]), pos + i)
-        m = m.clamp(max=limit - i)
-        host = torch.cat([m.view(1), emitted]).tolist()
-        reads += 1
-        iters += 1
-        n = host[0]
-        if n > 1:
-            hist[s0 + i + 1:s0 + i + n] = emitted[:n - 1]
-        yield [t] + host[1:n]
-        tok, t = emitted[n - 1], host[n]
-        i += n
-    _record(_spec_label(sampled, False), iters, reads)
-
-
 def _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
                 kv_bound, seed, generator, temperature, top_p, graphed,
                 lora=None, steer=None) -> "GenerateResult":
@@ -661,13 +599,8 @@ def _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, s
     most ceil(spans / 8) + 1 times; on the card each full run replays a
     CUDA graph. A run never steps past the limit: each live span emits at
     least one token, so limit - count spans always reach it."""
-    sampled = temperature > 0
-    if not spec_on_device(model, spec_k):
-        return _collect(_host_spec_spans(model, kv, first_token, pos, max_tokens, eos_id,
-                                         suppress_ids, spec_k, kv_bound, seed, generator,
-                                         temperature, top_p, lora, steer), pos)
     limit = _spec_limit(model, pos, max_tokens, spec_k, kv_bound)
-    label = _spec_label(sampled, True)
+    label = _spec_label(temperature > 0)
     st, run = spec_loop(model, kv, first_token, pos, limit, eos_id, suppress_ids, spec_k,
                         kv_bound, seed, generator, temperature, top_p, graphed, label,
                         lora=lora, steer=steer)
@@ -685,11 +618,6 @@ def _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, s
         run(n)
         spans += n
     _record(label, spans, reads)
-    return GenerateResult(tokens=out, count=len(out), pos=pos + len(out))
-
-
-def _collect(spans: Iterator[List[int]], pos: int) -> GenerateResult:
-    out = [t for span in spans for t in span]
     return GenerateResult(tokens=out, count=len(out), pos=pos + len(out))
 
 
@@ -719,10 +647,9 @@ def generate_text_spec(
     context end or kv_bound. `seed`: a (S0,) prompt tail, left-padded with
     -1, ahead of the draft history (prompt lookup; it changes drafts only).
     The spans are `spec_step`s over a device state (`SpecState`), read once
-    per run of DONE_CHECK_EVERY spans plus once; on the card each full run
-    replays a CUDA graph, and `graphed=False` runs the same spans eagerly.
-    A GQA model or spec_k > 16 runs the eager span loop at a host position
-    (one read per span), under LOOP_COUNTS "generate_text_spec_eager"."""
+    per run of DONE_CHECK_EVERY spans plus once, on every model (MHA or
+    GQA) and every spec_k; on the card each full run replays a CUDA graph,
+    and `graphed=False` runs the same spans eagerly."""
     return _fused_spec(model, kv, first_token, pos, max_tokens, eos_id, suppress_ids, spec_k,
                        kv_bound, seed, None, 0.0, 0.0, graphed, lora, steer)
 

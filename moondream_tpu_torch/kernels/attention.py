@@ -1,4 +1,5 @@
-"""ctypes bindings of the attention kernels in `csrc/`: A (flash), and B
+"""ctypes bindings of the attention kernels in `csrc/`: A (flash; its
+position as a host int or as positions on the device), and B
 (one position for the batch, as a host int or as positions on the device;
 its GQA entries over one layer of the stacked cache or over a single
 layer) and C (per-row positions, optionally over a shared prefix segment),
@@ -50,7 +51,8 @@ def _flash_lib() -> ctypes.CDLL:
     fn = lib.flash_attn_fwd_bf16
     if fn.argtypes is None:
         fn.restype = _I
-        fn.argtypes = [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I, _I, _F, _P]
+        # pos, pos_dev (null: the host pos), prefix, scale, stream
+        fn.argtypes = [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I, _P, _I, _F, _P]
     return lib
 
 
@@ -195,14 +197,26 @@ def _head_major_out(b: int, h: int, t: int, d: int, like: torch.Tensor):
 
 
 def flash_attn_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, prefix: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: Union[int, torch.Tensor],
+    prefix: int
 ) -> torch.Tensor:
     """Masked attention, q (B, H, Tq, D), k/v (B, H, Tk, D) -> (B, H, Tq, D).
-    Query row i sits at position pos + i (unified mask rule). q, k and v
-    are read by TMA as they lie: a unit head_dim stride, a 16-byte aligned
-    base and batch, head and token strides of whole 16 bytes (the ViT's
-    fused-QKV head views, the stacked cache's layer views and contiguous
-    tensors all are); anything else raises."""
+    Query row i of batch row b sits at position pos + i (unified mask
+    rule). `pos`: a host int, or (B,) int32 positions on q's device, row b
+    at pos[b], which only the kernel reads (the form a CUDA graph's replays
+    advance; Tk stays the read bound). q, k and v are read by TMA as they
+    lie: a unit head_dim stride, a 16-byte aligned base and batch, head and
+    token strides of whole 16 bytes (the ViT's fused-QKV head views, the
+    stacked cache's layer views and contiguous tensors all are); anything
+    else raises.
+
+    The tensor maps are encoded at every launch and passed by value, so a
+    CUDA graph bakes in the addresses of q, k and v as captured. That is
+    sound for a captured decode loop: k and v are either the cache's layer
+    views (the cache is named in the graph's key) or copies made inside the
+    capture (heads repeated under GQA, an int8 layer dequantized), which
+    live in the graph's private memory pool at fixed addresses for the
+    graph's life."""
     _check_bf16_cuda(FLASH, q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
@@ -210,12 +224,17 @@ def flash_attn_fwd(
         raise ValueError(f"{FLASH}: shapes {q.shape} {k.shape} {v.shape}")
     if d % 8 or d > 80:
         raise ValueError(f"{FLASH}: head_dim {d} must be a multiple of 8 and <= 80")
+    if isinstance(pos, torch.Tensor):
+        _check_index(FLASH, pos, b, q)
+        host_pos, pos_ptr = 0, pos.data_ptr()
+    else:
+        host_pos, pos_ptr = int(pos), None
     strides = [_tma_strides(FLASH, t) for t in (q, k, v)]
     out = _head_major_out(b, h, tq, d, q)
     rc = _flash_lib().flash_attn_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, tq, tk, d, *strides[0], *strides[1], *strides[2], *out.stride()[:3],
-        int(pos), int(prefix), float(d) ** -0.5,
+        host_pos, pos_ptr, int(prefix), float(d) ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(FLASH, rc)

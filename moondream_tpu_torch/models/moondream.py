@@ -27,8 +27,9 @@ load_encoded_image (on recycled buffers) and _prefill_prompt.
 On the card the decode loops (caption and query, plain, speculative and
 with reasoning; detect, point, detect_gaze; the lockstep batches) replay
 CUDA graphs of their runs (engine/graphs.py); `compile()` builds the
-kernels and captures them ahead of the first request. Streams run their
-steps eagerly.
+kernels and captures them ahead of the first request. A stream replays a
+graph of one decode step per token, or of one verify span per span under
+settings["speculative"], on MHA and GQA models and at every k alike.
 LoRA variants: settings["variant"] (a local adapter file,
 `lora.variant_state_dict`) or settings["variant_tree"] (an adapter
 already loaded) puts the adapter in every text forward of a request, the
@@ -239,9 +240,9 @@ class MoondreamModel:
         versions); without a card the default raises. On a CUDA device the
         kernels take bf16 activations only. `graphed`: on the card the
         decode loops (answer, speculative, reasoning, structured, the
-        lockstep batches and the accuracy-mode gaze step) replay CUDA
-        graphs of their runs (engine/graphs.py); False runs the same steps
-        eagerly, for comparison."""
+        lockstep batches, the accuracy-mode gaze step and the streams)
+        replay CUDA graphs of their runs (engine/graphs.py); False runs the
+        same steps eagerly, for comparison."""
         self.config = config
         self.dtype = dtype
         self.device = checked_device(device)
@@ -520,7 +521,10 @@ class MoondreamModel:
         structured loop of detect and point; the eye-mode gaze point) for
         the kv_bound bucket that max_tokens and max_objects give: warm with
         the settings real requests use, as the JAX package's jit keys say.
-        A graph is captured at its loop's first full run of 8 steps, so a
+        No request streams, so the plain and the speculative stream capture
+        their graphs at the first streamed request of each key (kv_bound
+        bucket, sampling mode, adapter, cache). A graph is captured at its
+        loop's first full run of 8 steps, so a
         dummy request that stops inside its first run leaves it to the
         first real one, as does a sampled request; the serving pool
         captures its chunks' graphs at their first chunk, and the lockstep
@@ -708,10 +712,10 @@ class MoondreamModel:
         self, kv, next_token, pos, settings, eos_id=None, prompt_tokens=None, lora=None,
         steer=None,
     ) -> Iterator[str]:
-        """Incremental streaming, text flushed on word boundaries: one eager
-        decode step and one host sync per token, or with
-        settings["speculative"] the fused loop's verify spans
-        (engine.spec_spans, one CUDA graph replay each on the card), one
+        """Incremental streaming, text flushed on word boundaries: one decode
+        step and one host sync per token (engine.stream_tokens, one CUDA
+        graph replay each on the card), or with settings["speculative"] the
+        fused loop's verify spans (engine.spec_spans, one replay each), one
         sync per 1..k tokens."""
         max_tokens, temperature, top_p = self._settings(settings)
         eos = eos_id if eos_id is not None else self.config.tokenizer.eos_id
@@ -741,7 +745,8 @@ class MoondreamModel:
         """The answer's ids one decode step and one host sync at a time."""
         return engine.stream_tokens(
             self.text, kv, next_token, pos, self.generator, temperature, top_p, max_tokens,
-            eos, suppress, self._decode_bound(pos + max_tokens + 1), lora=lora, steer=steer)
+            eos, suppress, self._decode_bound(pos + max_tokens + 1), lora=lora, steer=steer,
+            graphed=self.graphed)
 
     # -------------------------------------------------------------- query
     def query(

@@ -313,17 +313,18 @@ def attn_with_cache(
 
     x: (B, T, D) pre-normed input at positions pos..pos+T-1. `pos` is a
     host int, or a (B,) int32 device tensor whose rows hold the loop's one
-    position: for one decode token, or for a span of up to 16 rows over an
-    MHA cache (a speculative verify span). The decode loops' steps, which a
-    CUDA graph replays, take that form: RoPE, the cache writes and kernel B
-    then read it on the device. RoPE rows past the table are clamped to its
+    position, for a decode token or a span of any length (a speculative
+    verify span), as the JAX package takes a traced position. The decode
+    loops' steps, which a CUDA graph replays, take that form: RoPE, the
+    cache writes and the attention kernels (B's and A's device forms) then
+    read it on the device. RoPE rows past the table are clamped to its
     last row, and a span's write starts at min(pos, T - Tq), as JAX's
     gather and dynamic_update_slice clamp them; such rows belong to a loop
     that is done and are never attended. Routed as the JAX package routes
-    it (moondream_tpu/models/text.py:377-406):
-      * MHA spans of up to 16 rows (decode tokens, short prompt prefills),
-        and GQA decode tokens over a bf16 cache, go to the stacked-cache
-        decode attention;
+    it (moondream_tpu/models/text.py:377-406), whatever the position's form:
+      * MHA spans of up to 16 rows (decode tokens, short prompt prefills,
+        verify spans of k <= 16), and GQA decode tokens over a bf16 cache,
+        go to the stacked-cache decode attention;
       * a GQA decode token over an int8 cache dequantizes the layer's
         [0, kv_bound) span and goes to the single-layer decode attention;
       * longer spans (and GQA spans) read cache[layer][:, :, :kv_bound],
@@ -339,12 +340,6 @@ def attn_with_cache(
     if on_device and q_len == 1:
         position_ids = pos.long()[:, None]  # (B, 1)
     elif on_device:
-        if q_len > DECODE_SPAN_MAX or not mha:
-            raise ValueError(
-                f"a device position takes one decode token, or a span of at most "
-                f"{DECODE_SPAN_MAX} rows over an MHA cache; got {q_len} rows, "
-                f"{config.n_kv_heads} of {config.n_heads} KV heads"
-            )
         steps = torch.arange(q_len, device=x.device)
         # (B, Tq); rows past the RoPE table, and the write start, clamped
         position_ids = (pos.long()[:, None] + steps).clamp(max=freqs_cis.shape[0] - 1)
@@ -413,8 +408,8 @@ def text_decoder(
 ) -> torch.Tensor:
     """Run every block over x (B, T, D) at positions pos.., writing the cache
     in place; returns the final hidden states (B, T, D). `pos`: a host int,
-    or a (B,) int32 device tensor for one decode token or an MHA span of
-    up to 16 rows (attn_with_cache). `lora`: a stacked adapter tree
+    or a (B,) int32 device tensor holding one position for every row
+    (attn_with_cache). `lora`: a stacked adapter tree
     (`lora.variant_state_dict`), layer l's factors applied in block l.
     `steer`: an (n_layers, dim) steering vector, cast to x's dtype once
     (JAX casts each row: the same values) and its row l added to block l's

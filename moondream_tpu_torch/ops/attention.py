@@ -14,7 +14,7 @@ take. There is no fallback from the kernel to the plain version.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -27,9 +27,17 @@ def _ceil_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def unified_mask(tq: int, tk: int, pos: int, prefix: int, device) -> torch.Tensor:
-    rows = pos + torch.arange(tq, device=device)[:, None]
-    cols = torch.arange(tk, device=device)[None, :]
+def unified_mask(tq: int, tk: int, pos: Union[int, torch.Tensor], prefix: int,
+                 device) -> torch.Tensor:
+    """The (Tq, Tk) mask of a host int `pos`; for a (B,) tensor of
+    positions, one mask per batch row, (B, 1, Tq, Tk), row b's queries at
+    pos[b] + i."""
+    rows = torch.arange(tq, device=device)[:, None]
+    if isinstance(pos, torch.Tensor):
+        rows = pos.long().to(device)[:, None, None, None] + rows
+    else:
+        rows = pos + rows
+    cols = torch.arange(tk, device=device)
     return (cols <= rows) | ((rows < prefix) & (cols < prefix))
 
 
@@ -43,16 +51,21 @@ def _masked_softmax_pv(q, k, v, mask) -> torch.Tensor:
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, pos: int, prefix: int) -> torch.Tensor:
-    """Plain version of kernel A. q (B, H, Tq, D), k/v (B, H, Tk, D)."""
+def flash_attention_plain(q, k, v, pos: Union[int, torch.Tensor],
+                          prefix: int) -> torch.Tensor:
+    """Plain version of kernel A. q (B, H, Tq, D), k/v (B, H, Tk, D); `pos`
+    an int, or a (B,) tensor of positions (one mask per batch row)."""
     mask = unified_mask(q.shape[2], k.shape[2], pos, prefix, q.device)
     return _masked_softmax_pv(q, k, v, mask)
 
 
-def flash_attention(q, k, v, pos: int, prefix: int) -> torch.Tensor:
+def flash_attention(q, k, v, pos: Union[int, torch.Tensor], prefix: int) -> torch.Tensor:
     """Fused masked attention: (B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D).
     Counterpart of `flash_attention` and `_flash_attention_kvtiled` of the
-    JAX package; query row i sits at position pos + i."""
+    JAX package; query row i sits at position pos + i. `pos`: a host int,
+    or a (B,) int32 tensor on q's device, row b at pos[b] (kernel A's device
+    form, as the Pallas kernels take a traced position by scalar prefetch:
+    nothing is read back, so a CUDA graph can capture the call)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, pos, prefix)
     from ..kernels.attention import flash_attn_fwd

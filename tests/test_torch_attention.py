@@ -7,8 +7,14 @@ tests/test_attention_kernel.py, fp32 inputs, atol 2e-5 (the same fp32 math
 summed in another order). The GQA plain versions are held to the JAX
 package in tests/test_torch_gqa.py.
 
+Kernel A's device form (a (B,) position tensor) is held on the CPU to
+JAX's `flash_attention` under jax.jit at a traced position (Tq 8 and 24,
+MHA and repeated GQA heads, atol 2e-5) and to its own int form.
+
 Tests marked `cuda` hold the CUDA kernels (kernel B's GQA entries too)
-against the plain versions on the card and skip without one. jax is imported inside the CPU tests only, so on
+against the plain versions on the card and skip without one; kernel A's
+device form also bit for bit against its host form, and after a CUDA
+graph's replay at a changed position. jax is imported inside the CPU tests only, so on
 a machine without jax the card tests run with
 `python -m pytest --noconftest -m cuda tests/test_torch_attention.py`.
 """
@@ -65,6 +71,67 @@ def test_flash_plain_matches_pallas(case):
     )
     got = flash_attention(*_t(q, k, v), pos, prefix).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+# Kernel A's device form: a (B,) int32 position tensor, as the JAX package
+# calls `flash_attention` at a traced position inside its decode loops
+# (scalar prefetch). (tq, rep): a speculative verify span of 8 or 24 rows
+# over Tk 256, MHA (rep 1) or KV heads repeated for GQA (rep 2), as
+# attn_with_cache repeats them; prefix 100, so that the rows at position 0
+# cross the prefix edge and those at Tk - Tq end on the diagonal.
+DEVICE_POS_CASES = [(8, 1), (8, 2), (24, 1), (24, 2)]
+DEVICE_POS_PREFIX = 100
+
+
+def _span_qkv(seed, b, hkv, rep, tq, tk, d, scale=0.3):
+    """q (b, hkv * rep, tq, d) and k/v (b, hkv, tk, d) with their heads
+    repeated rep times (query head h reads KV head h // rep)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: (rng.standard_normal(s) * scale).astype(np.float32)
+    q, k, v = f(b, hkv * rep, tq, d), f(b, hkv, tk, d), f(b, hkv, tk, d)
+    return q, np.repeat(k, rep, axis=1), np.repeat(v, rep, axis=1)
+
+
+@pytest.fixture(scope="module")
+def jax_flash_traced():
+    """JAX's flash_attention in interpret mode under jax.jit with the
+    position traced, compiled once per shape."""
+    import jax
+
+    from moondream_tpu.ops.attention import flash_attention as jax_flash
+
+    return jax.jit(lambda q, k, v, pos: jax_flash(q, k, v, pos, DEVICE_POS_PREFIX,
+                                                  interpret=True))
+
+
+@pytest.mark.parametrize("tq,rep", DEVICE_POS_CASES,
+                         ids=[f"tq{t}-{'mha' if r == 1 else 'gqa'}" for t, r in DEVICE_POS_CASES])
+def test_flash_plain_device_position_matches_pallas(jax_flash_traced, tq, rep):
+    """Kernel A's plain version at (B,) tensor positions 0 and Tk - Tq
+    against JAX's flash_attention at a traced jnp.int32 position (atol
+    ATOL), and equal to its int form bit for bit."""
+    import jax.numpy as jnp
+
+    b, tk = 2, 256
+    q, k, v = _span_qkv(90 + tq + rep, b, 2, rep, tq, tk, 32)
+    for pos in (0, tk - tq):
+        want = np.asarray(jax_flash_traced(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           jnp.int32(pos)))
+        got = flash_attention(*_t(q, k, v), torch.full((b,), pos, dtype=torch.int32),
+                              DEVICE_POS_PREFIX)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+        assert torch.equal(got, flash_attention(*_t(q, k, v), pos, DEVICE_POS_PREFIX))
+
+
+def test_flash_plain_device_position_is_per_row():
+    """Row b of a (B,) position tensor places batch row b's queries at
+    pos[b] + i: each row equals the int form at its own position."""
+    q, k, v = _t(*_span_qkv(97, 3, 2, 2, 8, 256, 32))
+    pos = [0, 95, 248]
+    got = flash_attention(q, k, v, torch.tensor(pos, dtype=torch.int32), DEVICE_POS_PREFIX)
+    for r, p in enumerate(pos):
+        want = flash_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1], p, DEVICE_POS_PREFIX)
+        torch.testing.assert_close(got[r:r + 1], want, rtol=0, atol=1e-7)
 
 
 def _cache(seed, L, b, h, t, d, pos, garbage_from):
@@ -389,3 +456,62 @@ def test_decode_workspace_is_per_stream(cuda):
     assert spaces[0][1].data_ptr() != spaces[1][1].data_ptr()
     for out in outs:
         assert torch.equal(out, want)
+
+
+# Kernel A's device form on the card, at the speculative verify spans'
+# shapes: the GQA 2B's (32 query heads over 8 KV heads repeated, Tq 8) and
+# the MHA 2B's at k 24 (32 heads), over the layer view of a stacked cache
+# read to kv_bound 1024, diagonal queries (row i's query is its own key
+# x 10) and x1000 garbage past the span.
+DEVICE_FORM_CASES = {"gqa_k8": (8, 4), "mha_k24": (24, 1)}
+
+
+def _device_form_inputs(cuda, tq, rep, pos, seed=120):
+    L, t, tk, hkv, d, layer = 2, 2048, 1024, 32 // rep, 64, 1
+    rng = np.random.default_rng(seed + tq + pos)
+    kc, vc = _bf16(cuda, *((rng.standard_normal((L, 1, hkv, t, d)) * 0.5).astype(np.float32)
+                           for _ in range(2)))
+    kc[..., pos + tq:, :] *= 1000
+    vc[..., pos + tq:, :] *= 1000
+    k = kc[layer, :, :, :tk].repeat_interleave(rep, dim=1)
+    v = vc[layer, :, :, :tk].repeat_interleave(rep, dim=1)
+    q = (k[:, :, pos:pos + tq] * 10).contiguous()
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DEVICE_FORM_CASES))
+def test_flash_kernel_device_position_equals_host_form(cuda, case):
+    """At positions 0 and Tk - Tq (prefix 730): the device form bit for bit
+    the host form, and within CUDA_REL_TOL of the plain version."""
+    tq, rep = DEVICE_FORM_CASES[case]
+    for pos in (0, 1024 - tq):
+        q, k, v = _device_form_inputs(cuda, tq, rep, pos)
+        got = flash_attention(q, k, v, torch.full((1,), pos, dtype=torch.int32, device=cuda),
+                              730)
+        assert torch.equal(got, flash_attention(q, k, v, pos, 730))
+        want = flash_attention_plain(q.float(), k.float(), v.float(), pos, 730)
+        assert _rel_err(got, want) < CUDA_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DEVICE_FORM_CASES))
+def test_flash_kernel_device_position_replays_at_a_new_position(cuda, case):
+    """A CUDA graph captured at one device position, replayed after the
+    position tensor changed, gives the host form at the new position."""
+    tq, rep = DEVICE_FORM_CASES[case]
+    q, k, v = _device_form_inputs(cuda, tq, rep, 500)
+    pos = torch.full((1,), 0, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention(q, k, v, pos, 730)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention(q, k, v, pos, 730)
+    for p in (500, 1024 - tq, 3):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flash_attention(q, k, v, p, 730))

@@ -12,8 +12,14 @@ in fp32 (exact ids), in a plain and an int8 KV cache:
     `generate_text_spec` ids, count and position: EOS as the first token,
     inside a span and none (the limit), at k 4 and 16; its reads are at
     most ceil(spans / 8) + 1. The sampled loop gives the same ids twice
-    from one seed. A GQA model and k > 16 take the eager span loop at a
-    host position, under their own LOOP_COUNTS label.
+    from one seed. A GQA model (k 4) and k 24 run on the device state too
+    (kernel A's device form), greedy and sampled, graphed and eager: their
+    ids equal JAX's `generate_text_spec` and, at top_p 0,
+    `generate_text_spec_sampled`, with ceil(spans / 8) + 1 reads.
+  * A GQA span of 4 rows and an MHA span of 24 at a device position equal
+    the host-int form and JAX's `text_decoder`.
+  * The plain token stream replays a graph of one step per token and gives
+    the fused loop's ids, one host read per token.
   * The reasoning loop (`reasoning_step`) gives JAX's `generate_reasoning`
     tokens, coordinate flags and values (exact), with and without the
     answer token ending it.
@@ -210,15 +216,26 @@ def test_device_span_write_clamps_at_the_cache_end(pairs, fmt):
 
 
 def test_device_span_refuses_gqa_and_long_spans(pairs):
-    cfg, tree, model, _, _ = pairs("gqa")
-    kv = port_text.KVCache.create(model.config, 1, torch.float32, "cpu")
-    pos = torch.zeros((1,), dtype=torch.int32)
-    with pytest.raises(ValueError, match="device position"):
-        port_text.text_decoder(torch.zeros(1, 4, cfg.dim), model, kv, pos, 0)
-    _, _, mha, _, _ = pairs("mha")
-    kv = port_text.KVCache.create(mha.config, 1, torch.float32, "cpu")
-    with pytest.raises(ValueError, match="device position"):
-        port_text.text_decoder(torch.zeros(1, 17, cfg.dim), mha, kv, pos, 0)
+    """A device position no longer refuses a GQA span (4 rows) or one of
+    more than 16 rows (24, MHA): both take kernel A's device form (its
+    plain version here), as JAX routes them at a traced position. Hidden
+    states and cache writes equal the host-int form's exactly and JAX's
+    within ATOL / RTOL. (The name predates the device route; it is kept.)"""
+    for fmt, tq in (("gqa", 4), ("mha", 24)):
+        cfg, tree, model, _, _ = pairs(fmt)
+        x = _embeds(cfg.dim, 1)
+        span = np.random.default_rng(70 + tq).standard_normal((1, tq, cfg.dim)).astype(
+            np.float32)
+        jkv, _, pkv, _ = _prefill(cfg, tree, model, x)
+        _, _, pkv2, _ = _prefill(cfg, tree, model, x)
+        want, _ = jax_text.text_decoder(jnp.asarray(span), tree["text"], jkv, jnp.int32(12),
+                                        jnp.int32(0), cfg)
+        host = port_text.text_decoder(torch.from_numpy(span), model, pkv, 12, 0)
+        got = port_text.text_decoder(torch.from_numpy(span), model, pkv2,
+                                     torch.full((1,), 12, dtype=torch.int32), 0)
+        torch.testing.assert_close(got, host, rtol=0, atol=0)
+        assert torch.equal(pkv.k, pkv2.k) and torch.equal(pkv.v, pkv2.v)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
 
 
 # ------------------------------------------------------ speculative loop
@@ -290,20 +307,52 @@ def test_sampled_spec_loop_repeats_from_one_seed(pairs):
     assert outs[0] == outs[1] and outs[0].count == 30
 
 
-@pytest.mark.parametrize("fmt,k", [("gqa", 4), ("mha", 24)])
-def test_spec_on_gqa_or_long_spans_takes_the_eager_route(pairs, free_spec, fmt, k):
-    """GQA spans, and spans of more than 16 rows, take kernel A at a host
-    position: the eager span loop, under its own label, one read per span
-    plus one; the ids are still the plain greedy ones."""
+@pytest.fixture(scope="module")
+def jax_spec_ids(pairs):
+    """JAX's speculative ids from FIRST at position 0 (eos -1), one jit per
+    (format, k, kind), kept: greedy `generate_text_spec`, or
+    `generate_text_spec_sampled` at top_p 0, where the target is one-hot at
+    the argmax and the ids are the greedy ones whatever the key."""
+    done = {}
+
+    def get(fmt, k, max_tokens, sampled=False):
+        if (fmt, k, max_tokens, sampled) not in done:
+            cfg, tree, _, _, _ = pairs(fmt)
+            kw = dict(config=cfg, eos_id=-1, suppress_ids=(), buffer=cfg.max_context, spec_k=k)
+            kv = jax_text.KVCache.create(cfg, batch=1, dtype=jnp.float32)
+            if sampled:
+                fn = jax.jit(partial(jax_generate.generate_text_spec_sampled, **kw))
+                r = fn(tree["text"], kv, jnp.int32(FIRST), jnp.int32(0), jax.random.PRNGKey(1),
+                       jnp.float32(0.7), jnp.float32(0.0), jnp.int32(max_tokens))
+            else:
+                fn = jax.jit(partial(jax_generate.generate_text_spec, **kw))
+                r = fn(tree["text"], kv, jnp.int32(FIRST), jnp.int32(0), jnp.int32(max_tokens))
+            done[fmt, k, max_tokens, sampled] = np.asarray(r.tokens[:int(r.count)]).tolist()
+        return done[fmt, k, max_tokens, sampled]
+
+    return get
+
+
+# GQA spans, and spans of more than 16 rows: kernel A's device form
+LONG_OR_GQA = [("gqa", 4), ("mha", 24)]
+
+
+@pytest.mark.parametrize("fmt,k", LONG_OR_GQA)
+def test_spec_on_gqa_or_long_spans_takes_the_eager_route(pairs, free_spec, jax_spec_ids, fmt,
+                                                         k):
+    """GQA spans, and spans of more than 16 rows, no longer take an eager
+    route: the loop runs on its device state (`spec_step`) as every other,
+    under "generate_text_spec", reading the host ceil(spans / 8) + 1 times;
+    its ids equal JAX's generate_text_spec and the plain greedy ones. (The
+    name predates the device route; it is kept.)"""
     _, _, model, _, _ = pairs(fmt)
-    free = free_spec(fmt)
-    assert not port_generate.spec_on_device(model, k)
+    free, want = free_spec(fmt), jax_spec_ids(fmt, k, 24)
     port_generate.reset_loop_counts()
     got = _port_spec(model, k, 24, -1)
-    assert got[0] == free
-    assert list(port_generate.LOOP_COUNTS) == ["generate_text_spec_eager"]
-    c = port_generate.LOOP_COUNTS["generate_text_spec_eager"]
-    assert c["reads"] == c["steps"] + 1
+    assert got[0] == want == free
+    assert list(port_generate.LOOP_COUNTS) == ["generate_text_spec"]
+    c = port_generate.LOOP_COUNTS["generate_text_spec"]
+    assert c["calls"] == 1 and c["reads"] == math.ceil(c["steps"] / EVERY) + 1
 
 
 # ---------------------------------------------------------- reasoning loop
@@ -426,6 +475,21 @@ def test_a_spec_run_reads_nothing_on_the_host(pairs, no_host_reads, monkeypatch,
     monkeypatch.undo()
     assert 8 <= st.count.item() <= 32 and st.pos.item() == st.count.item()
     assert st.run_m.sum().item() == st.count.item()
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("fmt,k", LONG_OR_GQA)
+def test_gqa_and_long_span_spec_runs_read_nothing_on_the_host(pairs, no_host_reads,
+                                                              monkeypatch, fmt, k, sampled):
+    _, _, model, _, _ = pairs(fmt)
+    kv = port_text.KVCache.create(model.config, 1, torch.float32, "cpu")
+    st, run = port_generate.spec_loop(
+        model, kv, torch.tensor(FIRST), 0, 100, -1, (3,), k, 256, None,
+        torch.Generator().manual_seed(0), 0.7 if sampled else 0.0, 0.9, True, "test")
+    no_host_reads()
+    run(EVERY)
+    monkeypatch.undo()
+    assert 8 <= st.count.item() <= 8 * k and st.pos.item() == st.count.item()
 
 
 def test_reasoning_and_structured_runs_read_nothing_on_the_host(pairs, no_host_reads,
@@ -586,6 +650,78 @@ def test_graphed_loops_equal_eager(pairs, stand_in_graphs):
     for label in ("generate_text_spec", "generate_text_spec_sampled", "generate_reasoning"):
         assert graphs.REPLAYS[label] > replays.get(label, 0) > 0 or (
             graphs.REPLAYS[label] >= 1 and label in captured)
+
+
+@pytest.mark.parametrize("fmt,k", LONG_OR_GQA)
+def test_gqa_and_long_span_spec_graphed_equals_eager(pairs, stand_in_graphs, jax_spec_ids,
+                                                     fmt, k):
+    """The GQA k 4 and MHA k 24 speculative loops through the graph path,
+    twice (the second call only replays), against their eager runs: greedy
+    (40 tokens: five runs of 8 spans would pass the limit, so a shorter
+    last run is eager), sampled at top_p 0.9 from one seed, and sampled at
+    top_p 0, whose ids are JAX's generate_text_spec_sampled's. The fused
+    loops read ceil(spans / 8) + 1 times, and graphs replay."""
+    captured = stand_in_graphs
+    _, _, model, _, _ = pairs(fmt)
+    kv = port_text.KVCache.create(model.config, 1, torch.float32, "cpu")
+    gen = torch.Generator()
+
+    def loops(graphed):
+        out = []
+        for temperature, top_p in ((0.0, 0.0), (0.7, 0.9), (0.7, 0.0)):
+            gen.manual_seed(5)
+            port_generate.reset_loop_counts()
+            out.append(port_generate._fused_spec(
+                model, kv, torch.tensor(FIRST), 0, 40, -1, (), k, None, None, gen,
+                temperature, top_p, graphed).tokens)
+            (c,) = port_generate.LOOP_COUNTS.values()
+            assert c["reads"] == math.ceil(c["steps"] / EVERY) + 1
+        return out
+
+    eager = loops(False)
+    assert captured == []
+    replays = dict(graphs.REPLAYS)
+    assert loops(True) == loops(True) == eager
+    assert eager[0] == jax_spec_ids(fmt, k, 40) == eager[2] == jax_spec_ids(fmt, k, 40, True)
+    for label in ("generate_text_spec", "generate_text_spec_sampled"):
+        assert label in captured and graphs.REPLAYS[label] > replays.get(label, 0)
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_stream_replays_one_step_and_equals_the_fused_loop(pairs, free_spec, stand_in_graphs,
+                                                            sampled):
+    """stream_tokens through the graph path (a graph of one answer_step,
+    label "stream", captured once and replayed per token) and eagerly, both
+    equal to the fused generate_text from one seed, with the plain greedy
+    run's token 13 as EOS: one host read per token, plus the read that
+    finds EOS if one does (the greedy stream stops at its first
+    occurrence)."""
+    captured = stand_in_graphs
+    _, _, model, _, _ = pairs("mha")
+    free = free_spec("mha")
+    eos = free[13]
+    gen = torch.Generator()
+    temperature = 0.7 if sampled else 0.0
+    kv = port_text.KVCache.create(model.config, 1, torch.float32, "cpu")
+
+    def run(kind):
+        gen.manual_seed(6)
+        port_generate.reset_loop_counts()
+        args = (model, kv, torch.tensor(FIRST), 0, gen, temperature, 0.9, 40, eos, (), 256)
+        if kind == "fused":
+            return port_generate.generate_text(*args, graphed=False).tokens
+        return list(port_generate.stream_tokens(*args, graphed=kind == "graphed"))
+
+    fused = run("fused")
+    eager = run("eager")
+    n = len(eager)
+    assert port_generate.LOOP_COUNTS["stream"] == {"calls": 1, "steps": n,
+                                                   "reads": n + (n < 40)}
+    assert captured == []
+    assert run("graphed") == run("graphed") == eager == fused
+    assert captured == ["stream"] and graphs.REPLAYS["stream"] == 2 * n - 1
+    if not sampled:
+        assert fused == free[:free.index(eos)]
 
 
 @pytest.fixture(scope="module")

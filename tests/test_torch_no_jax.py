@@ -93,9 +93,10 @@ assert len(model.detect_batch([img, img[:200]], "cat", settings={"max_objects": 
 assert len(model.point_batch([img, img[:200]], "cat", settings={"max_objects": 2})) == 2
 spec = model.caption(img, settings={**greedy, "speculative": 4})["caption"]
 assert spec == model.caption(img, settings=greedy)["caption"]
-from moondream_tpu_torch.engine.drafting import ngram_draft
-draft, hit = ngram_draft(torch.tensor([5, 6, 7, 5, 6]), 5, torch.tensor(6), 3)
-assert draft.tolist() == [7, 5] and bool(hit)
+from moondream_tpu_torch.engine.drafting import ngram_draft_rows
+draft, hit = ngram_draft_rows(torch.tensor([[5, 6, 7, 5, 6]]), torch.tensor([5]),
+                              torch.tensor([6]), 3)
+assert draft.tolist() == [[7, 5]] and bool(hit)
 seng = ContinuousBatchingEngine(model, n_slots=2, slot_len=1024, chunk=2, speculative=3,
                                 max_objects=2)
 rids = [seng.submit(img, max_tokens=4), seng.submit_detect(img, "cat")]

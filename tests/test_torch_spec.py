@@ -1,7 +1,8 @@
 """The port's speculative decode against moondream_tpu's on the CPU, at
 tiny_test_config in fp32 with the same parameters (`params_from_jax`).
 
-Drafting (`ngram_draft` / `ngram_draft_rows`) must equal JAX's on seeded
+Drafting (`ngram_draft_rows`, over rows and over one row as JAX's
+single-stream `ngram_draft`) must equal JAX's on seeded
 histories; the greedy speculative loop `generate_text_spec` must give JAX's
 `generate_text_spec` ids, count and position and the port's own plain
 `generate_text` ids (k 2, 3, 4 and 8, max_tokens hit exactly, EOS as the
@@ -160,14 +161,18 @@ def test_ngram_draft_rows_matches_jax(case, k):
 
 
 def test_ngram_draft_single_stream_matches_jax():
+    """JAX's single-stream ngram_draft against the rows form over one row,
+    as the batch-1 loop (spec_step) drafts."""
     rng = np.random.default_rng(2)
     for _ in range(20):
         hist = rng.integers(-1, 4, 40).astype(np.int32)
         n = int(rng.integers(1, 41))
         tok = int(max(hist[n - 1], 0))
         want = jax_drafting.ngram_draft(jnp.asarray(hist), n, jnp.int32(tok), 5)
-        got = drafting.ngram_draft(torch.tensor(hist), n, torch.tensor(tok), 5)
-        assert got[0].tolist() == np.asarray(want[0]).tolist() and bool(got[1]) == bool(want[1])
+        got = drafting.ngram_draft_rows(torch.tensor(hist)[None], torch.tensor([n]),
+                                        torch.tensor([tok]), 5)
+        assert got[0][0].tolist() == np.asarray(want[0]).tolist()
+        assert bool(got[1][0]) == bool(want[1])
 
 
 # ------------------------------------------------------------ greedy loop
